@@ -3,17 +3,24 @@
 
     python3 chip_smoke.py [--profile]
 
-``--profile`` adds a torch.profiler window over three paper-scale rounds
-after phase 4 (device time by kernel, the device's busy share).
+``--profile`` adds torch.profiler windows over three paper-scale rounds
+after phase 5, on the identity and on the int8 wire (device time by
+kernel and by ``fl.uplink`` scope, the device's busy share).
 
 Needs one CUDA card of compute capability 9.x (H100) and ``nvcc``; it
-builds the port's three CUDA kernels from ``src/repro_torch/csrc`` and exits
-non-zero, printing no result, where there is no card or no port beside it.
-Every phase raises on failure; none is caught.
+builds the port's CUDA kernels from the four sources in
+``src/repro_torch/csrc`` (one ``nvcc`` each, all started together, then a
+link) and exits non-zero, printing no result, where there is no card or no
+port beside it. Every phase raises on failure; none is caught.
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the kernels' build time.
-2. Each kernel against its plain PyTorch version on the card, at the main
+2. Each kernel against its plain PyTorch version on the card. The wire's
+   ``quantize`` and ``dequantize`` must equal theirs bit for bit (codes,
+   scales and output, from the same uniforms) at the main path's shape (the
+   K=100 clients' d=54 float64 uploads, chunk grid [100, 1, 256]) and at a
+   streaming shape (K=16, d=2^20 float32, [16, 4096, 256], 67 MB of x,
+   more than the 50 MB L2 cache). The slice-A kernels at the main
    path's shapes (K=100 clients x 5810 rows, d=54, 11 local steps, m=10
    history columns), in float64 and float32: the largest difference relative
    to the plain result's largest magnitude must stay within 1e-12 (float64)
@@ -26,16 +33,27 @@ Every phase raises on failure; none is caught.
    Times come from CUDA events (median of repeats).
 3. The acceptance configuration (synthetic covtype n=10,000, K=10 iid,
    gamma=1e-3, eta=1, L=10, float64, FedOSAA-SVRG, at most 20 rounds):
-   every kernel launches once per round, rel-error 1e-6 within 18 rounds,
-   final loss within rel 1e-12 of the JAX reference's 0.3031490665062957.
+   every slice-A kernel launches once per round, rel-error 1e-6 within 18
+   rounds, final loss within rel 1e-12 of the JAX reference's
+   0.3031490665062957; ms per round.
 4. Paper scale (covtype-sized synthetic data N=581,012, d=54, K=100 iid,
-   10 rounds, float64 and float32): ms per round and the rel-error reached.
-   These are the main path's runs: the launch counters are set to 0 just
-   before each dtype's run and read just after it, and every kernel must
-   have launched once per round of that run. The kernels line reports the
-   float64 run's counts as ``launches`` and both runs' in
-   ``launches_by_dtype``.
-5. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+   10 rounds): float64 and float32 on the identity wire, and float64 on
+   the int8 wire. ms per round and the rel-error reached. These are the
+   main path's runs: the launch counters are set to 0 just before each
+   run and read just after it; the slice-A kernels must have launched once
+   per round of every run, ``quantize`` and ``dequantize`` twice per round
+   of the int8 run (the gradient and the delta uplink) and never on the
+   identity wire. The kernels line reports, as ``launches``, the float64
+   identity run's counts for the slice-A kernels and the int8 run's for
+   the wire's, and every run's in ``launches_by_run``.
+5. The wire: the JAX reference's ext_compression configuration (synthetic
+   covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
+   FedOSAA-SVRG) on the fp32, bf16 and int8 wires, each to rel-error 1e-6
+   within 26 rounds (cap 40): bytes exactly 432, 216 and 116 per round,
+   final loss within rel 1e-10 of the reference's 0.3128270332955105, and
+   per round one launch of each slice-A kernel and, under int8, two of
+   ``quantize`` and ``dequantize``.
+6. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -73,7 +91,22 @@ KERNELS = {
              "src/repro/kernels/anderson/anderson.py:52"),
     "update": ("src/repro_torch/csrc/update.cu",
                "src/repro/kernels/anderson/anderson.py:101"),
+    "quantize": ("src/repro_torch/csrc/quant.cu",
+                 "src/repro/kernels/quant/quant.py:50"),
+    "dequantize": ("src/repro_torch/csrc/quant.cu",
+                   "src/repro/kernels/quant/quant.py:76"),
 }
+#: the kernels of slice A (one launch per round on every wire) and of the
+#: wire (one launch per lossy int8 uplink: two per round)
+ROUND_KERNELS = ("trajectory", "gram", "update")
+WIRE_KERNELS = ("quantize", "dequantize")
+#: the JAX reference's ext_compression rows of FedOSAA-SVRG
+#: (benchmarks/results/ext_compression.json): rounds to rel-error 1e-6 and
+#: cumulative bytes; and its int8 row's final loss
+COMPRESSION_REF = {"fp32": (20, 8640.0), "bf16": (17, 3672.0),
+                   "int8": (19, 2204.0)}
+COMPRESSION_BYTES_PER_ROUND = {"fp32": 432.0, "bf16": 216.0, "int8": 116.0}
+COMPRESSION_LOSS = 0.3128270332955105
 
 
 def card_line() -> str:
@@ -215,6 +248,86 @@ def check_kernels(clients, dtype, device) -> dict:
     return results
 
 
+def check_quant(device) -> dict:
+    """Phase 2, the wire's kernels: encode and decode of every client's
+    upload against the plain versions on the same uniforms, bit for bit,
+    at the main path's shape and at a streaming shape. Returns, per shape,
+    each kernel's error, times and bound."""
+    from repro_torch.kernels.quant import (DEFAULT_CHUNK, chunk_rows,
+                                           int8_dequantize, int8_sr_encode)
+    from repro_torch.kernels.quant.ref import dequantize_ref, quantize_ref
+
+    C = DEFAULT_CHUNK
+    out = {}
+    for label, K, d, dtype in (("main", K_MAIN, D, torch.float64),
+                               ("streaming", 16, 1 << 20, torch.float32)):
+        gen = torch.Generator(device=device).manual_seed(d)
+        x = torch.randn(K, d, generator=gen, device=device, dtype=dtype)
+        x[0] = 0.0                                  # an all-zero client
+        nc = chunk_rows(d, C)
+        u = torch.rand((K, nc, C), generator=gen, device=device)
+
+        def plain_encode():
+            xp = torch.nn.functional.pad(x.to(torch.float32), (0, nc * C - d))
+            return quantize_ref(xp.reshape(K, nc, C), u)
+
+        def plain_decode(q, s):
+            return dequantize_ref(q, s).reshape(K, -1)[:, :d].to(dtype)
+
+        q, s = int8_sr_encode(x, u)
+        qp, sp = plain_encode()
+        dec = int8_dequantize(qp, sp, d, dtype)
+        dp = plain_decode(qp, sp)
+        torch.cuda.synchronize(device)
+        q_err = int((q.to(torch.int32) - qp.to(torch.int32)).abs().max())
+        s_err = float((s - sp).abs().max())
+        d_err = float((dec - dp).abs().max())
+        print(f"  quant {label:9s} [{K}, {nc}, {C}] x {str(dtype)[6:]}: "
+              f"codes equal {torch.equal(q, qp)}, scales equal "
+              f"{torch.equal(s, sp)}, output equal {torch.equal(dec, dp)}",
+              flush=True)
+        if not (torch.equal(q, qp) and torch.equal(s, sp)
+                and torch.equal(dec, dp)):
+            raise AssertionError(
+                f"quant kernels at the {label} shape differ from their plain "
+                f"versions: codes by {q_err}, scales by {s_err:.3e}, output "
+                f"by {d_err:.3e}")
+        # only the d values of each client carry data (the codes of the
+        # ragged chunk's zero padding are 0 whatever their draws): per
+        # value x, its draw, its code (quantize) or its code and decoded
+        # value (dequantize), and one 4 B scale per chunk
+        values, scale_bytes = K * d, K * nc * 4
+        out[label] = {
+            "quantize": dict(
+                abs=max(float(q_err), s_err),
+                ms=device_ms(lambda: int8_sr_encode(x, u), device),
+                plain_ms=device_ms(plain_encode, device), library_ms=None,
+                # abs, max, divide, add, floor, clip: ~7 operations a value
+                bound=bound_ms(values * (x.element_size() + 4 + 1) + scale_bytes,
+                               7 * values, torch.float32)),
+            "dequantize": dict(
+                abs=d_err,
+                ms=device_ms(lambda: int8_dequantize(qp, sp, d, dtype), device),
+                plain_ms=device_ms(lambda: plain_decode(qp, sp), device),
+                library_ms=device_ms(lambda: torch.mul(qp, sp), device),
+                bound=bound_ms(values * (1 + dec.element_size()) + scale_bytes,
+                               values, torch.float32)),
+        }
+        for name, r in out[label].items():
+            print(f"  {name:10s} {label:9s} abs {r['abs']:.3e}  kernel "
+                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+                  f"{r['library_ms']} ms  bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]})", flush=True)
+    return out
+
+
+def expected_launches(rounds: int, int8: bool) -> dict:
+    """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: each slice-A
+    kernel once a round; each wire kernel twice a round on the int8 wire."""
+    return {**{k: rounds for k in ROUND_KERNELS},
+            **{k: 2 * rounds if int8 else 0 for k in WIRE_KERNELS}}
+
+
 def acceptance(device) -> dict:
     """Phase 3: the acceptance configuration through the kernels."""
     from repro_torch.core import AlgoHParams, run_federated, solve_reference
@@ -239,59 +352,119 @@ def acceptance(device) -> dict:
           f"launches {launches}", flush=True)
     print("  rel-error curve " + json.dumps([float(v) for v in h.rel_error]),
           flush=True)
-    if any(launches[k] != rounds for k in launches):
-        raise AssertionError(f"each kernel must launch once per round: "
-                             f"{launches} over {rounds} rounds")
+    per_round = np.diff(h.wall_time) * 1e3      # round 0 excluded
+    print(f"  median {np.median(per_round):.3f} ms/round over rounds 1.."
+          f"{rounds - 1} (round 0: {h.wall_time[0] * 1e3:.1f} ms)", flush=True)
+    if launches != expected_launches(rounds, int8=False):
+        raise AssertionError(f"each slice-A kernel must launch once per "
+                             f"round: {launches} over {rounds} rounds")
     if to_target is None or to_target > 18:
         raise AssertionError(f"rel-error 1e-6 not reached within 18 rounds "
                              f"({to_target})")
     if not loss_rel <= 1e-12:
         raise AssertionError(f"final loss {h.loss[-1]!r} is {loss_rel:.2e} "
                              f"from {REFERENCE_LOSS!r}")
-    return dict(rounds=rounds, to_target=to_target, loss=float(h.loss[-1]))
+    return dict(rounds=rounds, to_target=to_target, loss=float(h.loss[-1]),
+                ms_per_round=float(np.median(per_round)))
 
 
 def paper_scale(clients, w_star, device) -> dict:
-    """Phase 4: the main path at the paper's covtype size, both dtypes.
-    Each dtype's run is read on its own launch counts: they are set to 0
-    just before it and must equal its rounds just after."""
+    """Phase 4: the main path at the paper's covtype size, both dtypes on
+    the identity wire and float64 on the int8 wire. Each run is read on its
+    own launch counts: they are set to 0 just before it and read just
+    after."""
     from repro_torch.core import AlgoHParams, run_federated
     from repro_torch.kernels import _build
     from repro_torch.models.logreg import make_logreg_problem
 
     out = {}
-    for dtype in (torch.float64, torch.float32):
+    for name, dtype, channel in (("float64", torch.float64, None),
+                                 ("float32", torch.float32, None),
+                                 ("float64_int8", torch.float64, "int8")):
         prob = make_logreg_problem(clients, GAMMA, dtype=dtype, device=device)
         _build.reset_launches()
         h = run_federated(prob, "fedosaa_svrg",
                           AlgoHParams(eta=ETA, local_epochs=L_EPOCHS), 10,
-                          w_star=w_star.to(dtype), device=device)
+                          w_star=w_star.to(dtype), device=device,
+                          channel=channel)
         launches = dict(_build.LAUNCHES)
         rounds = len(h.rounds)
         per_round = np.diff(h.wall_time) * 1e3      # round 0 excluded
-        name = str(dtype)[6:]
         out[name] = dict(ms_per_round=float(np.median(per_round)),
                          rel_error=float(h.rel_error[-1]), rounds=rounds,
-                         launches=launches)
-        print(f"  {name}: {rounds} rounds, median {out[name]['ms_per_round']:.3f} "
-              f"ms/round (round 0: {h.wall_time[0] * 1e3:.1f} ms), rel-error "
-              f"{h.rel_error[-1]:.3e}, loss {h.loss[-1]!r}, launches "
-              f"{launches}", flush=True)
-        if sorted(launches) != sorted(KERNELS) or any(
-                v != rounds for v in launches.values()):
-            raise AssertionError(f"paper-scale {name} run: each kernel must "
-                                 f"launch once per round: {launches} over "
-                                 f"{rounds} rounds")
+                         launches=launches, comm_bytes=float(h.comm_bytes[-1]))
+        print(f"  {name} [{h.channel}]: {rounds} rounds, median "
+              f"{out[name]['ms_per_round']:.3f} ms/round (round 0: "
+              f"{h.wall_time[0] * 1e3:.1f} ms), rel-error "
+              f"{h.rel_error[-1]:.3e}, loss {h.loss[-1]!r}, bytes "
+              f"{h.comm_bytes[-1]:.0f}, launches {launches}", flush=True)
+        want = expected_launches(rounds, int8=channel == "int8")
+        if launches != want:
+            raise AssertionError(f"paper-scale {name} run: launches "
+                                 f"{launches} over {rounds} rounds, expected "
+                                 f"{want}")
         if not (np.all(np.isfinite(h.loss)) and h.rel_error[-1] < h.rel_error[0]):
             raise AssertionError(f"paper-scale {name} run did not converge: "
                                  f"{h.rel_error.tolist()}")
     return out
 
 
-def profile_rounds(clients, device, rounds: int = 3) -> None:
+def compression(device) -> dict:
+    """Phase 5: the reference's ext_compression configuration on the fp32,
+    bf16 and int8 wires, each run read on its own launch counts."""
+    from repro_torch.core import AlgoHParams, run_federated, solve_reference
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+
+    X, y = make_binary_classification("covtype", n=20_000, seed=0)
+    clients = partition(X, y, 20, "iid", seed=0, device=device)
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    w_star = solve_reference(prob, iters=100)
+    out = {}
+    for spec, per_round in COMPRESSION_BYTES_PER_ROUND.items():
+        _build.reset_launches()
+        h = run_federated(prob, "fedosaa_svrg",
+                          AlgoHParams(eta=ETA, local_epochs=L_EPOCHS), 40,
+                          w_star=w_star, stop_rel_error=1e-6, device=device,
+                          channel=spec)
+        launches = dict(_build.LAUNCHES)
+        rounds = len(h.rounds)
+        ms = float(np.median(np.diff(h.wall_time) * 1e3))
+        loss_rel = abs(h.loss[-1] - COMPRESSION_LOSS) / COMPRESSION_LOSS
+        ref_rounds, ref_bytes = COMPRESSION_REF[spec]
+        out[spec] = dict(rounds=rounds, comm_bytes=float(h.comm_bytes[-1]),
+                         loss=float(h.loss[-1]), ms_per_round=ms,
+                         launches=launches)
+        print(f"  {h.channel:9s} rounds to 1e-6: {rounds} (reference "
+              f"{ref_rounds}), bytes {h.comm_bytes[-1]:.0f} (reference "
+              f"{ref_bytes:.0f}), final loss {h.loss[-1]!r} (rel "
+              f"{loss_rel:.2e}), median {ms:.3f} ms/round, launches "
+              f"{launches}", flush=True)
+        print("  rel-error curve " + json.dumps([float(v) for v in h.rel_error]),
+              flush=True)
+        if not (h.rel_error[-1] < 1e-6 and rounds <= 26):
+            raise AssertionError(f"{spec}: rel-error 1e-6 not reached within "
+                                 f"26 rounds ({rounds}, {h.rel_error[-1]:.3e})")
+        if not np.array_equal(h.comm_bytes,
+                              per_round * np.arange(1, rounds + 1)):
+            raise AssertionError(f"{spec}: bytes {h.comm_bytes.tolist()} are "
+                                 f"not {per_round:.0f} per round")
+        if not loss_rel <= 1e-10:
+            raise AssertionError(f"{spec}: final loss {h.loss[-1]!r} is "
+                                 f"{loss_rel:.2e} from {COMPRESSION_LOSS!r}")
+        want = expected_launches(rounds, int8=spec == "int8")
+        if launches != want:
+            raise AssertionError(f"{spec}: launches {launches} over {rounds} "
+                                 f"rounds, expected {want}")
+    return out
+
+
+def profile_rounds(clients, device, channel=None, rounds: int = 3) -> None:
     """``--profile``: torch.profiler over a few paper-scale f64 rounds after
-    two warm-up rounds; prints device time by kernel and the device's busy
-    share of the wall time (a diagnostic, not a phase of the smoke run)."""
+    two warm-up rounds on ``channel``; prints device time by kernel (and the
+    ``fl.uplink`` scope) and the device's busy share of the wall time (a
+    diagnostic, not a phase of the smoke run)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import AlgoHParams, init_state, make_round_fn
@@ -299,8 +472,10 @@ def profile_rounds(clients, device, rounds: int = 3) -> None:
 
     prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
     round_fn = make_round_fn("fedosaa_svrg", prob,
-                             AlgoHParams(eta=ETA, local_epochs=L_EPOCHS), device)
-    state = init_state(prob, device=device)
+                             AlgoHParams(eta=ETA, local_epochs=L_EPOCHS),
+                             channel, device=device)
+    state = init_state(prob, device=device, channel=channel,
+                       algo="fedosaa_svrg")
     for _ in range(2):
         state, m = round_fn(state)
     torch.cuda.synchronize(device)
@@ -314,13 +489,27 @@ def profile_rounds(clients, device, rounds: int = 3) -> None:
     events = prof.key_averages()
     key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
            else "self_cuda_time_total")
-    # kernels only: an operator's row repeats its kernels' time
-    busy_us = sum(getattr(e, key) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    # kernels only: an operator's row repeats its kernels' time, and a
+    # record_function scope's device row ("fl.uplink") spans its kernels
+    # and the gaps between them
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events
+               if e.device_type == cuda and not e.key.startswith("fl.")]
+    busy_us = sum(getattr(e, key) for e in kernels)
+    launched = sum(e.count for e in kernels)
     print(events.table(sort_by=key, row_limit=25), flush=True)
-    print(f"  profile: {rounds} rounds, wall {wall * 1e3 / rounds:.3f} ms/round, "
-          f"device busy {busy_us / 1e3 / rounds:.3f} ms/round "
-          f"({100 * busy_us / 1e6 / wall:.1f}% of the wall)", flush=True)
+    for e in events:
+        if e.key.startswith("fl."):
+            where, us = (("device clock, first to last kernel, gaps included",
+                          getattr(e, key)) if e.device_type == cuda else
+                         ("host", e.cpu_time_total))
+            print(f"  {e.key} ({where}): {us / 1e3 / rounds:.3f} ms/round",
+                  flush=True)
+    print(f"  profile [{channel or 'identity'}]: {rounds} rounds, wall "
+          f"{wall * 1e3 / rounds:.3f} ms/round, device busy "
+          f"{busy_us / 1e3 / rounds:.3f} ms/round "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of the wall), "
+          f"{launched / rounds:.1f} device kernels/round", flush=True)
 
 
 def main() -> int:
@@ -351,6 +540,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     print("phase 2: kernels against their plain versions", flush=True)
+    quant = check_quant(device)
     checks = {dt: check_kernels(clients, dt, device)
               for dt in (torch.float64, torch.float32)}
 
@@ -365,19 +555,32 @@ def main() -> int:
         iters=100)
     print(f"  w* by Newton-CG in {time.perf_counter() - t0:.1f} s", flush=True)
     paper = paper_scale(clients, w_star, device)
+
+    print("phase 5: the wire on the ext_compression config (n=20,000, K=20, "
+          "float64)", flush=True)
+    compression(device)
     if "--profile" in sys.argv[1:]:
-        profile_rounds(clients, device)
+        for channel in (None, "int8"):
+            profile_rounds(clients, device, channel)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        r = checks[torch.float64][name]
-        rows.append(dict(
+        wire = name in WIRE_KERNELS
+        r = quant["main"][name] if wire else checks[torch.float64][name]
+        row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=paper["float64"]["launches"][name],
-            launches_by_dtype={dt: paper[dt]["launches"][name] for dt in paper},
+            launches=paper["float64_int8" if wire else "float64"]["launches"][name],
+            launches_by_run={run: paper[run]["launches"][name] for run in paper},
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"]))
+            bound_by=r["bound"][1], library_ms=r["library_ms"])
+        if wire:
+            st = quant["streaming"][name]
+            row["streaming_shape"] = dict(
+                max_abs_err=st["abs"], ms=st["ms"], plain_ms=st["plain_ms"],
+                bound_ms=st["bound"][0], bound_by=st["bound"][1],
+                library_ms=st["library_ms"])
+        rows.append(row)
     f32 = {name: {k: v for k, v in r.items()}
            for name, r in checks[torch.float32].items()}
     print("float32 kernels " + json.dumps(f32), flush=True)

@@ -12,7 +12,10 @@ from repro_torch.core.algorithms import (  # noqa: F401
     AlgoHParams,
     RoundMetrics,
     ServerState,
+    UPLINK_SCHEMAS,
+    CrossClientReduce,
     comm_bytes_per_round,
+    init_comm_state,
     init_state,
     make_round_fn,
     resolve_local_impl,

@@ -8,22 +8,31 @@ Every round function has the signature round(state) -> (state, RoundMetrics).
 The reference vmaps its per-client bodies over K; here the client axis is
 an explicit leading K axis, so each per-client stage is one batched call
 (one kernel launch per round on the card): the stacked gradients, the
-fused trajectory of every client, their Gram matrices, their eigen-solves
-and their updates.
+fused trajectory of every client, their Gram matrices, their eigen-solves,
+their updates, and each uplink's codec.
 
-The channel is the identity (lossless wire) and every client takes part in
-every round with full-batch local steps; minibatches, cohorts, codecs,
-faults and the other algorithm families come with later slices.
+Every wire crossing goes through a CommChannel (repro_torch/comm): the
+broadcasts through its downlink codec, the uploads through its uplink codec
+with error feedback and difference coding, as the uplink schema of the
+algorithm declares them. Every client takes part in every round with
+full-batch local steps; minibatches, cohorts, faults and the other
+algorithm families come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.func import vmap
+from torch.profiler import record_function
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
+from repro_torch.comm import CommChannel, IdentityCodec, make_channel
+from repro_torch.comm.schema import (DELTA_UPLINK, GRAD_UPLINK, UplinkSpec,
+                                     init_schema_state, uplink_byte_breakdown,
+                                     validate_schema)
 from repro_torch.core.anderson import (AAConfig, AAStats, multisecant_update,
                                        resolve_aa_impl, trajectory_to_sy)
 from repro_torch.core.problem import ClientBatch, FLProblem
@@ -33,9 +42,13 @@ from repro_torch.utils import tree_math as tm
 #: the round algorithms this package implements
 ALGORITHMS = ("fedsvrg", "fedosaa_svrg")
 
-#: client uplinks of one SVRG-family round, in units of d (paper Table 1):
-#: the local gradient, then the model delta
-UPLINKS_PER_ROUND = 2
+#: the uploads of one round of each algorithm, in round order
+#: (comm/schema.py): the local gradient, then the model delta
+_SVRG_UPLINKS = validate_schema((GRAD_UPLINK, DELTA_UPLINK))
+UPLINK_SCHEMAS: "dict[str, tuple[UplinkSpec, ...]]" = {
+    "fedsvrg": _SVRG_UPLINKS,
+    "fedosaa_svrg": _SVRG_UPLINKS,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,13 +69,16 @@ class AlgoHParams:
 
 
 class ServerState(NamedTuple):
-    """params: [d]; t: the round counter. The reference's SCAFFOLD control
-    variates (c, c_k) come with that family. Its PRNG key has no
-    counterpart: the full-batch identity-channel round draws no random
-    numbers (an init with init_scale > 0 takes a torch.Generator)."""
+    """params: [d]; t: the round counter; comm: the clients' carried wire
+    state, ``{tag: {"ef": [K, d], "ref": [K, d]}}`` keyed by the
+    algorithm's uplink schema (comm/schema.py), or None on a lossless
+    channel. The reference's SCAFFOLD control variates (c, c_k) come with
+    that family. Its PRNG key has no counterpart: a stochastic codec's
+    uniforms are drawn from (seed, t, the uplink's fold) (make_round_fn)."""
 
     params: torch.Tensor
     t: int
+    comm: "dict | None" = None
 
 
 class RoundMetrics(NamedTuple):
@@ -87,15 +103,40 @@ def _check_device(problem: FLProblem, device) -> torch.device:
 
 
 def init_state(problem: FLProblem, generator: "torch.Generator | None" = None,
-               device: "str | torch.device" = DEFAULT_DEVICE) -> ServerState:
+               device: "str | torch.device" = DEFAULT_DEVICE,
+               channel: "CommChannel | str | None" = None,
+               algo: str | None = None) -> ServerState:
+    """Round 0: the problem's initial params and the comm buffers ``algo``
+    carries under ``channel`` (``algo`` may be None on the identity wire)."""
     _check_device(problem, device)
-    return ServerState(problem.init(generator), 0)
+    params = problem.init(generator)
+    channel = make_channel(channel)
+    if algo is None:
+        if not channel.is_identity:
+            raise ValueError(f"init_state: channel {channel.name!r} carries "
+                             "per-algorithm comm state; pass algo")
+        return ServerState(params, 0, None)
+    comm = init_comm_state(channel, params, problem.clients.num_clients, algo)
+    return ServerState(params, 0, comm)
 
 
-def comm_bytes_per_round(params: torch.Tensor) -> float:
-    """Identity channel: each of the round's uplinks carries d values of the
-    params' dtype (864 B at d=54 in f64, as the reference counts)."""
-    return float(UPLINKS_PER_ROUND * params.numel() * params.element_size())
+def init_comm_state(channel: CommChannel, params: torch.Tensor, K: int,
+                    algo: str) -> "dict | None":
+    """The per-client buffers of ``algo``'s uplink schema under ``channel``
+    (ServerState.comm); None when no uplink carries any."""
+    return init_schema_state(channel, UPLINK_SCHEMAS[algo], params, K)
+
+
+def comm_bytes_per_round(algo: str, params: torch.Tensor,
+                         channel: "CommChannel | str | None" = None) -> float:
+    """Bytes on the wire for one client's uploads in one round of ``algo``
+    through ``channel``: each record of its uplink schema at its kind's
+    codec-exact rate. On the identity channel each upload carries d values
+    of the params' dtype (864 B per round at d=54 in f64); under int8 it
+    is 116 B per round at d=54 (54 B + one 4 B scale, twice)."""
+    channel = make_channel(channel)
+    return float(sum(uplink_byte_breakdown(
+        channel, UPLINK_SCHEMAS[algo], params).values()))
 
 
 # --------------------------------------------------------------------------
@@ -215,9 +256,10 @@ def _nan_extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:
 
 
 class CrossClientReduce:
-    """Cross-client reductions of the one-device runtime with the identity
-    channel. The reference's uplink/broadcast are identities on that
-    channel, so this slice's round cores do not call them."""
+    """Cross-client reductions and the wire of the one-device runtime."""
+
+    def __init__(self, channel: CommChannel | None = None):
+        self.channel = make_channel(channel)
 
     def wsum(self, weights, stacked, anchor=None):
         return _aggregate(weights, stacked, anchor)
@@ -234,8 +276,61 @@ class CrossClientReduce:
     def ess(self, weights):
         return 1.0 / torch.clamp((weights * weights).sum(), min=1e-30)
 
+    def uplink(self, stacked: torch.Tensor, spec: UplinkSpec,
+               anchor: torch.Tensor | None = None, state: "dict | None" = None,
+               draw: "Callable[[UplinkSpec, tuple], torch.Tensor] | None" = None):
+        """Channel roundtrip of every client's upload stacked [K, d],
+        declared by ``spec`` (repro/core/algorithms.py:837-911).
 
-VMAP_REDUCE = CrossClientReduce()
+        The wire carries ``stacked_k − anchor`` for an anchored spec, less
+        the carried reference ``state[spec.tag]["ref"]`` when there is one
+        (difference coding), plus the error-feedback residual
+        ``state[spec.tag]["ef"]``. ``draw(spec, shape)`` gives a stochastic
+        codec's uniforms [K, nc, C]. ``state`` is the whole comm dict (or
+        None); tags other than ``spec.tag`` pass through. Returns (the
+        server's view of the uploads [K, d], the comm dict with this tag's
+        buffers advanced)."""
+        if spec.anchored != (anchor is not None):
+            raise ValueError(
+                f"uplink {spec.tag!r}: anchored={spec.anchored} but anchor "
+                f"{'missing' if anchor is None else 'given'}")
+        codec = self.channel.up_codec(spec.kind)
+        if isinstance(codec, IdentityCodec):
+            return stacked, state
+        sub = state.get(spec.tag) if state is not None else None
+        ef = sub.get("ef") if sub else None
+        ref = sub.get("ref") if sub else None
+        with record_function("fl.uplink"):
+            v = stacked - anchor if anchor is not None else stacked
+            if ref is not None:
+                v = v - ref
+            if ef is not None:
+                v = v + ef
+            shape = codec.draw_shape(v.shape[-1])
+            if shape is not None and draw is None:
+                raise ValueError(f"uplink {spec.tag!r}: codec {codec} draws "
+                                 "uniforms; pass draw")
+            u = None if shape is None else draw(spec, (v.shape[0], *shape))
+            dec = codec.roundtrip(v, u)
+            new_e = v - dec if ef is not None else None
+            if ref is not None:
+                # the reference tracks the decoded stream on both ends
+                dec = dec + ref
+            new_h = dec if ref is not None else None
+            if anchor is not None:
+                dec = dec + anchor
+        if not sub:
+            return dec, state
+        new_sub = {}
+        if "ef" in sub:
+            new_sub["ef"] = new_e
+        if "ref" in sub:
+            new_sub["ref"] = new_h
+        return dec, {**state, spec.tag: new_sub}
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Server->client broadcast through the (deterministic) downlink."""
+        return self.channel.broadcast(x)
 
 
 def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, weight,
@@ -261,40 +356,75 @@ def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, weight,
 
 
 def _svrg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
-                     comm_bytes: float):
-    """SVRG family: corrected local steps (+ optional AA), delta aggregation.
-    ``weight`` [K] weighs the clients both in ∇f and in the aggregate (every
-    client takes part in every round).
+                     comm_bytes: float, comm=None, draw=None):
+    """SVRG family: corrected local steps (+ optional AA), delta aggregation
+    (repro/core/algorithms.py:998-1029). ``weight`` [K] weighs the clients
+    both in ∇f and in the aggregate (every client takes part in every round).
 
-    Two wire crossings, both lossless here: the local full-batch gradients
-    travel up, then w^t and ∇f travel down and the model deltas travel up."""
-    g_k = _stack_grads(problem, w_t, x, y, mask)
-    g_global = R.wsum(weight, g_k)
+    Two wire crossings: w^t travels down and the local full-batch gradients
+    travel up; then ∇f travels down and the model deltas travel up, anchored
+    at the broadcast w^t. The metrics are taken at the broadcast w^t.
+    Returns (new params, metrics, the advanced comm state)."""
+    w_t = R.broadcast(w_t)
+    g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
+                         state=comm, draw=draw)
+    g_global = R.broadcast(R.wsum(weight, g_k))
     w_k, stats = _client_svrg(problem, hp, use_aa, w_t, g_global, x, y, mask)
+    w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
     new_params = R.wsum(weight, w_k, anchor=w_t)
     return new_params, _metric_parts(problem, R, w_t, g_global, stats, x, y,
-                                     mask, weight, comm_bytes)
+                                     mask, weight, comm_bytes), comm
+
+
+def _draw_seed(seed: int, t: int, fold: int) -> int:
+    """The seed of one uplink's uniforms in round t (host arithmetic only)."""
+    return int(np.random.SeedSequence([seed, t, fold]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
 
 
 def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
+                  channel: "CommChannel | str | None" = None, seed: int = 0,
                   device: "str | torch.device" = DEFAULT_DEVICE):
-    """Return round(state) -> (state, RoundMetrics) for ``algo`` on
-    ``problem`` (whose data must already be on ``device``)."""
+    """Return round(state, uniforms=None) -> (state, RoundMetrics) for
+    ``algo`` on ``problem`` (whose data must already be on ``device``),
+    every wire crossing through ``channel`` (None: the lossless identity).
+
+    A stochastic codec's uniforms: one [K, nc, C] f32 tensor per uplink and
+    round, from a torch.Generator on the device seeded from (seed, t, the
+    uplink's fold); row k is client k. The reference's key streams cannot
+    be reproduced in torch, so a caller that needs its draws (the parity
+    tests) passes ``uniforms={tag: [K, nc, C]}`` instead. A round makes no
+    host read."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
-    _check_device(problem, device)
+    dev = _check_device(problem, device)
     # resolve the knobs once, so the round bodies see "tree"/"kernel"
     hp = dataclasses.replace(hp, aa_impl=resolve_aa_impl(hp.aa_impl),
                              local_impl=resolve_local_impl(hp.local_impl, problem))
-    comm_bytes = comm_bytes_per_round(problem.init(None))
+    channel = make_channel(channel)
+    comm_bytes = comm_bytes_per_round(algo, problem.init(None), channel)
+    R = CrossClientReduce(channel)
     C = problem.clients
     use_aa = algo == "fedosaa_svrg"
+    # reseeded for each uplink's draw
+    gen = torch.Generator(device=dev)
 
-    def round_fn(state: ServerState):
-        new_params, metrics = _svrg_round_core(
-            problem, hp, use_aa, VMAP_REDUCE, state.params, C.x, C.y, C.mask,
-            C.weight, comm_bytes)
-        return ServerState(new_params, state.t + 1), metrics
+    def round_fn(state: ServerState, uniforms: "dict | None" = None):
+        def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
+            if uniforms is not None:
+                u = uniforms[spec.tag]
+                if tuple(u.shape) != shape:
+                    raise ValueError(f"uplink {spec.tag!r}: uniforms of shape "
+                                     f"{tuple(u.shape)}, expected {shape}")
+                return u
+            gen.manual_seed(_draw_seed(seed, state.t, spec.fold))
+            return torch.rand(shape, generator=gen, dtype=torch.float32,
+                              device=dev)
+
+        new_params, metrics, comm = _svrg_round_core(
+            problem, hp, use_aa, R, state.params, C.x, C.y, C.mask,
+            C.weight, comm_bytes, state.comm, draw)
+        return ServerState(new_params, state.t + 1, comm), metrics
 
     return round_fn
 

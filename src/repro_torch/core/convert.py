@@ -1,10 +1,10 @@
 """Turn the JAX package's arrays into the port's tensors.
 
-Takes the reference's parameters, ``ServerState`` fields and
-``StackedClients`` fields as numpy arrays (``np.asarray`` of the JAX
-arrays) — this module imports nothing of JAX — and returns the port's
-counterparts on ``device`` with the same dtypes and values, so both
-packages can start from one state.
+Takes the reference's parameters, ``ServerState`` fields (params, t and
+the comm buffers) and ``StackedClients`` fields as numpy arrays
+(``np.asarray`` of the JAX arrays) — this module imports nothing of JAX —
+and returns the port's counterparts on ``device`` with the same dtypes and
+values, so both packages can start from one state.
 """
 from __future__ import annotations
 
@@ -30,12 +30,30 @@ def params(p, device: "str | torch.device" = DEFAULT_DEVICE) -> torch.Tensor:
     return tensor(p, device)
 
 
-def server_state(p, t, device: "str | torch.device" = DEFAULT_DEVICE
-                 ) -> ServerState:
-    """The reference ServerState's params and t. Its SCAFFOLD control
-    variates are not read by the SVRG family, and its PRNG key has no
-    counterpart: the port's full-batch round draws no random numbers."""
-    return ServerState(params(p, device), int(np.asarray(t)))
+def server_state(p, t, comm=None,
+                 device: "str | torch.device" = DEFAULT_DEVICE) -> ServerState:
+    """The reference ServerState's params, t and comm (its nested
+    ``{tag: {"ef"|"ref": [K, d]}}`` dict of wire buffers, or None). Its
+    SCAFFOLD control variates are not read by the SVRG family, and its PRNG
+    key has no counterpart: the port draws a codec's uniforms from its own
+    seed (core/algorithms.py::make_round_fn)."""
+    return ServerState(params(p, device), int(np.asarray(t)),
+                       comm_state(comm, device))
+
+
+def comm_state(comm, device: "str | torch.device" = DEFAULT_DEVICE):
+    """The reference's ``ServerState.comm`` as the port's: the same tags and
+    buffers, each a [K, d] tensor on ``device``; None stays None."""
+    if comm is None:
+        return None
+    out = {}
+    for tag, bufs in comm.items():
+        for name, a in bufs.items():
+            if np.ndim(a) != 2:
+                raise ValueError(f"comm[{tag!r}][{name!r}]: the port's buffers "
+                                 f"are [K, d]; got shape {np.shape(a)}")
+        out[tag] = {name: tensor(a, device) for name, a in bufs.items()}
+    return out
 
 
 def stacked_clients(x, y, mask, weight,

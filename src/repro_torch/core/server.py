@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.comm import CommChannel, make_channel
 from repro_torch.core.algorithms import (AlgoHParams, _cg_solve, init_state,
                                          make_round_fn)
 from repro_torch.core.problem import FLProblem
@@ -29,10 +30,10 @@ class History:
     grad_norm: np.ndarray
     rel_error: np.ndarray         # ‖w^t − w*‖/‖w*‖ after the round (nan if no w*)
     theta_mean: np.ndarray        # AA gain per round (nan for non-AA algos)
-    comm_bytes: np.ndarray        # cumulative bytes on the wire
+    comm_bytes: np.ndarray        # cumulative bytes on the wire (codec-exact)
     wall_time: np.ndarray         # cumulative seconds (per-round, measured)
     final_params: torch.Tensor | None = None
-    channel: str = "identity"
+    channel: str = "identity"     # CommChannel.name of the run's wire
     gram_cond_max: np.ndarray | None = None  # worst AA Gram conditioning
 
     def summary(self) -> str:
@@ -56,18 +57,24 @@ def run_federated(
     stop_grad_norm: float | None = None,
     generator: "torch.Generator | None" = None,
     device: "str | torch.device" = DEFAULT_DEVICE,
+    channel: "CommChannel | str | None" = None,
+    seed: int = 0,
 ) -> History:
     """Iterate ``num_rounds`` of ``algo`` and collect the metric history.
 
-    One round per call of the round function, one host read of its metrics
-    per round (the wall time of a round includes that read, so it ends
-    after the device has finished the round). Stops early on a non-finite
-    loss, or when the rel-error / gradient-norm targets are met.
+    Every wire crossing goes through ``channel`` (a ``--comm-codec`` spec
+    such as ``"int8"``, or None for the lossless identity); ``seed`` seeds a
+    stochastic codec's draws. One round per call of the round function, one
+    host read of its metrics per round (the wall time of a round includes
+    that read, so it ends after the device has finished the round). Stops
+    early on a non-finite loss, or when the rel-error / gradient-norm
+    targets are met.
     """
-    state = init_state(problem, generator, device)
+    channel = make_channel(channel)
+    state = init_state(problem, generator, device, channel, algo)
     if w0 is not None:
         state = state._replace(params=w0)
-    round_fn = make_round_fn(algo, problem, hp, device)
+    round_fn = make_round_fn(algo, problem, hp, channel, seed, device)
     w_star_norm = float(tm.tree_norm(w_star)) if w_star is not None else None
 
     rows = []
@@ -98,7 +105,7 @@ def run_federated(
         algo=algo, rounds=arr[:, 0], loss=arr[:, 1], grad_norm=arr[:, 2],
         rel_error=arr[:, 3], theta_mean=arr[:, 4], gram_cond_max=arr[:, 5],
         comm_bytes=arr[:, 6], wall_time=arr[:, 7],
-        final_params=state.params)
+        final_params=state.params, channel=channel.name)
 
 
 def solve_reference(problem: FLProblem, iters: int = 2000,

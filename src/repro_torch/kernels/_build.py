@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``repro_torch/csrc/*.cu`` are compiled by ONE ``nvcc``
-call into one shared library with a plain C interface, loaded with ctypes
-(no PyTorch headers, so the build takes seconds). The build runs at first
-use, never at import, into ``<repo>/build/kernels/`` (listed in
-.gitignore), keyed by a hash of the sources and flags so an edited source
-rebuilds. Each C entry point returns ``cudaGetLastError()`` right after its
-launch; ``launch`` raises if that is not 0.
+Each source ``repro_torch/csrc/*.cu`` is compiled by its own ``nvcc``, all
+started together, and one more ``nvcc`` links the objects into one shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so the build takes seconds). The build runs at first use, never at import,
+into ``<repo>/build/kernels/`` (listed in .gitignore), keyed by a hash of
+the sources and flags so an edited source rebuilds. ``build_timing.py``
+times this build against one nvcc for all sources. Each C entry point
+returns ``cudaGetLastError()`` right after its launch; ``launch`` raises
+if that is not 0.
 
 ``LAUNCHES`` counts launches per kernel. Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -27,11 +29,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name → launches since the last reset (see module docstring)
-LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0}
+LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "quantize": 0,
+            "dequantize": 0}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 #: C entry points → argtypes (pointers and the stream as c_void_p)
@@ -46,6 +49,10 @@ _SIGNATURES = {
     # stream
     "repro_update": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I,
                      _D, _D, _P],
+    # x_dtype, x, n, u, q, scales, B, nc, C, stream
+    "repro_quantize": [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
+    # out_dtype, q, scales, out, n, B, nc, C, stream
+    "repro_dequantize": [_I, _P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -70,11 +77,41 @@ def _nvcc() -> str:
                        "CUDA kernels are built from csrc/ at first use")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's output
+    once every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}\n{out}\n{err}")
+    if errors:
+        raise RuntimeError(f"repro_torch: nvcc failed:\n{errors[0]}")
+
+
+def compile_library(out: Path) -> None:
+    """Compile every csrc/*.cu into the shared library ``out``: one nvcc
+    per source, all started together, then one link."""
+    nvcc = _nvcc()
+    objdir = out.parent / f"obj.{out.name}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [objdir / f"{src.stem}.o" for src in sources]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                   str(src)] for src, o in zip(sources, objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+                   *map(str, objs)]])
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into one library (once per source hash); returns
-    its path."""
+    the library's path."""
     global build_seconds
-    sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
@@ -82,15 +119,9 @@ def build() -> Path:
     out = BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sources)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"repro_torch: nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    compile_library(tmp)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
@@ -116,9 +147,11 @@ def library() -> ctypes.CDLL:
 DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """Raise unless every tensor is a contiguous f32/f64 CUDA tensor on one
-    compute-capability-9.x card; returns that device."""
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtypes=tuple(DTYPE_CODE)) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor of one of
+    ``dtypes`` (f32/f64 by default) on one compute-capability-9.x card;
+    returns that device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -126,9 +159,9 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
                              "not contiguous")
-        if t.dtype not in DTYPE_CODE:
-            raise TypeError(f"{name}: the kernel takes float32 or float64, "
-                            f"got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the kernel takes {dtypes}, got "
+                            f"{t.dtype}")
     major, minor = torch.cuda.get_device_capability(dev)
     if major != 9:
         raise RuntimeError(f"{name}: the kernel is built for sm_90a; "

@@ -4,10 +4,13 @@ capability 9.x. This file imports no JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The two sides differ only in summation order: max |kernel - plain| <=
-tol * max |plain| (or, where the result may cancel, tol times the largest
-sum of its terms' magnitudes) with tol 1e-12 in float64 and 1e-5 in float32
-(chained trajectory steps; Gram sums 1000 terms long).
+The trajectory, Gram and update kernels differ from their plain versions
+only in summation order: max |kernel - plain| <= tol * max |plain| (or,
+where the result may cancel, tol times the largest sum of its terms'
+magnitudes) with tol 1e-12 in float64 and 1e-5 in float32 (chained
+trajectory steps; Gram sums 1000 terms long). The quant kernels sum
+nothing and divide as IEEE does: their codes, scales and outputs equal the
+plain version's bit for bit, from the same uniforms.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,9 @@ from repro_torch.kernels.anderson.ref import gram_ref, update_ref
 from repro_torch.kernels.local_update import fused_trajectory
 from repro_torch.kernels.local_update.ops import inverse_count
 from repro_torch.kernels.local_update.ref import trajectory_ref
+from repro_torch.kernels.quant import (chunk_rows, dequantize, dequantize_ref,
+                                       int8_dequantize, int8_sr_encode,
+                                       quantize, quantize_ref)
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
@@ -112,3 +118,51 @@ def test_anderson_kernels_on_card(card, dtype, shared):
     assert (new_k - new_p).abs().max() <= tol * scale.max()
     with pytest.raises(ValueError, match="expected shape"):
         flat_gram(y, g[..., :-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,n,chunk", [(100, 54, 256), (7, 1000, 256),
+                                       (3, 4097, 64), (5, 300, 1000),
+                                       (2, 33, 20)])
+def test_quant_kernels_on_card(card, x_dtype, K, n, chunk):
+    """Encode and decode of every client's [n] upload (ragged last chunk,
+    f64 converted on load), against the plain version on the same draws."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((K, n)) * 10.0 ** rng.integers(-3, 4, (K, 1))
+    x[0] = 0.0                                     # an all-zero client
+    x = torch.from_numpy(x).to(card, x_dtype)
+    nc = chunk_rows(n, chunk)
+    u = torch.rand((K, nc, chunk), generator=torch.Generator(
+        device=card).manual_seed(n), device=card)
+    n0 = dict(_build.LAUNCHES)
+    q, s = int8_sr_encode(x, u)
+    out = int8_dequantize(q, s, n, x_dtype)
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES["quantize"] == n0["quantize"] + 1
+    assert _build.LAUNCHES["dequantize"] == n0["dequantize"] + 1
+    xp = torch.nn.functional.pad(x.cpu().to(torch.float32), (0, nc * chunk - n))
+    q_p, s_p = quantize_ref(xp.reshape(K, nc, chunk), u.cpu())
+    assert torch.equal(q.cpu(), q_p) and torch.equal(s.cpu(), s_p)
+    # the plain version on the card divides as IEEE does there too
+    q_c, s_c = quantize_ref(xp.reshape(K, nc, chunk).to(card), u)
+    assert torch.equal(q_c.cpu(), q_p) and torch.equal(s_c.cpu(), s_p)
+    out_p = dequantize_ref(q_p, s_p).reshape(K, -1)[:, :n].to(x_dtype)
+    assert torch.equal(out.cpu(), out_p)
+    # the batched [..., nc, C] entry points, on the padded grid
+    q2, s2 = quantize(xp.reshape(K, nc, chunk).to(card), u)
+    assert torch.equal(q2.cpu(), q_p) and torch.equal(s2.cpu(), s_p)
+    assert torch.equal(dequantize(q2, s2).cpu(), dequantize_ref(q_p, s_p))
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_raise_on_what_the_kernel_does_not_take(card):
+    x = torch.zeros(2, 300, device=card)
+    with pytest.raises(TypeError, match="takes"):
+        int8_sr_encode(x, torch.zeros(2, 2, 256, device=card,
+                                      dtype=torch.float64))
+    with pytest.raises(ValueError, match="chunk <= 1024"):
+        int8_sr_encode(torch.zeros(2, 3000, device=card),
+                       torch.zeros(2, 2, 2048, device=card))
+    with pytest.raises(ValueError, match="does not cover"):
+        int8_sr_encode(x, torch.zeros(2, 1, 256, device=card))

@@ -195,3 +195,118 @@ def test_linreg_fedsvrg_reaches_exact_solution(local_impl):
     h = run_federated(prob, "fedsvrg", hp, 120, w_star=w_exact,
                       stop_rel_error=1e-10, device="cpu")
     assert h.rel_error[-1] < 1e-10, h.rel_error
+
+
+def reference_uniforms(rng, K: int, fold: int, n: int, chunk: int = 256):
+    """The uniforms the reference's int8 codec draws for uplink ``fold`` of
+    every client in the round that starts from key ``rng``: split(rng, 3)[2]
+    -> split(., K)[k] -> fold_in(fold) -> fold_in(leaf 0) -> uniform over
+    the padded chunk grid (repro/core/algorithms.py:1209-1210, :873;
+    repro/comm/codecs.py:80; repro/kernels/quant/ops.py:88)."""
+    cl_rng = jax.random.split(rng, 3)[2]
+    keys = jax.random.split(cl_rng, K)
+    nc = -(-n // chunk)
+    return np.stack([np.asarray(jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(keys[k], fold), 0), (nc, chunk),
+        jnp.float32)) for k in range(K)])
+
+
+class TestCompressedRound:
+    """One round through a lossy wire from a common state (comm buffers
+    converted), in f64 with the ``ref_f64`` fixture. The int8 round is fed
+    the reference's own draws."""
+
+    @pytest.mark.parametrize("channel", ["int8", "bf16", "fp32"])
+    @pytest.mark.parametrize("algo", ["fedosaa_svrg", "fedsvrg"])
+    def test_round_matches_reference(self, ref_f64, monkeypatch, algo, channel):
+        import repro.comm.codecs as jax_codecs
+        import repro_torch.comm.codecs as port_codecs
+        from repro_torch.comm import DELTA_UPLINK, GRAD_UPLINK, Int8SRCodec
+
+        K, d = 4, 54
+        jp, pp = both_problems(200, K)
+        jhp = JaxHParams(eta=1.0, local_epochs=3, aa_impl="tree",
+                         local_impl="tree")
+        state = jax_init_state(jp, jax.random.PRNGKey(0), None, channel, algo)
+        round_fn = jax.jit(jax_make_round_fn(algo, jp, jhp, channel))
+        for _ in range(2):
+            state, _ = round_fn(state)
+        # record every client's int8 codec input and output in the round
+        seen_ref, seen_port = [], []
+        jax_rt = jax_codecs.int8_sr_roundtrip
+
+        def rec_ref(flat, rng, chunk=256):
+            out = jax_rt(flat, rng, chunk=chunk)
+            jax.debug.callback(
+                lambda *a: seen_ref.append([np.asarray(v) for v in a]),
+                flat, rng, out)
+            return out
+
+        port_rt = port_codecs.int8_sr_roundtrip
+
+        def rec_port(x, u):
+            out = port_rt(x, u)
+            seen_port.append((x.clone(), out.clone()))
+            return out
+
+        monkeypatch.setattr(jax_codecs, "int8_sr_roundtrip", rec_ref)
+        monkeypatch.setattr(port_codecs, "int8_sr_roundtrip", rec_port)
+        ref_state, ref_m = jax.jit(jax_make_round_fn(algo, jp, jhp, channel))(
+            state)
+
+        specs = (GRAD_UPLINK, DELTA_UPLINK)
+        uniforms = None
+        if channel == "int8":
+            uniforms = {s.tag: torch.from_numpy(
+                reference_uniforms(state.rng, K, s.fold, d)) for s in specs}
+        ours = make_round_fn(algo, pp, AlgoHParams(eta=1.0, local_epochs=3),
+                             channel=channel, device="cpu")
+        start = convert.server_state(state.params, state.t, state.comm,
+                                     device="cpu")
+        new, m = ours(start, uniforms)
+
+        ref_w = np.asarray(ref_state.params)
+        w_norm = np.linalg.norm(ref_w)
+        dw = np.linalg.norm(new.params.numpy() - ref_w) / w_norm
+        assert dw <= 1e-7, dw
+        np.testing.assert_allclose(float(m.loss), float(ref_m.loss), rtol=1e-12)
+        assert float(m.comm_bytes) == float(ref_m.comm_bytes)
+        # the carried buffers: same tags and names; values within 1e-7 of
+        # ‖w‖, the scale their error follows (they are differences of the
+        # clients' iterates, which agree to that)
+        ref_comm = ref_state.comm
+        assert sorted(new.comm) == sorted(ref_comm)
+        for tag, bufs in ref_comm.items():
+            assert sorted(new.comm[tag]) == sorted(bufs)
+            for name, a in bufs.items():
+                err = np.abs(new.comm[tag][name].numpy() - np.asarray(a)).max()
+                assert err <= 1e-7 * w_norm, (tag, name, err)
+        if channel != "int8":
+            return
+
+        # the codec on its own: fed the reference's pre-codec values and
+        # draws, the port's int8 codec gives the reference codec's output
+        # bit for bit (the reference op by op: see tests/test_torch_quant.py
+        # on XLA's rewrite of amax / 127)
+        assert len(seen_ref) == 2 * K and len(seen_port) == 2
+        for i, spec in enumerate(specs):
+            u = uniforms[spec.tag]
+            keys = [jax.random.fold_in(jax.random.fold_in(
+                jax.random.split(jax.random.split(state.rng, 3)[2], K)[k],
+                spec.fold), 0) for k in range(K)]
+            by_client = {}
+            for flat, rng, out in seen_ref:
+                for k in range(K):
+                    if np.array_equal(rng, np.asarray(keys[k])):
+                        by_client[k] = (flat, out)
+            assert sorted(by_client) == list(range(K)), spec.tag
+            ref_in = np.stack([by_client[k][0] for k in range(K)])
+            # the pre-codec input, computed by each package on its own
+            port_in = seen_port[i][0].to(torch.float32).numpy()
+            assert np.abs(port_in - ref_in).max() <= 1e-7 * w_norm, spec.tag
+            fed = Int8SRCodec().roundtrip(torch.from_numpy(ref_in), u)
+            with jax.disable_jit():
+                want = np.stack([np.asarray(jax_rt(jnp.asarray(ref_in[k]),
+                                                   keys[k]))
+                                 for k in range(K)])
+            np.testing.assert_array_equal(fed.numpy(), want)
