@@ -8,7 +8,7 @@ after phase 5, on the identity and on the int8 wire (device time by
 kernel and by ``fl.uplink`` scope, the device's busy share).
 
 Needs one CUDA card of compute capability 9.x (H100) and ``nvcc``; it
-builds the port's CUDA kernels from the four sources in
+builds the port's CUDA kernels from the six sources in
 ``src/repro_torch/csrc`` (one ``nvcc`` each, all started together, then a
 link) and exits non-zero, printing no result, where there is no card or no
 port beside it. Every phase raises on failure; none is caught.
@@ -30,6 +30,13 @@ port beside it. Every phase raises on failure; none is caught.
    update is held twice: with the AA solve's coefficients (large, from an
    ill-conditioned Gram) and with coefficients of order 1, where every
    term, the -eta g term included, weighs on the result.
+   The LM kernels at the served shapes: ``ssd`` at Zamba2-7B's width (B=4,
+   S=2048: 32 chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's
+   (st=128, nh=80), ``flash_attention`` at B*H=128, S=2048, d=112 in
+   bf16 and in f32 with a window and a ragged S; within 1e-5 (f32) and
+   2^-7 (bf16 output) of the plain result's largest magnitude. Flash is
+   also timed against ``scaled_dot_product_attention(is_causal=True)``,
+   whose backend is named.
    Times come from CUDA events (median of repeats).
 3. The acceptance configuration (synthetic covtype n=10,000, K=10 iid,
    gamma=1e-3, eta=1, L=10, float64, FedOSAA-SVRG, at most 20 rounds):
@@ -53,10 +60,23 @@ port beside it. Every phase raises on failure; none is caught.
    final loss within rel 1e-10 of the reference's 0.3128270332955105, and
    per round one launch of each slice-A kernel and, under int8, two of
    ``quantize`` and ``dequantize``.
-6. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
+   from the port's seeded init. In f32 (the weights before their bf16
+   rounding), a prefill's last-position logits within 1e-4 of the largest
+   |logit| of the same prefill through the plain versions on the card.
+   In bf16, the config's dtype: a prefill of 4 prompts of 2048 tokens
+   (make_lm_tokens, seed 0; cache_len 2080), read on its own launch
+   counts (68 ``ssd``, 13 ``flash_attention``, nothing else); each block
+   within 2^-6 of the plain versions' output from the same input; 32
+   greedy decode steps that launch neither kernel; ms per prefill and per
+   decode step, peak memory; then the slot server (8 requests, 4 slots,
+   16-token prompts, 12 new tokens): every request finishes with 12
+   tokens; tokens/s.
+7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -71,9 +91,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM data sheet: HBM rate, and the peak rate of each type's
 #: fastest unit (float32 outside the tensor cores; float64 on the FP64
+#: tensor cores; bfloat16 products, accumulated in float32, on the dense
 #: tensor cores) -- the least time the card could take
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12,
+                  torch.bfloat16: 989e12}
 #: kernel vs plain: max |kernel - plain| over the result's (or its terms')
 #: largest magnitude; the two differ in summation order only
 TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -95,11 +117,39 @@ KERNELS = {
                  "src/repro/kernels/quant/quant.py:50"),
     "dequantize": ("src/repro_torch/csrc/quant.cu",
                    "src/repro/kernels/quant/quant.py:76"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:83"),
+    "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:69"),
 }
 #: the kernels of slice A (one launch per round on every wire) and of the
 #: wire (one launch per lossy int8 uplink: two per round)
 ROUND_KERNELS = ("trajectory", "gram", "update")
 WIRE_KERNELS = ("quantize", "dequantize")
+#: the kernels of the LM serving path (prefill only; decode runs neither)
+LM_KERNELS = ("flash_attention", "ssd")
+#: the served configuration: Zamba2-7B at full width (configs/zamba2_7b.py),
+#: 4 prompts of 2048 tokens, 32 greedy decode steps after them
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "zamba2-7b", 4, 2048, 32
+#: launches of one Zamba2-7B prefill: one SSD step per Mamba-2 layer (13
+#: groups of 5, then 3), one attention per application of the shared block
+LM_PREFILL_LAUNCHES = {"ssd": 68, "flash_attention": 13}
+#: kernel vs plain on the LM kernels, over the plain result's largest
+#: magnitude: f32 (summation order only); bf16 output (both round one f32
+#: value to bf16, which may land one bf16 step, 2^-8 of it, apart)
+LM_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: the Zamba2-7B prefill through the kernels vs through the plain versions
+#: on the card. In f32 (the same weights before their bf16 rounding), the
+#: last-position logits over the largest |logit|: the two differ in
+#: summation order only, carried through 81 layers. In bf16, each block's
+#: output from the same input over its largest magnitude: the two round
+#: one f32 attention output to bf16, which may land one bf16 step apart,
+#: and the residual sum carries that as a step of h (2^-8 of the top
+#: binade); 2^-6 allows four. (The two bf16 streams taken to the end part
+#: by much more: random layers amplify those steps; it is printed, not held.)
+LM_LOGITS_TOLERANCE_F32 = 1e-4
+LM_BLOCK_TOLERANCE_BF16 = 2.0 ** -6
+#: the reference serve.py's defaults
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 16, 12
 #: the JAX reference's ext_compression rows of FedOSAA-SVRG
 #: (benchmarks/results/ext_compression.json): rounds to rel-error 1e-6 and
 #: cumulative bytes; and its int8 row's final loss
@@ -137,9 +187,11 @@ def device_ms(fn, device, n: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the operations'
+    time, each type's count (``ops``: {dtype: operations}) at its peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -195,7 +247,7 @@ def check_kernels(clients, dtype, device) -> dict:
         library_ms=None,
         bound=bound_ms(nbytes(x, y, mask, w0, u, invn, wk, rk),
                        # live logits and X^T c every step, anchor logits once
-                       K * n * d * (4 * steps + 2), dtype))
+                       {dtype: K * n * d * (4 * steps + 2)}))
 
     s, ys = trajectory_to_sy(wp, rp)               # [K, m, d] each
     g = 0.01 * torch.randn(d, generator=gen, device=device, dtype=dtype)
@@ -214,7 +266,7 @@ def check_kernels(clients, dtype, device) -> dict:
         plain_ms=device_ms(lambda: gram_ref(ys, g), device),
         library_ms=device_ms(lambda: torch.bmm(ys, rhs), device),
         bound=bound_ms(nbytes(ys, g, gk, ygk),
-                       K * d * 2 * (m * (m + 1) // 2 + m), dtype))
+                       {dtype: K * d * 2 * (m * (m + 1) // 2 + m)}))
 
     gamma = _solve_gram(gp, ygp, AAConfig())[0]
     w = 0.1 * torch.randn(d, generator=gen, device=device, dtype=dtype)
@@ -234,7 +286,8 @@ def check_kernels(clients, dtype, device) -> dict:
         plain_ms=device_ms(lambda: update_ref(w, g, s, ys, gamma, ETA, 1.0),
                            device),
         library_ms=None,
-        bound=bound_ms(nbytes(w, g, s, ys, gamma, ok), K * d * (4 * m + 4), dtype))
+        bound=bound_ms(nbytes(w, g, s, ys, gamma, ok),
+                       {dtype: K * d * (4 * m + 4)}))
 
     for name, r in results.items():
         print(f"  {name:10s} {str(dtype)[6:]:7s} rel {r['rel']:.3e} "
@@ -304,14 +357,14 @@ def check_quant(device) -> dict:
                 plain_ms=device_ms(plain_encode, device), library_ms=None,
                 # abs, max, divide, add, floor, clip: ~7 operations a value
                 bound=bound_ms(values * (x.element_size() + 4 + 1) + scale_bytes,
-                               7 * values, torch.float32)),
+                               {torch.float32: 7 * values})),
             "dequantize": dict(
                 abs=d_err,
                 ms=device_ms(lambda: int8_dequantize(qp, sp, d, dtype), device),
                 plain_ms=device_ms(lambda: plain_decode(qp, sp), device),
                 library_ms=device_ms(lambda: torch.mul(qp, sp), device),
                 bound=bound_ms(values * (1 + dec.element_size()) + scale_bytes,
-                               values, torch.float32)),
+                               {torch.float32: values})),
         }
         for name, r in out[label].items():
             print(f"  {name:10s} {label:9s} abs {r['abs']:.3e}  kernel "
@@ -323,9 +376,11 @@ def check_quant(device) -> dict:
 
 def expected_launches(rounds: int, int8: bool) -> dict:
     """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: each slice-A
-    kernel once a round; each wire kernel twice a round on the int8 wire."""
+    kernel once a round; each wire kernel twice a round on the int8 wire;
+    the LM kernels never."""
     return {**{k: rounds for k in ROUND_KERNELS},
-            **{k: 2 * rounds if int8 else 0 for k in WIRE_KERNELS}}
+            **{k: 2 * rounds if int8 else 0 for k in WIRE_KERNELS},
+            **{k: 0 for k in LM_KERNELS}}
 
 
 def acceptance(device) -> dict:
@@ -460,6 +515,337 @@ def compression(device) -> dict:
     return out
 
 
+def sdpa_backend(fn) -> str:
+    """The device kernel(s) a torch call ran, by name, from torch.profiler
+    (the SDPA backend PyTorch picked); "not traced" where the profiler
+    shows no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith(("Memset", "Memcpy"))})
+    return "; ".join(n[:80] for n in names) or "not traced"
+
+
+def ssd_inputs(B, nc, Q, nh, hd, st, device):
+    """The SSD step's inputs at a served shape, as the model makes them:
+    dt > 0 (softplus'd), A < 0, da the within-chunk cumsum of dt A."""
+    gen = torch.Generator(device=device).manual_seed(nh * st)
+    xc = torch.randn(B, nc, Q, nh, hd, generator=gen, device=device)
+    dtc = 0.01 + 0.29 * torch.rand(B, nc, Q, nh, generator=gen, device=device)
+    A = -(0.5 + 3.5 * torch.rand(nh, generator=gen, device=device))
+    da = torch.cumsum(dtc * A, dim=2)
+    Bc = torch.randn(B, nc, Q, st, generator=gen, device=device)
+    Cc = torch.randn(B, nc, Q, st, generator=gen, device=device)
+    return xc, dtc, da, Bc, Cc
+
+
+def check_lm_kernels(device) -> dict:
+    """Phase 2, the LM kernels at the served shapes against their plain
+    versions on the card: SSD at Zamba2-7B's width (B=4, S=2048: G=32
+    chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's (st=128,
+    nh=80); flash attention at B*H=128, S=2048, d=112 in bf16 (Zamba2-7B's
+    shared block) and in f32 with a window and a ragged S. Bounds count
+    each input and output byte once at 3.35 TB/s, and the operations of
+    the causal work (C B^T once per chunk) at their type's peak: SSD's all
+    at the f32 rate; flash's q k^T at the rate of q's type (bf16 products
+    accumulated in f32 are exact on the tensor cores), p v (p is f32) and
+    the softmax at the f32 rate. The split is printed."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
+
+    out = {}
+    for label, (B, nc, Q, nh, hd, st) in (("zamba2-7b", (4, 8, 256, 112, 64, 64)),
+                                          ("mamba2-2.7b", (4, 8, 256, 80, 64, 128))):
+        args = ssd_inputs(B, nc, Q, nh, hd, st, device)
+        y, state = ssd_chunk(*args)
+        y_p, state_p = ssd_chunk_ref(*args)
+        errs = [rel_diff(y, y_p), rel_diff(state, state_p)]
+        G, pairs = B * nc, Q * (Q + 1) // 2
+        # per chunk: C B^T once; per head M = CB exp(da_i - da_j) (3 ops),
+        # y += M (x dt), x dt, and the state (x w)^T B with w (3 ops)
+        ops = G * (2 * pairs * st + nh * (3 * pairs + 2 * pairs * hd + Q * hd
+                                          + 2 * Q * hd * st + Q * (hd + 3)))
+        out[f"ssd/{label}"] = dict(
+            rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
+            tol=LM_TOLERANCE[torch.float32],
+            shape=f"G={G} nh={nh} Q={Q} hd={hd} st={st} f32",
+            ms=device_ms(lambda: ssd_chunk(*args), device, n=10),
+            plain_ms=device_ms(lambda: ssd_chunk_ref(*args), device, n=3),
+            library_ms=None, library=None,
+            bound=bound_ms(nbytes(*args, y, state), {torch.float32: ops}))
+        del args, y, state, y_p, state_p
+
+    for label, (B, S, H, KV, d, window, dtype) in (
+            ("zamba2-7b", (4, 2048, 32, 32, 112, 0, torch.bfloat16)),
+            ("window-ragged", (2, 1000, 8, 2, 112, 256, torch.float32))):
+        gen = torch.Generator(device=device).manual_seed(S)
+        q = torch.randn(B, S, H, d, generator=gen, device=device).to(dtype)
+        k = torch.randn(B, S, KV, d, generator=gen, device=device).to(dtype)
+        v = torch.randn(B, S, KV, d, generator=gen, device=device).to(dtype)
+        o = flash_attention(q, k, v, window=window)
+        o_p = flash_attention_ref(q, k, v, window=window)
+        rel, err = rel_diff(o.float(), o_p.float())
+        rows = torch.arange(S, dtype=torch.float64)
+        visible = float((torch.minimum(rows + 1, torch.tensor(float(window)))
+                         if window else rows + 1).sum())
+        # per visible pair: q k^T (2 d, in q's type), p v (2 d, f32), and
+        # scale, max, exp, sum (f32)
+        pairs = B * H * visible
+        ops = {dtype: pairs * 2 * d}
+        ops[torch.float32] = ops.get(torch.float32, 0.0) + pairs * (2 * d + 4)
+        lib, lib_ms = None, None
+        if window == 0 and KV == H:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+            lib_ms = device_ms(sdpa, device)
+            lib = ("torch.nn.functional.scaled_dot_product_attention("
+                   f"is_causal=True) -> {sdpa_backend(sdpa)}")
+            lib_err = float((sdpa().transpose(1, 2).float() - o_p.float()).abs().max())
+            print(f"  sdpa vs plain: abs {lib_err:.3e} (the library's own "
+                  "numerics, not held to a tolerance)", flush=True)
+        out[f"flash_attention/{label}"] = dict(
+            rel=rel, abs=err, tol=LM_TOLERANCE[dtype],
+            shape=f"B={B} S={S} H={H} KV={KV} d={d} window={window} "
+                  f"{str(dtype)[6:]}",
+            ms=device_ms(lambda: flash_attention(q, k, v, window=window), device,
+                         n=10),
+            plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, window=window),
+                               device, n=3),
+            library_ms=lib_ms, library=lib,
+            bound=bound_ms(nbytes(q, k, v, o), ops),
+            bound_split={str(dt)[6:]: n / PEAK_OPS_PER_S[dt] * 1e3
+                         for dt, n in ops.items()}
+            | {"bytes": nbytes(q, k, v, o) / HBM_BYTES_PER_S * 1e3})
+        del q, k, v, o, o_p
+
+    for name, r in out.items():
+        print(f"  {name:28s} [{r['shape']}] rel {r['rel']:.3e} (tol "
+              f"{r['tol']:.1e}) abs {r['abs']:.3e}  kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+        if r.get("bound_split"):
+            print("    bound split (ms): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["bound_split"].items()), flush=True)
+        if r["library"]:
+            print(f"    library: {r['library']}", flush=True)
+        if not r["rel"] <= r["tol"]:
+            raise AssertionError(f"{name} kernel disagrees with its plain "
+                                 f"version: {r['rel']:.3e} > {r['tol']:.1e}")
+    torch.cuda.empty_cache()
+    return out
+
+
+class plain_lm_kernels:
+    """Within the block, the model's layers call the plain versions of the
+    LM kernels (the reference point of the prefill check); the kernels'
+    wrappers are put back on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+        from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+        from repro_torch.models import layers
+
+        self.layers = layers
+        self.saved = layers.flash_attention, layers.ssd_chunk
+        layers.flash_attention, layers.ssd_chunk = flash_attention_ref, ssd_chunk_ref
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention, self.layers.ssd_chunk = self.saved
+
+
+def host_ms(fn, device, repeats: int = 3) -> list[float]:
+    """Wall times (ms) of ``repeats`` calls, each ended by a synchronize."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def blockwise_prefill(model, tokens) -> tuple[list[float], float]:
+    """The prefill one block at a time: each block's output through the
+    kernels and through the plain versions from the same input (the kernel
+    stream's), and a plain stream carried to the end. Returns each block's
+    relative difference and that of the two streams' last-position logits."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    window = cfg.sliding_window
+    hk = hp = model.embed_tokens(tokens)
+    local = []
+    for block, _, _ in model.schedule():
+        out_k, _ = block(hk, cfg, positions, window)
+        with plain_lm_kernels():
+            out_p, _ = block(hk, cfg, positions, window)
+            hp, _ = block(hp, cfg, positions, window)
+        local.append(rel_diff(out_k.float(), out_p.float())[0])
+        hk = out_k
+    return local, rel_diff(model.unembed_last(hk).float(),
+                           model.unembed_last(hp).float())[0]
+
+
+@torch.inference_mode()
+def serving(device) -> dict:
+    """Phase 6: Zamba2-7B at full width, weights from the port's seeded
+    init. In f32: the prefill's last-position logits through the kernels
+    against the plain versions. In bf16 (the served dtype): the prefill of
+    4 prompts of 2048 tokens (make_lm_tokens, seed 0) with cache_len
+    2048 + 32, read on its own launch counts; each block against the plain
+    versions; 32 greedy decode steps from the caches, read on their own
+    counts; then the slot server with the reference serve.py's defaults."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.decoder import build_model
+
+    cfg = get_arch(LM_ARCH)
+    tokens = torch.from_numpy(make_lm_tokens(LM_BATCH, LM_PROMPT, cfg.vocab_size,
+                                             seed=0)).to(device)
+    cache_len = LM_PROMPT + LM_DECODE
+
+    model = build_model(dataclasses.replace(cfg, dtype="float32"), device=device,
+                        seed=0)
+    prefill = make_prefill_step(model, cache_len)
+    logits = prefill(tokens)[0]
+    with plain_lm_kernels():
+        logits_p = prefill(tokens)[0]
+    rel32, err32 = rel_diff(logits, logits_p)
+    print(f"  float32 prefill logits, kernels vs plain: rel {rel32:.3e} (tol "
+          f"{LM_LOGITS_TOLERANCE_F32:.0e}) abs {err32:.3e}, largest |logit| "
+          f"{float(logits_p.abs().max()):.3f}, same argmax in "
+          f"{int((logits.argmax(-1) == logits_p.argmax(-1)).sum())}/{LM_BATCH}",
+          flush=True)
+    if not rel32 <= LM_LOGITS_TOLERANCE_F32:
+        raise AssertionError(f"float32 prefill logits through the kernels are "
+                             f"{rel32:.3e} from the plain versions' (> "
+                             f"{LM_LOGITS_TOLERANCE_F32})")
+    del model, prefill, logits, logits_p
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, seed=0)
+    torch.cuda.synchronize(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_groups, group, trailing = cfg.hybrid_counts
+    print(f"  {cfg.name}: {cfg.num_layers} layers ({n_groups} groups of {group} "
+          f"Mamba-2 + the shared block, {trailing} trailing), d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters in {cfg.dtype} "
+          f"({torch.cuda.memory_allocated(device) / 2**30:.2f} GiB), built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prefill = make_prefill_step(model, cache_len)
+    serve_step = make_serve_step(model)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    logits, caches = prefill(tokens)
+    torch.cuda.synchronize(device)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    want = {k: LM_PREFILL_LAUNCHES.get(k, 0) for k in launches}
+    print(f"  prefill launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"prefill launches {launches}, expected {want}")
+    if logits.shape != (LM_BATCH, cfg.eff_vocab) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, "
+                             f"finite {bool(logits.isfinite().all())}")
+    del caches, logits
+    prefill_ms = host_ms(lambda: prefill(tokens), device)
+    with plain_lm_kernels():
+        plain_prefill_ms = host_ms(lambda: prefill(tokens), device, repeats=1)
+
+    _build.reset_launches()
+    local, stream_rel = blockwise_prefill(model, tokens)
+    worst = int(np.argmax(local))
+    print(f"  bf16 blocks, kernels vs plain from the same input: largest rel "
+          f"{local[worst]:.3e} (block {worst}; tol {LM_BLOCK_TOLERANCE_BF16:.2e}); "
+          f"the two streams' last logits part by rel {stream_rel:.3e} (not "
+          "held: random layers amplify bf16 steps)", flush=True)
+    if not local[worst] <= LM_BLOCK_TOLERANCE_BF16:
+        raise AssertionError(f"block {worst} through the kernels is "
+                             f"{local[worst]:.3e} from the plain versions' (> "
+                             f"{LM_BLOCK_TOLERANCE_BF16:.2e})")
+    torch.cuda.empty_cache()
+
+    logits, caches = prefill(tokens)
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
+    # peak memory: the kernel prefill's (above) and the decode steps',
+    # not the plain versions' in between
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    step_ms, generated = [], [tok]
+    for i in range(LM_DECODE):
+        pos = torch.full((LM_BATCH, 1), LM_PROMPT + i, dtype=torch.int32,
+                         device=device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits, caches = serve_step(caches, tok, pos)
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
+        tok.cpu()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(tok)
+        if not bool(logits.isfinite().all()):
+            raise AssertionError(f"decode step {i}: logits not finite")
+    decode_launches = dict(_build.LAUNCHES)
+    peak = max(peak, torch.cuda.max_memory_allocated(device))
+    print(f"  decode launches over {LM_DECODE} steps {decode_launches}; first "
+          f"prompt's tokens {torch.cat(generated, 1)[0, :12].tolist()}", flush=True)
+    if any(decode_launches.values()):
+        raise AssertionError(f"decode launched {decode_launches}; it runs "
+                             "neither kernel")
+    out = dict(launches=launches, decode_launches=decode_launches,
+               prefill_ms=prefill_ms,
+               plain_prefill_ms=plain_prefill_ms, decode_ms=step_ms,
+               peak_gib=peak / 2**30, f32_logits_rel=rel32,
+               bf16_block_rel_max=local[worst], bf16_stream_logits_rel=stream_rel)
+    print(f"  prefill {LM_BATCH}x{LM_PROMPT}: {np.median(prefill_ms):.1f} ms "
+          f"(runs {[round(t, 1) for t in prefill_ms]}; plain versions "
+          f"{plain_prefill_ms[0]:.1f} ms), "
+          f"{LM_BATCH * LM_PROMPT / np.median(prefill_ms) * 1e3:.0f} tokens/s; "
+          f"decode step (batch {LM_BATCH}, host clock, ends in the argmax read) "
+          f"median {np.median(step_ms[1:]):.2f} ms (first {step_ms[0]:.1f} ms); "
+          f"peak memory {out['peak_gib']:.2f} GiB", flush=True)
+    del caches, logits
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+                    SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    _build.reset_launches()
+    srv = SlotServer(model, batch_slots=SERVE_SLOTS,
+                     cache_len=SERVE_PROMPT + SERVE_NEW + 1, device=device)
+    stats = srv.run(reqs)
+    server_launches = dict(_build.LAUNCHES)
+    print(f"  slot server: {len(reqs)} requests, {SERVE_SLOTS} slots, "
+          f"{SERVE_PROMPT}-token prompts, {SERVE_NEW} new tokens: "
+          f"{stats['tokens']} tokens in {stats['wall_s']:.2f} s over "
+          f"{stats['steps']} steps ({stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['wall_s'] / stats['steps'] * 1e3:.1f} ms/step), launches "
+          f"{server_launches}; request 0: {reqs[0].out}", flush=True)
+    if not all(r.done and len(r.out) == SERVE_NEW for r in reqs):
+        raise AssertionError("slot server: unfinished requests "
+                             f"{[(r.rid, r.done, len(r.out)) for r in reqs]}")
+    if any(server_launches.values()):
+        raise AssertionError(f"the slot server launched {server_launches}")
+    out["server"] = stats
+    out["server_launches"] = server_launches
+    del model, srv
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_rounds(clients, device, channel=None, rounds: int = 3) -> None:
     """``--profile``: torch.profiler over a few paper-scale f64 rounds after
     two warm-up rounds on ``channel``; prints device time by kernel (and the
@@ -543,6 +929,7 @@ def main() -> int:
     quant = check_quant(device)
     checks = {dt: check_kernels(clients, dt, device)
               for dt in (torch.float64, torch.float32)}
+    lm_checks = check_lm_kernels(device)
 
     print("phase 3: acceptance configuration (n=10,000, K=10, float64)",
           flush=True)
@@ -562,9 +949,36 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         for channel in (None, "int8"):
             profile_rounds(clients, device, channel)
+    del clients
+    torch.cuda.empty_cache()
+
+    print(f"phase 6: serving {LM_ARCH} at full width (prefill {LM_BATCH}x"
+          f"{LM_PROMPT}, {LM_DECODE} decode steps, the slot server)", flush=True)
+    served = serving(device)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
+        if name in LM_KERNELS:
+            r = lm_checks[f"{name}/zamba2-7b"]
+            other = next(v for k, v in lm_checks.items()
+                         if k.startswith(name + "/") and v is not r)
+            rows.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=served["launches"][name],
+                launches_by_run={"prefill": served["launches"][name],
+                                 f"decode ({LM_DECODE} steps)":
+                                     served["decode_launches"][name],
+                                 "slot server": served["server_launches"][name]},
+                max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                library_ms=r["library_ms"], library=r["library"],
+                shape=r["shape"],
+                second_shape=dict(
+                    shape=other["shape"], max_abs_err=other["abs"],
+                    ms=other["ms"], plain_ms=other["plain_ms"],
+                    bound_ms=other["bound"][0], bound_by=other["bound"][1],
+                    library_ms=other["library_ms"])))
+            continue
         wire = name in WIRE_KERNELS
         r = quant["main"][name] if wire else checks[torch.float64][name]
         row = dict(
@@ -584,6 +998,7 @@ def main() -> int:
     f32 = {name: {k: v for k, v in r.items()}
            for name, r in checks[torch.float32].items()}
     print("float32 kernels " + json.dumps(f32), flush=True)
+    print("serving " + json.dumps(served), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ version (``ref.py`` beside the kernel); on a CUDA tensor it launches the
 hand-written kernel or raises — it never falls back.
 
 TF32 is switched off for matmuls and cuDNN: the reference accumulates in
-true f32/f64, and TF32 keeps about three decimal digits.
+true f32/f64, and TF32 keeps about three decimal digits. bf16 products
+accumulate in f32 with no reduced-precision reduction, as the reference's
+bf16 products do.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 #: device every entry point uses unless the caller names another
 DEFAULT_DEVICE = "cuda"

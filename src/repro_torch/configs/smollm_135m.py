@@ -1,0 +1,10 @@
+"""SmolLM-135M — llama-architecture small dense model.
+[hf:HuggingFaceTB/SmolLM-135M]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m", family="dense",
+    num_layers=30, d_model=576, num_heads=9, num_kv_heads=3,
+    d_ff=1536, vocab_size=49152, head_dim=64,
+    source="hf:HuggingFaceTB/SmolLM-135M",
+)

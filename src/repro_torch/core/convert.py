@@ -1,7 +1,8 @@
 """Turn the JAX package's arrays into the port's tensors.
 
 Takes the reference's parameters, ``ServerState`` fields (params, t and
-the comm buffers) and ``StackedClients`` fields as numpy arrays
+the comm buffers), ``StackedClients`` fields, and an LM's parameters and
+decode caches (``lm_params``, ``lm_caches``) as numpy arrays
 (``np.asarray`` of the JAX arrays) — this module imports nothing of JAX —
 and returns the port's counterparts on ``device`` with the same dtypes and
 values, so both packages can start from one state.
@@ -14,6 +15,7 @@ import torch
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.algorithms import ServerState
 from repro_torch.core.problem import StackedClients
+from repro_torch.models.decoder import LMCaches
 
 
 def tensor(a, device: "str | torch.device" = DEFAULT_DEVICE) -> torch.Tensor:
@@ -62,3 +64,71 @@ def stacked_clients(x, y, mask, weight,
     """The reference StackedClients' x [K, n, d], y [K, n], mask [K, n] and
     weight [K]."""
     return StackedClients(*(tensor(a, device) for a in (x, y, mask, weight)))
+
+
+#: the reference's stacked [n, ...] parameter groups (one module per layer
+#: in the port)
+_STACKED = ("blocks", "mamba_groups", "mamba_tail")
+
+
+def _array_tensor(a, device) -> torch.Tensor:
+    """Like ``tensor``, also for numpy's bfloat16 (ml_dtypes), which
+    torch.from_numpy does not take: its bits are reinterpreted."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(resolve_device(device))
+    return tensor(a, device)
+
+
+def _leaves(node, prefix: str = ""):
+    """(dotted path, array) for every leaf of a nested dict."""
+    for name, v in node.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{name}.")
+        else:
+            yield prefix + name, v
+
+
+def lm_params(params_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE) -> dict:
+    """The reference LM's parameters (its nested dict, as numpy) as the
+    port's state dict: a stacked group's [n, ...] arrays become layers
+    ``<group>.<i>.<path>``; everything else keeps its path. Load it with
+    ``model.load_state_dict(lm_params(...))`` (strict: every name must
+    match)."""
+    n_layers = {"blocks": cfg.num_layers}
+    if cfg.family == "hybrid":
+        n_groups, group, trailing = cfg.hybrid_counts
+        n_layers = {"mamba_groups": n_groups * group, "mamba_tail": trailing}
+    out = {}
+    for name, node in params_np.items():
+        if name not in _STACKED:
+            for path, a in _leaves({name: node}):
+                out[path] = _array_tensor(a, device)
+            continue
+        for path, a in _leaves(node):
+            if np.shape(a)[0] != n_layers.get(name):
+                raise ValueError(f"{name}.{path}: {np.shape(a)[0]} layers, "
+                                 f"expected {n_layers.get(name)} for {cfg.name}")
+            for i in range(np.shape(a)[0]):
+                out[f"{name}.{i}.{path}"] = _array_tensor(np.asarray(a)[i], device)
+    return out
+
+
+def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):
+    """The reference's decode caches (the nested dict of stacked arrays that
+    its prefill or init_caches returns, as numpy) as the port's LMCaches:
+    the same nesting, names, shapes and dtypes."""
+    kv, ssm = {"k", "v", "pos", "idx"}, {"conv", "ssm"}
+    want = {"dense": kv, "vlm": kv, "audio": kv, "ssm": ssm}.get(cfg.family)
+    if cfg.family == "hybrid":
+        want = {"mamba", "shared_kv"} | ({"tail"} if cfg.hybrid_counts[2] else set())
+    if set(caches_np) != want:
+        raise ValueError(f"caches with groups {sorted(caches_np)} do not fit "
+                         f"{cfg.name} ({cfg.family}): expected {sorted(want or ())}")
+
+    def conv(node):
+        return {k: conv(v) if isinstance(v, dict) else _array_tensor(v, device)
+                for k, v in node.items()}
+
+    return LMCaches(conv(caches_np))

@@ -72,3 +72,22 @@ def make_binary_classification(
     flip = rng.random(n) < 0.02
     y[flip] = -y[flip]
     return X, y
+
+
+def make_lm_tokens(
+    n_docs: int, seq_len: int, vocab: int, seed: int = 0
+) -> np.ndarray:
+    """Synthetic token stream with Zipfian unigram + Markov bigram structure
+    (prompts for the LM serving path). Returns [n_docs, seq_len] int32."""
+    rng = np.random.default_rng(seed)
+    # zipf over a capped vocab for speed
+    v_eff = min(vocab, 32_768)
+    ranks = np.arange(1, v_eff + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    toks = rng.choice(v_eff, size=(n_docs, seq_len), p=p)
+    # light Markov smoothing: with prob .3 repeat previous token's neighborhood
+    repeat = rng.random((n_docs, seq_len)) < 0.3
+    shifted = np.roll(toks, 1, axis=1)
+    toks = np.where(repeat, (shifted + rng.integers(0, 17, toks.shape)) % v_eff, toks)
+    return toks.astype(np.int32)

@@ -34,7 +34,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name → launches since the last reset (see module docstring)
 LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "quantize": 0,
-            "dequantize": 0}
+            "dequantize": 0, "ssd": 0, "flash_attention": 0}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 #: C entry points → argtypes (pointers and the stream as c_void_p)
@@ -53,6 +53,11 @@ _SIGNATURES = {
     "repro_quantize": [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
     # out_dtype, q, scales, out, n, B, nc, C, stream
     "repro_dequantize": [_I, _P, _P, _P, _LL, _I, _I, _I, _P],
+    # x, dt, da, B, C, cb, y, state, G, Q, nh, hd, st, stream
+    "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, q, k, v, out, B, S, H, KV, d, causal, window, stream
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P],
 }
 
 _lib = None
@@ -144,11 +149,11 @@ def library() -> ctypes.CDLL:
 
 
 #: dtype → the C entry points' dtype code
-DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,
-               dtypes=tuple(DTYPE_CODE)) -> torch.device:
+               dtypes=(torch.float32, torch.float64)) -> torch.device:
     """Raise unless every tensor is a contiguous CUDA tensor of one of
     ``dtypes`` (f32/f64 by default) on one compute-capability-9.x card;
     returns that device."""

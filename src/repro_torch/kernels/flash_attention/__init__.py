@@ -1,0 +1,5 @@
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    attention_ref,
+    flash_attention_ref,
+)

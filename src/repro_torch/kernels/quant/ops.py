@@ -105,7 +105,8 @@ def _dequantize_cuda(q, scales, n: int, dtype):
     """Launch repro_dequantize: q [..., nc, C] -> [B, n] in ``dtype``."""
     *lead, nc, C = q.shape
     B = q.numel() // (nc * C)
-    if scales.shape != (*lead, nc, 1) or dtype not in _build.DTYPE_CODE:
+    if scales.shape != (*lead, nc, 1) or dtype not in (torch.float32,
+                                                       torch.float64):
         raise ValueError(f"dequantize kernel: q {tuple(q.shape)}, scales "
                          f"{tuple(scales.shape)}, out {dtype}")
     dev = _build.check_cuda("dequantize", q, dtypes=(torch.int8,))

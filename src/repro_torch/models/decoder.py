@@ -1,0 +1,264 @@
+"""The decoder LM for the ``dense``, ``ssm`` and ``hybrid`` families
+(counterpart of repro/models/decoder.py, its serving path).
+
+``build_model(cfg, device=..., generator=...)`` returns a ``Decoder``
+module that holds its parameters. Its methods mirror the reference's pure
+functions, without the ``params`` argument:
+
+  forward(tokens)                       -> (logits [B, S, V], aux)
+  prefill(tokens, cache_len=None)       -> (logits_last [B, V], caches)
+  decode_step(caches, tokens, pos)      -> (logits [B, V], caches)
+  init_caches(batch, cache_len)         -> caches
+
+The reference scans stacked [L, ...] layer parameters; here each stack is
+an ``nn.ModuleList`` walked by a Python loop. The hybrid (Zamba2) family
+keeps its one weight-tied ``shared`` attention+MLP block, applied after
+each group of ``shared_attn_period - 1`` Mamba-2 layers, then its trailing
+Mamba-2 layers (``mamba_tail``).
+
+Caches (``LMCaches``) are explicit tensors in the reference's nesting,
+stacked per layer: a KV group {"k", "v": [n, B, C, KV, hd], "pos":
+[n, B, C] int32 (-1: never written), "idx": [n] int32 (the shared ring
+index)}, an SSM group {"conv": [n, B, W-1, conv_dim], "ssm":
+[n, B, nh, hd, st] f32}. ``decode_step`` updates them in place and
+returns the same object.
+
+Left for later slices: the ``moe`` family, the ``vlm``/``audio`` frontend
+embeddings, ``loss``/``_chunked_xent``, remat and the ``Sharder``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch import DEFAULT_DEVICE, resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as Lyr
+
+SERVED_FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
+
+
+class DenseBlock(nn.Module):
+    def __init__(self, gen, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                      requires_grad=False)
+        self.attn = Lyr.attn_init(gen, cfg, dtype, device)
+        self.mlp_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                     requires_grad=False)
+        self.mlp = Lyr.mlp_init(gen, d, cfg.d_ff, dtype, device)
+
+    def forward(self, h, cfg, positions, window, cache=None):
+        """Returns (h, (k, v)): this block's k/v for prefill's caches."""
+        a, k, v = Lyr.attention(self.attn, Lyr.rms_norm(h, self.attn_norm), cfg,
+                                positions, cache=cache, window=window)
+        h = h + a
+        h = h + Lyr.mlp(self.mlp, Lyr.rms_norm(h, self.mlp_norm))
+        return h, (k, v)
+
+
+class SSMBlock(nn.Module):
+    def __init__(self, gen, cfg, dtype, device):
+        super().__init__()
+        self.norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
+                                 requires_grad=False)
+        self.mixer = Lyr.mamba_init(gen, cfg, dtype, device)
+
+    def forward(self, h, cfg, positions=None, window=0, cache=None):
+        """Returns (h, {"conv", "ssm"}); ``cache`` is this layer's state
+        (decode), updated in place. Positions and window are not read."""
+        y, new_state = Lyr.mamba_forward(self.mixer, Lyr.rms_norm(h, self.norm), cfg,
+                                         state=cache)
+        return h + y, new_state
+
+
+def _layer(group: dict, l: int) -> dict:
+    """Layer l's view of a stacked cache group (writes go to the stack)."""
+    return {name: t[l] for name, t in group.items()}
+
+
+class LMCaches:
+    """Decode caches in the reference's nesting (module docstring):
+    ``tree`` is a KV group (dense), an SSM group (ssm), or for the hybrid
+    {"mamba": SSM group, "shared_kv": KV group[, "tail": SSM group]}."""
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+
+    def group(self, key: str | None) -> dict:
+        """The stacked group ``key`` ("mamba", "shared_kv", "tail"), or the
+        whole tree for None (the dense and ssm families' one group)."""
+        return self.tree if key is None else self.tree[key]
+
+    def groups(self) -> list[dict]:
+        if "k" in self.tree or "ssm" in self.tree:
+            return [self.tree]
+        return list(self.tree.values())
+
+    def reset_slot(self, s: int) -> None:
+        """Empty batch slot s of every layer: k, v, conv and ssm to 0, pos to
+        -1 (the reference's SlotServer._reset_slot). The ring index is
+        shared by all slots and stays."""
+        for g in self.groups():
+            for name, t in g.items():
+                if name == "pos":
+                    t[:, s] = -1
+                elif name != "idx":
+                    t[:, s] = 0
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, gen: torch.Generator):
+        super().__init__()
+        cfg.validate()
+        if cfg.family not in SERVED_FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r} belongs to a later "
+                                      f"slice; the port serves {SERVED_FAMILIES}")
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        #: sqrt(d) in f32, rounded to the model dtype (decoder.py:175); a
+        #: Python float, so embedding a step copies nothing to the card
+        self.embed_scale = float(torch.tensor(math.sqrt(cfg.d_model)).to(self.dtype))
+        dtype, V, d, L = self.dtype, cfg.eff_vocab, cfg.d_model, cfg.num_layers
+        self.embed = nn.Parameter(Lyr.dense_init(gen, (V, d), d, dtype, device),
+                                  requires_grad=False)
+        self.final_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                       requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(Lyr.dense_init(gen, (d, V), d, dtype, device),
+                                        requires_grad=False)
+        fam = cfg.family
+        if fam == "ssm":
+            self.blocks = nn.ModuleList(SSMBlock(gen, cfg, dtype, device)
+                                        for _ in range(L))
+        elif fam == "hybrid":
+            n_groups, group, trailing = cfg.hybrid_counts
+            self.mamba_groups = nn.ModuleList(SSMBlock(gen, cfg, dtype, device)
+                                              for _ in range(n_groups * group))
+            if trailing:
+                self.mamba_tail = nn.ModuleList(SSMBlock(gen, cfg, dtype, device)
+                                                for _ in range(trailing))
+            self.shared = DenseBlock(gen, cfg, dtype, device)   # weight-tied
+        else:
+            self.blocks = nn.ModuleList(DenseBlock(gen, cfg, dtype, device)
+                                        for _ in range(L))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # --------------------------- embedding ---------------------------
+    def embed_tokens(self, tokens, embeds=None):
+        if embeds is not None:
+            raise NotImplementedError("the vlm/audio frontend embeddings belong "
+                                      "to a later slice")
+        return self.embed[tokens.long()] * self.embed_scale
+
+    def unembed(self, h):
+        h = Lyr.rms_norm(h, self.final_norm)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return h @ head
+
+    def unembed_last(self, h):
+        """Logits of the last position only: prefill never builds [B, S, V]."""
+        return self.unembed(h[:, -1:])[:, -1]
+
+    def _positions(self, B, S):
+        return torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
+
+    def schedule(self) -> list[tuple[nn.Module, str | None, int]]:
+        """(block, cache group, layer index in the group) in the order the
+        layers run (the group as ``LMCaches.group`` takes it)."""
+        if self.cfg.family != "hybrid":
+            return [(b, None, l) for l, b in enumerate(self.blocks)]
+        n_groups, group, _ = self.cfg.hybrid_counts
+        out = []
+        for g in range(n_groups):
+            out += [(self.mamba_groups[l], "mamba", l)
+                    for l in range(g * group, (g + 1) * group)]
+            out.append((self.shared, "shared_kv", g))
+        return out + [(b, "tail", l) for l, b in enumerate(getattr(self, "mamba_tail", []))]
+
+    # --------------------------- forward ------------------------------
+    def forward(self, tokens, embeds=None):
+        """tokens [B, S] -> (logits [B, S, V], aux); aux is 0 (no MoE)."""
+        h = self._run(tokens, embeds, None)
+        return self.unembed(h), torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _run(self, tokens, embeds, caches: LMCaches | None):
+        """The no-cache pass over every layer; when ``caches`` is given,
+        writes each layer's k/v (positions 0..S-1) or final SSM state into
+        it (prefill)."""
+        cfg, window = self.cfg, self.cfg.sliding_window
+        B, S = tokens.shape
+        positions = self._positions(B, S)
+        h = self.embed_tokens(tokens, embeds)
+        for block, key, l in self.schedule():
+            h, new = block(h, cfg, positions, window)
+            if caches is None:
+                continue
+            g = caches.group(key)
+            if isinstance(block, DenseBlock):
+                g["k"][l, :, :S], g["v"][l, :, :S] = new
+                g["pos"][l, :, :S] = positions
+                g["idx"][l] = S
+            else:
+                g["conv"][l] = new["conv"]
+                g["ssm"][l] = new["ssm"]
+        return h
+
+    # --------------------------- caches -------------------------------
+    def init_caches(self, batch: int, cache_len: int,
+                    device: "str | torch.device" = DEFAULT_DEVICE) -> LMCaches:
+        if resolve_device(device).type != self.device.type:
+            raise ValueError(f"the model lies on {self.device}: build it with "
+                             f"device={device!r} to keep caches there")
+        cfg, dtype, dev = self.cfg, self.dtype, self.device
+        if cfg.family == "ssm":
+            return LMCaches(Lyr.init_ssm_state(cfg, cfg.num_layers, batch, dtype, dev))
+        if cfg.family == "hybrid":
+            n_groups, group, trailing = cfg.hybrid_counts
+            tree = {"mamba": Lyr.init_ssm_state(cfg, n_groups * group, batch, dtype, dev),
+                    "shared_kv": Lyr.init_kv_cache(cfg, n_groups, batch, cache_len,
+                                                   dtype, dev)}
+            if trailing:
+                tree["tail"] = Lyr.init_ssm_state(cfg, trailing, batch, dtype, dev)
+            return LMCaches(tree)
+        return LMCaches(Lyr.init_kv_cache(cfg, cfg.num_layers, batch, cache_len,
+                                          dtype, dev))
+
+    # --------------------------- prefill ------------------------------
+    def prefill(self, tokens, embeds=None, cache_len: int | None = None):
+        """Full forward that also builds the decode caches. ``cache_len``
+        reserves room for the decode steps that follow (default S)."""
+        B, S = tokens.shape
+        C = cache_len or S
+        if C < S:
+            raise ValueError(f"cache_len {C} is shorter than the prompt ({S})")
+        caches = self.init_caches(B, C, self.device)
+        h = self._run(tokens, embeds, caches)
+        return self.unembed_last(h), caches
+
+    # --------------------------- decode -------------------------------
+    def decode_step(self, caches: LMCaches, tokens, pos):
+        """tokens: [B, 1] int; pos: [B, 1] int absolute positions. Updates
+        ``caches`` in place; returns (logits [B, V], caches)."""
+        cfg, window = self.cfg, self.cfg.sliding_window
+        h = self.embed_tokens(tokens)
+        for block, key, l in self.schedule():
+            h, _ = block(h, cfg, pos, window, cache=_layer(caches.group(key), l))
+        return self.unembed(h)[:, -1], caches
+
+
+def build_model(cfg: ArchConfig, device: "str | torch.device" = DEFAULT_DEVICE,
+                generator: torch.Generator | None = None, seed: int = 0) -> Decoder:
+    """The decoder for ``cfg`` with parameters drawn from ``generator`` (by
+    default a generator on ``device`` seeded with ``seed``). Raises without
+    a card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        return Decoder(cfg, dev, gen)

@@ -1,0 +1,360 @@
+"""Transformer and Mamba-2 building blocks of the LM serving path
+(counterpart of repro/models/layers.py, its serving subset).
+
+Conventions, as in the reference:
+* parameters are named as in the reference's nested dict (``wq``, ``wx``,
+  ``A_log``, ...), held by a ``Params`` module so that a state dict path
+  is the reference's path with the layer index inserted
+  (core/convert.py::lm_params);
+* dtype policy: parameters and activations in ``cfg.dtype`` (bf16 at full
+  width), softmax, normalisation and SSM state math in f32. Each function
+  rounds where the reference rounds (comments name the place).
+
+No-cache attention (forward and prefill) goes to the flash-attention
+kernel, whatever S is: the reference's materialized softmax (S < 1024) and
+its blocked XLA path (``_attention_blocked``) compute the same function,
+which the reference's Pallas kernel computes on the TPU. The SSD
+intra-chunk step goes to the SSD kernel (the reference's ``ssd_fn`` hook).
+On CPU tensors both wrappers run their plain versions.
+
+Left for later slices: MoE (``moe``, ``moe_sharded``), the int8 KV cache
+(``kv_quant``), and the ``gather`` GQA mode that only ``padded()``
+configs use; they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd import ssd_chunk
+
+
+class Params(nn.Module):
+    """A flat group of parameters named as in the reference's dict. The
+    serving path takes no gradients: every parameter is frozen."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._parameters[name]
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """In f32, cast back to x's dtype (as the reference)."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(theta, exponent)          # f32, as the reference
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] (int). Rotates interleaved
+    (even, odd) pairs; angles in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # [hd/2]
+    ang = positions[..., None].float() * freqs                # [B, S, hd/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., 0::2], x32[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
+               device) -> torch.Tensor:
+    """normal x 1/sqrt(fan_in), drawn in f32 on the generator's device from
+    ``gen``, then cast to ``dtype`` on ``device``."""
+    scale = 1.0 / math.sqrt(in_axis_size)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * scale).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qk-norm, full-causal or sliding-window, KV cache)
+# ---------------------------------------------------------------------------
+
+def gqa_mode(cfg) -> str:
+    """'grouped' when query head i reads kv slot i // G (G = H // KV_eff)
+    and that reproduces the true mapping i -> i * KV // H; else 'gather'."""
+    H, KVe = cfg.eff_heads, cfg.eff_kv_heads
+    KV, Ht = cfg.num_kv_heads, cfg.num_heads
+    if not H or H % KVe != 0 or KVe % KV != 0:
+        return "gather"
+    G, r = H // KVe, KVe // KV
+    for i in range(Ht):
+        if (i // G) // r != (i * KV) // Ht:
+            return "gather"
+    return "grouped"
+
+
+def attn_init(gen, cfg, dtype, device) -> Params:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.eff_heads, cfg.eff_kv_heads
+    KV_true = cfg.num_kv_heads
+
+    def kv_proj():
+        if gqa_mode(cfg) == "grouped" and KV != KV_true and KV % KV_true == 0:
+            # replicated-kv layout: padded slots repeat the true kv heads
+            w = dense_init(gen, (d, KV_true, hd), d, dtype, device)
+            return w.repeat_interleave(KV // KV_true, dim=1).reshape(d, KV * hd)
+        return dense_init(gen, (d, KV * hd), d, dtype, device)
+
+    p = {"wq": dense_init(gen, (d, H * hd), d, dtype, device),
+         "wk": kv_proj(), "wv": kv_proj(),
+         "wo": dense_init(gen, (H * hd, d), H * hd, dtype, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    if cfg.eff_heads != cfg.num_heads:
+        # zero the padded heads' output rows: padded heads are no-ops
+        mask = (torch.arange(H * hd, device=device) < cfg.num_heads * hd).to(dtype)
+        p["wo"] = p["wo"] * mask[:, None]
+    return Params(p)
+
+
+def _attn_scores_mask(q_pos, k_pos, window: int):
+    """[.., Sq, Sk] boolean mask: causal, optionally sliding-window."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window:
+        m = m & (k_pos[..., None, :] > q_pos[..., :, None] - window)
+    return m
+
+
+def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+              cache: dict | None = None, window: int = 0):
+    """x: [B, S, d]. Returns (out [B, S, d], k, v): this call's k (after
+    rope) and v, [B, S, KV, hd], which prefill writes into its caches.
+
+    Without ``cache`` (forward, prefill; positions are 0..S-1): the flash
+    kernel. With ``cache`` (decode, S == 1): one layer's view of the KV
+    ring buffer {"k", "v": [B, C, KV, hd], "pos": [B, C], "idx": 0-d},
+    updated in place: this step's k/v and positions go to slot idx % C,
+    then idx += 1 (the reference returns a new cache; the port writes into
+    the one it was given)."""
+    if gqa_mode(cfg) != "grouped":
+        raise NotImplementedError("the 'gather' GQA mode (padded configs) "
+                                  "belongs to the tensor-parallel slice")
+    B, S, d = x.shape
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.eff_heads, cfg.eff_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = flash_attention(q, k, v, causal=True, window=window)
+        return out.reshape(B, S, H * hd) @ p["wo"], k, v
+
+    if S != 1:
+        raise ValueError(f"attention with a cache decodes one token; got S={S}")
+    C = cache["k"].shape[1]
+    slot = (cache["idx"] % C).long().reshape(1)
+    cache["k"].index_copy_(1, slot, k)
+    cache["v"].index_copy_(1, slot, v)
+    cache["pos"].index_copy_(1, slot, positions.to(cache["pos"].dtype))
+    cache["idx"].add_(1)
+    k_all, v_all, k_pos = cache["k"], cache["v"], cache["pos"]
+
+    # 1/sqrt(hd) in f32, as the reference (a Python float holding that value)
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+    mask = _attn_scores_mask(positions, k_pos, window)             # [B, Sq, Sk]
+    mask = mask & (k_pos >= 0)[:, None]       # never-written slots: pos = -1
+    G = H // KV
+    q5 = q.reshape(B, S, KV, G, hd)
+    # scores rounded to the model dtype, then the f32 softmax; the
+    # probabilities go back to the model dtype for p v (layers.py:283-289)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k_all).float()
+    logits = torch.where(mask[:, None, None], logits * scale, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_all).reshape(B, S, H * hd)
+    return out @ p["wo"], k, v
+
+
+def init_kv_cache(cfg, layers: int, batch: int, cache_len: int, dtype,
+                  device) -> dict:
+    """KV ring buffers of ``layers`` layers, stacked on a leading axis."""
+    if cfg.kv_quant:
+        raise NotImplementedError("the int8 KV cache (kv_quant) belongs to a "
+                                  "later slice")
+    KV, hd = cfg.eff_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((layers, batch, cache_len, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((layers, batch, cache_len, KV, hd), dtype=dtype, device=device),
+        "pos": torch.full((layers, batch, cache_len), -1, dtype=torch.int32, device=device),
+        "idx": torch.zeros((layers,), dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, d: int, f: int, dtype, device) -> Params:
+    return Params({"wi_gate": dense_init(gen, (d, f), d, dtype, device),
+                   "wi_up": dense_init(gen, (d, f), d, dtype, device),
+                   "wo": dense_init(gen, (f, d), f, dtype, device)})
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) mixer
+# ---------------------------------------------------------------------------
+
+def mamba_init(gen, cfg, dtype, device) -> Params:
+    """Projections kept separate, as in the reference (wx, wz, wB, wC, wdt;
+    the conv split into its x and B/C channels)."""
+    d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh, W = cfg.ssm_heads, cfg.ssm_conv_width
+    f32 = torch.float32
+    return Params({
+        "wx": dense_init(gen, (d, di), d, dtype, device),
+        "wz": dense_init(gen, (d, di), d, dtype, device),
+        "wB": dense_init(gen, (d, st), d, dtype, device),
+        "wC": dense_init(gen, (d, st), d, dtype, device),
+        "wdt": dense_init(gen, (d, nh), d, dtype, device),
+        "conv_x_w": dense_init(gen, (W, di), W, dtype, device),
+        "conv_x_b": torch.zeros(di, dtype=dtype, device=device),
+        "conv_bc_w": dense_init(gen, (W, 2 * st), W, dtype, device),
+        "conv_bc_b": torch.zeros(2 * st, dtype=dtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=device)),
+        "D": torch.ones(nh, dtype=f32, device=device),
+        "dt_bias": torch.zeros(nh, dtype=f32, device=device),
+        "norm": torch.ones(di, dtype=dtype, device=device),
+        "out_proj": dense_init(gen, (di, d), di, dtype, device),
+    })
+
+
+def _ssd_chunked_scan(xh, dt, A, Bm, Cm, chunk: int):
+    """SSD forward (Mamba2, arXiv:2405.21060 §6), chunked dual form.
+
+    xh: [B, S, nh, hd]; dt: [B, S, nh] (softplus'd); A: [nh] (negative);
+    Bm/Cm: [B, S, st]; all f32. Returns y [B, S, nh, hd] and the final
+    state [B, nh, hd, st]. The intra-chunk step is the SSD kernel; the
+    recurrence over chunks is a loop of torch ops (the reference's
+    associative scan, taken in order).
+    """
+    B, S, nh, hd = xh.shape
+    st = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"the chunked SSD scan needs S ({S}) to be a multiple "
+                         f"of its chunk ({chunk})")
+    nc, Q = S // chunk, chunk
+    xc = xh.reshape(B, nc, Q, nh, hd).contiguous()
+    dtc = dt.reshape(B, nc, Q, nh).contiguous()
+    Bc = Bm.reshape(B, nc, Q, st).contiguous()
+    Cc = Cm.reshape(B, nc, Q, st).contiguous()
+
+    dA_cumsum = torch.cumsum(dtc * A, dim=2)            # within-chunk cumsum
+    y_diag, chunk_state = ssd_chunk(xc, dtc, dA_cumsum, Bc, Cc)
+
+    # inter-chunk recurrence: state after chunk c = state(c-1) * decay_c + s_c
+    chunk_decay = torch.exp(dA_cumsum[:, :, -1, :])     # [B, nc, nh]
+    states = torch.empty_like(chunk_state)
+    run = chunk_state[:, 0]
+    states[:, 0] = run
+    for c in range(1, nc):
+        run = run * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+        states[:, c] = run
+    # state entering chunk c = states[c-1]; zero for the first
+    prev_states = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]], dim=1)
+
+    # contribution of the carried-in state to each position of the chunk
+    state_decay = torch.exp(dA_cumsum)                  # [B, nc, Q, nh]
+    y_off = torch.einsum("bcqs,bchds,bcqh->bcqhd", Cc, prev_states, state_decay)
+    y = (y_diag + y_off).reshape(B, S, nh, hd)
+    return y, states[:, -1]
+
+
+def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
+    """Mamba2 block. Prefill/forward when ``state`` is None (chunked SSD);
+    a single-token recurrent step when it is one layer's view
+    {"conv": [B, W-1, conv_dim], "ssm": [B, nh, hd, st]}, which is updated
+    in place. Returns (out [B, S, d], new state {"conv", "ssm"})."""
+    B, S, d = x.shape
+    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    dtype = x.dtype
+    xz = x @ p["wx"]
+    z = x @ p["wz"]
+    Bm = x @ p["wB"]
+    Cm = x @ p["wC"]
+    dt_raw = x @ p["wdt"]
+
+    conv_in = torch.cat([xz, Bm, Cm], dim=-1)             # [B, S, di + 2st]
+    W = cfg.ssm_conv_width
+    if state is None:
+        pad = torch.zeros((B, W - 1, conv_in.shape[-1]), dtype=dtype, device=x.device)
+        cseq = torch.cat([pad, conv_in], dim=1)
+    else:
+        cseq = torch.cat([state["conv"], conv_in], dim=1)
+    new_conv_state = cseq[:, S:]                          # the last W-1 rows
+    # depthwise causal conv: the reference's einsum over the W taps
+    # ("bswc,wc->bsc") accumulates in f32 and rounds once to the model
+    # dtype, then adds the bias in the model dtype
+    wfull = torch.cat([p["conv_x_w"], p["conv_bc_w"]], dim=-1).float()
+    bfull = torch.cat([p["conv_x_b"], p["conv_bc_b"]], dim=-1)
+    acc = cseq[:, 0:S].float() * wfull[0]
+    for w in range(1, W):
+        acc = acc + cseq[:, w:w + S].float() * wfull[w]
+    conv_out = F.silu(acc.to(dtype) + bfull)
+    xc, Bc, Cc = torch.split(conv_out, [di, st, st], dim=-1)
+
+    # dt in f32; x, B and C cast to f32 before the scan (layers.py:662-665)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])        # [B, S, nh]
+    A = -torch.exp(p["A_log"])                            # [nh], < 0
+    xh = xc.reshape(B, S, nh, hd).float()
+    Bc32, Cc32 = Bc.float(), Cc.float()
+
+    if state is None:
+        y, final_state = _ssd_chunked_scan(xh, dt, A, Bc32, Cc32,
+                                           min(cfg.ssm_chunk, S))
+    else:
+        # recurrent step: h <- exp(dt A) h + dt B (x) x ;  y = C . h
+        dA = torch.exp(dt[:, 0] * A[None])                # [B, nh]
+        h = state["ssm"] * dA[..., None, None]
+        h = h + (dt[:, 0, :, None] * xh[:, 0])[..., None] * Bc32[:, 0, None, None, :]
+        y = torch.einsum("bs,bhds->bhd", Cc32[:, 0], h)[:, None]   # [B, 1, nh, hd]
+        final_state = h
+        state["conv"].copy_(new_conv_state)
+        state["ssm"].copy_(final_state)
+
+    # y + D x in f32, then the model dtype before the gate (layers.py:684-686)
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(B, S, di).to(dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, p["norm"])
+    return y @ p["out_proj"], {"conv": new_conv_state, "ssm": final_state}
+
+
+def init_ssm_state(cfg, layers: int, batch: int, dtype, device) -> dict:
+    """Conv and SSM states of ``layers`` layers, stacked on a leading axis."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((layers, batch, cfg.ssm_conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), dtype=torch.float32, device=device),
+    }

@@ -19,12 +19,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.anderson import flat_gram, flat_update
 from repro_torch.kernels.anderson.ref import gram_ref, update_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.local_update import fused_trajectory
 from repro_torch.kernels.local_update.ops import inverse_count
 from repro_torch.kernels.local_update.ref import trajectory_ref
 from repro_torch.kernels.quant import (chunk_rows, dequantize, dequantize_ref,
                                        int8_dequantize, int8_sr_encode,
                                        quantize, quantize_ref)
+from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
@@ -166,3 +169,82 @@ def test_quant_wrappers_raise_on_what_the_kernel_does_not_take(card):
                        torch.zeros(2, 2, 2048, device=card))
     with pytest.raises(ValueError, match="does not cover"):
         int8_sr_encode(x, torch.zeros(2, 1, 256, device=card))
+
+
+def _ssd_case(rng, B, nc, Q, nh, hd, st):
+    xc = rng.standard_normal((B, nc, Q, nh, hd)).astype(np.float32)
+    dtc = rng.uniform(0.01, 0.3, (B, nc, Q, nh)).astype(np.float32)
+    A = -rng.uniform(0.5, 4.0, (nh,)).astype(np.float32)
+    da = np.cumsum(dtc * A, axis=2).astype(np.float32)
+    Bc = rng.standard_normal((B, nc, Q, st)).astype(np.float32)
+    Cc = rng.standard_normal((B, nc, Q, st)).astype(np.float32)
+    return xc, dtc, da, Bc, Cc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,Q,nh,hd,st", [
+    (1, 2, 64, 16, 32, 32),        # reduced configs
+    (1, 2, 256, 8, 64, 64),        # Zamba2-7B's chunk and widths
+    (1, 1, 256, 4, 64, 128),       # Mamba-2-2.7B's state
+    (2, 1, 100, 3, 48, 20),        # ragged tiles: Q, hd, st not multiples of 16/64
+    (1, 3, 17, 2, 128, 128),       # the widest head and state, a tiny chunk
+])
+def test_ssd_kernel_on_card(card, B, nc, Q, nh, hd, st):
+    """f32 intra-chunk step against its plain version on the card; the two
+    differ in summation order only (1e-5 of the largest magnitude)."""
+    args = [torch.from_numpy(a).to(card) for a in _ssd_case(
+        np.random.default_rng(Q + st), B, nc, Q, nh, hd, st)]
+    n0 = _build.LAUNCHES["ssd"]
+    y, state = ssd_chunk(*args)
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES["ssd"] == n0 + 1
+    y_p, state_p = ssd_chunk_ref(*args)
+    assert_close(y.cpu(), y_p.cpu(), 1e-5)
+    assert_close(state.cpu(), state_p.cpu(), 1e-5)
+    assert _build.LAUNCHES["ssd"] == n0 + 1      # the plain version counts none
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 128, 4, 2, 64, 0),         # reduced GQA
+    (1, 200, 4, 4, 112, 0),        # Zamba2's head dim, ragged S
+    (2, 333, 4, 1, 48, 64),        # MQA, window, ragged S
+    (1, 64, 2, 2, 128, 16),        # the widest head, window inside a block
+    (1, 5, 3, 3, 8, 0),            # fewer rows than a block
+])
+def test_flash_kernel_on_card(card, dtype, B, S, H, KV, hd, window):
+    """Kernel vs plain version in the model layout; both compute in f32 and
+    round once to ``dtype`` (1e-5 of the largest |out| in f32; in bf16 two
+    roundings of an f32 value apart: 2^-7)."""
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(card, dtype) for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                              (B, S, KV, hd)))
+    n0 = _build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES["flash_attention"] == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = flash_attention_ref(q, k, v, window=window)
+    assert_close(out.float().cpu(), ref.float().cpu(),
+                 1e-5 if dtype == torch.float32 else 2 ** -7)
+    # the first token attends to itself only
+    torch.testing.assert_close(out[:, 0].float(), v[:, 0].repeat_interleave(
+        H // KV, dim=1).float(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_wrappers_raise_on_what_the_kernel_does_not_take(card):
+    args = [torch.from_numpy(a).to(card) for a in _ssd_case(
+        np.random.default_rng(0), 1, 1, 512, 2, 32, 32)]
+    with pytest.raises(ValueError, match="chunk 512"):
+        ssd_chunk(*args)
+    with pytest.raises(TypeError, match="takes"):
+        ssd_chunk(*(a[:, :, :64].double() for a in args))
+    q = torch.zeros(1, 8, 2, 256, device=card)
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="takes"):
+        flash_attention(q, q, q)

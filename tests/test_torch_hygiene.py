@@ -104,3 +104,36 @@ def test_partition_is_bit_identical(scheme):
                                    device="cpu")
     for field in ("x", "y", "mask", "weight"):
         assert torch.equal(getattr(conv, field), getattr(ours, field)), field
+
+
+@pytest.mark.parametrize("n_docs,seq_len,vocab,seed", [(4, 2048, 32000, 0),
+                                                       (3, 17, 1024, 5),
+                                                       (2, 64, 50280, 1)])
+def test_lm_tokens_are_bit_identical(n_docs, seq_len, vocab, seed):
+    from repro.data.synthetic import make_lm_tokens as jax_make_lm_tokens
+    from repro_torch.data import make_lm_tokens
+    a = make_lm_tokens(n_docs, seq_len, vocab, seed=seed)
+    b = jax_make_lm_tokens(n_docs, seq_len, vocab, seed=seed)
+    assert a.dtype == b.dtype == np.int32
+    np.testing.assert_array_equal(a, b)
+
+
+def test_arch_configs_equal_the_reference():
+    """Each of the ten architectures, the benchmark input shapes, and the
+    derived reduced and padded variants equal the reference's field for
+    field (dataclasses.asdict)."""
+    import dataclasses
+
+    from repro.configs import ARCHS as jax_archs
+    from repro.configs import INPUT_SHAPES as jax_shapes
+    from repro.configs import get_arch as jax_get_arch
+    from repro_torch.configs import ARCHS, INPUT_SHAPES, get_arch
+    assert ARCHS == jax_archs and len(ARCHS) == 10
+    assert ({k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in jax_shapes.items()})
+    for name in ARCHS:
+        ours, ref = get_arch(name), jax_get_arch(name)
+        for a, b in ((ours, ref), (ours.reduced(), ref.reduced()),
+                     (ours.padded(16), ref.padded(16))):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
+            assert a.param_count() == b.param_count(), name
