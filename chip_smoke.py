@@ -8,7 +8,7 @@ after phase 5, on the identity and on the int8 wire (device time by
 kernel and by ``fl.uplink`` scope, the device's busy share).
 
 Needs one CUDA card of compute capability 9.x (H100) and ``nvcc``; it
-builds the port's CUDA kernels from the six sources in
+builds the port's CUDA kernels from the seven sources in
 ``src/repro_torch/csrc`` (one ``nvcc`` each, all started together, then a
 link) and exits non-zero, printing no result, where there is no card or no
 port beside it. Every phase raises on failure; none is caught.
@@ -33,10 +33,15 @@ port beside it. Every phase raises on failure; none is caught.
    The LM kernels at the served shapes: ``ssd`` at Zamba2-7B's width (B=4,
    S=2048: 32 chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's
    (st=128, nh=80), ``flash_attention`` at B*H=128, S=2048, d=112 in
-   bf16 and in f32 with a window and a ragged S; within 1e-5 (f32) and
-   2^-7 (bf16 output) of the plain result's largest magnitude. Flash is
+   bf16 (the tensor-core kernel), in f32 with a window and a ragged S (the
+   CUDA-core kernel), and in bf16 with GQA (H=8 on KV=2), window 256, S=1000
+   and d=128; within 1e-5 (f32) and 2^-7 (bf16 output) of the plain
+   result's largest magnitude, and bit-identical when run again. Flash is
    also timed against ``scaled_dot_product_attention(is_causal=True)``,
-   whose backend is named.
+   whose backend is named. The Gram kernel's and ``torch.bmm``'s own
+   device durations come from torch.profiler beside their CUDA-event
+   times, and its reruns must be bit-identical and its Gram matrix exactly
+   symmetric. The flash and Gram kernels' blocks per SM are printed.
    Times come from CUDA events (median of repeats).
 3. The acceptance configuration (synthetic covtype n=10,000, K=10 iid,
    gamma=1e-3, eta=1, L=10, float64, FedOSAA-SVRG, at most 20 rounds):
@@ -117,7 +122,8 @@ KERNELS = {
                  "src/repro/kernels/quant/quant.py:50"),
     "dequantize": ("src/repro_torch/csrc/quant.cu",
                    "src/repro/kernels/quant/quant.py:76"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    # bf16 (the main path) on the tensor cores; f32 in flash_attention.cu
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:83"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:69"),
 }
@@ -137,6 +143,12 @@ LM_PREFILL_LAUNCHES = {"ssd": 68, "flash_attention": 13}
 #: magnitude: f32 (summation order only); bf16 output (both round one f32
 #: value to bf16, which may land one bf16 step, 2^-8 of it, apart)
 LM_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: bf16 flash output, also element by element: |o - o_p| <= 2^-7 |o_p| (one
+#: bf16 step of o_p's binade, as both round one f32 value) + this share of
+#: the RMS of o_p's row (the f32 sums' own error where a row's terms cancel
+#: toward 0). A global max would let a late row, a few hundredths in size,
+#: be wrong by as much as itself.
+LM_BF16_ROW_FLOOR = 2.0 ** -9
 #: the Zamba2-7B prefill through the kernels vs through the plain versions
 #: on the card. In f32 (the same weights before their bf16 rounding), the
 #: last-position logits over the largest |logit|: the two differ in
@@ -187,6 +199,28 @@ def device_ms(fn, device, n: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
+def kernel_us(fn, device, n: int = 20) -> tuple[float | None, list[str]]:
+    """The device kernels' own time per call of ``fn`` in µs, from
+    torch.profiler over ``n`` calls (the gaps between launches, which
+    ``device_ms`` includes, are not in it), and the kernels' names; None
+    where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(device)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith(("Memset", "Memcpy"))]
+    key = ("self_device_time_total" if events and
+           hasattr(events[0], "self_device_time_total") else "self_cuda_time_total")
+    total = sum(getattr(e, key) for e in events)
+    return (total / n if total > 0 else None), sorted(e.key[:80] for e in events)
+
+
 def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
     """The larger of the bytes' time at the HBM rate and the operations'
     time, each type's count (``ops``: {dtype: operations}) at its peak."""
@@ -205,6 +239,16 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor,
     return err / max(float(scale.max()), 1e-300), err
 
 
+def bf16_steps(o: torch.Tensor, o_p: torch.Tensor) -> float:
+    """max over elements of |o - o_p| / (2^-7 |o_p| + LM_BF16_ROW_FLOOR *
+    RMS of o_p's row over the last dim); at most 1 where every element is
+    within one bf16 step of the plain version."""
+    o, o_p = o.float(), o_p.float()
+    rms = o_p.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = LM_TOLERANCE[torch.bfloat16] * o_p.abs() + LM_BF16_ROW_FLOOR * rms
+    return float(((o - o_p).abs() / limit.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
 def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -214,6 +258,7 @@ def check_kernels(clients, dtype, device) -> dict:
     shapes and on its data (the paper-scale clients, a trajectory from a
     random anchor, the AA solve's coefficients)."""
     from repro_torch.core.anderson import AAConfig, _solve_gram, trajectory_to_sy
+    from repro_torch.kernels import _build
     from repro_torch.kernels.anderson import flat_gram, flat_update
     from repro_torch.kernels.anderson.ref import gram_ref, update_ref
     from repro_torch.kernels.local_update import fused_trajectory
@@ -266,7 +311,24 @@ def check_kernels(clients, dtype, device) -> dict:
         plain_ms=device_ms(lambda: gram_ref(ys, g), device),
         library_ms=device_ms(lambda: torch.bmm(ys, rhs), device),
         bound=bound_ms(nbytes(ys, g, gk, ygk),
-                       {dtype: K * d * 2 * (m * (m + 1) // 2 + m)}))
+                       {dtype: K * d * 2 * (m * (m + 1) // 2 + m)}),
+        rerun_equal=all(map(torch.equal, flat_gram(ys, g), (gk, ygk))),
+        symmetric=torch.equal(gk, gk.transpose(1, 2)),
+        occupancy=_build.occupancy("repro_gram_occupancy",
+                                   _build.DTYPE_CODE[dtype], m, d))
+    # each kernel's own duration (torch.profiler), launch gaps excluded
+    results["gram"]["kernel_us"], _ = kernel_us(lambda: flat_gram(ys, g), device)
+    results["gram"]["library_kernel_us"], names = kernel_us(
+        lambda: torch.bmm(ys, rhs), device)
+    print(f"  gram       {str(dtype)[6:]:7s} own device time (torch.profiler, "
+          f"20 calls): kernel {results['gram']['kernel_us']} us, torch.bmm "
+          f"{results['gram']['library_kernel_us']} us ({'; '.join(names)}); "
+          f"rerun bit-identical {results['gram']['rerun_equal']}, exactly "
+          f"symmetric {results['gram']['symmetric']}; "
+          f"{results['gram']['occupancy']}", flush=True)
+    if not (results["gram"]["rerun_equal"] and results["gram"]["symmetric"]):
+        raise AssertionError("gram kernel: a rerun differs or the Gram matrix "
+                             "is not exactly symmetric")
 
     gamma = _solve_gram(gp, ygp, AAConfig())[0]
     w = 0.1 * torch.randn(d, generator=gen, device=device, dtype=dtype)
@@ -548,12 +610,19 @@ def check_lm_kernels(device) -> dict:
     versions on the card: SSD at Zamba2-7B's width (B=4, S=2048: G=32
     chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's (st=128,
     nh=80); flash attention at B*H=128, S=2048, d=112 in bf16 (Zamba2-7B's
-    shared block) and in f32 with a window and a ragged S. Bounds count
-    each input and output byte once at 3.35 TB/s, and the operations of
-    the causal work (C B^T once per chunk) at their type's peak: SSD's all
-    at the f32 rate; flash's q k^T at the rate of q's type (bf16 products
-    accumulated in f32 are exact on the tensor cores), p v (p is f32) and
-    the softmax at the f32 rate. The split is printed."""
+    shared block), in f32 with a window and a ragged S, and in bf16 with
+    GQA, a window and a ragged S at d=128 (Qwen3's and Llama-4's head
+    width). Bounds count each input and output byte once at 3.35 TB/s, and
+    the operations of the causal work (C B^T once per chunk) at their
+    type's peak: SSD's all at the f32 rate. Flash's q k^T counts 2d per
+    visible pair and p v 2d, both at the rate of q's type; for bf16 inputs
+    p v counts twice (4d), since the kernel splits the f32 p into bf16 hi
+    and lo parts and runs one tensor-core product for each against the same
+    V (bf16 products accumulated in f32 are exact, so that is what the f32
+    contract costs on the bf16 tensor cores). The softmax counts 4 per pair
+    at the f32 rate. The split is printed, and the blocks per SM that each
+    flash kernel reaches."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
@@ -582,7 +651,8 @@ def check_lm_kernels(device) -> dict:
 
     for label, (B, S, H, KV, d, window, dtype) in (
             ("zamba2-7b", (4, 2048, 32, 32, 112, 0, torch.bfloat16)),
-            ("window-ragged", (2, 1000, 8, 2, 112, 256, torch.float32))):
+            ("window-ragged", (2, 1000, 8, 2, 112, 256, torch.float32)),
+            ("gqa-window-ragged-d128", (2, 1000, 8, 2, 128, 256, torch.bfloat16))):
         gen = torch.Generator(device=device).manual_seed(S)
         q = torch.randn(B, S, H, d, generator=gen, device=device).to(dtype)
         k = torch.randn(B, S, KV, d, generator=gen, device=device).to(dtype)
@@ -590,14 +660,19 @@ def check_lm_kernels(device) -> dict:
         o = flash_attention(q, k, v, window=window)
         o_p = flash_attention_ref(q, k, v, window=window)
         rel, err = rel_diff(o.float(), o_p.float())
+        steps = bf16_steps(o, o_p) if dtype == torch.bfloat16 else None
         rows = torch.arange(S, dtype=torch.float64)
         visible = float((torch.minimum(rows + 1, torch.tensor(float(window)))
                          if window else rows + 1).sum())
-        # per visible pair: q k^T (2 d, in q's type), p v (2 d, f32), and
-        # scale, max, exp, sum (f32)
+        # per visible pair: q k^T (2 d) and p v (2 d; 4 d for bf16, split
+        # into hi and lo) in q's type, and scale, max, exp, sum (f32)
         pairs = B * H * visible
-        ops = {dtype: pairs * 2 * d}
-        ops[torch.float32] = ops.get(torch.float32, 0.0) + pairs * (2 * d + 4)
+        terms = {"q k^T": (dtype, pairs * 2 * d),
+                 "p v": (dtype, pairs * 2 * d * (2 if dtype == torch.bfloat16 else 1)),
+                 "softmax": (torch.float32, pairs * 4)}
+        ops = {}
+        for dt, n in terms.values():
+            ops[dt] = ops.get(dt, 0.0) + n
         lib, lib_ms = None, None
         if window == 0 and KV == H:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -612,7 +687,7 @@ def check_lm_kernels(device) -> dict:
             print(f"  sdpa vs plain: abs {lib_err:.3e} (the library's own "
                   "numerics, not held to a tolerance)", flush=True)
         out[f"flash_attention/{label}"] = dict(
-            rel=rel, abs=err, tol=LM_TOLERANCE[dtype],
+            rel=rel, abs=err, tol=LM_TOLERANCE[dtype], bf16_steps=steps,
             shape=f"B={B} S={S} H={H} KV={KV} d={d} window={window} "
                   f"{str(dtype)[6:]}",
             ms=device_ms(lambda: flash_attention(q, k, v, window=window), device,
@@ -621,9 +696,12 @@ def check_lm_kernels(device) -> dict:
                                device, n=3),
             library_ms=lib_ms, library=lib,
             bound=bound_ms(nbytes(q, k, v, o), ops),
-            bound_split={str(dt)[6:]: n / PEAK_OPS_PER_S[dt] * 1e3
-                         for dt, n in ops.items()}
-            | {"bytes": nbytes(q, k, v, o) / HBM_BYTES_PER_S * 1e3})
+            bound_split={f"{name} ({str(dt)[6:]})": n / PEAK_OPS_PER_S[dt] * 1e3
+                         for name, (dt, n) in terms.items()}
+            | {"bytes": nbytes(q, k, v, o) / HBM_BYTES_PER_S * 1e3},
+            rerun_equal=torch.equal(o, flash_attention(q, k, v, window=window)),
+            occupancy=_build.occupancy("repro_flash_occupancy",
+                                       _build.DTYPE_CODE[dtype], d))
         del q, k, v, o, o_p
 
     for name, r in out.items():
@@ -634,11 +712,22 @@ def check_lm_kernels(device) -> dict:
         if r.get("bound_split"):
             print("    bound split (ms): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in r["bound_split"].items()), flush=True)
+            print(f"    rerun bit-identical {r['rerun_equal']}; kernel "
+                  f"{r['occupancy']}", flush=True)
+            if not r["rerun_equal"]:
+                raise AssertionError(f"{name}: a rerun of the kernel differs")
         if r["library"]:
             print(f"    library: {r['library']}", flush=True)
         if not r["rel"] <= r["tol"]:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version: {r['rel']:.3e} > {r['tol']:.1e}")
+        if r.get("bf16_steps") is not None:
+            print(f"    element by element: max |o - o_p| / (2^-7 |o_p| + "
+                  f"2^-9 row RMS) = {r['bf16_steps']:.3f} (limit 1)", flush=True)
+            if not r["bf16_steps"] <= 1.0:
+                raise AssertionError(f"{name}: an element is more than one bf16 "
+                                     f"step from the plain version "
+                                     f"({r['bf16_steps']:.3f} > 1)")
     torch.cuda.empty_cache()
     return out
 
@@ -960,8 +1049,6 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         if name in LM_KERNELS:
             r = lm_checks[f"{name}/zamba2-7b"]
-            other = next(v for k, v in lm_checks.items()
-                         if k.startswith(name + "/") and v is not r)
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=served["launches"][name],
@@ -972,12 +1059,16 @@ def main() -> int:
                 max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
                 library_ms=r["library_ms"], library=r["library"],
-                shape=r["shape"],
-                second_shape=dict(
-                    shape=other["shape"], max_abs_err=other["abs"],
-                    ms=other["ms"], plain_ms=other["plain_ms"],
-                    bound_ms=other["bound"][0], bound_by=other["bound"][1],
-                    library_ms=other["library_ms"])))
+                shape=r["shape"], bf16_steps=r.get("bf16_steps"), blocks_per_sm=r.get("occupancy", {}).get(
+                    "blocks_per_sm"),
+                other_shapes=[dict(
+                    shape=o["shape"], max_abs_err=o["abs"],
+                    bf16_steps=o.get("bf16_steps"), ms=o["ms"],
+                    plain_ms=o["plain_ms"], bound_ms=o["bound"][0],
+                    bound_by=o["bound"][1], library_ms=o["library_ms"],
+                    blocks_per_sm=o.get("occupancy", {}).get("blocks_per_sm"))
+                    for k, o in lm_checks.items()
+                    if k.startswith(name + "/") and o is not r]))
             continue
         wire = name in WIRE_KERNELS
         r = quant["main"][name] if wire else checks[torch.float64][name]
@@ -988,6 +1079,10 @@ def main() -> int:
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"])
+        if name == "gram":
+            row.update(kernel_us=r["kernel_us"],
+                       library_kernel_us=r["library_kernel_us"],
+                       blocks_per_sm=r["occupancy"]["blocks_per_sm"])
         if wire:
             st = quant["streaming"][name]
             row["streaming_shape"] = dict(

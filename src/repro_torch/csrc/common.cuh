@@ -25,4 +25,24 @@ __device__ __forceinline__ T* shared_as() {
   return reinterpret_cast<T*>(repro_smem);
 }
 
+// What the card makes of ``kernel`` launched with ``threads`` threads and
+// ``dyn_smem`` bytes of dynamic shared memory: info = {resident blocks per
+// SM, registers a thread, shared bytes a block (static + dynamic), threads,
+// local (spilled) bytes a thread}.
+template <typename Kernel>
+inline cudaError_t kernel_occupancy(Kernel kernel, int threads, size_t dyn_smem, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dyn_smem);
+  if (e != cudaSuccess) return e;
+  info[0] = blocks;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(attr.sharedSizeBytes + dyn_smem);
+  info[3] = threads;
+  info[4] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace repro

@@ -1,4 +1,6 @@
 // K6: causal (optionally sliding-window) attention with an online softmax.
+// This file holds the f32 kernel, on the CUDA cores, and the entry point;
+// bf16 inputs go to the tensor-core kernel of flash_attention_tc.cu.
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas
@@ -7,7 +9,7 @@
 // (and, with a window w > 0, after row - w), without the [S, S] scores ever
 // reaching device memory.
 //
-// What bounds it: operations. At the served shape (B*H = 128, S = 2048,
+// What bounds it: operations. At Zamba2-7B's attention shape (B*H = 128, S = 2048,
 // d = 112) the causal half of q k^T and p v is ~120 GFLOP against ~0.2 GB
 // moved; the arithmetic is f32 on the CUDA cores (as the TPU kernel's
 // body: astype(f32) on load, f32 products), so the floor is 67 TFLOP/s.
@@ -28,10 +30,8 @@
 // acc = 0 (the TPU kernel's -1e30 gives such rows p = 1 until a later
 // block rescales them by alpha = 0: the same result, with no garbage in
 // between). The ragged edge of S is masked in the kernel: nothing is
-// padded. The output is acc / max(l, 1e-30) in q's dtype. Every sum runs
+// padded. The output is acc / max(l, 1e-30) in f32. Every sum runs
 // in a fixed order: no atomics, bit-identical reruns.
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -43,14 +43,6 @@ constexpr int kMaxD = 128;     // ops.py::MAX_HEAD_DIM
 constexpr int ldt = kBQ + 4;   // rows of Q^T, K^T and P^T: 16-byte aligned, and
                                // the transposing stores below hit 32 banks
 constexpr float kMInit = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -78,26 +70,25 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// dst[c][r] = src row r, column c (as f32; 0 past the S rows), for the
+// dst[c][r] = src row r, column c (0 past the S rows), for the
 // 64 rows from row0 and the d columns, src rows ``row_stride`` apart. A
 // warp covers 8 columns x 4 rows per store: 32 distinct banks.
-template <typename T>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src, size_t row_stride,
+__device__ __forceinline__ void load_transposed(float* dst, const float* src, size_t row_stride,
                                                 int row0, int S, int d) {
   const int lane = threadIdx.x % 32, wrp = threadIdx.x / 32;
   const int c_lo = lane / 4, r_lo = lane % 4;
   const int n_blocks = (d + 7) / 8 * (kBQ / 4);
   for (int e = wrp; e < n_blocks; e += kThreads / 32) {
     const int c = (e / (kBQ / 4)) * 8 + c_lo, r = (e % (kBQ / 4)) * 4 + r_lo;
-    if (c < d) dst[c * ldt + r] = row0 + r < S ? to_f32(src[(row0 + r) * row_stride + c]) : 0.f;
+    if (c < d) dst[c * ldt + r] = row0 + r < S ? src[(row0 + r) * row_stride + c] : 0.f;
   }
 }
 
 // kWide: d > 64 (each thread owns a second group of 4 output columns, at +64).
-template <typename T, bool kWide>
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int S, int H, int KV, int d, int causal, int window,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ out, int S, int H, int KV, int d, int causal, int window,
              float scale) {
   constexpr int vw = kWide ? 128 : 64;        // staged width of a V tile
   constexpr int nv = kWide ? 2 : 1;
@@ -115,9 +106,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int lane = tid % 32, wrp = tid / 32;
   const size_t q_row = static_cast<size_t>(H) * d;
   const size_t kv_row = static_cast<size_t>(KV) * d;
-  const T* qb = q + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * d;
-  const T* kb = k + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * d;
-  const T* vb = v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * d;
+  const float* qb = q + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * d;
+  const float* kb = k + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * d;
+  const float* vb = v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * d;
 
   load_transposed(qt, qb, q_row, q0, S, d);
 
@@ -139,7 +130,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const bool in = k0 + r < S;
 #pragma unroll
       for (int c = lane; c < vw; c += 32)
-        vs[r * vw + c] = in && c < d ? to_f32(vb[(k0 + r) * kv_row + c]) : 0.f;
+        vs[r * vw + c] = in && c < d ? vb[(k0 + r) * kv_row + c] : 0.f;
     }
     __syncthreads();
 
@@ -190,7 +181,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
   }
 
-  T* ob = out + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * d;
+  float* ob = out + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * d;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = q0 + 4 * ty + a;
@@ -201,54 +192,90 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = 64 * c + 4 * tx + j;
-        if (col < d) ob[row * q_row + col] = from_f32<T>(acc[c][a][j] * inv);
+        if (col < d) ob[row * q_row + col] = acc[c][a][j] * inv;
       }
   }
 }
 
-template <typename T, bool kWide>
+template <bool kWide>
+size_t smem_bytes(int d) {
+  constexpr int vw = kWide ? 128 : 64;
+  return (2 * static_cast<size_t>(d) * ldt + static_cast<size_t>(kBK) * vw +
+          static_cast<size_t>(kBK) * ldt) * sizeof(float);
+}
+
+template <bool kWide>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int B,
                          int S, int H, int KV, int d, int causal, int window,
                          cudaStream_t stream) {
-  constexpr int vw = kWide ? 128 : 64;
-  const size_t smem = (2 * static_cast<size_t>(d) * ldt + static_cast<size_t>(kBK) * vw +
-                       static_cast<size_t>(kBK) * ldt) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, kWide>,
+  const size_t smem = smem_bytes<kWide>(d);
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<kWide>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   // 1/sqrt(d) as the TPU kernel's Python constant, rounded to f32
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  flash_kernel<T, kWide><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, d, causal, window, scale);
+  flash_kernel<kWide><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, H, KV, d, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
                    int H, int KV, int d, int causal, int window, cudaStream_t stream) {
-  return d > 64 ? launch_flash<T, true>(q, k, v, out, B, S, H, KV, d, causal, window, stream)
-                : launch_flash<T, false>(q, k, v, out, B, S, H, KV, d, causal, window, stream);
+  return d > 64 ? launch_flash<true>(q, k, v, out, B, S, H, KV, d, causal, window, stream)
+                : launch_flash<false>(q, k, v, out, B, S, H, KV, d, causal, window, stream);
+}
+
+template <bool kWide>
+cudaError_t occupancy(int d, int* info) {
+  const size_t smem = smem_bytes<kWide>(d);
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<kWide>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  return repro::kernel_occupancy(flash_kernel<kWide>, kThreads, smem, info);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 2 = bfloat16 (q, k, v and out alike). q, out
-// [B, S, H, d] and k, v [B, S, KV, d], contiguous; H % KV == 0, d <= 128;
-// causal 0/1; window 0 (none) or > 0. Returns the cudaError_t of the launch.
+namespace repro {
+cudaError_t flash_attention_tc(const void* q, const void* k, const void* v, void* out, int B,
+                               int S, int H, int KV, int d, int causal, int window,
+                               cudaStream_t stream);
+cudaError_t flash_attention_tc_occupancy(int d, int* info);
+}  // namespace repro
+
+// dtype: 0 = float32 (this file's CUDA-core kernel), 2 = bfloat16 (the
+// tensor-core kernel, flash_attention_tc.cu; d a multiple of 16); q, k, v
+// and out alike. q, out [B, S, H, d] and k, v [B, S, KV, d], contiguous;
+// H % KV == 0, d <= 128; causal 0/1; window 0 (none) or > 0. Returns the
+// cudaError_t of the launch.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, int B, int S, int H,
                                      int KV, int d, int causal, int window,
                                      void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || d <= 0 || d > kMaxD ||
-      window < 0 || H > 65535 || B > 65535 || (dtype != 0 && dtype != 2))
+      window < 0 || H > 65535 || B > 65535 || (dtype != 0 && dtype != 2) ||
+      (dtype == 2 && d % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       dtype == 0
-          ? launch<float>(q, k, v, out, B, S, H, KV, d, causal, window, st)
-          : launch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, d, causal, window, st);
+          ? launch(q, k, v, out, B, S, H, KV, d, causal, window, st)
+          : repro::flash_attention_tc(q, k, v, out, B, S, H, KV, d, causal, window, st);
+  return static_cast<int>(e);
+}
+
+// The kernel that takes (dtype, d), as the card resolves it: info =
+// {blocks per SM, registers a thread, shared bytes a block, threads, local
+// bytes a thread} (common.cuh::kernel_occupancy).
+extern "C" int repro_flash_occupancy(int dtype, int d, int* info) {
+  if (d <= 0 || d > kMaxD || (dtype != 0 && dtype != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = dtype == 2 ? repro::flash_attention_tc_occupancy(d, info)
+                  : d > 64  ? occupancy<true>(d, info)
+                            : occupancy<false>(d, info);
   return static_cast<int>(e);
 }

@@ -6,96 +6,181 @@
 //
 // What bounds it: device memory (about m/2 + 1 multiply-adds per byte of
 // Y read, well under the card's ridge). At the slice's shapes (K=100, m=10,
-// d=54) it is tiny and its time is the launch.
+// d=54: 4.3 KB of Y a client) it is all fixed cost, so the design keeps the
+// chain from launch to store short.
 //
-// Design: grid = K, one block per client. The block walks d in tiles of
-// kGramTile columns, staging Y[:, tile] and g[tile] in shared memory, so Y
-// is read from memory once. Each of the P = m(m+1)/2 + m outputs (the upper
-// triangle of Y Y^T, then Y g) is owned by `parts` threads that split the
-// tile's columns in a fixed interleave; after the last tile the parts are
-// summed in a fixed order and the upper triangle is mirrored, so the Gram
-// matrix is exactly symmetric and bit-identical from run to run. No atomics.
+// Design: grid = K, one block of 512 threads per client.
+// - Staging: the block stages Y[:, tile] and g[tile] in shared memory and
+//   passes one barrier. When the tile is all of Y_k (m (d + 1) values fit),
+//   both are contiguous and go in one pass of 16-byte loads; a wider Y is
+//   walked in tiles, with a second barrier before each restage (correct at
+//   any d, but one block a client: not built to be fast there).
+// - Output mapping: output o < m(m+1)/2 is the pair (i <= j) of a constant
+//   table of the upper triangle column by column (so it does not depend on
+//   m); the next m outputs are Y g. No loop finds (i, j), and a thread
+//   reads its first pair before the barrier, while the staging loads fly.
+// - Warp sums: each output belongs to a group of kLanes = 4 lanes of one
+//   warp (128 groups a block: the main path's 65 outputs take one round).
+//   The lanes take the columns sub, sub + 4, ... and a fixed two-step
+//   xor-shuffle tree sums them (on the H100, 4 lanes a group ran faster
+//   than 8 or 16: more outputs in flight, a shorter tree). The group's
+//   first lane carries the total from tile to tile in shared memory (only
+//   it touches that entry: no barrier) and stores it after the last tile,
+//   at (i, j) and (j, i), so the Gram matrix is exactly symmetric.
+// - Packing: one block per client (100 blocks on 132 SMs, one wave), so
+//   every client's chain runs in parallel and ends with its block; the
+//   profiler put the old design's loss to torch.bmm inside the kernel, not
+//   between launches (PERF.md).
+// - No atomics: the sums run in a fixed order, so reruns are bit-identical.
 //
 // Accumulation type: T is float for f32 inputs (as the TPU kernel) and
 // double for f64 inputs (where the TPU kernel downcast to f32); see PERF.md.
+#include <algorithm>
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kGramThreads = 256;
-constexpr int kGramTile = 64;      // columns of Y staged per pass
-constexpr int kMaxHistory = 64;    // ops.py::MAX_HISTORY
+constexpr int kGramThreads = 512;
+constexpr int kLanes = 4;                           // lanes summing one output
+constexpr int kGroups = kGramThreads / kLanes;      // outputs in flight a block
+constexpr int kMaxHistory = 64;                     // ops.py::MAX_HISTORY
+constexpr int kMaxPairs = kMaxHistory * (kMaxHistory + 1) / 2;
+constexpr size_t kSmemBytes = 48 * 1024;
+
+struct PairTable {
+  unsigned char i[kMaxPairs], j[kMaxPairs];
+};
+
+constexpr PairTable make_pair_table() {
+  PairTable t{};
+  int o = 0;
+  for (int j = 0; j < kMaxHistory; ++j)
+    for (int i = 0; i <= j; ++i) {
+      t.i[o] = static_cast<unsigned char>(i);
+      t.j[o] = static_cast<unsigned char>(j);
+      ++o;
+    }
+  return t;
+}
+
+// pair o of the upper triangle, column by column: (0,0), (0,1), (1,1), ...
+__constant__ PairTable kPairs = make_pair_table();
+
+// dst[0:n] = src[0:n] by the whole block: 16-byte loads where both ends
+// are 16-byte aligned, then the tail one value at a time.
+template <typename T>
+__device__ __forceinline__ void copy_to_shared(T* dst, const T* __restrict__ src, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  int done = 0;
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    done = n / kVec * kVec;
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int e = threadIdx.x; e < n / kVec; e += kGramThreads) d4[e] = __ldg(s4 + e);
+  }
+  for (int e = done + threadIdx.x; e < n; e += kGramThreads) dst[e] = src[e];
+}
+
+// output o -> (i, j) of the upper triangle, or (o - n_pairs, -1) for Y g
+__device__ __forceinline__ void output_pair(int o, int n_pairs, int& i, int& j) {
+  if (o < n_pairs) {
+    i = kPairs.i[o];
+    j = kPairs.j[o];
+  } else {
+    i = o - n_pairs;
+    j = -1;
+  }
+}
+
+// The sum over the kLanes lanes of a group (xor tree; every lane of the
+// group ends with the same bits).
+template <typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kGramThreads)
 gram_kernel(const T* __restrict__ y, const T* __restrict__ g, long long g_stride,
-            T* __restrict__ gram, T* __restrict__ yg, int m, int d) {
-  T* ys = repro::shared_as<T>();     // [m][kGramTile]
-  T* gs = ys + m * kGramTile;        // [kGramTile]
-  T* red = gs + kGramTile;           // [kGramThreads] partials
+            T* __restrict__ gram, T* __restrict__ yg, int m, int d, int tile_cols) {
   const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  const T* yk = y + static_cast<size_t>(k) * m * d;
-  const T* gk = g + static_cast<size_t>(k) * g_stride;
   const int n_pairs = m * (m + 1) / 2;
   const int P = n_pairs + m;
+  T* ys = repro::shared_as<T>();        // [m][tw]
+  T* gs = ys + m * tile_cols;           // [tw]
+  T* total = gs + tile_cols;            // [P], each entry owned by one group
+  const int group = threadIdx.x / kLanes, sub = threadIdx.x % kLanes;
+  const T* yk = y + static_cast<size_t>(k) * m * d;
+  const T* gk = g + static_cast<size_t>(k) * g_stride;
+  int i0 = 0, j0 = 0;                   // the first round's pair, read early
+  if (group < P) output_pair(group, n_pairs, i0, j0);
 
-  for (int o0 = 0; o0 < P; o0 += kGramThreads) {
-    const int p_here = min(P - o0, kGramThreads);
-    const int parts = kGramThreads / p_here;
-    const int o = o0 + tid % p_here;
-    const int part = tid / p_here;
-    const bool active = part < parts;
-    // output o -> (row i, column j) of the upper triangle, or (i, -1) for Y g
-    int i = 0, j = -1;
-    if (o < n_pairs) {
-      int rem = o;
-      while (rem >= m - i) { rem -= m - i; ++i; }
-      j = i + rem;
+  for (int c0 = 0; c0 < d; c0 += tile_cols) {
+    const int tw = min(tile_cols, d - c0);
+    const bool last = c0 + tw == d;
+    if (c0 != 0) __syncthreads();   // every group is done with the last tile
+    if (tw == d) {                        // all of Y_k: contiguous
+      copy_to_shared(ys, yk, m * d);
+      copy_to_shared(gs, gk, d);
     } else {
-      i = o - n_pairs;
-    }
-    T acc = T(0);
-    for (int c0 = 0; c0 < d; c0 += kGramTile) {
-      const int tw = min(kGramTile, d - c0);
-      __syncthreads();
-      for (int e = tid; e < m * tw; e += kGramThreads) {
+      for (int e = threadIdx.x; e < m * tw; e += kGramThreads) {
         const int r = e / tw, c = e % tw;
-        ys[r * kGramTile + c] = yk[static_cast<size_t>(r) * d + c0 + c];
+        ys[e] = yk[static_cast<size_t>(r) * d + c0 + c];
       }
-      for (int c = tid; c < tw; c += kGramThreads) gs[c] = gk[c0 + c];
-      __syncthreads();
-      if (active) {
-        const T* a = ys + i * kGramTile;
-        const T* b = j >= 0 ? ys + j * kGramTile : gs;
-        for (int c = part; c < tw; c += parts) acc += a[c] * b[c];
-      }
+      for (int c = threadIdx.x; c < tw; c += kGramThreads) gs[c] = gk[c0 + c];
     }
-    red[tid] = acc;
     __syncthreads();
-    if (part == 0) {
-      T sum = red[tid];
-      for (int p = 1; p < parts; ++p) sum += red[p * p_here + tid];
-      T* gk_out = gram + static_cast<size_t>(k) * m * m;
-      if (j >= 0) {
-        gk_out[i * m + j] = sum;
-        gk_out[j * m + i] = sum;
+
+    // every lane of a warp runs every round (the shuffles need the whole
+    // warp); a group past P sums zeros and stores nothing
+    for (int o = group; o - group < P; o += kGroups) {
+      int i = i0, j = j0;
+      if (o != group && o < P) output_pair(o, n_pairs, i, j);
+      T acc = T(0);
+      if (o < P) {
+        const T* a = ys + i * tw;
+        const T* b = j >= 0 ? ys + j * tw : gs;
+        for (int c = sub; c < tw; c += kLanes) acc += a[c] * b[c];
+      }
+      acc = group_sum(acc);
+      if (sub != 0 || o >= P) continue;
+      if (c0 != 0) acc = total[o] + acc;
+      if (!last) {
+        total[o] = acc;
+      } else if (j >= 0) {
+        gram[(static_cast<size_t>(k) * m + i) * m + j] = acc;
+        gram[(static_cast<size_t>(k) * m + j) * m + i] = acc;
       } else {
-        yg[static_cast<size_t>(k) * m + i] = sum;
+        yg[static_cast<size_t>(k) * m + i] = acc;
       }
     }
-    __syncthreads();
   }
 }
 
+// columns a tile of Y holds: as many as fit beside g and the P totals
 template <typename T>
-cudaError_t launch(const void* y, const void* g, long long g_stride, void* gram,
-                   void* yg, int K, int m, int d, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(m) * kGramTile + kGramTile + kGramThreads) *
-                      sizeof(T);
-  gram_kernel<T><<<K, kGramThreads, smem, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(g), g_stride,
-      static_cast<T*>(gram), static_cast<T*>(yg), m, d);
+int tile_cols(int m, int d) {
+  const int P = m * (m + 1) / 2 + m;
+  const int fit = static_cast<int>((kSmemBytes / sizeof(T) - P) / (m + 1));
+  return std::min(d, fit);
+}
+
+template <typename T>
+size_t smem_bytes(int m, int tw) {
+  return (static_cast<size_t>(m + 1) * tw + m * (m + 1) / 2 + m) * sizeof(T);
+}
+
+template <typename T>
+cudaError_t launch(const void* y, const void* g, long long g_stride, void* gram, void* yg, int K,
+                   int m, int d, cudaStream_t stream) {
+  const int tw = tile_cols<T>(m, d);
+  gram_kernel<T><<<K, kGramThreads, smem_bytes<T>(m, tw), stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(g), g_stride, static_cast<T*>(gram),
+      static_cast<T*>(yg), m, d, tw);
   return cudaGetLastError();
 }
 
@@ -111,5 +196,18 @@ extern "C" int repro_gram(int dtype, const void* y, const void* g, long long g_s
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0 ? launch<float>(y, g, g_stride, gram, yg, K, m, d, st)
                              : launch<double>(y, g, g_stride, gram, yg, K, m, d, st);
+  return static_cast<int>(e);
+}
+
+// info as repro_flash_occupancy's, for the Gram kernel at (dtype, m, d).
+extern "C" int repro_gram_occupancy(int dtype, int m, int d, int* info) {
+  if (m <= 0 || m > kMaxHistory || d <= 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e =
+      dtype == 0
+          ? repro::kernel_occupancy(gram_kernel<float>, kGramThreads,
+                                    smem_bytes<float>(m, tile_cols<float>(m, d)), info)
+          : repro::kernel_occupancy(gram_kernel<double>, kGramThreads,
+                                    smem_bytes<double>(m, tile_cols<double>(m, d)), info);
   return static_cast<int>(e);
 }

@@ -59,6 +59,14 @@ _SIGNATURES = {
     "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
 }
+#: occupancy queries (no launch) → argtypes: the kernel's arguments, then
+#: the int[5] it fills (see occupancy)
+_OCCUPANCY = {
+    # dtype, d
+    "repro_flash_occupancy": [_I, _I, _P],
+    # dtype, m, d
+    "repro_gram_occupancy": [_I, _I, _I, _P],
+}
 
 _lib = None
 _lock = threading.Lock()
@@ -138,7 +146,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in (_SIGNATURES | _OCCUPANCY).items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -173,6 +181,21 @@ def check_cuda(name: str, *tensors: torch.Tensor,
                            f"{torch.cuda.get_device_name(dev)} is "
                            f"sm_{major}{minor}")
     return dev
+
+
+def occupancy(entry: str, *args) -> dict:
+    """What the card makes of the kernel that C entry point ``entry``
+    (a key of _OCCUPANCY) resolves for ``args``, without launching it:
+    resident blocks per SM, registers a thread, shared bytes a block,
+    threads a block, local (spilled) bytes a thread."""
+    lib = library()
+    info = (ctypes.c_int * 5)()
+    err = getattr(lib, entry)(*args, info)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{entry}: {msg} ({err})")
+    return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "threads",
+                     "local_bytes"), info))
 
 
 def launch(name: str, entry: str, *args) -> None:

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.anderson.ref import acc_dtype, gram_ref, update_ref
 
-#: history length the Gram kernel's shared-memory tile holds (csrc/gram.cu)
+#: history length the Gram kernel's pair table holds (csrc/gram.cu)
 MAX_HISTORY = 64
 
 

@@ -2,7 +2,9 @@
 repro/kernels/flash_attention/ops.py::flash_attention).
 
 Dispatch is by the tensors' device only: CPU tensors run the plain
-version (ref.py); CUDA tensors launch csrc/flash_attention.cu or raise.
+version (ref.py); CUDA tensors launch csrc/flash_attention.cu (f32, on the
+CUDA cores) or csrc/flash_attention_tc.cu (bf16, on the tensor cores, head
+dims a multiple of 16) or raise.
 The kernel reads q [B, S, H, hd] and k, v [B, S, KV, hd] as they are: it
 maps query head h to kv head h // (H // KV) itself (the reference
 repeats the kv heads) and masks the ragged end of S itself (the reference
@@ -15,8 +17,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: the widest head csrc/flash_attention.cu takes
+#: the widest head the kernels take
 MAX_HEAD_DIM = 128
+#: the tensor-core kernel's head dims are whole k-steps of its bf16 mma
+BF16_HEAD_DIM_MULTIPLE = 16
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -39,6 +43,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: q, k, v in {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+    if q.dtype == torch.bfloat16 and hd % BF16_HEAD_DIM_MULTIPLE:
+        raise ValueError(f"flash kernel: bf16 head dim {hd} is not a multiple "
+                         f"of {BF16_HEAD_DIM_MULTIPLE}")
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         _build.launch("flash_attention", "repro_flash_attention",

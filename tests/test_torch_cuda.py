@@ -49,6 +49,17 @@ def assert_close(port, ref, tol):
     assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
+def assert_bf16_steps(port, ref):
+    """Every element of a bf16 result within one bf16 step of the plain
+    version's: |port - ref| <= 2^-7 |ref| + 2^-9 of the RMS of ref's row
+    over the last dim (the f32 sums' own error where a row cancels)."""
+    port, ref = port.float().cpu(), ref.float().cpu()
+    assert port.shape == ref.shape
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    excess = (port - ref).abs() - (2.0 ** -7 * ref.abs() + 2.0 ** -9 * rms)
+    assert float(excess.max()) <= 0.0, float(excess.max())
+
+
 def _traj_case(rng, K, S, n, d, link, dtype):
     x = rng.standard_normal((K, S, n, d)).astype(dtype)
     if link == "logistic":
@@ -121,6 +132,37 @@ def test_anderson_kernels_on_card(card, dtype, shared):
     assert (new_k - new_p).abs().max() <= tol * scale.max()
     with pytest.raises(ValueError, match="expected shape"):
         flat_gram(y, g[..., :-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [1, 10, 64])
+@pytest.mark.parametrize("d", [54, 2048, 2 ** 20 + 3])
+def test_gram_kernel_shapes_on_card(card, dtype, m, d):
+    """The Gram kernel from one history column to MAX_HISTORY, from the main
+    path's d=54 (all of Y_k staged at once) through a tiled d to one wider
+    than a block takes (about 2^14 tiles, one block a client):
+    within tol of the plain version run in float64 (the exact sums to well
+    under tol; in float32 at d = 2^20 the plain version's own cuBLAS
+    product is farther than tol from them, the kernel's blocked sums are
+    not), exactly symmetric, and bit-identical when run again."""
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    K = 3
+    rng = np.random.default_rng(m + d)
+    y = torch.from_numpy(rng.standard_normal((K, m, d)).astype(npd)).to(card)
+    g = torch.from_numpy(rng.standard_normal(d).astype(npd)).to(card)
+    n0 = _build.LAUNCHES["gram"]
+    gram_k, yg_k = flat_gram(y, g)
+    gram_k2, yg_k2 = flat_gram(y, g)
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES["gram"] == n0 + 2
+    assert torch.equal(gram_k, gram_k2) and torch.equal(yg_k, yg_k2)
+    assert torch.equal(gram_k, gram_k.transpose(1, 2))
+    gram_p, yg_p = gram_ref(y.double(), g.double())
+    tol = TOL[npd]
+    assert_close(gram_k.cpu(), gram_p.cpu(), tol)
+    err = (yg_k.double() - yg_p).abs().max()
+    assert err <= tol * (y.double().abs() @ g.double().abs()).max()
 
 
 @pytest.mark.cuda
@@ -216,12 +258,19 @@ def test_ssd_kernel_on_card(card, B, nc, Q, nh, hd, st):
 def test_flash_kernel_on_card(card, dtype, B, S, H, KV, hd, window):
     """Kernel vs plain version in the model layout; both compute in f32 and
     round once to ``dtype`` (1e-5 of the largest |out| in f32; in bf16 two
-    roundings of an f32 value apart: 2^-7)."""
+    roundings of an f32 value apart: 2^-7, and each element within one bf16
+    step). The bf16 kernel takes head dims that are a multiple of 16 only:
+    for others the wrapper raises."""
     rng = np.random.default_rng(S + hd)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(card, dtype) for shape in ((B, S, H, hd), (B, S, KV, hd),
                                               (B, S, KV, hd)))
     n0 = _build.LAUNCHES["flash_attention"]
+    if dtype == torch.bfloat16 and hd % 16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            flash_attention(q, k, v, window=window)
+        assert _build.LAUNCHES["flash_attention"] == n0
+        return
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize(card)
     assert _build.LAUNCHES["flash_attention"] == n0 + 1
@@ -229,9 +278,39 @@ def test_flash_kernel_on_card(card, dtype, B, S, H, KV, hd, window):
     ref = flash_attention_ref(q, k, v, window=window)
     assert_close(out.float().cpu(), ref.float().cpu(),
                  1e-5 if dtype == torch.float32 else 2 ** -7)
+    if dtype == torch.bfloat16:
+        assert_bf16_steps(out, ref)
     # the first token attends to itself only
     torch.testing.assert_close(out[:, 0].float(), v[:, 0].repeat_interleave(
         H // KV, dim=1).float(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("window", [0, 7, 200])
+@pytest.mark.parametrize("S", [1, 17, 64, 1000])
+def test_flash_bf16_tensor_core_kernel_on_card(card, hd, window, S):
+    """The bf16 tensor-core kernel at the served head dims, GQA (H=8 on
+    KV=2), causal with and without a window (one the width of a few rows,
+    one across tiles), S from one row to a ragged many-tile length: within
+    2^-7 of the plain version's largest |out| and every element within one
+    bf16 step of it (both round an f32 result to bf16 once; the kernel's
+    split p v keeps 16 bits of p), and bit-identical when run again."""
+    B, H, KV = 2, 8, 2
+    rng = np.random.default_rng(S * hd + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(card, torch.bfloat16) for shape in
+               ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    n0 = _build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=window)
+    again = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES["flash_attention"] == n0 + 2
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, again)
+    ref = flash_attention_ref(q, k, v, window=window)
+    assert_close(out.float().cpu(), ref.float().cpu(), 2 ** -7)
+    assert_bf16_steps(out, ref)
 
 
 @pytest.mark.cuda
@@ -247,4 +326,7 @@ def test_lm_kernel_wrappers_raise_on_what_the_kernel_does_not_take(card):
         flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=card, dtype=torch.float16)
     with pytest.raises(TypeError, match="takes"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 24, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
         flash_attention(q, q, q)

@@ -92,6 +92,40 @@ def test_plain_flash_bf16_output():
     assert_close(out.float(), _oracle_model_layout(qb, kb, vb, 0), 2 ** -7)
 
 
+@pytest.mark.parametrize("window", [0, 24])
+def test_split_bf16_p_keeps_the_f32_contract(window):
+    """The bf16 tensor-core kernel's p v, emulated in torch: p = exp(s - max)
+    in f32, split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), both
+    multiplied by the same bf16 V and summed in f32, then divided by the f32
+    row sum. Before the output's bf16 rounding it is within 2^-15 of the
+    largest |out| of the JAX reference's f32 attention_ref on the same bf16
+    q, k, v (the split keeps 16 bits of p). One bf16 pass of p (p_hi only)
+    is not: it is the contract the split guards."""
+    rng = np.random.default_rng(14 + window)
+    BH, S, d = 4, 96, 64
+    q, k, v = (np.asarray(jnp.asarray(rng.standard_normal((BH, S, d)).astype(np.float32),
+                                      jnp.bfloat16), np.float32) for _ in range(3))
+    ref = np.asarray(jax_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                       window=window), np.float64)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    s = torch.einsum("bqd,bkd->bqk", qt, kt) / d ** 0.5
+    i = torch.arange(S)
+    visible = i[None, :] <= i[:, None]
+    if window:
+        visible &= i[None, :] > i[:, None] - window
+    s = s.masked_fill(~visible, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    row_sum = p.sum(-1, keepdim=True)
+    p_hi = p.bfloat16()
+    p_lo = (p - p_hi.float()).bfloat16()
+    v_bf16 = vt.bfloat16().float()           # exact: v is bf16 already
+    split = (p_hi.float() @ v_bf16 + p_lo.float() @ v_bf16) / row_sum
+    single = (p_hi.float() @ v_bf16) / row_sum
+    tol = 2.0 ** -15 * np.abs(ref).max()
+    assert np.abs(split.double().numpy() - ref).max() <= tol
+    assert np.abs(single.double().numpy() - ref).max() > tol
+
+
 def test_flash_rejects_mismatched_shapes():
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 8, 4, 3, 16))
     with pytest.raises(ValueError, match="H % KV"):
