@@ -30,6 +30,13 @@ port beside it. Every phase raises on failure; none is caught.
    update is held twice: with the AA solve's coefficients (large, from an
    ill-conditioned Gram) and with coefficients of order 1, where every
    term, the -eta g term included, weighs on the result.
+   ``trajectory`` runs the design ``ops.plan_trajectory`` picks from the
+   shape: at the main path's full-batch shape the resident one (one
+   thread-block cluster per client, its rows in shared memory for all the
+   steps; the plan -- cluster size, rows per block, shared bytes, clusters
+   resident at once -- is printed), and, held the same way, the streaming
+   one at a per-step shape (S=11 blocks of 528 of each paper-scale
+   client's rows); both bit-identical when run again.
    The LM kernels at the served shapes: ``ssd`` at Zamba2-7B's width (B=4,
    S=2048: 32 chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's
    (st=128, nh=80), ``flash_attention`` at B*H=128, S=2048, d=112 in
@@ -41,11 +48,15 @@ port beside it. Every phase raises on failure; none is caught.
    whose backend is named. The Gram kernel's and ``torch.bmm``'s own
    device durations come from torch.profiler beside their CUDA-event
    times, and its reruns must be bit-identical and its Gram matrix exactly
-   symmetric. The flash and Gram kernels' blocks per SM are printed.
+   symmetric. ``ssd`` reruns must be bit-identical too; its bound counts
+   its split-TF32 products at the TF32 tensor-core rate (the bound at the
+   f32 rate, as PR 14 counted it, is printed beside it). The flash, Gram
+   and SSD kernels' blocks per SM are printed.
    Times come from CUDA events (median of repeats).
 3. The acceptance configuration (synthetic covtype n=10,000, K=10 iid,
    gamma=1e-3, eta=1, L=10, float64, FedOSAA-SVRG, at most 20 rounds):
-   every slice-A kernel launches once per round, rel-error 1e-6 within 18
+   every slice-A kernel launches once per round (``trajectory`` in its
+   resident design every time), rel-error 1e-6 within 18
    rounds, final loss within rel 1e-12 of the JAX reference's
    0.3031490665062957; ms per round.
 4. Paper scale (covtype-sized synthetic data N=581,012, d=54, K=100 iid,
@@ -53,18 +64,19 @@ port beside it. Every phase raises on failure; none is caught.
    the int8 wire. ms per round and the rel-error reached. These are the
    main path's runs: the launch counters are set to 0 just before each
    run and read just after it; the slice-A kernels must have launched once
-   per round of every run, ``quantize`` and ``dequantize`` twice per round
-   of the int8 run (the gradient and the delta uplink) and never on the
-   identity wire. The kernels line reports, as ``launches``, the float64
-   identity run's counts for the slice-A kernels and the int8 run's for
-   the wire's, and every run's in ``launches_by_run``.
+   per round of every run (``trajectory`` in its resident design),
+   ``quantize`` and ``dequantize`` twice per round of the int8 run (the
+   gradient and the delta uplink) and never on the identity wire. The
+   kernels line reports, as ``launches``, the float64 identity run's
+   counts for the slice-A kernels and the int8 run's for the wire's, and
+   every run's in ``launches_by_run``.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, each to rel-error 1e-6
    within 26 rounds (cap 40): bytes exactly 432, 216 and 116 per round,
    final loss within rel 1e-10 of the reference's 0.3128270332955105, and
-   per round one launch of each slice-A kernel and, under int8, two of
-   ``quantize`` and ``dequantize``.
+   per round one launch of each slice-A kernel (``trajectory`` resident)
+   and, under int8, two of ``quantize`` and ``dequantize``.
 6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
    from the port's seeded init. In f32 (the weights before their bf16
    rounding), a prefill's last-position logits within 1e-4 of the largest
@@ -78,6 +90,13 @@ port beside it. Every phase raises on failure; none is caught.
    16-token prompts, 12 new tokens): every request finishes with 12
    tokens; tokens/s.
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+   Beyond the contract's keys, ``trajectory``'s row carries ``plan`` (the
+   resident plan at the main path's shape in f64), ``launches_by_design``
+   (the float64 identity run's resident and streaming launches),
+   ``rerun_equal`` and ``per_step_shape`` (the streaming design's check);
+   ``ssd``'s carries ``blocks_per_sm``, ``rerun_equal``, ``bound_split``
+   and ``bound_ms_f32_count`` (the bound with every operation at the f32
+   rate).
 """
 from __future__ import annotations
 
@@ -97,10 +116,11 @@ sys.path.insert(0, str(ROOT / "src"))
 #: H100 SXM data sheet: HBM rate, and the peak rate of each type's
 #: fastest unit (float32 outside the tensor cores; float64 on the FP64
 #: tensor cores; bfloat16 products, accumulated in float32, on the dense
-#: tensor cores) -- the least time the card could take
+#: tensor cores; "tf32": TF32 products, accumulated in float32, on the
+#: dense tensor cores, 495 TFLOP/s) -- the least time the card could take
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12,
-                  torch.bfloat16: 989e12}
+                  torch.bfloat16: 989e12, "tf32": 495e12}
 #: kernel vs plain: max |kernel - plain| over the result's (or its terms')
 #: largest magnitude; the two differ in summation order only
 TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -262,7 +282,9 @@ def check_kernels(clients, dtype, device) -> dict:
     from repro_torch.kernels.anderson import flat_gram, flat_update
     from repro_torch.kernels.anderson.ref import gram_ref, update_ref
     from repro_torch.kernels.local_update import fused_trajectory
-    from repro_torch.kernels.local_update.ops import inverse_count
+    from repro_torch.kernels.local_update.ops import (inverse_count,
+                                                      plan_trajectory,
+                                                      resident_occupancy)
     from repro_torch.kernels.local_update.ref import trajectory_ref
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -283,16 +305,72 @@ def check_kernels(clients, dtype, device) -> dict:
         return trajectory_ref(x, y, mask, w0, u, invn, **kw)
 
     results = {}
+    _build.reset_launches()
     wk, rk = kernel_traj()
+    designs = dict(_build.DESIGN_LAUNCHES["trajectory"])
     wp, rp = plain_traj()
     errs = [rel_diff(wk, wp), rel_diff(rk, rp)]
+    plan = plan_trajectory(K, 1, n, d, dtype)
+    occ = resident_occupancy(dtype, kw["link"], True, n, d, plan.cluster)
     results["trajectory"] = dict(
         rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
         ms=device_ms(kernel_traj, device), plain_ms=device_ms(plain_traj, device),
         library_ms=None,
         bound=bound_ms(nbytes(x, y, mask, w0, u, invn, wk, rk),
                        # live logits and X^T c every step, anchor logits once
-                       {dtype: K * n * d * (4 * steps + 2)}))
+                       {dtype: K * n * d * (4 * steps + 2)}),
+        rerun_equal=all(map(torch.equal, kernel_traj(), (wk, rk))),
+        plan=dict(design=plan.design, cluster=plan.cluster,
+                  rows_per_block=plan.rows_per_block,
+                  shared_bytes=occ["shared_bytes"],
+                  active_clusters=occ["active_clusters"],
+                  registers=occ["registers"], threads=occ["threads"]),
+        designs=designs)
+    # the streaming design at a per-step shape: S = steps blocks of m of
+    # each client's rows (per-step minibatch rows)
+    m = n // steps
+    xps, yps, mps = (t[:, 0, :steps * m].reshape(K, steps, m, *t.shape[3:])
+                     .contiguous() for t in (x, y, mask))
+    invn_ps = inverse_count(mps, dtype)
+
+    def kernel_ps():
+        return fused_trajectory(xps, yps, mps, w0, u, **kw)
+
+    def plain_ps():
+        return trajectory_ref(xps, yps, mps, w0, u, invn_ps, **kw)
+    _build.reset_launches()
+    wk_ps, rk_ps = kernel_ps()
+    ps_designs = dict(_build.DESIGN_LAUNCHES["trajectory"])
+    wp_ps, rp_ps = plain_ps()
+    errs = [rel_diff(wk_ps, wp_ps), rel_diff(rk_ps, rp_ps)]
+    per_step = dict(
+        shape=f"K={K} S={steps} n={m} d={d} {str(dtype)[6:]}",
+        design=plan_trajectory(K, steps, m, d, dtype).design, designs=ps_designs,
+        rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
+        ms=device_ms(kernel_ps, device), plain_ms=device_ms(plain_ps, device),
+        # live and anchor logits and X^T c every step, each step other rows
+        bound=bound_ms(nbytes(xps, yps, mps, w0, u, invn_ps, wk_ps, rk_ps),
+                       {dtype: K * m * d * 6 * steps}),
+        rerun_equal=all(map(torch.equal, kernel_ps(), (wk_ps, rk_ps))))
+    results["trajectory"]["per_step"] = per_step
+    t = results["trajectory"]
+    print(f"  trajectory {str(dtype)[6:]:7s} plan {t['plan']}, launches by design "
+          f"{designs}, rerun bit-identical {t['rerun_equal']}; per-step shape "
+          f"[{per_step['shape']}] design {per_step['design']} ({ps_designs}): rel "
+          f"{per_step['rel']:.3e} abs {per_step['abs']:.3e}  kernel "
+          f"{per_step['ms']:.4f} ms  plain {per_step['plain_ms']:.4f} ms  bound "
+          f"{per_step['bound'][0]:.4f} ms ({per_step['bound'][1]}), rerun "
+          f"bit-identical {per_step['rerun_equal']}", flush=True)
+    if designs != {"resident": 1, "streaming": 0} or ps_designs != {
+            "resident": 0, "streaming": 1}:
+        raise AssertionError(f"trajectory: the full-batch shape ran {designs}, "
+                             f"the per-step shape {ps_designs}")
+    if not (t["rerun_equal"] and per_step["rerun_equal"]):
+        raise AssertionError("trajectory kernel: a rerun differs")
+    if not per_step["rel"] <= TOLERANCE[dtype]:
+        raise AssertionError(
+            f"trajectory (streaming, per-step shape) disagrees with its plain "
+            f"version in {dtype}: {per_step['rel']:.3e} > {TOLERANCE[dtype]:.0e}")
 
     s, ys = trajectory_to_sy(wp, rp)               # [K, m, d] each
     g = 0.01 * torch.randn(d, generator=gen, device=device, dtype=dtype)
@@ -436,6 +514,19 @@ def check_quant(device) -> dict:
     return out
 
 
+def check_resident(what: str, rounds: int) -> dict:
+    """The trajectory launches of a full-batch run since the last reset, by
+    design: every one must have run the resident design."""
+    from repro_torch.kernels import _build
+
+    designs = dict(_build.DESIGN_LAUNCHES["trajectory"])
+    if designs != {"resident": rounds, "streaming": 0}:
+        raise AssertionError(f"{what}: trajectory ran {designs} over {rounds} "
+                             f"rounds; every full-batch round runs the "
+                             f"resident design")
+    return designs
+
+
 def expected_launches(rounds: int, int8: bool) -> dict:
     """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: each slice-A
     kernel once a round; each wire kernel twice a round on the int8 wire;
@@ -461,12 +552,13 @@ def acceptance(device) -> dict:
                       20, w_star=w_star, stop_rel_error=1e-8, device=device)
     launches = dict(_build.LAUNCHES)
     rounds = len(h.rounds)
+    designs = check_resident("acceptance", rounds)
     hit = np.nonzero(h.rel_error < 1e-6)[0]
     to_target = int(hit[0]) + 1 if len(hit) else None
     loss_rel = abs(h.loss[-1] - REFERENCE_LOSS) / REFERENCE_LOSS
     print(f"  rounds run {rounds}, rounds to rel-error 1e-6: {to_target}, "
           f"final loss {h.loss[-1]!r} (rel {loss_rel:.2e} from the reference), "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, trajectory by design {designs}", flush=True)
     print("  rel-error curve " + json.dumps([float(v) for v in h.rel_error]),
           flush=True)
     per_round = np.diff(h.wall_time) * 1e3      # round 0 excluded
@@ -506,15 +598,18 @@ def paper_scale(clients, w_star, device) -> dict:
                           channel=channel)
         launches = dict(_build.LAUNCHES)
         rounds = len(h.rounds)
+        designs = check_resident(f"paper-scale {name} run", rounds)
         per_round = np.diff(h.wall_time) * 1e3      # round 0 excluded
         out[name] = dict(ms_per_round=float(np.median(per_round)),
                          rel_error=float(h.rel_error[-1]), rounds=rounds,
-                         launches=launches, comm_bytes=float(h.comm_bytes[-1]))
+                         launches=launches, designs=designs,
+                         comm_bytes=float(h.comm_bytes[-1]))
         print(f"  {name} [{h.channel}]: {rounds} rounds, median "
               f"{out[name]['ms_per_round']:.3f} ms/round (round 0: "
               f"{h.wall_time[0] * 1e3:.1f} ms), rel-error "
               f"{h.rel_error[-1]:.3e}, loss {h.loss[-1]!r}, bytes "
-              f"{h.comm_bytes[-1]:.0f}, launches {launches}", flush=True)
+              f"{h.comm_bytes[-1]:.0f}, launches {launches}, trajectory by "
+              f"design {designs}", flush=True)
         want = expected_launches(rounds, int8=channel == "int8")
         if launches != want:
             raise AssertionError(f"paper-scale {name} run: launches "
@@ -547,12 +642,13 @@ def compression(device) -> dict:
                           channel=spec)
         launches = dict(_build.LAUNCHES)
         rounds = len(h.rounds)
+        designs = check_resident(spec, rounds)
         ms = float(np.median(np.diff(h.wall_time) * 1e3))
         loss_rel = abs(h.loss[-1] - COMPRESSION_LOSS) / COMPRESSION_LOSS
         ref_rounds, ref_bytes = COMPRESSION_REF[spec]
         out[spec] = dict(rounds=rounds, comm_bytes=float(h.comm_bytes[-1]),
                          loss=float(h.loss[-1]), ms_per_round=ms,
-                         launches=launches)
+                         launches=launches, designs=designs)
         print(f"  {h.channel:9s} rounds to 1e-6: {rounds} (reference "
               f"{ref_rounds}), bytes {h.comm_bytes[-1]:.0f} (reference "
               f"{ref_bytes:.0f}), final loss {h.loss[-1]!r} (rel "
@@ -635,10 +731,13 @@ def check_lm_kernels(device) -> dict:
         y_p, state_p = ssd_chunk_ref(*args)
         errs = [rel_diff(y, y_p), rel_diff(state, state_p)]
         G, pairs = B * nc, Q * (Q + 1) // 2
-        # per chunk: C B^T once; per head M = CB exp(da_i - da_j) (3 ops),
-        # y += M (x dt), x dt, and the state (x w)^T B with w (3 ops)
-        ops = G * (2 * pairs * st + nh * (3 * pairs + 2 * pairs * hd + Q * hd
-                                          + 2 * Q * hd * st + Q * (hd + 3)))
+        # the products, each three TF32 passes on the tensor cores: per
+        # chunk C B^T once; per head y = M (x dt) and the state (x w)^T B
+        products = 3 * G * (2 * pairs * st + nh * (2 * pairs * hd + 2 * Q * hd * st))
+        # elementwise, f32: per head M = CB exp(da_i - da_j) (3 ops a pair),
+        # x dt, and w = dt exp(da_last - da) applied to x (3 ops a key)
+        elementwise = G * nh * (3 * pairs + Q * hd + Q * (hd + 3))
+        io = nbytes(*args, y, state)
         out[f"ssd/{label}"] = dict(
             rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
             tol=LM_TOLERANCE[torch.float32],
@@ -646,7 +745,15 @@ def check_lm_kernels(device) -> dict:
             ms=device_ms(lambda: ssd_chunk(*args), device, n=10),
             plain_ms=device_ms(lambda: ssd_chunk_ref(*args), device, n=3),
             library_ms=None, library=None,
-            bound=bound_ms(nbytes(*args, y, state), {torch.float32: ops}))
+            bound=bound_ms(io, {"tf32": products, torch.float32: elementwise}),
+            # PR 14's count: every operation (one pass of each product) at
+            # the f32 CUDA-core rate
+            bound_f32_count=bound_ms(io, {torch.float32: products / 3 + elementwise}),
+            bound_split={"products (tf32, 3 passes)": products / PEAK_OPS_PER_S["tf32"] * 1e3,
+                         "elementwise (f32)": elementwise / PEAK_OPS_PER_S[torch.float32] * 1e3,
+                         "bytes": io / HBM_BYTES_PER_S * 1e3},
+            rerun_equal=all(map(torch.equal, ssd_chunk(*args), (y, state))),
+            occupancy=_build.occupancy("repro_ssd_occupancy", Q, hd, st))
         del args, y, state, y_p, state_p
 
     for label, (B, S, H, KV, d, window, dtype) in (
@@ -712,6 +819,10 @@ def check_lm_kernels(device) -> dict:
         if r.get("bound_split"):
             print("    bound split (ms): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in r["bound_split"].items()), flush=True)
+            if r.get("bound_f32_count"):
+                print(f"    bound with every operation at the f32 rate (PR 14's "
+                      f"count): {r['bound_f32_count'][0]:.4f} ms "
+                      f"({r['bound_f32_count'][1]})", flush=True)
             print(f"    rerun bit-identical {r['rerun_equal']}; kernel "
                   f"{r['occupancy']}", flush=True)
             if not r["rerun_equal"]:
@@ -1059,8 +1170,11 @@ def main() -> int:
                 max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
                 library_ms=r["library_ms"], library=r["library"],
-                shape=r["shape"], bf16_steps=r.get("bf16_steps"), blocks_per_sm=r.get("occupancy", {}).get(
-                    "blocks_per_sm"),
+                shape=r["shape"], bf16_steps=r.get("bf16_steps"),
+                blocks_per_sm=r.get("occupancy", {}).get("blocks_per_sm"),
+                rerun_equal=r.get("rerun_equal"), bound_split=r.get("bound_split"),
+                bound_ms_f32_count=(r["bound_f32_count"][0]
+                                    if r.get("bound_f32_count") else None),
                 other_shapes=[dict(
                     shape=o["shape"], max_abs_err=o["abs"],
                     bf16_steps=o.get("bf16_steps"), ms=o["ms"],
@@ -1079,6 +1193,15 @@ def main() -> int:
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"])
+        if name == "trajectory":
+            ps = r["per_step"]
+            row.update(plan=r["plan"], rerun_equal=r["rerun_equal"],
+                       launches_by_design=paper["float64"]["designs"],
+                       per_step_shape=dict(
+                           shape=ps["shape"], design=ps["design"],
+                           max_abs_err=ps["abs"], ms=ps["ms"],
+                           plain_ms=ps["plain_ms"], bound_ms=ps["bound"][0],
+                           bound_by=ps["bound"][1], rerun_equal=ps["rerun_equal"]))
         if name == "gram":
             row.update(kernel_us=r["kernel_us"],
                        library_kernel_us=r["library_kernel_us"],

@@ -13,6 +13,8 @@ if that is not 0.
 ``LAUNCHES`` counts launches per kernel. Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels (chip_smoke.py resets and reads it).
+``DESIGN_LAUNCHES`` splits those of a kernel with more than one design
+(``trajectory``: resident or streaming) by the design that ran.
 """
 from __future__ import annotations
 
@@ -35,14 +37,16 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 #: kernel name → launches since the last reset (see module docstring)
 LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "quantize": 0,
             "dequantize": 0, "ssd": 0, "flash_attention": 0}
+#: kernel → design → launches since the last reset (see module docstring)
+DESIGN_LAUNCHES = {"trajectory": {"resident": 0, "streaming": 0}}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 #: C entry points → argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
     # dtype, link, anchor, x, y, mask, w0, u, invn, w_traj, r_traj,
-    # K, S, n, d, steps, eta, reg, stream
+    # K, S, n, d, steps, cluster, eta, reg, stream
     "repro_trajectory": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _D, _D, _P],
+                         _I, _I, _I, _I, _I, _I, _D, _D, _P],
     # dtype, y, g, g_stride, gram, yg, K, m, d, stream
     "repro_gram": [_I, _P, _P, _LL, _P, _P, _I, _I, _I, _P],
     # dtype, w, w_stride, g, g_stride, s, y, gamma, out, K, m, d, eta, beta,
@@ -59,13 +63,21 @@ _SIGNATURES = {
     "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
 }
-#: occupancy queries (no launch) → argtypes: the kernel's arguments, then
-#: the int[5] it fills (see occupancy)
+#: what an occupancy query's int array holds (see occupancy)
+_BLOCK_FIELDS = ("blocks_per_sm", "registers", "shared_bytes", "threads",
+                 "local_bytes")
+_CLUSTER_FIELDS = ("active_clusters", "shared_bytes", "threads", "registers")
+#: occupancy queries (no launch) → (argtypes: the kernel's arguments, then
+#: the int array it fills; that array's fields)
 _OCCUPANCY = {
     # dtype, d
-    "repro_flash_occupancy": [_I, _I, _P],
+    "repro_flash_occupancy": ([_I, _I, _P], _BLOCK_FIELDS),
     # dtype, m, d
-    "repro_gram_occupancy": [_I, _I, _I, _P],
+    "repro_gram_occupancy": ([_I, _I, _I, _P], _BLOCK_FIELDS),
+    # Q, hd, st
+    "repro_ssd_occupancy": ([_I, _I, _I, _P], _BLOCK_FIELDS),
+    # dtype, link, anchor, n, d, cluster
+    "repro_trajectory_clusters": ([_I, _I, _I, _I, _I, _I, _P], _CLUSTER_FIELDS),
 }
 
 _lib = None
@@ -77,6 +89,9 @@ build_seconds: float | None = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for designs in DESIGN_LAUNCHES.values():
+        for design in designs:
+            designs[design] = 0
 
 
 def _nvcc() -> str:
@@ -146,7 +161,8 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in (_SIGNATURES | _OCCUPANCY).items():
+            entries = _SIGNATURES | {k: v[0] for k, v in _OCCUPANCY.items()}
+            for name, argtypes in entries.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -185,21 +201,23 @@ def check_cuda(name: str, *tensors: torch.Tensor,
 
 def occupancy(entry: str, *args) -> dict:
     """What the card makes of the kernel that C entry point ``entry``
-    (a key of _OCCUPANCY) resolves for ``args``, without launching it:
-    resident blocks per SM, registers a thread, shared bytes a block,
-    threads a block, local (spilled) bytes a thread."""
+    (a key of _OCCUPANCY) resolves for ``args``, without launching it: for
+    a block, resident blocks per SM, registers a thread, shared bytes a
+    block, threads a block, local (spilled) bytes a thread; for a cluster,
+    the clusters resident at once, shared bytes, threads and registers."""
     lib = library()
-    info = (ctypes.c_int * 5)()
+    fields = _OCCUPANCY[entry][1]
+    info = (ctypes.c_int * len(fields))()
     err = getattr(lib, entry)(*args, info)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry}: {msg} ({err})")
-    return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "threads",
-                     "local_bytes"), info))
+    return dict(zip(fields, info))
 
 
-def launch(name: str, entry: str, *args) -> None:
-    """Call C entry point ``entry`` on the current stream; raise on error."""
+def launch(name: str, entry: str, *args, design: str | None = None) -> None:
+    """Call C entry point ``entry`` on the current stream; raise on error.
+    ``design`` names the design that runs, for a kernel with more than one."""
     lib = library()
     err = getattr(lib, entry)(*args,
                               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -207,3 +225,5 @@ def launch(name: str, entry: str, *args) -> None:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
+    if design is not None:
+        DESIGN_LAUNCHES[name][design] += 1

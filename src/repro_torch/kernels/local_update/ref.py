@@ -4,8 +4,9 @@ Counterpart of repro/kernels/local_update/ref.py::trajectory_ref, op for
 op (same link coefficients, same row-vector contractions, same emit
 expression), with an explicit leading client axis K in place of the
 reference's vmap. For a resident design (S == 1) the anchor coefficients
-are step-invariant and are hoisted out of the step loop; the CUDA kernel
-(csrc/trajectory.cu) recomputes them per step from the same rows.
+are step-invariant and are hoisted out of the step loop, as the CUDA
+kernel's resident design does (csrc/trajectory.cu; its streaming design
+recomputes them per step from the same rows).
 
 The CPU tests use it against the JAX oracle, and chip_smoke.py holds the
 CUDA kernel against it on the card; nothing on the main path calls it when

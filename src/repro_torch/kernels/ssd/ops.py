@@ -5,7 +5,9 @@ Dispatch is by the tensors' device only: CPU tensors run the plain
 version (ref.py); CUDA tensors launch csrc/ssd.cu or raise. The kernel
 reads and writes the model's [B, nc, Q, nh, hd] layout itself, so nothing
 is transposed around the launch; it computes C B^T once per chunk into a
-[B*nc, Q, Q] f32 scratch allocated here.
+[B*nc, Qp, Qp] f32 scratch allocated here (Qp: Q rounded up to the
+kernel's 64-row tile). Its products run on the tensor cores in split TF32
+(three TF32 passes per product keep f32's 1e-5 contract).
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
 #: the largest chunk and head / state width csrc/ssd.cu takes
 MAX_CHUNK, MAX_DIM = 256, 128
+#: csrc/ssd.cu's C B^T tile: the scratch's rows and columns are Q rounded up
+#: to it
+CB_TILE = 64
 
 
 def ssd_chunk(xc, dtc, dA_cumsum, Bc, Cc):
@@ -37,7 +42,8 @@ def ssd_chunk(xc, dtc, dA_cumsum, Bc, Cc):
     dev = _build.check_cuda("ssd", xc, dtc, dA_cumsum, Bc, Cc,
                             dtypes=(torch.float32,))
     G = B * nc
-    cb = torch.empty((G, Q, Q), dtype=torch.float32, device=dev)
+    Qp = -(-Q // CB_TILE) * CB_TILE
+    cb = torch.empty((G, Qp, Qp), dtype=torch.float32, device=dev)
     y = torch.empty_like(xc)
     state = torch.empty((B, nc, nh, hd, st), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

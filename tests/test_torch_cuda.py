@@ -22,7 +22,9 @@ from repro_torch.kernels.anderson.ref import gram_ref, update_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.local_update import fused_trajectory
-from repro_torch.kernels.local_update.ops import inverse_count
+from repro_torch.kernels.local_update.ops import (inverse_count,
+                                                  plan_trajectory,
+                                                  resident_smem_bytes)
 from repro_torch.kernels.local_update.ref import trajectory_ref
 from repro_torch.kernels.quant import (chunk_rows, dequantize, dequantize_ref,
                                        int8_dequantize, int8_sr_encode,
@@ -96,14 +98,66 @@ def test_trajectory_kernel_on_card(card, dtype, link, anchor, per_step):
         rng, 7, S, 333, 54, link, npd))
     kw = dict(link=link, reg=1e-3, eta=0.5, anchor_scale=anchor, steps=steps)
     n0 = _build.LAUNCHES["trajectory"]
+    design = "streaming" if per_step else "resident"
+    d0 = _build.DESIGN_LAUNCHES["trajectory"][design]
     w_k, r_k = fused_trajectory(x, y, mask, w0, u, **kw)
     torch.cuda.synchronize(card)
     assert _build.LAUNCHES["trajectory"] == n0 + 1
+    assert _build.DESIGN_LAUNCHES["trajectory"][design] == d0 + 1
     w_p, r_p = trajectory_ref(x, y, mask, w0, u, inverse_count(mask, dtype),
                               **kw)
     tol = TOL[npd]
     assert_close(w_k.cpu(), w_p.cpu(), tol)
     assert_close(r_k.cpu(), r_p.cpu(), tol)
+    w_2, r_2 = fused_trajectory(x, y, mask, w0, u, **kw)
+    assert torch.equal(w_k, w_2) and torch.equal(r_k, r_2)
+
+
+def _rows_for_cluster(cluster, d, dtype):
+    """A client's row count whose resident plan at K=70 (too many clients
+    for the clusters to grow) takes ``cluster`` blocks, 3 short of filling
+    them (so, past one block, n is no multiple of the rows per block)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    most = 1
+    while resident_smem_bytes(most + 1, d, size) <= 232_448:
+        most += 1
+    return cluster * most - 3 if cluster > 1 else most - 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [54, 37])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_trajectory_resident_clusters_on_card(card, dtype, d, cluster):
+    """The resident design at every cluster size, on a shape whose rows
+    fill the blocks but for 3 (a ragged last block), with a ragged and a
+    fully masked client: every (link, a) against the plain version, one
+    launch each on the resident design, bit-identical when run again."""
+    K, steps = 70, 4
+    n = _rows_for_cluster(cluster, d, dtype)
+    plan = plan_trajectory(K, 1, n, d, dtype)
+    assert (plan.design, plan.cluster) == ("resident", cluster)
+    assert cluster == 1 or n % plan.rows_per_block
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    for link in ("logistic", "linear"):
+        rng = np.random.default_rng(cluster * d)
+        x, y, mask, w0, u = (torch.from_numpy(a).to(card) for a in _traj_case(
+            rng, K, 1, n, d, link, npd))
+        mask[2] = 0.0                    # a client with no valid row
+        for anchor in (0.0, 1.0):
+            kw = dict(link=link, reg=1e-3, eta=0.5, anchor_scale=anchor,
+                      steps=steps)
+            d0 = dict(_build.DESIGN_LAUNCHES["trajectory"])
+            w_k, r_k = fused_trajectory(x, y, mask, w0, u, **kw)
+            w_2, r_2 = fused_trajectory(x, y, mask, w0, u, **kw)
+            torch.cuda.synchronize(card)
+            assert _build.DESIGN_LAUNCHES["trajectory"] == {
+                "resident": d0["resident"] + 2, "streaming": d0["streaming"]}
+            assert torch.equal(w_k, w_2) and torch.equal(r_k, r_2)
+            w_p, r_p = trajectory_ref(x, y, mask, w0, u,
+                                      inverse_count(mask, dtype), **kw)
+            assert_close(w_k.cpu(), w_p.cpu(), TOL[npd])
+            assert_close(r_k.cpu(), r_p.cpu(), TOL[npd])
 
 
 @pytest.mark.cuda
@@ -230,20 +284,25 @@ def _ssd_case(rng, B, nc, Q, nh, hd, st):
     (1, 1, 256, 4, 64, 128),       # Mamba-2-2.7B's state
     (2, 1, 100, 3, 48, 20),        # ragged tiles: Q, hd, st not multiples of 16/64
     (1, 3, 17, 2, 128, 128),       # the widest head and state, a tiny chunk
+    (1, 1, 256, 112, 64, 64),      # Zamba2-7B's full head count, one chunk
 ])
 def test_ssd_kernel_on_card(card, B, nc, Q, nh, hd, st):
     """f32 intra-chunk step against its plain version on the card; the two
-    differ in summation order only (1e-5 of the largest magnitude)."""
+    differ in summation order and the kernel's split-TF32 products (three
+    passes keep ~2^-22), within 1e-5 of the largest magnitude; a rerun is
+    bit-identical."""
     args = [torch.from_numpy(a).to(card) for a in _ssd_case(
         np.random.default_rng(Q + st), B, nc, Q, nh, hd, st)]
     n0 = _build.LAUNCHES["ssd"]
     y, state = ssd_chunk(*args)
+    y2, state2 = ssd_chunk(*args)
     torch.cuda.synchronize(card)
-    assert _build.LAUNCHES["ssd"] == n0 + 1
+    assert _build.LAUNCHES["ssd"] == n0 + 2
+    assert torch.equal(y, y2) and torch.equal(state, state2)
     y_p, state_p = ssd_chunk_ref(*args)
     assert_close(y.cpu(), y_p.cpu(), 1e-5)
     assert_close(state.cpu(), state_p.cpu(), 1e-5)
-    assert _build.LAUNCHES["ssd"] == n0 + 1      # the plain version counts none
+    assert _build.LAUNCHES["ssd"] == n0 + 2      # the plain version counts none
 
 
 @pytest.mark.cuda

@@ -24,7 +24,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.anderson import flat_gram, flat_update
 from repro_torch.kernels.anderson.ref import gram_ref, update_ref
 from repro_torch.kernels.local_update import fused_trajectory
-from repro_torch.kernels.local_update.ops import inverse_count
+from repro_torch.kernels.local_update.ops import (MAX_CLUSTER, inverse_count,
+                                                  plan_trajectory,
+                                                  resident_smem_bytes)
 from repro_torch.kernels.local_update.ref import trajectory_ref
 
 from test_torch_cuda import TOL, _aa_case, _traj_case, assert_close
@@ -102,6 +104,65 @@ class TestTrajectory:
         with pytest.raises(ValueError, match="anchor_scale"):
             fused_trajectory(x, y, mask, w, w, link="linear", reg=0.0,
                              eta=1.0, anchor_scale=0.5, steps=2)
+
+
+class TestTrajectoryPlan:
+    """ops.plan_trajectory, a pure function of (K, S, n, d, dtype): which
+    design csrc/trajectory.cu runs and, for the resident one, how many
+    blocks a client's cluster has and how many rows each holds."""
+    SMEM = 232_448     # shared memory an H100 block may use
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_per_step_rows_stream(self, dtype):
+        for n in (10, 581, 5810):
+            plan = plan_trajectory(100, 11, n, 54, dtype)
+            assert (plan.design, plan.cluster, plan.rows_per_block) == (
+                "streaming", 1, 0)
+
+    @pytest.mark.parametrize("dtype,n", [(torch.float64, 7_600),
+                                         (torch.float32, 15_500),
+                                         (torch.float64, 581_012)])
+    def test_clients_past_sixteen_blocks_stream(self, dtype, n):
+        assert plan_trajectory(100, 1, n, 54, dtype).design == "streaming"
+
+    @pytest.mark.parametrize("dtype,cluster,rows", [(torch.float64, 16, 364),
+                                                    (torch.float32, 8, 727)])
+    def test_paper_scale(self, dtype, cluster, rows):
+        """K=100 clients of 5810 rows, d=54 (covtype's): 16 blocks of 364
+        rows in f64, 8 of 727 in f32, each within one block's shared
+        memory."""
+        plan = plan_trajectory(100, 1, 5810, 54, dtype)
+        assert (plan.design, plan.cluster, plan.rows_per_block) == (
+            "resident", cluster, rows)
+        assert plan.smem_bytes <= self.SMEM
+
+    def test_few_clients_take_larger_clusters(self):
+        """The acceptance configuration (K=10, n_k=1000): 4 blocks would hold
+        a client, 8 keep more of the 132 SMs busy; 16 would need 160."""
+        plan = plan_trajectory(10, 1, 1000, 54, torch.float64)
+        assert plan.cluster == 8 and plan.rows_per_block == 125
+        assert resident_smem_bytes(250, 54, 8) <= self.SMEM
+        assert plan_trajectory(1, 1, 100, 54, torch.float64).cluster == MAX_CLUSTER
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    @pytest.mark.parametrize("d", [1, 12, 37, 54, 128])
+    def test_rows_per_block_fit_and_cover(self, dtype, d):
+        """Over a sweep of n at K=100 (no growth): the blocks cover the
+        client's rows, each fits 232,448 B, and half as many blocks would
+        not (the smallest power of two)."""
+        size = 8 if dtype == torch.float64 else 4
+        for n in (1, 100, 333, 1000, 2049, 5810, 9000, 20_000):
+            plan = plan_trajectory(100, 1, n, d, dtype)
+            if plan.design == "streaming":
+                assert resident_smem_bytes(-(-n // MAX_CLUSTER), d, size) > self.SMEM
+                continue
+            assert plan.cluster * plan.rows_per_block >= n
+            assert plan.rows_per_block == -(-n // plan.cluster)
+            assert plan.smem_bytes == resident_smem_bytes(plan.rows_per_block, d, size)
+            assert plan.smem_bytes <= self.SMEM
+            if plan.cluster > 1:
+                half = -(-n // (plan.cluster // 2))
+                assert resident_smem_bytes(half, d, size) > self.SMEM
 
 
 class TestAndersonPasses:

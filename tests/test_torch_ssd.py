@@ -82,6 +82,71 @@ def test_masked_before_exp():
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
 
 
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 as the kernel's cvt.rna.tf32.f32 does: to nearest,
+    ties away from zero, on the 13 low mantissa bits (adding half of the
+    last kept bit to the magnitude bits, then clearing the 13)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b on TF32 tensor cores, f32 accumulate: one pass (a_hi b_hi) or
+    the kernel's three (a_lo b_hi + a_hi b_lo + a_hi b_hi, a = a_hi + a_lo
+    with a_hi = tf32(a), a_lo = tf32(a - a_hi)). Products of TF32 values
+    are exact in f32, so torch's f32 matmul emulates the unit."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _ssd_tf32(xc, dtc, da, Bc, Cc, passes):
+    """csrc/ssd.cu's arithmetic for one chunk (B = nc = 1): C B^T, then per
+    head y = M' x with M' = CB exp(da_i - da_j) dt_j masked before the exp,
+    and the state (x w)^T B with w = dt exp(da_last - da); each product in
+    split TF32."""
+    x, dt, a, bm, cm = xc[0, 0], dtc[0, 0], da[0, 0], Bc[0, 0], Cc[0, 0]
+    Q, nh, _ = x.shape
+    cb = _tf32_product(cm, bm.T, passes)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    ys, states = [], []
+    for h in range(nh):
+        seg = a[:, None, h] - a[None, :, h]
+        m = torch.where(causal, cb * torch.exp(torch.where(causal, seg, 0.0))
+                        * dt[None, :, h], 0.0)
+        ys.append(_tf32_product(m, x[:, h], passes))
+        w = dt[:, h] * torch.exp(a[-1, h] - a[:, h])
+        states.append(_tf32_product((x[:, h] * w[:, None]).T, bm, passes))
+    return torch.stack(ys, 1)[None, None], torch.stack(states)[None, None]
+
+
+def test_split_tf32_keeps_the_f32_contract():
+    """The kernel's split-TF32 products, emulated in torch on a served-size
+    chunk (Q=256, hd=st=64): y and the state within 1e-5 of the largest
+    magnitude of the f32 plain version's; one TF32 pass (the 3 decimal
+    digits a plain TF32 product keeps) is not, which is what the split
+    guards."""
+    args = [torch.from_numpy(a) for a in _case(15, 1, 1, 256, 4, 64, 64)]
+    y_r, s_r = ssd_chunk_ref(*args)
+    y3, s3 = _ssd_tf32(*args, passes=3)
+    y1, s1 = _ssd_tf32(*args, passes=1)
+    assert_close(y3, y_r)
+    assert_close(s3, s_r)
+    for port, ref in ((y1, y_r), (s1, s_r)):
+        err = float((port - ref).abs().max())
+        assert err > TOL * float(ref.abs().max())
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """_tf32 keeps 10 mantissa bits: 1 + 2^-11 (a tie) rounds away from
+    zero to 1 + 2^-10, 1 + 2^-12 to 1, and the sign rides along."""
+    v = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11), 3.0],
+                     dtype=torch.float32)
+    assert _tf32(v).tolist() == [1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 3.0]
+
+
 def test_ssd_chunk_rejects_mismatched_shapes():
     xc, dtc, da, Bc, Cc = (torch.from_numpy(a) for a in _case(0, 1, 1, 16, 2, 8, 8))
     with pytest.raises(ValueError, match="expected shape"):
