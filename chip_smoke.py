@@ -5,22 +5,35 @@
 
 ``--profile`` adds torch.profiler windows over three paper-scale rounds
 after phase 5, on the identity and on the int8 wire (device time by
-kernel and by ``fl.uplink`` scope, the device's busy share).
+kernel; the ``fl.uplink`` scope's host ms and device span per round; the
+round's device busy time and its share of the wall).
 
 Needs one CUDA card of compute capability 9.x (H100) and ``nvcc``; it
-builds the port's CUDA kernels from the seven sources in
+builds the port's CUDA kernels from the eight sources in
 ``src/repro_torch/csrc`` (one ``nvcc`` each, all started together, then a
 link) and exits non-zero, printing no result, where there is no card or no
 port beside it. Every phase raises on failure; none is caught.
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the kernels' build time.
-2. Each kernel against its plain PyTorch version on the card. The wire's
-   ``quantize`` and ``dequantize`` must equal theirs bit for bit (codes,
-   scales and output, from the same uniforms) at the main path's shape (the
-   K=100 clients' d=54 float64 uploads, chunk grid [100, 1, 256]) and at a
+2. The launch floor first: an empty kernel (``<<<1, 32>>>``, no memory
+   traffic) launched through the kernels' own path and timed as they are;
+   it is printed beside every kernel's time and bound. Then each kernel
+   against its plain PyTorch version on the card. The wire's ``quantize``
+   and ``dequantize`` must equal theirs bit for bit (codes, scales and
+   output, from the same uniforms) at the main path's shape (the K=100
+   clients' d=54 float64 uploads, chunk grid [100, 1, 256]) and at a
    streaming shape (K=16, d=2^20 float32, [16, 4096, 256], 67 MB of x,
-   more than the 50 MB L2 cache). The slice-A kernels at the main
+   more than the 50 MB L2 cache). The fused int8 uplink
+   (``int8_uplink``: the uplink's anchor, reference and error-feedback
+   arithmetic around both, one launch) at the same two shapes with the
+   gradient uplink's buffers (ref + ef) and the delta uplink's (anchor +
+   ef), one client's upload all zeros: its three outputs must equal the
+   plain version's bit for bit, a rerun must be bit-identical, and one
+   call must launch it once and neither ``quantize`` nor ``dequantize``;
+   it is timed beside the two-launch composition it replaced
+   (``Codec.uplink``'s arithmetic around the standalone pair, the same
+   uniforms: the draw is in neither). The slice-A kernels at the main
    path's shapes (K=100 clients x 5810 rows, d=54, 11 local steps, m=10
    history columns), in float64 and float32: the largest difference relative
    to the plain result's largest magnitude must stay within 1e-12 (float64)
@@ -65,22 +78,27 @@ port beside it. Every phase raises on failure; none is caught.
    main path's runs: the launch counters are set to 0 just before each
    run and read just after it; the slice-A kernels must have launched once
    per round of every run (``trajectory`` in its resident design),
-   ``quantize`` and ``dequantize`` twice per round of the int8 run (the
-   gradient and the delta uplink) and never on the identity wire. The
-   kernels line reports, as ``launches``, the float64 identity run's
-   counts for the slice-A kernels and the int8 run's for the wire's, and
-   every run's in ``launches_by_run``.
+   ``int8_uplink`` twice per round of the int8 run (the gradient and the
+   delta uplink) and never on the identity wire, and ``quantize`` and
+   ``dequantize`` never (the fused launch computes both). The kernels line
+   reports, as ``launches``, the float64 identity run's counts for the
+   slice-A kernels and the int8 run's for the wire's, and every run's in
+   ``launches_by_run``.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, each to rel-error 1e-6
    within 26 rounds (cap 40): bytes exactly 432, 216 and 116 per round,
    final loss within rel 1e-10 of the reference's 0.3128270332955105, and
    per round one launch of each slice-A kernel (``trajectory`` resident)
-   and, under int8, two of ``quantize`` and ``dequantize``.
+   and, under int8, two of ``int8_uplink`` (and none of ``quantize`` or
+   ``dequantize``).
 6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
    from the port's seeded init. In f32 (the weights before their bf16
    rounding), a prefill's last-position logits within 1e-4 of the largest
-   |logit| of the same prefill through the plain versions on the card.
+   |logit| of the same prefill through the plain versions on the card,
+   and each block's output within 1e-5 of the largest magnitude of its
+   plain output from the same input (the worst block is printed, with its
+   error when only ``ssd`` or only ``flash_attention`` runs its kernel).
    In bf16, the config's dtype: a prefill of 4 prompts of 2048 tokens
    (make_lm_tokens, seed 0; cache_len 2080), read on its own launch
    counts (68 ``ssd``, 13 ``flash_attention``, nothing else); each block
@@ -90,6 +108,12 @@ port beside it. Every phase raises on failure; none is caught.
    16-token prompts, 12 new tokens): every request finishes with 12
    tokens; tokens/s.
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+   Every row carries ``launch_floor_ms``. The rows of ``quantize`` and
+   ``dequantize`` report what computes them on the main path, the fused
+   ``int8_uplink`` (``launched_as``): its launches, and its readings at
+   the main shape on the gradient uplink's buffers (every shape and buffer
+   set in ``uplink``), with the standalone kernel's phase-2 readings in
+   ``standalone``.
    Beyond the contract's keys, ``trajectory``'s row carries ``plan`` (the
    resident plan at the main path's shape in f64), ``launches_by_design``
    (the float64 identity run's resident and streaming launches),
@@ -147,10 +171,12 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/flash_attention.py:83"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:69"),
 }
-#: the kernels of slice A (one launch per round on every wire) and of the
-#: wire (one launch per lossy int8 uplink: two per round)
+#: the kernels of slice A (one launch per round on every wire)
 ROUND_KERNELS = ("trajectory", "gram", "update")
-WIRE_KERNELS = ("quantize", "dequantize")
+#: the wire's TPU kernels -> the kernel that computes them on the main
+#: path: the fused int8 uplink, one launch per uplink (two per round); the
+#: standalone pair is held in phase 2 and never launched on the main path
+WIRE_KERNELS = {"quantize": "int8_uplink", "dequantize": "int8_uplink"}
 #: the kernels of the LM serving path (prefill only; decode runs neither)
 LM_KERNELS = ("flash_attention", "ssd")
 #: the served configuration: Zamba2-7B at full width (configs/zamba2_7b.py),
@@ -180,6 +206,10 @@ LM_BF16_ROW_FLOOR = 2.0 ** -9
 #: by much more: random layers amplify those steps; it is printed, not held.)
 LM_LOGITS_TOLERANCE_F32 = 1e-4
 LM_BLOCK_TOLERANCE_BF16 = 2.0 ** -6
+#: each f32 block's output from the same input, over its largest magnitude:
+#: one block's summation-order difference, before 81 layers amplify it (the
+#: f32 limit each LM kernel is held to)
+LM_BLOCK_TOLERANCE_F32 = LM_TOLERANCE[torch.float32]
 #: the reference serve.py's defaults
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 16, 12
 #: the JAX reference's ext_compression rows of FedOSAA-SVRG
@@ -273,10 +303,24 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_kernels(clients, dtype, device) -> dict:
+def launch_floor(device) -> float:
+    """Phase 2's first reading: the empty kernel (one warp, no memory
+    traffic) launched through the kernels' own path (``_build.noop``: ctypes
+    and the current stream, counted nowhere), timed as ``device_ms`` times
+    every kernel. No kernel's time can go below it."""
+    from repro_torch.kernels import _build
+
+    floor = device_ms(_build.noop, device)
+    print(f"  launch floor (empty kernel <<<1, 32>>>, 20 back-to-back calls "
+          f"between CUDA events, median of 5): {floor:.4f} ms", flush=True)
+    return floor
+
+
+def check_kernels(clients, dtype, device, floor: float) -> dict:
     """Phase 2: each kernel against its plain version at the main path's
     shapes and on its data (the paper-scale clients, a trajectory from a
-    random anchor, the AA solve's coefficients)."""
+    random anchor, the AA solve's coefficients). ``floor``: the launch
+    floor, printed beside each time."""
     from repro_torch.core.anderson import AAConfig, _solve_gram, trajectory_to_sy
     from repro_torch.kernels import _build
     from repro_torch.kernels.anderson import flat_gram, flat_update
@@ -359,7 +403,8 @@ def check_kernels(clients, dtype, device) -> dict:
           f"[{per_step['shape']}] design {per_step['design']} ({ps_designs}): rel "
           f"{per_step['rel']:.3e} abs {per_step['abs']:.3e}  kernel "
           f"{per_step['ms']:.4f} ms  plain {per_step['plain_ms']:.4f} ms  bound "
-          f"{per_step['bound'][0]:.4f} ms ({per_step['bound'][1]}), rerun "
+          f"{per_step['bound'][0]:.4f} ms ({per_step['bound'][1]})  launch floor "
+          f"{floor:.4f} ms, rerun "
           f"bit-identical {per_step['rerun_equal']}", flush=True)
     if designs != {"resident": 1, "streaming": 0} or ps_designs != {
             "resident": 0, "streaming": 1}:
@@ -433,7 +478,8 @@ def check_kernels(clients, dtype, device) -> dict:
         print(f"  {name:10s} {str(dtype)[6:]:7s} rel {r['rel']:.3e} "
               f"abs {r['abs']:.3e}  kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  bound "
-              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  launch floor "
+              f"{floor:.4f} ms", flush=True)
         if not r["rel"] <= TOLERANCE[dtype]:
             raise AssertionError(
                 f"{name} kernel disagrees with its plain version in {dtype}: "
@@ -441,7 +487,7 @@ def check_kernels(clients, dtype, device) -> dict:
     return results
 
 
-def check_quant(device) -> dict:
+def check_quant(device, floor: float) -> dict:
     """Phase 2, the wire's kernels: encode and decode of every client's
     upload against the plain versions on the same uniforms, bit for bit,
     at the main path's shape and at a streaming shape. Returns, per shape,
@@ -510,7 +556,107 @@ def check_quant(device) -> dict:
             print(f"  {name:10s} {label:9s} abs {r['abs']:.3e}  kernel "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
                   f"{r['library_ms']} ms  bound {r['bound'][0]:.4f} ms "
-                  f"({r['bound'][1]})", flush=True)
+                  f"({r['bound'][1]})  launch floor {floor:.4f} ms", flush=True)
+    return out
+
+
+def check_uplink(device, floor: float) -> dict:
+    """Phase 2, the fused int8 uplink (``int8_uplink``) at the main path's
+    shape (K=100, d=54, float64) and at the streaming shape (K=16, d=2^20,
+    float32), with the gradient uplink's buffers (ref + ef) and the delta
+    uplink's (anchor + ef); client 0's upload is all zeros. Its outputs
+    (dec, new_e, new_h) must equal the plain version's bit for bit, and so
+    must a rerun's and the two-launch composition's (``Codec.uplink``'s
+    arithmetic around the standalone pair); one call launches it once and
+    neither standalone kernel. Times: the fused launch, the composition,
+    the plain version, all from the same uniforms (the draw is in none of
+    them). Bound: each input read once (x, the buffers, the anchor once
+    for all clients, the draws of the n live values) and each output
+    written once."""
+    from repro_torch.comm.codecs import Codec, Int8SRCodec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quant import (DEFAULT_CHUNK, chunk_rows,
+                                           int8_sr_uplink, int8_sr_uplink_ref)
+
+    codec = Int8SRCodec(chunk=DEFAULT_CHUNK)
+    want_launches = {k: 0 for k in _build.LAUNCHES} | {"int8_uplink": 1}
+    out = {}
+    for label, K, d, dtype in (("main", K_MAIN, D, torch.float64),
+                               ("streaming", 16, 1 << 20, torch.float32)):
+        gen = torch.Generator(device=device).manual_seed(d + 1)
+
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(*shape, generator=gen, device=device,
+                                       dtype=dtype)
+        x, anchor = randn(K, d), randn(d)
+        ref, ef = randn(K, d, scale=0.1), randn(K, d, scale=1e-3)
+        ref[0], ef[0] = 0.0, 0.0
+        u = torch.rand((K, chunk_rows(d, DEFAULT_CHUNK), DEFAULT_CHUNK),
+                       generator=gen, device=device)
+        for spec, bufs in (("grad", dict(ref=ref, ef=ef)),
+                           ("delta", dict(anchor=anchor, ef=ef))):
+            xs = x.clone()
+            xs[0] = anchor if "anchor" in bufs else 0.0   # an all-zero upload
+
+            def fused():
+                return int8_sr_uplink(xs, u, **bufs)
+
+            def composed():
+                return Codec.uplink(codec, xs, u, **bufs)
+
+            def plain():
+                return int8_sr_uplink_ref(xs, u, **bufs)
+            _build.reset_launches()
+            got = fused()
+            launches = dict(_build.LAUNCHES)
+            want = plain()
+
+            def same(a, b):
+                return all((p is None and q is None) or (
+                    p is not None and q is not None and torch.equal(p, q))
+                    for p, q in zip(a, b))
+            equal, rerun_equal = same(got, want), same(fused(), got)
+            composed_equal = same(composed(), got)
+            errs = [float((p - q).abs().max()) for p, q in zip(got, want)
+                    if p is not None]
+            # the outputs it writes: dec and new_e; new_h apart only with an
+            # anchor after the reference (with ref alone it is dec)
+            written = {id(t): t for t in got if t is not None}.values()
+            values = K * d
+            key = f"{label}/{spec}"
+            # the codec in f32: |v|, max, divide, add u, floor, clip, product
+            ops = {torch.float32: 8.0 * values}
+            # the buffers' arithmetic in T: one op each in, one back out
+            ops[dtype] = ops.get(dtype, 0.0) + 2.0 * len(bufs) * values
+            out[key] = dict(
+                shape=f"K={K} d={d} {str(dtype)[6:]} {spec} ({' + '.join(bufs)})",
+                abs=max(errs), equal=equal, rerun_equal=rerun_equal,
+                composed_equal=composed_equal, launches=launches,
+                ms=device_ms(fused, device), composed_ms=device_ms(composed, device),
+                plain_ms=device_ms(plain, device), library_ms=None,
+                # the draws of the ragged chunk's padding are not read
+                bound=bound_ms(nbytes(xs, *bufs.values(), *written) + 4 * values,
+                               ops),
+                launch_floor_ms=floor)
+            r = out[key]
+            print(f"  int8_uplink {key:15s} [{r['shape']}]: outputs equal "
+                  f"{equal}, rerun bit-identical {rerun_equal}, composition "
+                  f"equal {composed_equal}, launches "
+                  f"{ {k: v for k, v in launches.items() if v} }  kernel "
+                  f"{r['ms']:.4f} ms  composition (two launches and the "
+                  f"torch glue) {r['composed_ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]})  launch floor {floor:.4f} ms", flush=True)
+            if not (equal and rerun_equal and composed_equal):
+                raise AssertionError(
+                    f"int8_uplink at {key}: outputs equal {equal}, rerun "
+                    f"{rerun_equal}, composition {composed_equal} (abs "
+                    f"{max(errs):.3e})")
+            if launches != want_launches:
+                raise AssertionError(f"int8_uplink at {key}: one call launched "
+                                     f"{launches}, expected {want_launches}")
+        del x, anchor, ref, ef, u, xs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -529,10 +675,11 @@ def check_resident(what: str, rounds: int) -> dict:
 
 def expected_launches(rounds: int, int8: bool) -> dict:
     """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: each slice-A
-    kernel once a round; each wire kernel twice a round on the int8 wire;
-    the LM kernels never."""
+    kernel once a round; the fused int8 uplink twice a round on the int8
+    wire; the standalone quant pair and the LM kernels never."""
     return {**{k: rounds for k in ROUND_KERNELS},
-            **{k: 2 * rounds if int8 else 0 for k in WIRE_KERNELS},
+            **{k: 0 for k in WIRE_KERNELS},
+            "int8_uplink": 2 * rounds if int8 else 0,
             **{k: 0 for k in LM_KERNELS}}
 
 
@@ -701,7 +848,7 @@ def ssd_inputs(B, nc, Q, nh, hd, st, device):
     return xc, dtc, da, Bc, Cc
 
 
-def check_lm_kernels(device) -> dict:
+def check_lm_kernels(device, floor: float) -> dict:
     """Phase 2, the LM kernels at the served shapes against their plain
     versions on the card: SSD at Zamba2-7B's width (B=4, S=2048: G=32
     chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's (st=128,
@@ -815,7 +962,8 @@ def check_lm_kernels(device) -> dict:
         print(f"  {name:28s} [{r['shape']}] rel {r['rel']:.3e} (tol "
               f"{r['tol']:.1e}) abs {r['abs']:.3e}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  launch floor "
+              f"{floor:.4f} ms", flush=True)
         if r.get("bound_split"):
             print("    bound split (ms): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in r["bound_split"].items()), flush=True)
@@ -845,20 +993,26 @@ def check_lm_kernels(device) -> dict:
 
 class plain_lm_kernels:
     """Within the block, the model's layers call the plain versions of the
-    LM kernels (the reference point of the prefill check); the kernels'
-    wrappers are put back on exit."""
+    LM kernels (the reference point of the prefill check), or of those in
+    ``names`` only; the kernels' wrappers are put back on exit."""
+
+    def __init__(self, names=("flash_attention", "ssd_chunk")):
+        self.names = names
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention.ref import flash_attention_ref
         from repro_torch.kernels.ssd.ref import ssd_chunk_ref
         from repro_torch.models import layers
 
+        plain = {"flash_attention": flash_attention_ref, "ssd_chunk": ssd_chunk_ref}
         self.layers = layers
-        self.saved = layers.flash_attention, layers.ssd_chunk
-        layers.flash_attention, layers.ssd_chunk = flash_attention_ref, ssd_chunk_ref
+        self.saved = {name: getattr(layers, name) for name in self.names}
+        for name in self.names:
+            setattr(layers, name, plain[name])
 
     def __exit__(self, *exc):
-        self.layers.flash_attention, self.layers.ssd_chunk = self.saved
+        for name, fn in self.saved.items():
+            setattr(self.layers, name, fn)
 
 
 def host_ms(fn, device, repeats: int = 3) -> list[float]:
@@ -873,26 +1027,38 @@ def host_ms(fn, device, repeats: int = 3) -> list[float]:
     return times
 
 
-def blockwise_prefill(model, tokens) -> tuple[list[float], float]:
+def blockwise_prefill(model, tokens) -> tuple[list[float], float, dict]:
     """The prefill one block at a time: each block's output through the
     kernels and through the plain versions from the same input (the kernel
     stream's), and a plain stream carried to the end. Returns each block's
-    relative difference and that of the two streams' last-position logits."""
+    relative difference, that of the two streams' last-position logits,
+    and, for the worst block, its difference with only one LM kernel run
+    by its kernel ({"ssd": ..., "flash_attention": ...}): which kernel its
+    error comes from."""
     cfg = model.cfg
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     window = cfg.sliding_window
     hk = hp = model.embed_tokens(tokens)
-    local = []
+    local, worst = [], None
     for block, _, _ in model.schedule():
         out_k, _ = block(hk, cfg, positions, window)
         with plain_lm_kernels():
             out_p, _ = block(hk, cfg, positions, window)
             hp, _ = block(hp, cfg, positions, window)
         local.append(rel_diff(out_k.float(), out_p.float())[0])
+        if local[-1] == max(local):
+            worst = (block, hk, out_p)
         hk = out_k
+    block, h_in, out_p = worst
+    by_kernel = {}
+    for kernel, plain in (("ssd", ("flash_attention",)),
+                          ("flash_attention", ("ssd_chunk",))):
+        with plain_lm_kernels(plain):
+            out_one, _ = block(h_in, cfg, positions, window)
+        by_kernel[kernel] = rel_diff(out_one.float(), out_p.float())[0]
     return local, rel_diff(model.unembed_last(hk).float(),
-                           model.unembed_last(hp).float())[0]
+                           model.unembed_last(hp).float())[0], by_kernel
 
 
 @torch.inference_mode()
@@ -932,7 +1098,20 @@ def serving(device) -> dict:
         raise AssertionError(f"float32 prefill logits through the kernels are "
                              f"{rel32:.3e} from the plain versions' (> "
                              f"{LM_LOGITS_TOLERANCE_F32})")
-    del model, prefill, logits, logits_p
+    del prefill, logits, logits_p
+    local32, stream32, by_kernel32 = blockwise_prefill(model, tokens)
+    worst32 = int(np.argmax(local32))
+    print(f"  float32 blocks, kernels vs plain from the same input: largest rel "
+          f"{local32[worst32]:.3e} (block {worst32}; tol "
+          f"{LM_BLOCK_TOLERANCE_F32:.0e}); that block with only one kernel "
+          f"run by its kernel: {by_kernel32}; the two streams' last logits "
+          f"part by rel {stream32:.3e}", flush=True)
+    if not local32[worst32] <= LM_BLOCK_TOLERANCE_F32:
+        raise AssertionError(f"float32 block {worst32} through the kernels is "
+                             f"{local32[worst32]:.3e} from the plain versions' "
+                             f"(> {LM_BLOCK_TOLERANCE_F32:.0e}); with one "
+                             f"kernel at a time: {by_kernel32}")
+    del model
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -967,12 +1146,13 @@ def serving(device) -> dict:
         plain_prefill_ms = host_ms(lambda: prefill(tokens), device, repeats=1)
 
     _build.reset_launches()
-    local, stream_rel = blockwise_prefill(model, tokens)
+    local, stream_rel, by_kernel = blockwise_prefill(model, tokens)
     worst = int(np.argmax(local))
     print(f"  bf16 blocks, kernels vs plain from the same input: largest rel "
-          f"{local[worst]:.3e} (block {worst}; tol {LM_BLOCK_TOLERANCE_BF16:.2e}); "
-          f"the two streams' last logits part by rel {stream_rel:.3e} (not "
-          "held: random layers amplify bf16 steps)", flush=True)
+          f"{local[worst]:.3e} (block {worst}; tol {LM_BLOCK_TOLERANCE_BF16:.2e}; "
+          f"with only one kernel run by its kernel: {by_kernel}); the two "
+          f"streams' last logits part by rel {stream_rel:.3e} (not held: "
+          "random layers amplify bf16 steps)", flush=True)
     if not local[worst] <= LM_BLOCK_TOLERANCE_BF16:
         raise AssertionError(f"block {worst} through the kernels is "
                              f"{local[worst]:.3e} from the plain versions' (> "
@@ -1009,6 +1189,8 @@ def serving(device) -> dict:
                prefill_ms=prefill_ms,
                plain_prefill_ms=plain_prefill_ms, decode_ms=step_ms,
                peak_gib=peak / 2**30, f32_logits_rel=rel32,
+               f32_block_rel_max=local32[worst32], f32_worst_block=worst32,
+               f32_worst_block_by_kernel=by_kernel32,
                bf16_block_rel_max=local[worst], bf16_stream_logits_rel=stream_rel)
     print(f"  prefill {LM_BATCH}x{LM_PROMPT}: {np.median(prefill_ms):.1f} ms "
           f"(runs {[round(t, 1) for t in prefill_ms]}; plain versions "
@@ -1126,10 +1308,12 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     print("phase 2: kernels against their plain versions", flush=True)
-    quant = check_quant(device)
-    checks = {dt: check_kernels(clients, dt, device)
+    floor = launch_floor(device)
+    quant = check_quant(device, floor)
+    uplink = check_uplink(device, floor)
+    checks = {dt: check_kernels(clients, dt, device, floor)
               for dt in (torch.float64, torch.float32)}
-    lm_checks = check_lm_kernels(device)
+    lm_checks = check_lm_kernels(device, floor)
 
     print("phase 3: acceptance configuration (n=10,000, K=10, float64)",
           flush=True)
@@ -1169,7 +1353,8 @@ def main() -> int:
                                  "slot server": served["server_launches"][name]},
                 max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
-                library_ms=r["library_ms"], library=r["library"],
+                library_ms=r["library_ms"], launch_floor_ms=floor,
+                library=r["library"],
                 shape=r["shape"], bf16_steps=r.get("bf16_steps"),
                 blocks_per_sm=r.get("occupancy", {}).get("blocks_per_sm"),
                 rerun_equal=r.get("rerun_equal"), bound_split=r.get("bound_split"),
@@ -1185,14 +1370,18 @@ def main() -> int:
                     if k.startswith(name + "/") and o is not r]))
             continue
         wire = name in WIRE_KERNELS
-        r = quant["main"][name] if wire else checks[torch.float64][name]
+        # a wire kernel is computed on the main path by the fused uplink:
+        # its launches and its readings at the main shape (gradient uplink)
+        launched = WIRE_KERNELS.get(name, name)
+        r = uplink["main/grad"] if wire else checks[torch.float64][name]
         row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=paper["float64_int8" if wire else "float64"]["launches"][name],
-            launches_by_run={run: paper[run]["launches"][name] for run in paper},
+            launches=paper["float64_int8" if wire else "float64"]["launches"][launched],
+            launches_by_run={run: paper[run]["launches"][launched] for run in paper},
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"])
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            launch_floor_ms=floor)
         if name == "trajectory":
             ps = r["per_step"]
             row.update(plan=r["plan"], rerun_equal=r["rerun_equal"],
@@ -1207,11 +1396,18 @@ def main() -> int:
                        library_kernel_us=r["library_kernel_us"],
                        blocks_per_sm=r["occupancy"]["blocks_per_sm"])
         if wire:
-            st = quant["streaming"][name]
-            row["streaming_shape"] = dict(
-                max_abs_err=st["abs"], ms=st["ms"], plain_ms=st["plain_ms"],
-                bound_ms=st["bound"][0], bound_by=st["bound"][1],
-                library_ms=st["library_ms"])
+            row["launched_as"] = launched
+            row["uplink"] = {key: dict(
+                shape=u["shape"], max_abs_err=u["abs"], ms=u["ms"],
+                composed_ms=u["composed_ms"], plain_ms=u["plain_ms"],
+                bound_ms=u["bound"][0], bound_by=u["bound"][1])
+                for key, u in uplink.items()}
+            row["standalone"] = {shape: dict(
+                max_abs_err=q[name]["abs"], ms=q[name]["ms"],
+                plain_ms=q[name]["plain_ms"], bound_ms=q[name]["bound"][0],
+                bound_by=q[name]["bound"][1], library_ms=q[name]["library_ms"],
+                launches={run: paper[run]["launches"][name] for run in paper})
+                for shape, q in quant.items()}
         rows.append(row)
     f32 = {name: {k: v for k, v in r.items()}
            for name, r in checks[torch.float32].items()}

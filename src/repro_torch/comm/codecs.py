@@ -4,6 +4,9 @@ A codec models what one client<->server exchange of the flat [d]
 parameters costs (``wire_bytes``) and loses (``roundtrip``). ``roundtrip``
 works on every client's upload at once, a [K, d] stack (a broadcast is one
 [d] vector), so an uplink is one call per round, never a loop over clients.
+``uplink`` wraps ``roundtrip`` in the uplink's arithmetic: the anchor, the
+difference-coding reference and the error-feedback residual (the int8
+codec does all of it in one kernel launch).
 
   identity — lossless; charged at the compute dtype's itemsize
   fp32     — rounded to float32 on the wire, 4 bytes/value
@@ -24,7 +27,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.quant import DEFAULT_CHUNK, chunk_rows, int8_sr_roundtrip
+from repro_torch.kernels.quant import (DEFAULT_CHUNK, chunk_rows,
+                                       int8_sr_roundtrip, int8_sr_uplink)
 
 
 def _numel(shape) -> int:
@@ -55,6 +59,33 @@ class Codec:
         """encode + decode of x [K, n] (or one [n] vector): what the other
         end of the wire sees."""
         return x
+
+    def uplink(self, x: torch.Tensor, u: torch.Tensor | None = None,
+               anchor: torch.Tensor | None = None,
+               ref: torch.Tensor | None = None,
+               ef: torch.Tensor | None = None):
+        """Every client's upload x [K, d] through this codec, as an uplink
+        carries it (repro/core/algorithms.py:837-911): v = x − anchor (the
+        anchor [d] broadcast over clients), less the carried reference ref
+        (difference coding), plus the error-feedback residual ef, is
+        roundtripped with the uniforms u. Returns (the server's view
+        roundtrip(v) + ref + anchor, the next residual v − roundtrip(v) or
+        None without ef, the next reference roundtrip(v) + ref or None
+        without ref)."""
+        v = x - anchor if anchor is not None else x
+        if ref is not None:
+            v = v - ref
+        if ef is not None:
+            v = v + ef
+        dec = self.roundtrip(v, u)
+        new_e = v - dec if ef is not None else None
+        if ref is not None:
+            # the reference tracks the decoded stream on both ends
+            dec = dec + ref
+        new_h = dec if ref is not None else None
+        if anchor is not None:
+            dec = dec + anchor
+        return dec, new_e, new_h
 
     def draw_shape(self, n: int) -> tuple[int, int] | None:
         """Per-client shape of the uniforms ``roundtrip`` takes for a
@@ -111,7 +142,9 @@ class Int8SRCodec(Codec):
     """Per-chunk-scaled stochastic-rounding int8: unbiased, |error| <
     max|x_chunk|/127. An f64 upload is rounded to f32 before the codec and
     the decoded f32 values are widened back (repro/comm/codecs.py:143-146);
-    here the kernel does both on load and store."""
+    here the kernel does both on load and store. ``uplink`` is one launch
+    (kernels/quant/ops.py::int8_sr_uplink), the same arithmetic as the base
+    class's around ``roundtrip``."""
 
     name = "int8"
     deterministic = False
@@ -124,6 +157,11 @@ class Int8SRCodec(Codec):
         flat = x.reshape(-1, x.shape[-1])
         return int8_sr_roundtrip(flat, u.reshape(flat.shape[0], *u.shape[-2:])
                                  ).reshape(x.shape)
+
+    def uplink(self, x, u=None, anchor=None, ref=None, ef=None):
+        if u is None:
+            raise ValueError("int8 codec: the uniforms u are an input")
+        return int8_sr_uplink(x, u, anchor, ref, ef)
 
     def draw_shape(self, n):
         return (chunk_rows(n, self.chunk), self.chunk)

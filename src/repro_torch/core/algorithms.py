@@ -285,7 +285,8 @@ class CrossClientReduce:
         The wire carries ``stacked_k − anchor`` for an anchored spec, less
         the carried reference ``state[spec.tag]["ref"]`` when there is one
         (difference coding), plus the error-feedback residual
-        ``state[spec.tag]["ef"]``. ``draw(spec, shape)`` gives a stochastic
+        ``state[spec.tag]["ef"]``; ``codec.uplink`` does that arithmetic
+        around the codec. ``draw(spec, shape)`` gives a stochastic
         codec's uniforms [K, nc, C]. ``state`` is the whole comm dict (or
         None); tags other than ``spec.tag`` pass through. Returns (the
         server's view of the uploads [K, d], the comm dict with this tag's
@@ -301,24 +302,12 @@ class CrossClientReduce:
         ef = sub.get("ef") if sub else None
         ref = sub.get("ref") if sub else None
         with record_function("fl.uplink"):
-            v = stacked - anchor if anchor is not None else stacked
-            if ref is not None:
-                v = v - ref
-            if ef is not None:
-                v = v + ef
-            shape = codec.draw_shape(v.shape[-1])
+            shape = codec.draw_shape(stacked.shape[-1])
             if shape is not None and draw is None:
                 raise ValueError(f"uplink {spec.tag!r}: codec {codec} draws "
                                  "uniforms; pass draw")
-            u = None if shape is None else draw(spec, (v.shape[0], *shape))
-            dec = codec.roundtrip(v, u)
-            new_e = v - dec if ef is not None else None
-            if ref is not None:
-                # the reference tracks the decoded stream on both ends
-                dec = dec + ref
-            new_h = dec if ref is not None else None
-            if anchor is not None:
-                dec = dec + anchor
+            u = None if shape is None else draw(spec, (stacked.shape[0], *shape))
+            dec, new_e, new_h = codec.uplink(stacked, u, anchor, ref, ef)
         if not sub:
             return dec, state
         new_sub = {}

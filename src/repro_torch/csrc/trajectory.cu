@@ -491,7 +491,3 @@ extern "C" int repro_trajectory_clusters(int dtype, int link, int anchor, int n,
   if (bad_args(dtype, link, a) || cluster == 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<ResidentQuery>(dtype, link, anchor, a, info));
 }
-
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

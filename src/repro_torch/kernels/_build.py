@@ -14,7 +14,9 @@ if that is not 0.
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels (chip_smoke.py resets and reads it).
 ``DESIGN_LAUNCHES`` splits those of a kernel with more than one design
-(``trajectory``: resident or streaming) by the design that ran.
+(``trajectory``: resident or streaming) by the design that ran. ``noop``
+launches an empty kernel through the same path, counted nowhere: timed
+back to back, it is the launch floor every kernel's time includes.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name → launches since the last reset (see module docstring)
 LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "quantize": 0,
-            "dequantize": 0, "ssd": 0, "flash_attention": 0}
+            "dequantize": 0, "int8_uplink": 0, "ssd": 0, "flash_attention": 0}
 #: kernel → design → launches since the last reset (see module docstring)
 DESIGN_LAUNCHES = {"trajectory": {"resident": 0, "streaming": 0}}
 
@@ -57,11 +59,16 @@ _SIGNATURES = {
     "repro_quantize": [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
     # out_dtype, q, scales, out, n, B, nc, C, stream
     "repro_dequantize": [_I, _P, _P, _P, _LL, _I, _I, _I, _P],
+    # dtype, x, anchor, ref, ef, u, dec, new_e, new_h, n, B, nc, C, stream
+    "repro_int8_uplink": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                          _P],
     # x, dt, da, B, C, cb, y, state, G, Q, nh, hd, st, stream
     "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, q, k, v, out, B, S, H, KV, d, causal, window, stream
     "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P],
+    # stream
+    "repro_noop": [_P],
 }
 #: what an occupancy query's int array holds (see occupancy)
 _BLOCK_FIELDS = ("blocks_per_sm", "registers", "shared_bytes", "threads",
@@ -215,15 +222,27 @@ def occupancy(entry: str, *args) -> dict:
     return dict(zip(fields, info))
 
 
-def launch(name: str, entry: str, *args, design: str | None = None) -> None:
-    """Call C entry point ``entry`` on the current stream; raise on error.
-    ``design`` names the design that runs, for a kernel with more than one."""
+def _call(name: str, entry: str, *args) -> None:
+    """Call C entry point ``entry`` on the current stream; raise on error."""
     lib = library()
     err = getattr(lib, entry)(*args,
                               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
+
+
+def launch(name: str, entry: str, *args, design: str | None = None) -> None:
+    """Call C entry point ``entry`` on the current stream, raise on error,
+    and count the launch. ``design`` names the design that runs, for a
+    kernel with more than one."""
+    _call(name, entry, *args)
     LAUNCHES[name] += 1
     if design is not None:
         DESIGN_LAUNCHES[name][design] += 1
+
+
+def noop() -> None:
+    """Launch the empty kernel (one warp, no memory traffic) on the current
+    stream, the way ``launch`` launches every kernel; counted nowhere."""
+    _call("noop", "repro_noop")

@@ -5,6 +5,11 @@ from repro_torch.kernels.quant.ops import (  # noqa: F401
     int8_dequantize,
     int8_sr_encode,
     int8_sr_roundtrip,
+    int8_sr_uplink,
     quantize,
 )
-from repro_torch.kernels.quant.ref import dequantize_ref, quantize_ref  # noqa: F401
+from repro_torch.kernels.quant.ref import (  # noqa: F401
+    dequantize_ref,
+    int8_sr_uplink_ref,
+    quantize_ref,
+)

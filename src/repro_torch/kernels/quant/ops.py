@@ -1,11 +1,15 @@
 """Public entry points of the int8 stochastic-rounding wire codec, batched
 over clients (counterpart of repro/kernels/quant/ops.py).
 
-``int8_sr_encode`` / ``int8_dequantize`` are what comm/codecs.py's
-Int8SRCodec calls, once per uplink for all K clients: encode and decode are
-separate launches. The uniforms are an input ([K, nc, C] f32, drawn by the
-caller over the whole padded chunk grid, as the reference draws them), so
-the kernel and its plain version give the same codes from the same draws.
+``int8_sr_uplink`` is what comm/codecs.py's Int8SRCodec.uplink calls,
+once per uplink for all K clients: one launch that forms each client's
+upload from its anchor and carried buffers, rounds it through the codec and
+returns what the server sees and the buffers' next values.
+``int8_sr_encode`` / ``int8_dequantize`` are the two ends of a wire on
+their own (``int8_sr_roundtrip``: encode, then decode, two launches). The
+uniforms are an input ([K, nc, C] f32, drawn by the caller over the whole
+padded chunk grid, as the reference draws them), so the kernels and their
+plain versions give the same codes from the same draws.
 
 Dispatch is by the tensors' device only: CPU tensors run the plain version
 (ref.py, after the reference's zero padding to whole chunks); CUDA tensors
@@ -17,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant.ref import dequantize_ref, quantize_ref
+from repro_torch.kernels.quant.ref import (dequantize_ref, int8_sr_uplink_ref,
+                                          quantize_ref)
 
 #: lanes per quantization chunk (the reference's kernel tile width)
 DEFAULT_CHUNK = 256
@@ -80,6 +85,67 @@ def int8_sr_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     in x's dtype."""
     q, scales = int8_sr_encode(x, u)
     return int8_dequantize(q, scales, x.shape[-1], x.dtype)
+
+
+def int8_sr_uplink(x: torch.Tensor, u: torch.Tensor,
+                   anchor: torch.Tensor | None = None,
+                   ref: torch.Tensor | None = None,
+                   ef: torch.Tensor | None = None):
+    """The int8 uplink of every client's upload x [K, n] (f32 or f64) with
+    the uniforms u [K, nc, C]: v = x − anchor − ref + ef (each where given;
+    anchor [n], ref and ef [K, n], in x's dtype) goes through the codec;
+    returns (dec, new_e, new_h): what the server sees (plus ref and anchor),
+    the next error-feedback residual v − roundtrip(v) (None without ef) and
+    the next reference roundtrip(v) + ref (None without ref). One launch on
+    the card (ref.py::int8_sr_uplink_ref spells out the steps)."""
+    K, n = x.shape
+    C = u.shape[-1]
+    if u.shape != (K, chunk_rows(n, C), C):
+        raise ValueError(f"int8_sr_uplink: u {tuple(u.shape)} does not cover "
+                         f"x {tuple(x.shape)} in chunks of {C}")
+    for name, buf, shape in (("anchor", anchor, (n,)), ("ref", ref, x.shape),
+                             ("ef", ef, x.shape)):
+        if buf is None:
+            continue
+        if buf.shape != shape:
+            raise ValueError(f"int8_sr_uplink: {name} {tuple(buf.shape)}, "
+                             f"expected {tuple(shape)}")
+        if buf.dtype != x.dtype:
+            raise TypeError(f"int8_sr_uplink: {name} is {buf.dtype}, x "
+                            f"{x.dtype}")
+    if x.device.type == "cpu":
+        return int8_sr_uplink_ref(x, u, anchor, ref, ef)
+    return _uplink_cuda(x, u, anchor, ref, ef)
+
+
+def _uplink_cuda(x, u, anchor, ref, ef):
+    """Launch repro_int8_uplink: x [K, n], u [K, nc, C] -> (dec, new_e,
+    new_h), each [K, n] in x's dtype; new_h is dec itself without anchor."""
+    K, nc, C = u.shape
+    n = x.shape[1]
+    if not 0 < C <= MAX_CHUNK:
+        raise ValueError(f"int8 uplink kernel: u {tuple(u.shape)} (chunk <= "
+                         f"{MAX_CHUNK})")
+    bufs = [b for b in (anchor, ref, ef) if b is not None]
+    dev = _build.check_cuda("int8_uplink", x, *bufs)
+    _build.check_cuda("int8_uplink", u, dtypes=(torch.float32,))
+    if u.device != dev:
+        raise ValueError(f"int8_uplink: x on {dev}, u on {u.device}")
+    dec = torch.empty_like(x)
+    new_e = torch.empty_like(x) if ef is not None else None
+    split_h = ref is not None and anchor is not None
+    new_h = torch.empty_like(x) if split_h else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        _build.launch("int8_uplink", "repro_int8_uplink",
+                      _build.DTYPE_CODE[x.dtype], x.data_ptr(), ptr(anchor),
+                      ptr(ref), ptr(ef), u.data_ptr(), dec.data_ptr(),
+                      ptr(new_e), ptr(new_h), n, K, nc, C)
+    if ref is not None and not split_h:
+        new_h = dec
+    return dec, new_e, new_h
 
 
 def _quantize_cuda(x, u, n: int):

@@ -31,3 +31,32 @@ def quantize_ref(x: torch.Tensor, u: torch.Tensor):
 def dequantize_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """q: [..., nc, C] int8; scales: [..., nc, 1] f32 -> f32 [..., nc, C]."""
     return q.to(torch.float32) * scales
+
+
+def int8_sr_uplink_ref(x: torch.Tensor, u: torch.Tensor,
+                       anchor: torch.Tensor | None = None,
+                       ref: torch.Tensor | None = None,
+                       ef: torch.Tensor | None = None):
+    """The int8 uplink of every client's upload x [K, n] (f32 or f64), with
+    the uniforms u [K, nc, C] and the optional anchor [n], reference and
+    error-feedback residual [K, n]; every step in x's dtype:
+    v = x − anchor − ref + ef, dec = the f32 roundtrip of v widened back,
+    new_e = v − dec, new_h = dec + ref, dec = new_h + anchor.
+    Returns (dec, new_e or None without ef, new_h or None without ref)."""
+    v = x - anchor if anchor is not None else x
+    if ref is not None:
+        v = v - ref
+    if ef is not None:
+        v = v + ef
+    K, n = v.shape
+    nc, C = u.shape[-2:]
+    v32 = torch.nn.functional.pad(v.to(torch.float32), (0, nc * C - n))
+    q, scales = quantize_ref(v32.reshape(K, nc, C), u)
+    dec = dequantize_ref(q, scales).reshape(K, -1)[:, :n].to(v.dtype)
+    new_e = v - dec if ef is not None else None
+    if ref is not None:
+        dec = dec + ref
+    new_h = dec if ref is not None else None
+    if anchor is not None:
+        dec = dec + anchor
+    return dec, new_e, new_h

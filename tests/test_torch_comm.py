@@ -31,11 +31,13 @@ from repro.models.logreg import make_logreg_problem as jax_logreg
 from repro_torch.comm import (CTRL_UPLINK, DELTA_UPLINK, DIR_UPLINK,
                               GRAD_UPLINK, Int8SRCodec, TopKCodec,
                               make_channel, parse_codec, uplink_byte_breakdown)
+from repro_torch.comm.codecs import Codec
 from repro_torch.core import (ALGORITHMS, AlgoHParams, CrossClientReduce,
                               comm_bytes_per_round, init_comm_state, init_state,
                               run_federated, solve_reference)
 from repro_torch.core import convert
 from repro_torch.data import make_binary_classification, partition
+from repro_torch.kernels.quant import int8_sr_uplink, int8_sr_uplink_ref
 from repro_torch.models.logreg import make_logreg_problem
 
 SPECS = ["identity", "fp32", "bf16", "int8", "int8:64", "int8+noef",
@@ -185,6 +187,132 @@ class TestChannel:
             R.uplink(torch.zeros(2, 5), DELTA_UPLINK)
         with pytest.raises(ValueError, match="anchor given"):
             R.uplink(torch.zeros(2, 5), GRAD_UPLINK, anchor=torch.zeros(5))
+
+
+def _uplink_buffers(rng, K, n, dtype, anchor, ref, ef):
+    """x [K, n] of mixed magnitudes and the optional anchor [n], ref and ef
+    [K, n]; client 0's upload is all zeros (v = 0: x = anchor, ref = ef =
+    0 in its row)."""
+    x = (rng.standard_normal((K, n)) * 10.0 ** rng.integers(-3, 3, (K, 1))
+         ).astype(dtype)
+    a = rng.standard_normal(n).astype(dtype) if anchor else None
+    r = (0.1 * rng.standard_normal((K, n))).astype(dtype) if ref else None
+    e = (1e-3 * rng.standard_normal((K, n))).astype(dtype) if ef else None
+    x[0] = a if anchor else 0.0
+    for buf in (r, e):
+        if buf is not None:
+            buf[0] = 0.0
+    return [None if t is None else torch.from_numpy(t) for t in (x, a, r, e)]
+
+
+class TestUplink:
+    """The uplink's arithmetic (anchor, difference coding, error feedback)
+    around the codec: the int8 codec's one-launch ``uplink`` against the
+    base class's glue around its two-launch ``roundtrip``."""
+
+    @pytest.mark.parametrize("n", [54, 300, 256 * 3])
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("anchor,ref,ef", [
+        (a, r, e) for a in (False, True) for r in (False, True)
+        for e in (False, True)])
+    def test_int8_uplink_is_the_codec_glue(self, anchor, ref, ef, dtype, n):
+        """int8_sr_uplink_ref (and Int8SRCodec.uplink, on the CPU its plain
+        version) equals Codec.uplink around Int8SRCodec.roundtrip bit for
+        bit, for every set of buffers; the all-zero client decodes to
+        exactly ref + anchor with a zero residual."""
+        K = 5
+        x, a, r, e = _uplink_buffers(np.random.default_rng(n), K, n, dtype,
+                                     anchor, ref, ef)
+        codec = Int8SRCodec()
+        u = torch.rand((K, *codec.draw_shape(n)),
+                       generator=torch.Generator().manual_seed(n))
+        want = Codec.uplink(codec, x, u, a, r, e)
+        for got in (int8_sr_uplink_ref(x, u, a, r, e),
+                    codec.uplink(x, u, a, r, e)):
+            for w, g in zip(want, got):
+                assert (w is None) == (g is None)
+                if w is not None:
+                    assert g.dtype == x.dtype and torch.equal(g, w)
+        dec, new_e, new_h = want
+        assert (new_e is None) == (not ef) and (new_h is None) == (not ref)
+        base = torch.zeros(n, dtype=x.dtype)
+        if ref:
+            base = base + r[0]
+            assert torch.equal(new_h[0], base)
+        if anchor:
+            base = base + a
+        assert torch.equal(dec[0], base)
+        if ef:
+            assert not new_e[0].any()
+
+    @pytest.mark.parametrize("spec", [GRAD_UPLINK, DELTA_UPLINK])
+    @pytest.mark.parametrize("channel", ["int8", "int8:64", "int8+noef",
+                                         "bf16+ef", "topk:0.05"])
+    def test_cross_client_uplink_as_before(self, spec, channel):
+        """CrossClientReduce.uplink's server view and comm state equal the
+        uplink arithmetic it ran inline before ``Codec.uplink`` (v = stacked
+        − anchor − ref + ef, the roundtrip, new_e = v − dec, dec + ref,
+        dec + anchor), bit for bit; other tags pass through."""
+        K, n = 4, 54
+        ch = make_channel(channel)
+        rng = np.random.default_rng(len(channel))
+        stacked = torch.from_numpy(rng.standard_normal((K, n)))
+        anchor = torch.from_numpy(rng.standard_normal(n)) if spec.anchored else None
+        sub = {b: torch.from_numpy(0.1 * rng.standard_normal((K, n)))
+               for b in ch.state_buffers(spec)}
+        other = {"ef": torch.ones(K, n, dtype=torch.float64)}
+        state = {spec.tag: sub, "other": other} if sub else None
+        codec = ch.up_codec(spec.kind)
+        shape = codec.draw_shape(n)
+        u = None if shape is None else torch.rand(
+            (K, *shape), generator=torch.Generator().manual_seed(n))
+        drawn = []
+
+        def draw(s, shp):
+            drawn.append((s.tag, shp))
+            return u
+
+        dec, new_state = CrossClientReduce(ch).uplink(
+            stacked, spec, anchor=anchor, state=state, draw=draw)
+
+        ef, ref = sub.get("ef"), sub.get("ref")
+        v = stacked - anchor if anchor is not None else stacked
+        if ref is not None:
+            v = v - ref
+        if ef is not None:
+            v = v + ef
+        want = codec.roundtrip(v, u)
+        new_e = v - want if ef is not None else None
+        if ref is not None:
+            want = want + ref
+        new_h = want if ref is not None else None
+        if anchor is not None:
+            want = want + anchor
+        assert torch.equal(dec, want)
+        assert drawn == ([] if shape is None else [(spec.tag, (K, *shape))])
+        if not sub:
+            assert new_state is state
+            return
+        assert sorted(new_state) == [spec.tag, "other"]
+        assert new_state["other"] is other
+        assert sorted(new_state[spec.tag]) == sorted(sub)
+        if ef is not None:
+            assert torch.equal(new_state[spec.tag]["ef"], new_e)
+        if ref is not None:
+            assert torch.equal(new_state[spec.tag]["ref"], new_h)
+
+    def test_int8_uplink_checks_its_inputs(self):
+        x, u = torch.zeros(2, 300), torch.zeros(2, 2, 256)
+        with pytest.raises(ValueError, match="does not cover"):
+            int8_sr_uplink(x, torch.zeros(2, 1, 256))
+        with pytest.raises(ValueError, match="anchor"):
+            int8_sr_uplink(x, u, anchor=torch.zeros(2, 300))
+        with pytest.raises(ValueError, match="ref"):
+            int8_sr_uplink(x, u, ref=torch.zeros(300))
+        with pytest.raises(TypeError, match="ef is torch.float64"):
+            int8_sr_uplink(x, u, ef=torch.zeros(2, 300, dtype=torch.float64))
+        with pytest.raises(ValueError, match="uniforms"):
+            Int8SRCodec().uplink(x)
 
 
 def _both_problems(n=200, K=4):

@@ -10,12 +10,15 @@ where the result may cancel, tol times the largest sum of its terms'
 magnitudes) with tol 1e-12 in float64 and 1e-5 in float32 (chained
 trajectory steps; Gram sums 1000 terms long). The quant kernels sum
 nothing and divide as IEEE does: their codes, scales and outputs equal the
-plain version's bit for bit, from the same uniforms.
+plain version's bit for bit, from the same uniforms; so do the fused int8
+uplink's outputs, every step of its arithmetic rounded as the plain
+version's torch ops round it.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.comm.codecs import Codec, Int8SRCodec
 from repro_torch.kernels import _build
 from repro_torch.kernels.anderson import flat_gram, flat_update
 from repro_torch.kernels.anderson.ref import gram_ref, update_ref
@@ -28,6 +31,7 @@ from repro_torch.kernels.local_update.ops import (inverse_count,
 from repro_torch.kernels.local_update.ref import trajectory_ref
 from repro_torch.kernels.quant import (chunk_rows, dequantize, dequantize_ref,
                                        int8_dequantize, int8_sr_encode,
+                                       int8_sr_uplink, int8_sr_uplink_ref,
                                        quantize, quantize_ref)
 from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
 
@@ -265,6 +269,89 @@ def test_quant_wrappers_raise_on_what_the_kernel_does_not_take(card):
                        torch.zeros(2, 2, 2048, device=card))
     with pytest.raises(ValueError, match="does not cover"):
         int8_sr_encode(x, torch.zeros(2, 1, 256, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,n,chunk", [(100, 54, 256), (5, 300, 256),
+                                       (3, 768, 256), (3, 4097, 64),
+                                       (2, 33, 1000)])
+@pytest.mark.parametrize("anchor,ref,ef", [
+    (a, r, e) for a in (False, True) for r in (False, True)
+    for e in (False, True)])
+def test_int8_uplink_kernel_on_card(card, x_dtype, K, n, chunk, anchor, ref,
+                                    ef):
+    """The fused uplink (one launch, no quantize or dequantize launch)
+    against its plain version on the CPU and on the card, and against the
+    two-launch composition (Codec.uplink around Int8SRCodec.roundtrip), bit
+    for bit, for every set of buffers; client 0's upload is all zeros; a
+    rerun is bit-identical."""
+    rng = np.random.default_rng(n + chunk)
+    x = rng.standard_normal((K, n)) * 10.0 ** rng.integers(-3, 4, (K, 1))
+    a = rng.standard_normal(n) if anchor else None
+    r = 0.1 * rng.standard_normal((K, n)) if ref else None
+    e = 1e-3 * rng.standard_normal((K, n)) if ef else None
+    x[0] = a if anchor else 0.0
+    for buf in (r, e):
+        if buf is not None:
+            buf[0] = 0.0
+    x, a, r, e = (None if t is None else torch.from_numpy(t).to(card, x_dtype)
+                  for t in (x, a, r, e))
+    u = torch.rand((K, chunk_rows(n, chunk), chunk), generator=torch.Generator(
+        device=card).manual_seed(n), device=card)
+    n0 = dict(_build.LAUNCHES)
+    out = int8_sr_uplink(x, u, a, r, e)
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES == {**n0, "int8_uplink": n0["int8_uplink"] + 1}
+    cpu = [None if t is None else t.cpu() for t in (x, u, a, r, e)]
+    want = int8_sr_uplink_ref(*cpu)
+    on_card = int8_sr_uplink_ref(x, u, a, r, e)
+    composed = Codec.uplink(Int8SRCodec(chunk=chunk), x, u, a, r, e)
+    rerun = int8_sr_uplink(x, u, a, r, e)
+    for o, w, *others in zip(out, want, on_card, composed, rerun):
+        assert (o is None) == (w is None)
+        if o is None:
+            continue
+        assert o.dtype == x_dtype and torch.equal(o.cpu(), w)
+        for other in others:
+            assert torch.equal(other, o)
+    if ref and not anchor:
+        assert out[2] is out[0]
+    assert (out[1] is None) == (not ef) and (out[2] is None) == (not ref)
+
+
+@pytest.mark.cuda
+def test_int8_uplink_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    x = torch.zeros(2, 300, device=card)
+    u = torch.zeros(2, 2, 256, device=card)
+    with pytest.raises(TypeError, match="takes"):
+        int8_sr_uplink(x.to(torch.bfloat16), u)
+    with pytest.raises(TypeError, match="takes"):
+        int8_sr_uplink(x, u.double())
+    with pytest.raises(TypeError, match="ref is"):
+        int8_sr_uplink(x, u, ref=x.double())
+    with pytest.raises(ValueError, match="anchor"):
+        int8_sr_uplink(x, u, anchor=x)
+    with pytest.raises(ValueError, match="chunk <= 1024"):
+        int8_sr_uplink(torch.zeros(2, 3000, device=card),
+                       torch.zeros(2, 2, 2048, device=card))
+    with pytest.raises(ValueError, match="not contiguous"):
+        int8_sr_uplink(torch.zeros(300, 2, device=card).t(), u)
+    with pytest.raises(ValueError, match="does not cover"):
+        int8_sr_uplink(x, torch.zeros(2, 1, 256, device=card))
+
+
+@pytest.mark.cuda
+def test_noop_launches_and_counts_nowhere(card):
+    """The launch-floor kernel launches through the kernels' own path and
+    adds to no kernel's count."""
+    n0 = dict(_build.LAUNCHES)
+    d0 = {k: dict(v) for k, v in _build.DESIGN_LAUNCHES.items()}
+    for _ in range(3):
+        _build.noop()
+    torch.cuda.synchronize(card)
+    assert _build.LAUNCHES == n0
+    assert _build.DESIGN_LAUNCHES == d0
 
 
 def _ssd_case(rng, B, nc, Q, nh, hd, st):

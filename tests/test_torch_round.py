@@ -242,15 +242,22 @@ class TestCompressedRound:
                 flat, rng, out)
             return out
 
-        port_rt = port_codecs.int8_sr_roundtrip
+        port_up = port_codecs.int8_sr_uplink
 
-        def rec_port(x, u):
-            out = port_rt(x, u)
-            seen_port.append((x.clone(), out.clone()))
+        def rec_port(x, u, anchor=None, ref=None, ef=None):
+            # the int8 uplink's entry point: record the v it rounds (formed
+            # from its arguments in the uplink's order) and the dec it returns
+            out = port_up(x, u, anchor, ref, ef)
+            v = x - anchor if anchor is not None else x
+            if ref is not None:
+                v = v - ref
+            if ef is not None:
+                v = v + ef
+            seen_port.append((v.clone(), out[0].clone()))
             return out
 
         monkeypatch.setattr(jax_codecs, "int8_sr_roundtrip", rec_ref)
-        monkeypatch.setattr(port_codecs, "int8_sr_roundtrip", rec_port)
+        monkeypatch.setattr(port_codecs, "int8_sr_uplink", rec_port)
         ref_state, ref_m = jax.jit(jax_make_round_fn(algo, jp, jhp, channel))(
             state)
 
