@@ -5,8 +5,8 @@
 
 ``--profile`` adds torch.profiler windows over three paper-scale rounds
 after phase 5, on the identity and on the int8 wire (device time by
-kernel; the ``fl.uplink`` scope's host ms and device span per round; the
-round's device busy time and its share of the wall).
+kernel; the ``fl.uplink`` and ``fl.aa_step`` scopes' host ms and device
+span per round; the round's device busy time and its share of the wall).
 
 Needs one CUDA card of compute capability 9.x (H100) and ``nvcc``; it
 builds the port's CUDA kernels from the eight sources in
@@ -40,9 +40,22 @@ port beside it. Every phase raises on failure; none is caught.
    and 1e-5 (float32) -- the two differ only in summation order, no solve
    is involved. Where a result may cancel (Y g, the update), the difference
    is taken relative to the sum of the absolute values of its terms. The
-   update is held twice: with the AA solve's coefficients (large, from an
-   ill-conditioned Gram) and with coefficients of order 1, where every
-   term, the -eta g term included, weighs on the result.
+   standalone update (``flat_update``, on no main path) is held twice: with
+   the AA solve's coefficients (large, from an ill-conditioned Gram) and
+   with coefficients of order 1, where every term, the -eta g term
+   included, weighs on the result. The fused AA step (``aa_step``:
+   screen, Jacobi eigen-solve, stats and update in one launch) at the main
+   path's shape in both dtypes, on the Gram pass's output for those
+   histories, and at K=16, m=10, d=2^20 in float32: against its plain
+   version (``aa_step_ref``, the same Jacobi op for op) w+ within the same
+   limits of its terms, gamma, |gamma| and cond of their largest
+   magnitude, theta^2 absolutely (its terms are at most 1), used and
+   clipped equal; a rerun bit-identical; one launch a call and no other.
+   It is timed beside the launch floor, its bound, its plain version and
+   the composition it replaced (the tree solve ``_screened_solve`` with its
+   batched ``torch.linalg.eigh``, ``_theta``, the norm and
+   ``flat_update``), whose device kernels a call, and eigh's own device
+   time, come from torch.profiler.
    ``trajectory`` runs the design ``ops.plan_trajectory`` picks from the
    shape: at the main path's full-batch shape the resident one (one
    thread-block cluster per client, its rows in shared memory for all the
@@ -76,22 +89,25 @@ port beside it. Every phase raises on failure; none is caught.
    10 rounds): float64 and float32 on the identity wire, and float64 on
    the int8 wire. ms per round and the rel-error reached. These are the
    main path's runs: the launch counters are set to 0 just before each
-   run and read just after it; the slice-A kernels must have launched once
-   per round of every run (``trajectory`` in its resident design),
-   ``int8_uplink`` twice per round of the int8 run (the gradient and the
-   delta uplink) and never on the identity wire, and ``quantize`` and
-   ``dequantize`` never (the fused launch computes both). The kernels line
-   reports, as ``launches``, the float64 identity run's counts for the
-   slice-A kernels and the int8 run's for the wire's, and every run's in
-   ``launches_by_run``.
+   run and read just after it; ``trajectory`` (in its resident design),
+   ``gram`` and ``aa_step`` must have launched once per round of every run,
+   the standalone ``update`` never, ``int8_uplink`` twice per round of the
+   int8 run (the gradient and the delta uplink) and never on the identity
+   wire, and ``quantize`` and ``dequantize`` never (the fused launch
+   computes both). The kernels line reports, as ``launches``, the float64
+   identity run's counts for the slice-A kernels and the int8 run's for
+   the wire's, and every run's in ``launches_by_run``. Then the no-host-read
+   gate: one warmed-up f64 round on the identity wire and one on the int8
+   wire under ``torch.cuda.set_sync_debug_mode("error")``, where any
+   synchronizing CUDA call raises and the raise fails the run.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, each to rel-error 1e-6
    within 26 rounds (cap 40): bytes exactly 432, 216 and 116 per round,
    final loss within rel 1e-10 of the reference's 0.3128270332955105, and
-   per round one launch of each slice-A kernel (``trajectory`` resident)
-   and, under int8, two of ``int8_uplink`` (and none of ``quantize`` or
-   ``dequantize``).
+   per round one launch each of ``trajectory`` (resident), ``gram`` and
+   ``aa_step`` (none of ``update``) and, under int8, two of
+   ``int8_uplink`` (and none of ``quantize`` or ``dequantize``).
 6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
    from the port's seeded init. In f32 (the weights before their bf16
    rounding), a prefill's last-position logits within 1e-4 of the largest
@@ -108,11 +124,14 @@ port beside it. Every phase raises on failure; none is caught.
    16-token prompts, 12 new tokens): every request finishes with 12
    tokens; tokens/s.
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
-   Every row carries ``launch_floor_ms``. The rows of ``quantize`` and
-   ``dequantize`` report what computes them on the main path, the fused
-   ``int8_uplink`` (``launched_as``): its launches, and its readings at
-   the main shape on the gradient uplink's buffers (every shape and buffer
-   set in ``uplink``), with the standalone kernel's phase-2 readings in
+   Every row carries ``launch_floor_ms``. The rows of ``update``,
+   ``quantize`` and ``dequantize`` report what computes them on the main
+   path (``launched_as``): ``update``'s the fused ``aa_step`` (its launches,
+   its readings at the main shape in float64, every shape in ``aa_step``
+   with the composition's time and eigh's), the wire's the fused
+   ``int8_uplink`` (its launches, and its readings at the main shape on
+   the gradient uplink's buffers, every shape and buffer set in
+   ``uplink``); each with the standalone kernel's phase-2 readings in
    ``standalone``.
    Beyond the contract's keys, ``trajectory``'s row carries ``plan`` (the
    resident plan at the main path's shape in f64), ``launches_by_design``
@@ -129,6 +148,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -171,12 +191,17 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/flash_attention.py:83"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:69"),
 }
-#: the kernels of slice A (one launch per round on every wire)
-ROUND_KERNELS = ("trajectory", "gram", "update")
-#: the wire's TPU kernels -> the kernel that computes them on the main
-#: path: the fused int8 uplink, one launch per uplink (two per round); the
-#: standalone pair is held in phase 2 and never launched on the main path
-WIRE_KERNELS = {"quantize": "int8_uplink", "dequantize": "int8_uplink"}
+#: the launches of every round on every wire: the trajectory, the Gram
+#: pass and the fused AA step
+ROUND_KERNELS = ("trajectory", "gram", "aa_step")
+#: TPU kernels -> the launch that computes them on the main path: the
+#: update in the fused AA step (one a round), the wire's pair in the fused
+#: int8 uplink (one per uplink, two a round). The standalone kernels are
+#: held in phase 2 and never launched on the main path.
+FUSED_KERNELS = {"update": "aa_step", "quantize": "int8_uplink",
+                 "dequantize": "int8_uplink"}
+#: the fused AA step's streaming shape (phase 2): few clients, a wide model
+K_WIDE, D_WIDE = 16, 1 << 20
 #: the kernels of the LM serving path (prefill only; decode runs neither)
 LM_KERNELS = ("flash_attention", "ssd")
 #: the served configuration: Zamba2-7B at full width (configs/zamba2_7b.py),
@@ -249,26 +274,45 @@ def device_ms(fn, device, n: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def kernel_us(fn, device, n: int = 20) -> tuple[float | None, list[str]]:
+def kernel_us(fn, device, n: int = 20) -> tuple[float | None, list[str], float]:
     """The device kernels' own time per call of ``fn`` in µs, from
     torch.profiler over ``n`` calls (the gaps between launches, which
-    ``device_ms`` includes, are not in it), and the kernels' names; None
-    where the profiler shows no device time."""
+    ``device_ms`` includes, are not in it), the kernels' names, and the
+    device kernels a call; None where the profiler shows no device time
+    in three windows (a window now and then records none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize(device)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith(("Memset", "Memcpy"))]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize(device)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memset", "Memcpy"))]
+        if events:
+            break
     key = ("self_device_time_total" if events and
            hasattr(events[0], "self_device_time_total") else "self_cuda_time_total")
     total = sum(getattr(e, key) for e in events)
-    return (total / n if total > 0 else None), sorted(e.key[:80] for e in events)
+    return ((total / n if total > 0 else None), sorted(e.key[:80] for e in events),
+            sum(e.count for e in events) / n)
+
+
+def host_reads(fn) -> int:
+    """The synchronizing CUDA calls (device→host reads) one call of ``fn``
+    makes, as ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
 
 
 def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -440,8 +484,8 @@ def check_kernels(clients, dtype, device, floor: float) -> dict:
         occupancy=_build.occupancy("repro_gram_occupancy",
                                    _build.DTYPE_CODE[dtype], m, d))
     # each kernel's own duration (torch.profiler), launch gaps excluded
-    results["gram"]["kernel_us"], _ = kernel_us(lambda: flat_gram(ys, g), device)
-    results["gram"]["library_kernel_us"], names = kernel_us(
+    results["gram"]["kernel_us"] = kernel_us(lambda: flat_gram(ys, g), device)[0]
+    results["gram"]["library_kernel_us"], names, _ = kernel_us(
         lambda: torch.bmm(ys, rhs), device)
     print(f"  gram       {str(dtype)[6:]:7s} own device time (torch.profiler, "
           f"20 calls): kernel {results['gram']['kernel_us']} us, torch.bmm "
@@ -473,6 +517,8 @@ def check_kernels(clients, dtype, device, floor: float) -> dict:
         library_ms=None,
         bound=bound_ms(nbytes(w, g, s, ys, gamma, ok),
                        {dtype: K * d * (4 * m + 4)}))
+    results["aa_step"] = check_aa_step(f"main {str(dtype)[6:]}", w, g, s, ys,
+                                       device, floor)
 
     for name, r in results.items():
         print(f"  {name:10s} {str(dtype)[6:]:7s} rel {r['rel']:.3e} "
@@ -485,6 +531,157 @@ def check_kernels(clients, dtype, device, floor: float) -> dict:
                 f"{name} kernel disagrees with its plain version in {dtype}: "
                 f"{r['rel']:.3e} > {TOLERANCE[dtype]:.0e}")
     return results
+
+
+def jacobi_ops(sweeps: torch.Tensor, m: int) -> float:
+    """Operations of the Jacobi sweeps that ``sweeps`` (one count a
+    client) record, at n = m + (m & 1): per sweep the convergence test (3
+    a pair) and n - 1 rounds of h = n / 2 rotations (~20 for the angle and
+    the pair's own block), h (h - 1) / 2 blocks of pairs of pairs (24) and
+    n h rows of V (6)."""
+    n = m + (m & 1)
+    h = n // 2
+    per_sweep = 3 * n * (n - 1) / 2 + (n - 1) * (20 * h + 12 * h * (h - 1)
+                                                 + 6 * n * h)
+    return float(sweeps.sum()) * per_sweep
+
+
+def check_aa_step(label: str, w, g, s, y, device, floor: float) -> dict:
+    """Phase 2, the fused AA step (``aa_step``) on the Gram pass's output
+    for histories s, y [K, m, d] (AAConfig's defaults: Tikhonov 1e-10, no
+    filter, no screen): against ``aa_step_ref`` (the same Jacobi and sums
+    op for op; only |g|^2, for theta, is summed in another order), a rerun,
+    and its launches; timed beside the launch floor, its bound, the plain
+    version and the composition it replaced (after the same Gram pass:
+    ``_screened_solve``'s batched eigh, ``_theta``, the norm of gamma and
+    ``flat_update``); the composition's and the kernel's own device time
+    and kernels a call, and eigh's alone, from torch.profiler. Bound: S,
+    Y, w, g, the Gram matrix and Y g read once, w+, gamma and the stats
+    written once; the update's operations over the kept columns and the
+    Jacobi sweeps this data needs."""
+    from repro_torch.core.anderson import AAConfig, _screened_solve, _theta
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.anderson import aa_step, flat_gram, flat_update
+    from repro_torch.kernels.anderson.ops import aa_step_blocks
+    from repro_torch.kernels.anderson.ref import (aa_step_ref, clip_keep_ref,
+                                                  jacobi_eigh_ref)
+    from repro_torch.utils import tree_math as tm
+
+    cfg = AAConfig()
+    K, m, d = s.shape
+    dtype = s.dtype
+    gram, yg = flat_gram(y, g)
+    kw = dict(damping=cfg.damping, tikhonov=cfg.tikhonov,
+              filter_rtol=cfg.filter_rtol, clip_rtol=cfg.clip_rtol)
+
+    def fused():
+        return aa_step(w, g, s, y, gram, yg, ETA, **kw)
+
+    def plain():
+        return aa_step_ref(w, g, s, y, gram, yg, ETA, **kw)
+
+    def composed():
+        gamma, cond, used, clipped, keep = _screened_solve(gram, yg, cfg)
+        rhs = yg if keep is None else torch.where(keep, yg, 0.0)
+        theta = _theta(rhs, gamma, tm.tree_dot(g, g))
+        new_w = flat_update(w, g, s, y, gamma, ETA, cfg.damping)
+        return (new_w, gamma, theta, torch.linalg.vector_norm(gamma, dim=-1),
+                cond, used, clipped)
+
+    _build.reset_launches()
+    got = fused()
+    torch.cuda.synchronize(device)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = plain()
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(fused(), got))
+    plain_equal = {name: torch.equal(a, b) for name, a, b in zip(
+        ("w", "gamma", "theta", "gamma_norm", "cond", "used", "clipped"),
+        got, want)}
+    keep = clip_keep_ref(gram, cfg.clip_rtol)
+    ga = torch.where(keep, want[1].abs(), 0.0).unsqueeze(-2)
+    scale = w.abs() + ETA * g.abs() + cfg.damping * (
+        ga @ s.abs() + ETA * (ga @ y.abs())).squeeze(-2)
+    errs = {"w": rel_diff(got[0], want[0], scale),
+            "gamma": rel_diff(got[1], want[1]),
+            "theta^2": (float((got[2] ** 2 - want[2] ** 2).abs().max()),) * 2,
+            "gamma_norm": rel_diff(got[3], want[3]),
+            "cond": rel_diff(got[4], want[4])}
+    counts_equal = torch.equal(got[5], want[5]) and torch.equal(got[6], want[6])
+    comp = composed()
+    comp_rel = rel_diff(comp[0], got[0], scale)[0]
+    # the system the composition's eigh solves (AAConfig: no screen)
+    system = gram + (cfg.tikhonov * torch.diagonal(gram, dim1=1, dim2=2).sum(-1)
+                     / m)[:, None, None] * torch.eye(m, dtype=dtype, device=device)
+    sweeps = jacobi_eigh_ref(system)[2]
+    kept = keep.sum(-1)
+    bound = bound_ms(nbytes(s, y, w, g, gram, yg, got[0], got[1]) + K * (
+        3 * got[2].element_size() + 2 * 8),
+                     {dtype: float((4 * kept + 4).sum()) * d + jacobi_ops(sweeps, m)})
+    out = dict(
+        shape=f"K={K} m={m} d={d} {str(dtype)[6:]}",
+        blocks_per_client=aa_step_blocks(
+            K, d, torch.cuda.get_device_properties(device).multi_processor_count),
+        rel=max(e[0] for e in errs.values()), abs=max(errs["w"][1], errs["gamma"][1]),
+        errors={k: e[0] for k, e in errs.items()}, counts_equal=counts_equal,
+        plain_equal=plain_equal, rerun_equal=rerun_equal, launches=launches,
+        sweeps=dict(min=int(sweeps.min()), median=float(sweeps.float().median()),
+                    max=int(sweeps.max())),
+        composition_vs_kernel_rel=comp_rel,
+        ms=device_ms(fused, device), composed_ms=device_ms(composed, device),
+        plain_ms=device_ms(plain, device, n=3, repeats=3), library_ms=None,
+        bound=bound, launch_floor_ms=floor)
+    out["kernel_us"], _, out["kernel_kernels"] = kernel_us(fused, device)
+    out["composed_us"], _, out["composed_kernels"] = kernel_us(composed, device)
+    out["eigh_us"], eigh_names, out["eigh_kernels"] = kernel_us(
+        lambda: torch.linalg.eigh(system), device)
+    out["eigh_ms"] = device_ms(lambda: torch.linalg.eigh(system), device)
+    out["host_reads"] = host_reads(fused)
+    out["composed_host_reads"] = host_reads(composed)
+    print(f"  aa_step    {label} [{out['shape']}, {out['blocks_per_client']} "
+          f"block(s) a client]: rel {out['rel']:.3e} ({ {k: float(f'{v:.3e}') for k, v in out['errors'].items()} }), "
+          f"used/clipped equal {counts_equal}, bit-identical to plain "
+          f"{plain_equal}, rerun bit-identical {rerun_equal}, launches "
+          f"{launches}; Jacobi sweeps {out['sweeps']}; kernel "
+          f"{out['ms']:.4f} ms (own device time {out['kernel_us']} us, "
+          f"{out['kernel_kernels']:.0f} kernel a call)  composition "
+          f"{out['composed_ms']:.4f} ms (own device time "
+          f"{out['composed_us']} us, {out['composed_kernels']:.1f} kernels a "
+          f"call; its w+ vs the kernel's, rel to the terms, {comp_rel:.3e})  "
+          f"eigh alone {out['eigh_ms']:.4f} ms (own device time "
+          f"{out['eigh_us']} us, {out['eigh_kernels']:.1f} kernels: "
+          f"{'; '.join(n[:40] for n in eigh_names)}); host reads a call: "
+          f"kernel {out['host_reads']}, composition "
+          f"{out['composed_host_reads']}  plain "
+          f"{out['plain_ms']:.4f} ms  bound {bound[0]:.5f} ms ({bound[1]})  "
+          f"launch floor {floor:.4f} ms", flush=True)
+    if not (rerun_equal and counts_equal):
+        raise AssertionError(f"aa_step {label}: rerun bit-identical "
+                             f"{rerun_equal}, used/clipped equal {counts_equal}")
+    if launches != {"aa_step": 1} or out["host_reads"]:
+        raise AssertionError(f"aa_step {label}: one call launched {launches} "
+                             f"and read the host {out['host_reads']} times")
+    return out
+
+
+def check_aa_step_wide(device, floor: float) -> dict:
+    """Phase 2, the fused AA step at K=16, m=10, d=2^20 in float32 (random
+    histories; w and g shared): a wide update after the solve, where a
+    design that serialised the solve ahead of the update would show it."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    m = L_EPOCHS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device,
+                           dtype=torch.float32)
+    s, y = 0.01 * randn(K_WIDE, m, D_WIDE), 0.01 * randn(K_WIDE, m, D_WIDE)
+    w, g = randn(D_WIDE), 0.01 * randn(D_WIDE)
+    out = check_aa_step("wide", w, g, s, y, device, floor)
+    if not out["rel"] <= TOLERANCE[torch.float32]:
+        raise AssertionError(f"aa_step (wide) disagrees with its plain version: "
+                             f"{out['rel']:.3e} > {TOLERANCE[torch.float32]:.0e}")
+    del s, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_quant(device, floor: float) -> dict:
@@ -674,11 +871,12 @@ def check_resident(what: str, rounds: int) -> dict:
 
 
 def expected_launches(rounds: int, int8: bool) -> dict:
-    """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: each slice-A
-    kernel once a round; the fused int8 uplink twice a round on the int8
-    wire; the standalone quant pair and the LM kernels never."""
+    """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: the trajectory,
+    the Gram pass and the fused AA step once a round; the fused int8 uplink
+    twice a round on the int8 wire; the standalone update and quant pair
+    and the LM kernels never."""
     return {**{k: rounds for k in ROUND_KERNELS},
-            **{k: 0 for k in WIRE_KERNELS},
+            **{k: 0 for k in FUSED_KERNELS},
             "int8_uplink": 2 * rounds if int8 else 0,
             **{k: 0 for k in LM_KERNELS}}
 
@@ -766,6 +964,44 @@ def paper_scale(clients, w_star, device) -> dict:
             raise AssertionError(f"paper-scale {name} run did not converge: "
                                  f"{h.rel_error.tolist()}")
     return out
+
+
+def no_host_read(clients, device) -> None:
+    """Phase 4's gate: one paper-scale float64 round, after two warm-up
+    rounds, on the identity and on the int8 wire under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronizing CUDA call
+    inside ``round_fn`` raises, and the raise fails the run. The round
+    still launches each of its kernels as often as every round does."""
+    from repro_torch.core import AlgoHParams, init_state, make_round_fn
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    for channel in (None, "int8"):
+        round_fn = make_round_fn("fedosaa_svrg", prob,
+                                 AlgoHParams(eta=ETA, local_epochs=L_EPOCHS),
+                                 channel, device=device)
+        state = init_state(prob, device=device, channel=channel,
+                           algo="fedosaa_svrg")
+        for _ in range(2):
+            state, _ = round_fn(state)
+        torch.cuda.synchronize(device)
+        _build.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = round_fn(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = dict(_build.LAUNCHES)
+        loss = float(metrics.loss)
+        print(f"  no host read in a round [{channel or 'identity'}]: the round "
+              f"ran under set_sync_debug_mode('error'), launches "
+              f"{ {k: v for k, v in launches.items() if v} }, loss {loss!r}",
+              flush=True)
+        want = expected_launches(1, int8=channel == "int8")
+        if launches != want or not np.isfinite(loss):
+            raise AssertionError(f"no-host-read round [{channel}]: launches "
+                                 f"{launches} (expected {want}), loss {loss}")
 
 
 def compression(device) -> dict:
@@ -1273,6 +1509,17 @@ def profile_rounds(clients, device, channel=None, rounds: int = 3) -> None:
                          ("host", e.cpu_time_total))
             print(f"  {e.key} ({where}): {us / 1e3 / rounds:.3f} ms/round",
                   flush=True)
+    # the device operations inside each fl.* scope's span on the device
+    # clock (a kernel launched through ctypes belongs to no torch op)
+    on_device = [e for e in prof.events() if e.device_type == cuda]
+    for scope in sorted({e.name for e in on_device if e.name.startswith("fl.")}):
+        spans = [e.time_range for e in on_device if e.name == scope]
+        inside = [e for e in on_device if not e.name.startswith("fl.")
+                  and any(r.start <= e.time_range.start and e.time_range.end <= r.end
+                          for r in spans)]
+        print(f"  {scope}: {len(inside) / rounds:.1f} device kernels/round "
+              f"inside it, {sum(e.time_range.elapsed_us() for e in inside) / 1e3 / rounds:.4f} "
+              f"ms/round of their device time", flush=True)
     print(f"  profile [{channel or 'identity'}]: {rounds} rounds, wall "
           f"{wall * 1e3 / rounds:.3f} ms/round, device busy "
           f"{busy_us / 1e3 / rounds:.3f} ms/round "
@@ -1313,6 +1560,7 @@ def main() -> int:
     uplink = check_uplink(device, floor)
     checks = {dt: check_kernels(clients, dt, device, floor)
               for dt in (torch.float64, torch.float32)}
+    aa_wide = check_aa_step_wide(device, floor)
     lm_checks = check_lm_kernels(device, floor)
 
     print("phase 3: acceptance configuration (n=10,000, K=10, float64)",
@@ -1326,6 +1574,7 @@ def main() -> int:
         iters=100)
     print(f"  w* by Newton-CG in {time.perf_counter() - t0:.1f} s", flush=True)
     paper = paper_scale(clients, w_star, device)
+    no_host_read(clients, device)
 
     print("phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)
@@ -1369,11 +1618,13 @@ def main() -> int:
                     for k, o in lm_checks.items()
                     if k.startswith(name + "/") and o is not r]))
             continue
-        wire = name in WIRE_KERNELS
-        # a wire kernel is computed on the main path by the fused uplink:
-        # its launches and its readings at the main shape (gradient uplink)
-        launched = WIRE_KERNELS.get(name, name)
-        r = uplink["main/grad"] if wire else checks[torch.float64][name]
+        wire = name in ("quantize", "dequantize")
+        # a TPU kernel computed on the main path by a fused launch reports
+        # that launch's count and its readings at the main shape (float64;
+        # the wire's: the gradient uplink)
+        launched = FUSED_KERNELS.get(name, name)
+        r = (uplink["main/grad"] if wire else checks[torch.float64]["aa_step"]
+             if name == "update" else checks[torch.float64][name])
         row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paper["float64_int8" if wire else "float64"]["launches"][launched],
@@ -1395,6 +1646,27 @@ def main() -> int:
             row.update(kernel_us=r["kernel_us"],
                        library_kernel_us=r["library_kernel_us"],
                        blocks_per_sm=r["occupancy"]["blocks_per_sm"])
+        if name == "update":
+            upd = checks[torch.float64]["update"]
+            row["launched_as"] = launched
+            row["aa_step"] = {key: dict(
+                shape=a["shape"], blocks_per_client=a["blocks_per_client"],
+                max_abs_err=a["abs"], rel=a["rel"], ms=a["ms"],
+                kernel_us=a["kernel_us"], composed_ms=a["composed_ms"],
+                composed_us=a["composed_us"],
+                composed_kernels=a["composed_kernels"], eigh_ms=a["eigh_ms"],
+                eigh_us=a["eigh_us"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound"][0], bound_by=a["bound"][1],
+                sweeps=a["sweeps"], plain_equal=a["plain_equal"],
+                rerun_equal=a["rerun_equal"])
+                for key, a in (("main/float64", r),
+                               ("main/float32", checks[torch.float32]["aa_step"]),
+                               ("wide/float32", aa_wide))}
+            row["standalone"] = dict(
+                max_abs_err=upd["abs"], ms=upd["ms"], plain_ms=upd["plain_ms"],
+                bound_ms=upd["bound"][0], bound_by=upd["bound"][1],
+                library_ms=upd["library_ms"],
+                launches={run: paper[run]["launches"]["update"] for run in paper})
         if wire:
             row["launched_as"] = launched
             row["uplink"] = {key: dict(

@@ -382,8 +382,14 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     round, from a torch.Generator on the device seeded from (seed, t, the
     uplink's fold); row k is client k. The reference's key streams cannot
     be reproduced in torch, so a caller that needs its draws (the parity
-    tests) passes ``uniforms={tag: [K, nc, C]}`` instead. A round makes no
-    host read."""
+    tests) passes ``uniforms={tag: [K, nc, C]}`` instead.
+
+    On the card, with ``aa_impl`` "kernel" (or "auto", its default), a
+    round makes no host read: every kernel and torch op is enqueued and
+    nothing is read back (chip_smoke.py holds a round to it under
+    ``torch.cuda.set_sync_debug_mode("error")``). The "tree" AA path's
+    batched ``torch.linalg.eigh`` checks its info on the host once a
+    round."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
     dev = _check_device(problem, device)

@@ -7,12 +7,15 @@ FedOSAA's multisecant step, batched over a leading client axis K:
 
 with the stability options of paper Appendix A (Tikhonov regularization,
 spectral filtering, damping) and the clip_rtol byzantine-column screen.
-Two implementations share the [m, m] solve (``_solve_gram``):
+Two implementations:
 
-* ``impl="tree"``   — plain tensor ops (utils/tree_math.py);
-* ``impl="kernel"`` — the single-pass Gram and update kernels
-  (kernels/anderson: csrc/gram.cu, csrc/update.cu on the card, their plain
-  versions on the CPU).
+* ``impl="tree"``   — plain tensor ops (utils/tree_math.py) around
+  ``_solve_gram`` (a batched ``torch.linalg.eigh``): the independent
+  composition the kernels are held against;
+* ``impl="kernel"`` — the single-pass Gram kernel, then the whole rest of
+  the step (screen, Jacobi eigen-solve, stats, update) in one launch
+  (kernels/anderson: csrc/gram.cu, csrc/update.cu's ``repro_aa_step`` on
+  the card, their plain versions on the CPU). It makes no host read.
 
 Both accumulate in the inputs' dtype (f64 for f64). The reference
 accumulates in f32 on both of its paths, even in f64 runs; see PERF.md.
@@ -23,6 +26,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.anderson import ops as aa_ops
 from repro_torch.utils import tree_math as tm
@@ -66,9 +70,12 @@ def _solve_gram(gram: torch.Tensor, rhs: torch.Tensor, cfg: AAConfig,
 
     Returns (Γ [K, m], cond [K], used [K]). A symmetric eigendecomposition
     (batched ``torch.linalg.eigh``) gives filtering and conditioning for
-    free. ``col_mask`` (bool [K, m]) removes masked columns from the system
-    entirely (rows/cols, rhs and Tikhonov diagonal, by selection — a
-    byzantine column may carry inf). A system that loses every direction
+    free. Only the tree path solves here; on CUDA tensors eigh checks its
+    info on the host, a device→host read (the kernel path's Jacobi in
+    csrc/update.cu makes none). ``col_mask`` (bool [K, m]) removes masked
+    columns from the system entirely (rows/cols, rhs and Tikhonov
+    diagonal, by selection — a byzantine column may carry inf). A system
+    that loses every direction
     gives Γ = 0 and cond 1.0. A system with non-finite entries gives Γ = NaN,
     as the reference's eigh does (torch's eigh would raise on it instead).
     """
@@ -162,10 +169,18 @@ def multisecant_update(
     w, g: [d] (shared by every client: the anchor w^t and ∇f(w^t)) or
       [K, d]; s_stack, y_stack: [K, m, d] histories,
       s_ℓ = w_{ℓ+1} − w_ℓ, y_ℓ = r_{ℓ+1} − r_ℓ.
-    Returns (w⁺ [K, d], stats with [K] entries).
+    Returns (w⁺ [K, d], stats with [K] entries). Runs inside the
+    ``fl.aa_step`` profiler scope, as the reference's named scope.
     """
-    if resolve_aa_impl(impl) == "kernel":
-        return _multisecant_update_kernel(w, g, s_stack, y_stack, eta, cfg)
+    with record_function("fl.aa_step"):
+        if resolve_aa_impl(impl) == "kernel":
+            return _multisecant_update_kernel(w, g, s_stack, y_stack, eta, cfg)
+        return _multisecant_update_tree(w, g, s_stack, y_stack, eta, cfg)
+
+
+def _multisecant_update_tree(w, g, s_stack, y_stack, eta: float,
+                             cfg: AAConfig):
+    """The tree path: plain tensor ops and ``_solve_gram``."""
     gram = tm.tree_gram(y_stack, y_stack)              # [K, m, m] YᵀY
     yg = tm.tree_vdot_stacked(y_stack, g)              # [K, m]    Yᵀg
     gamma, cond, used, clipped, keep = _screened_solve(gram, yg, cfg)
@@ -191,20 +206,15 @@ def _theta(yg, gamma, g_norm2):
 
 def _multisecant_update_kernel(w, g, s_stack, y_stack, eta: float,
                                cfg: AAConfig):
-    """Same math and stats as the tree path, through the single-pass Gram
-    and update kernels: S and Y are each read once per pass."""
+    """Same math and stats as the tree path in two launches: the Gram pass,
+    then the AA step (screen, Jacobi eigen-solve, stats, update). S and Y
+    are each read once per pass."""
     gram, yg = aa_ops.flat_gram(y_stack, g)
-    gamma, cond, used, clipped, keep = _screened_solve(gram, yg, cfg)
-    if keep is not None:
-        yg = torch.where(keep, yg, 0.0)
-        # a screened column must not reach the update kernel (0·inf = nan)
-        s_stack = _mask_stack_columns(s_stack, keep)
-        y_stack = _mask_stack_columns(y_stack, keep)
-    ga = g.to(gram.dtype)
-    theta = _theta(yg, gamma, tm.tree_dot(ga, ga))
-    new_w = aa_ops.flat_update(w, g, s_stack, y_stack, gamma, eta, cfg.damping)
-    return new_w, AAStats(theta, torch.linalg.vector_norm(gamma, dim=-1), cond,
-                          used, clipped)
+    new_w, _, theta, gamma_norm, cond, used, clipped = aa_ops.aa_step(
+        w, g, s_stack, y_stack, gram, yg, eta, damping=cfg.damping,
+        tikhonov=cfg.tikhonov, filter_rtol=cfg.filter_rtol,
+        clip_rtol=cfg.clip_rtol)
+    return new_w, AAStats(theta, gamma_norm, cond, used, clipped)
 
 
 def trajectory_to_sy(w_traj: torch.Tensor, r_traj: torch.Tensor,

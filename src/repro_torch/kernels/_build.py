@@ -37,8 +37,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name → launches since the last reset (see module docstring)
-LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "quantize": 0,
-            "dequantize": 0, "int8_uplink": 0, "ssd": 0, "flash_attention": 0}
+LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "aa_step": 0,
+            "quantize": 0, "dequantize": 0, "int8_uplink": 0, "ssd": 0,
+            "flash_attention": 0}
 #: kernel → design → launches since the last reset (see module docstring)
 DESIGN_LAUNCHES = {"trajectory": {"resident": 0, "streaming": 0}}
 
@@ -55,6 +56,11 @@ _SIGNATURES = {
     # stream
     "repro_update": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I,
                      _D, _D, _P],
+    # dtype, w, w_stride, g, g_stride, s, y, gram, yg, out, gamma, stats,
+    # counts, K, m, d, blocks, eta, beta, tikhonov, filter_rtol, clip_rtol,
+    # stream
+    "repro_aa_step": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _D, _D, _D, _D, _D, _P],
     # x_dtype, x, n, u, q, scales, B, nc, C, stream
     "repro_quantize": [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
     # out_dtype, q, scales, out, n, B, nc, C, stream

@@ -1,9 +1,12 @@
-"""Public entry points of the two Anderson-step kernels, batched over clients.
+"""Public entry points of the Anderson-step kernels, batched over clients.
 
 Counterpart of repro/kernels/anderson/ops.py::flat_gram/flat_update: one
 call serves all K clients, so each pass is ONE launch per round. A vector
 shared by every client (the server's w^t and ∇f(w^t)) is passed as [d]
 and read with a client stride of 0 — it is never copied K times.
+``aa_step`` is everything after the Gram pass (the screen, the eigen-solve,
+the stats and the update) in one launch; the main path runs ``flat_gram``
+then ``aa_step``. ``flat_update`` stands alone.
 
 Dispatch is by the tensors' device only: CPU tensors run the plain version
 (ref.py); CUDA tensors launch csrc/gram.cu / csrc/update.cu or raise. No
@@ -14,10 +17,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.anderson.ref import acc_dtype, gram_ref, update_ref
+from repro_torch.kernels.anderson.ref import (aa_step_ref, acc_dtype, gram_ref,
+                                              update_ref)
 
-#: history length the Gram kernel's pair table holds (csrc/gram.cu)
+#: history length the Gram kernel's pair table and the AA step's shared
+#: memory hold (csrc/gram.cu, csrc/update.cu)
 MAX_HISTORY = 64
+#: columns an update block of the AA step takes at least (csrc/update.cu
+#: streams them 256 at a time); a client of at most this many columns runs
+#: in one block
+STEP_COLUMNS = 2048
 
 
 def _client_stride(v: torch.Tensor, K: int, d: int) -> int:
@@ -84,3 +93,56 @@ def _update_cuda(w, g, s, y, gamma, eta, beta):
                       s.data_ptr(), y.data_ptr(), gamma.data_ptr(),
                       out.data_ptr(), K, m, d, float(eta), float(beta))
     return out
+
+
+def aa_step_blocks(K: int, d: int, sms: int) -> int:
+    """Blocks a client of the AA step (csrc/update.cu's grid x): 1 where d
+    fits one block's share (the block solves, writes the stats and updates
+    every column); else a stats block and enough update blocks to give the
+    card about four a multiprocessor, each at least STEP_COLUMNS wide."""
+    need = -(-d // STEP_COLUMNS)
+    if need <= 1:
+        return 1
+    return min(need, max(1, 4 * sms // K)) + 1
+
+
+def aa_step(w, g, s, y, gram, yg, eta: float, *, damping: float,
+            tikhonov: float, filter_rtol: float, clip_rtol: float):
+    """The AA step after the Gram pass (ref.py::aa_step_ref), all clients
+    in one launch: w, g [d] (shared) or [K, d]; s, y [K, m, d]; gram
+    [K, m, m] and yg [K, m] from ``flat_gram``. Every tensor has one dtype,
+    f32 or f64. Returns (w⁺ [K, d], Γ [K, m], θ, ‖Γ‖, cond [K], used,
+    clipped [K] int64)."""
+    K, m, d = s.shape
+    dtypes = {t.dtype for t in (w, g, s, y, gram, yg)}
+    if len(dtypes) != 1 or acc_dtype(s.dtype) != s.dtype:
+        raise TypeError(f"aa_step: w, g, s, y, gram, yg must share one dtype, "
+                        f"float32 or float64; got {sorted(map(str, dtypes))}")
+    if y.shape != (K, m, d) or gram.shape != (K, m, m) or yg.shape != (K, m):
+        raise ValueError(f"aa_step: shapes s {tuple(s.shape)}, y "
+                         f"{tuple(y.shape)}, gram {tuple(gram.shape)}, yg "
+                         f"{tuple(yg.shape)}")
+    w_stride, g_stride = _client_stride(w, K, d), _client_stride(g, K, d)
+    kw = dict(damping=damping, tikhonov=tikhonov, filter_rtol=filter_rtol,
+              clip_rtol=clip_rtol)
+    if s.device.type == "cpu":
+        return aa_step_ref(w, g, s, y, gram, yg, eta, **kw)
+    if m > MAX_HISTORY:
+        raise ValueError(f"aa_step kernel: m={m} > {MAX_HISTORY} history columns")
+    dev = _build.check_cuda("aa_step", w, g, s, y, gram, yg)
+    a = s.dtype
+    out = torch.empty((K, d), dtype=a, device=dev)
+    gamma = torch.empty((K, m), dtype=a, device=dev)
+    stats = torch.empty((3, K), dtype=a, device=dev)
+    counts = torch.empty((2, K), dtype=torch.int64, device=dev)
+    blocks = aa_step_blocks(K, d, torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
+    with torch.cuda.device(dev):
+        _build.launch("aa_step", "repro_aa_step", _build.DTYPE_CODE[a],
+                      w.data_ptr(), w_stride, g.data_ptr(), g_stride,
+                      s.data_ptr(), y.data_ptr(), gram.data_ptr(), yg.data_ptr(),
+                      out.data_ptr(), gamma.data_ptr(), stats.data_ptr(),
+                      counts.data_ptr(), K, m, d, blocks, float(eta),
+                      float(damping), float(tikhonov), float(filter_rtol),
+                      float(clip_rtol))
+    return out, gamma, stats[0], stats[1], stats[2], counts[0], counts[1]

@@ -8,7 +8,10 @@ The trajectory, Gram and update kernels differ from their plain versions
 only in summation order: max |kernel - plain| <= tol * max |plain| (or,
 where the result may cancel, tol times the largest sum of its terms'
 magnitudes) with tol 1e-12 in float64 and 1e-5 in float32 (chained
-trajectory steps; Gram sums 1000 terms long). The quant kernels sum
+trajectory steps; Gram sums 1000 terms long). The fused AA step is held
+the same way against its plain version (the same Jacobi and sums op for
+op): w+ against its terms, gamma, |gamma| and cond against their largest
+magnitude, theta^2 absolutely, used and clipped exactly. The quant kernels sum
 nothing and divide as IEEE does: their codes, scales and outputs equal the
 plain version's bit for bit, from the same uniforms; so do the fused int8
 uplink's outputs, every step of its arithmetic rounded as the plain
@@ -20,8 +23,9 @@ import torch
 
 from repro_torch.comm.codecs import Codec, Int8SRCodec
 from repro_torch.kernels import _build
-from repro_torch.kernels.anderson import flat_gram, flat_update
-from repro_torch.kernels.anderson.ref import gram_ref, update_ref
+from repro_torch.kernels.anderson import aa_step, flat_gram, flat_update
+from repro_torch.kernels.anderson.ref import (aa_step_ref, clip_keep_ref,
+                                              gram_ref, update_ref)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.local_update import fused_trajectory
@@ -221,6 +225,139 @@ def test_gram_kernel_shapes_on_card(card, dtype, m, d):
     assert_close(gram_k.cpu(), gram_p.cpu(), tol)
     err = (yg_k.double() - yg_p).abs().max()
     assert err <= tol * (y.double().abs() @ g.double().abs()).max()
+
+
+#: AA-step knobs: AAConfig's defaults, and every option on
+AA_KNOBS = {"defaults": dict(damping=1.0, tikhonov=1e-10, filter_rtol=0.0,
+                             clip_rtol=0.0),
+            "options": dict(damping=0.7, tikhonov=1e-8, filter_rtol=1e-6,
+                            clip_rtol=0.5)}
+
+
+def _aa_step_inputs(card, dtype, K, m, d, shared, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=card, dtype=dtype)
+    s, y = randn(K, m, d), randn(K, m, d)
+    w, g = (randn(d), randn(d)) if shared else (randn(K, d), randn(K, d))
+    return w, g, s, y
+
+
+def _assert_aa_step_close(got, want, w, g, s, y, gram, eta, kw, tol):
+    """w+ within tol of its terms; gamma, |gamma|, cond within tol of their
+    largest magnitude; theta^2 within tol; used, clipped equal; NaN where
+    the plain version has NaN."""
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+    keep = clip_keep_ref(gram, kw["clip_rtol"])
+    ga = torch.where(keep, torch.nan_to_num(want[1]).abs(), 0.0).unsqueeze(-2)
+    scale = w.abs() + eta * g.abs() + kw["damping"] * (
+        ga @ s.abs().nan_to_num(posinf=0.0) + eta * (
+            ga @ y.abs().nan_to_num(posinf=0.0))).squeeze(-2)
+    diff = (got[0] - want[0]).nan_to_num().abs()
+    assert float(diff.max()) <= tol * float(scale.max())
+    for i in (1, 3, 4):
+        a, b = got[i].nan_to_num(), want[i].nan_to_num()
+        assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1e-300)
+    t2 = (got[2].nan_to_num() ** 2 - want[2].nan_to_num() ** 2).abs()
+    assert float(t2.max()) <= tol
+    assert torch.equal(got[5], want[5]) and torch.equal(got[6], want[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("m", [1, 10, 64])
+@pytest.mark.parametrize("d", [1, 54, 1000, 2 ** 20 + 3])
+@pytest.mark.parametrize("knobs", sorted(AA_KNOBS))
+def test_aa_step_kernel_on_card(card, dtype, shared, m, d, knobs):
+    """The fused AA step against its plain version on the card, from one
+    history column to MAX_HISTORY and from d=1 to a d that takes many
+    update blocks a client; one launch a call; reruns bit-identical."""
+    K = 3
+    kw = AA_KNOBS[knobs]
+    w, g, s, y = _aa_step_inputs(card, dtype, K, m, d, shared, seed=m * d)
+    gram, yg = flat_gram(y, g)
+    n0 = dict(_build.LAUNCHES)
+    got = aa_step(w, g, s, y, gram, yg, 0.6, **kw)
+    again = aa_step(w, g, s, y, gram, yg, 0.6, **kw)
+    torch.cuda.synchronize(card)
+    assert {k: v - n0[k] for k, v in _build.LAUNCHES.items() if v != n0[k]} == {
+        "aa_step": 2}
+    for a, b in zip(got, again):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    want = aa_step_ref(w, g, s, y, gram, yg, 0.6, **kw)
+    assert got[0].shape == (K, d) and got[1].shape == (K, m)
+    assert got[5].dtype == torch.int64
+    _assert_aa_step_close(got, want, w, g, s, y, gram, 0.6, kw,
+                          TOL[np.float64 if dtype == torch.float64 else np.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["rank0", "all_clipped", "inf_column",
+                                  "undefended_overflow", "even_median"])
+def test_aa_step_degenerate_on_card(card, dtype, case):
+    """The degenerate systems through the kernel, against the plain version:
+    a zero history (gamma 0, the gradient step), every column screened, an
+    infinite column screened, an overflow without the screen (gamma NaN,
+    used 0, cond 1), and an even count of finite columns (the median
+    averages the middle pair)."""
+    K, m, d = 2, 6, 40
+    w, g, s, y = _aa_step_inputs(card, dtype, K, m, d, True, seed=11)
+    kw = dict(AA_KNOBS["defaults"], clip_rtol=1e-3)
+    if case == "rank0":
+        y = torch.zeros_like(y)
+    elif case == "all_clipped":
+        s, y = torch.full_like(s, torch.inf), torch.full_like(y, torch.inf)
+    elif case == "inf_column":
+        s[0, 2], y[0, 2] = torch.inf, -torch.inf
+    elif case == "undefended_overflow":
+        y[1, 4] *= 1e200 if dtype == torch.float64 else 1e24
+        kw["clip_rtol"] = 0.0
+    else:
+        # four finite norms 1, 2, 3, 3.5 (median 2.5) and two infinite ones:
+        # clip_rtol 0.8 keeps 3 (2.4 <= 2.5) and drops 3.5
+        scale = torch.tensor([1.0, 2.0, 3.0, 3.5, torch.inf, torch.inf],
+                             dtype=dtype, device=card)
+        y = y / y.norm(dim=-1, keepdim=True) * scale[:, None]
+        kw["clip_rtol"] = 0.8
+    gram, yg = flat_gram(y, g)
+    got = aa_step(w, g, s, y, gram, yg, 0.6, **kw)
+    want = aa_step_ref(w, g, s, y, gram, yg, 0.6, **kw)
+    _assert_aa_step_close(got, want, w, g, s, y, gram, 0.6, kw,
+                          TOL[np.float64 if dtype == torch.float64 else np.float32])
+    if case in ("rank0", "all_clipped"):
+        assert torch.equal(got[0], (w - g * 0.6).expand(K, d))
+        assert int(got[5].max()) == 0
+    if case == "undefended_overflow":
+        assert bool(torch.isnan(got[1][1]).all()) and int(got[5][1]) == 0
+        assert float(got[4][1]) == 1.0 and bool(torch.isfinite(got[0][0]).all())
+    if case == "inf_column":
+        assert int(got[6][0]) == 1 and bool(torch.isfinite(got[0]).all())
+    if case == "even_median":
+        assert got[6].tolist() == [3, 3]
+
+
+@pytest.mark.cuda
+def test_aa_step_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    w, g, s, y = _aa_step_inputs(card, torch.float32, 2, 3, 50, True, seed=1)
+    gram, yg = flat_gram(y, g)
+    kw = AA_KNOBS["defaults"]
+    with pytest.raises(TypeError, match="one dtype"):
+        aa_step(w.double(), g, s, y, gram, yg, 0.5, **kw)
+    with pytest.raises(TypeError, match="one dtype"):
+        aa_step(*(t.bfloat16() for t in (w, g, s, y, gram, yg)), 0.5, **kw)
+    with pytest.raises(ValueError, match="shapes"):
+        aa_step(w, g, s, y[:, :2], gram, yg, 0.5, **kw)
+    with pytest.raises(ValueError, match="not contiguous"):
+        aa_step(w, g, s.transpose(0, 1).contiguous().transpose(0, 1), y, gram,
+                yg, 0.5, **kw)
+    big = torch.zeros(2, 65, 50, device=card)
+    with pytest.raises(ValueError, match="history columns"):
+        aa_step(w, g, big, big, torch.zeros(2, 65, 65, device=card),
+                torch.zeros(2, 65, device=card), 0.5, **kw)
 
 
 @pytest.mark.cuda
