@@ -6,7 +6,8 @@
 ``--profile`` adds torch.profiler windows over three paper-scale rounds
 after phase 5, on the identity and on the int8 wire (device time by
 kernel; the ``fl.uplink`` and ``fl.aa_step`` scopes' host ms and device
-span per round; the round's device busy time and its share of the wall).
+span per round; the round's device busy time and its share of the wall),
+and the same over three replays of the engine's CUDA graph of 5 rounds.
 
 Needs one CUDA card of compute capability 9.x (H100) and ``nvcc``; it
 builds the port's CUDA kernels from the eight sources in
@@ -80,34 +81,49 @@ port beside it. Every phase raises on failure; none is caught.
    and SSD kernels' blocks per SM are printed.
    Times come from CUDA events (median of repeats).
 3. The acceptance configuration (synthetic covtype n=10,000, K=10 iid,
-   gamma=1e-3, eta=1, L=10, float64, FedOSAA-SVRG, at most 20 rounds):
-   every slice-A kernel launches once per round (``trajectory`` in its
-   resident design every time), rel-error 1e-6 within 18
-   rounds, final loss within rel 1e-12 of the JAX reference's
-   0.3031490665062957; ms per round.
+   gamma=1e-3, eta=1, L=10, float64, FedOSAA-SVRG, at most 20 rounds),
+   by the per-round loop and then by the engine (``run_federated(chunk=8)``,
+   ``core/engine.py``: one CUDA graph of 8 rounds replayed a chunk): every
+   slice-A kernel launches once per round of the loop and once per slot
+   the engine replayed (``trajectory`` in its resident design every
+   time; the engine's warm-up round is counted apart), rel-error 1e-6
+   within 18 rounds, final loss within rel 1e-12 of the JAX reference's
+   0.3031490665062957; the engine stops on the loop's round with its rows
+   and final params; ms per round of each.
 4. Paper scale (covtype-sized synthetic data N=581,012, d=54, K=100 iid,
    10 rounds): float64 and float32 on the identity wire, and float64 on
-   the int8 wire. ms per round and the rel-error reached. These are the
-   main path's runs: the launch counters are set to 0 just before each
-   run and read just after it; ``trajectory`` (in its resident design),
-   ``gram`` and ``aa_step`` must have launched once per round of every run,
-   the standalone ``update`` never, ``int8_uplink`` twice per round of the
-   int8 run (the gradient and the delta uplink) and never on the identity
-   wire, and ``quantize`` and ``dequantize`` never (the fused launch
-   computes both). The kernels line reports, as ``launches``, the float64
-   identity run's counts for the slice-A kernels and the int8 run's for
-   the wire's, and every run's in ``launches_by_run``. Then the no-host-read
-   gate: one warmed-up f64 round on the identity wire and one on the int8
-   wire under ``torch.cuda.set_sync_debug_mode("error")``, where any
-   synchronizing CUDA call raises and the raise fails the run.
+   the int8 wire, each by the per-round loop and then by the engine (10
+   rounds in chunks of 5 through ``run_rounds``). ms per round, the
+   rel-error reached, peak memory. These are the main path's runs: the
+   launch counters are set to 0 just before each run and read just after
+   it; ``trajectory`` (in its resident design), ``gram`` and ``aa_step``
+   must have launched once per round of every loop run and once per slot
+   replayed of every engine run, the standalone ``update`` never,
+   ``int8_uplink`` twice per round (slot) of the int8 runs (the gradient
+   and the delta uplink) and never on the identity wire, and ``quantize``
+   and ``dequantize`` never (the fused launch computes both). Each engine
+   run must equal its loop run in every telemetry row and in the final
+   params, bit for bit, and make exactly one host read in each chunk after
+   the first (counted under ``set_sync_debug_mode("warn")``); it prints
+   its ms per round over its replayed chunks (its second chunk and 4 more
+   replays, host clock, each ending in its read) beside the loop's, its
+   warm-up and capture ms apart. The kernels line reports, as
+   ``launches``, the float64 identity loop run's counts for the slice-A
+   kernels and the int8 loop run's for the wire's, and every loop run's in
+   ``launches_by_run``. Then the no-host-read gate: one warmed-up f64
+   round on the identity wire and one on the int8 wire under
+   ``torch.cuda.set_sync_debug_mode("error")``, where any synchronizing
+   CUDA call raises and the raise fails the run.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
-   FedOSAA-SVRG) on the fp32, bf16 and int8 wires, each to rel-error 1e-6
-   within 26 rounds (cap 40): bytes exactly 432, 216 and 116 per round,
-   final loss within rel 1e-10 of the reference's 0.3128270332955105, and
-   per round one launch each of ``trajectory`` (resident), ``gram`` and
-   ``aa_step`` (none of ``update``) and, under int8, two of
-   ``int8_uplink`` (and none of ``quantize`` or ``dequantize``).
+   FedOSAA-SVRG) on the fp32, bf16 and int8 wires, by the loop and by the
+   engine (chunk=8), each to rel-error 1e-6 within 26 rounds (cap 40):
+   bytes exactly 432, 216 and 116 per round, final loss within rel 1e-10
+   of the reference's 0.3128270332955105, and per round (slot) one launch
+   each of ``trajectory`` (resident), ``gram`` and ``aa_step`` (none of
+   ``update``) and, under int8, two of ``int8_uplink`` (and none of
+   ``quantize`` or ``dequantize``); the engine's rows and final params
+   equal the loop's.
 6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
    from the port's seeded init. In f32 (the weights before their bf16
    rounding), a prefill's last-position logits within 1e-4 of the largest
@@ -143,8 +159,10 @@ port beside it. Every phase raises on failure; none is caught.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -200,6 +218,11 @@ ROUND_KERNELS = ("trajectory", "gram", "aa_step")
 #: held in phase 2 and never launched on the main path.
 FUSED_KERNELS = {"update": "aa_step", "quantize": "int8_uplink",
                  "dequantize": "int8_uplink"}
+#: the engine's chunks (core/engine.py; one CUDA graph a chunk): the
+#: acceptance and ext_compression runs through run_federated(chunk=8), the
+#: paper-scale runs' 10 rounds in two chunks of 5, each runner then replayed
+#: PAPER_REPLAYS more times for its ms per round
+ACCEPT_CHUNK, PAPER_CHUNK, PAPER_REPLAYS = 8, 5, 4
 #: the fused AA step's streaming shape (phase 2): few clients, a wide model
 K_WIDE, D_WIDE = 16, 1 << 20
 #: the kernels of the LM serving path (prefill only; decode runs neither)
@@ -301,18 +324,55 @@ def kernel_us(fn, device, n: int = 20) -> tuple[float | None, list[str], float]:
             sum(e.count for e in events) / n)
 
 
-def host_reads(fn) -> int:
-    """The synchronizing CUDA calls (device→host reads) one call of ``fn``
-    makes, as ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+@contextlib.contextmanager
+def sync_warnings():
+    """Record the warnings issued inside while
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports every synchronizing
+    CUDA call (device→host read); ``n_reads`` counts those in the list."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield caught
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+def n_reads(caught) -> int:
     return sum("called a synchronizing CUDA operation" in str(w.message)
                for w in caught)
+
+
+def host_reads(fn) -> int:
+    """The synchronizing CUDA calls (device→host reads) one call of ``fn``
+    makes, as ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    with sync_warnings() as caught:
+        fn()
+    return n_reads(caught)
+
+
+class ChunkReads:
+    """A MetricsSink (repro_torch/obs) that notes the host reads made so far
+    (``caught``, from ``sync_warnings``) when the run opens and at each
+    chunk's emit: ``per_chunk`` is each chunk's reads, the first chunk's
+    warm-up and capture included."""
+
+    def __init__(self, caught):
+        self.caught = caught
+        self.marks = []
+
+    def open(self, header):
+        self.marks.append(n_reads(self.caught))
+
+    def emit(self, rows):
+        self.marks.append(n_reads(self.caught))
+
+    def close(self, footer):
+        pass
+
+    @property
+    def per_chunk(self) -> list[int]:
+        return np.diff(self.marks).tolist()
 
 
 def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -881,80 +941,164 @@ def expected_launches(rounds: int, int8: bool) -> dict:
             **{k: 0 for k in LM_KERNELS}}
 
 
+def slots_replayed(rounds_run: int, chunk: int) -> int:
+    """Slots an engine run replayed: every chunk replays all of its slots,
+    a stop inside it or a short last chunk included."""
+    return chunk * math.ceil(rounds_run / chunk)
+
+
+def same_as_loop(what: str, s_loop, s_eng, w_loop, w_eng) -> None:
+    """Raise unless an engine run equals its per-round-loop run: every
+    telemetry row (the sinks' MemorySink rows) in every field but the wall
+    times, equal values with nan where nan, and the final params bit for
+    bit."""
+    from repro_torch.obs import ROW_FIELDS
+
+    fields = ("round",) + tuple(f for f in ROW_FIELDS
+                                if f not in ("round_wall_s", "wall_time_s"))
+    a, b = (np.array([[r[f] for f in fields] for r in sink.rows],
+                     dtype=np.float64) for sink in (s_loop, s_eng))
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: the engine ran {len(b)} rounds, the "
+                             f"loop {len(a)}")
+    bad = [f for j, f in enumerate(fields)
+           if not np.array_equal(a[:, j], b[:, j], equal_nan=True)]
+    if bad or not torch.equal(w_loop, w_eng):
+        raise AssertionError(f"{what}: the engine's rows differ from the "
+                             f"loop's in {bad}; final params equal: "
+                             f"{torch.equal(w_loop, w_eng)}")
+
+
+def per_round_ms(wall_time: np.ndarray) -> np.ndarray:
+    """Each round's ms from a History's cumulative wall time."""
+    return np.diff(np.concatenate([[0.0], wall_time])) * 1e3
+
+
+def engine_launches(what: str, rounds_run: int, chunk: int, int8: bool) -> dict:
+    """Gate an engine run's launch counts (read just after it): each kernel
+    of the round once per slot replayed, every trajectory resident; the
+    warm-up round before the capture is counted apart, not here."""
+    from repro_torch.kernels import _build
+
+    launches = dict(_build.LAUNCHES)
+    slots = slots_replayed(rounds_run, chunk)
+    designs = check_resident(what, slots)
+    want = expected_launches(slots, int8=int8)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} over {slots} slots "
+                             f"replayed, expected {want}")
+    return dict(slots=slots, launches=launches, designs=designs)
+
+
 def acceptance(device) -> dict:
-    """Phase 3: the acceptance configuration through the kernels."""
+    """Phase 3: the acceptance configuration through the kernels, by the
+    per-round loop and then by the engine (run_federated(chunk=8), one CUDA
+    graph a chunk), which must stop on the loop's round with its rows and
+    final params."""
     from repro_torch.core import AlgoHParams, run_federated, solve_reference
     from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
     from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
 
     X, y = make_binary_classification("covtype", n=10_000, seed=0)
     clients = partition(X, y, 10, "iid", seed=0, device=device)
     prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
     w_star = solve_reference(prob, iters=100)
-    _build.reset_launches()
-    h = run_federated(prob, "fedosaa_svrg", AlgoHParams(eta=ETA, local_epochs=L_EPOCHS),
-                      20, w_star=w_star, stop_rel_error=1e-8, device=device)
-    launches = dict(_build.LAUNCHES)
-    rounds = len(h.rounds)
-    designs = check_resident("acceptance", rounds)
-    hit = np.nonzero(h.rel_error < 1e-6)[0]
-    to_target = int(hit[0]) + 1 if len(hit) else None
-    loss_rel = abs(h.loss[-1] - REFERENCE_LOSS) / REFERENCE_LOSS
-    print(f"  rounds run {rounds}, rounds to rel-error 1e-6: {to_target}, "
-          f"final loss {h.loss[-1]!r} (rel {loss_rel:.2e} from the reference), "
-          f"launches {launches}, trajectory by design {designs}", flush=True)
-    print("  rel-error curve " + json.dumps([float(v) for v in h.rel_error]),
-          flush=True)
-    per_round = np.diff(h.wall_time) * 1e3      # round 0 excluded
-    print(f"  median {np.median(per_round):.3f} ms/round over rounds 1.."
-          f"{rounds - 1} (round 0: {h.wall_time[0] * 1e3:.1f} ms)", flush=True)
-    if launches != expected_launches(rounds, int8=False):
-        raise AssertionError(f"each slice-A kernel must launch once per "
-                             f"round: {launches} over {rounds} rounds")
-    if to_target is None or to_target > 18:
-        raise AssertionError(f"rel-error 1e-6 not reached within 18 rounds "
-                             f"({to_target})")
-    if not loss_rel <= 1e-12:
-        raise AssertionError(f"final loss {h.loss[-1]!r} is {loss_rel:.2e} "
-                             f"from {REFERENCE_LOSS!r}")
-    return dict(rounds=rounds, to_target=to_target, loss=float(h.loss[-1]),
-                ms_per_round=float(np.median(per_round)))
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+    runs = {}
+    for path, chunk in (("loop", None), ("engine", ACCEPT_CHUNK)):
+        sink = MemorySink()
+        _build.reset_launches()
+        h = run_federated(prob, "fedosaa_svrg", hp, 20, w_star=w_star,
+                          stop_rel_error=1e-8, device=device, chunk=chunk,
+                          sinks=[sink])
+        rounds = len(h.rounds)
+        if chunk is None:
+            launches = dict(_build.LAUNCHES)
+            designs = check_resident("acceptance", rounds)
+            if launches != expected_launches(rounds, int8=False):
+                raise AssertionError(f"each slice-A kernel must launch once per "
+                                     f"round: {launches} over {rounds} rounds")
+            counted = dict(launches=launches, designs=designs)
+        else:
+            counted = engine_launches("acceptance engine", rounds, chunk,
+                                      int8=False)
+        hit = np.nonzero(h.rel_error < 1e-6)[0]
+        to_target = int(hit[0]) + 1 if len(hit) else None
+        loss_rel = abs(h.loss[-1] - REFERENCE_LOSS) / REFERENCE_LOSS
+        ms = per_round_ms(h.wall_time)
+        # the loop's round 0, the engine's first chunk: warm-up and capture
+        skip = 1 if chunk is None else chunk
+        runs[path] = dict(h=h, sink=sink, rounds=rounds, to_target=to_target,
+                          loss=float(h.loss[-1]),
+                          ms_per_round=float(np.median(ms[skip:])))
+        print(f"  {path}{'' if chunk is None else f' (chunk={chunk})'}: "
+              f"rounds run {rounds}, rounds to rel-error 1e-6: {to_target}, "
+              f"final loss {h.loss[-1]!r} (rel {loss_rel:.2e} from the "
+              f"reference), {counted}", flush=True)
+        print(f"  {path}: median {runs[path]['ms_per_round']:.3f} ms/round over "
+              f"rounds {skip}..{rounds - 1} (before them: "
+              f"{h.wall_time[skip - 1] * 1e3:.1f} ms)", flush=True)
+        if to_target is None or to_target > 18:
+            raise AssertionError(f"{path}: rel-error 1e-6 not reached within "
+                                 f"18 rounds ({to_target})")
+        if not loss_rel <= 1e-12:
+            raise AssertionError(f"{path}: final loss {h.loss[-1]!r} is "
+                                 f"{loss_rel:.2e} from {REFERENCE_LOSS!r}")
+    print("  rel-error curve " + json.dumps(
+        [float(v) for v in runs["loop"]["h"].rel_error]), flush=True)
+    same_as_loop("acceptance", runs["loop"]["sink"], runs["engine"]["sink"],
+                 runs["loop"]["h"].final_params, runs["engine"]["h"].final_params)
+    print("  engine = loop: the same rounds, rows and final params", flush=True)
+    return {path: {k: v for k, v in r.items() if k not in ("h", "sink")}
+            for path, r in runs.items()}
 
 
 def paper_scale(clients, w_star, device) -> dict:
     """Phase 4: the main path at the paper's covtype size, both dtypes on
-    the identity wire and float64 on the int8 wire. Each run is read on its
-    own launch counts: they are set to 0 just before it and read just
-    after."""
-    from repro_torch.core import AlgoHParams, run_federated
+    the identity wire and float64 on the int8 wire, each by the per-round
+    loop and then by the engine (10 rounds in chunks of 5, one CUDA graph
+    a chunk). Each run is read on its own launch counts: they are set to 0
+    just before it and read just after. The engine run must equal the loop
+    run in every row and in the final params, and make one host read in
+    each chunk after the first; its runner is then replayed PAPER_REPLAYS
+    more times for its ms per round."""
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn, run_federated, run_rounds)
     from repro_torch.kernels import _build
     from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
 
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
     out = {}
     for name, dtype, channel in (("float64", torch.float64, None),
                                  ("float32", torch.float32, None),
                                  ("float64_int8", torch.float64, "int8")):
         prob = make_logreg_problem(clients, GAMMA, dtype=dtype, device=device)
+        ws = w_star.to(dtype)
+        s_loop = MemorySink()
         _build.reset_launches()
-        h = run_federated(prob, "fedosaa_svrg",
-                          AlgoHParams(eta=ETA, local_epochs=L_EPOCHS), 10,
-                          w_star=w_star.to(dtype), device=device,
-                          channel=channel)
+        torch.cuda.reset_peak_memory_stats(device)
+        h = run_federated(prob, "fedosaa_svrg", hp, 10, w_star=ws,
+                          device=device, channel=channel, sinks=[s_loop])
         launches = dict(_build.LAUNCHES)
+        peak_loop = torch.cuda.max_memory_allocated(device)
         rounds = len(h.rounds)
         designs = check_resident(f"paper-scale {name} run", rounds)
         per_round = np.diff(h.wall_time) * 1e3      # round 0 excluded
         out[name] = dict(ms_per_round=float(np.median(per_round)),
                          rel_error=float(h.rel_error[-1]), rounds=rounds,
                          launches=launches, designs=designs,
-                         comm_bytes=float(h.comm_bytes[-1]))
-        print(f"  {name} [{h.channel}]: {rounds} rounds, median "
+                         comm_bytes=float(h.comm_bytes[-1]),
+                         peak_mib=peak_loop / 2 ** 20)
+        print(f"  {name} [{h.channel}] loop: {rounds} rounds, median "
               f"{out[name]['ms_per_round']:.3f} ms/round (round 0: "
               f"{h.wall_time[0] * 1e3:.1f} ms), rel-error "
               f"{h.rel_error[-1]:.3e}, loss {h.loss[-1]!r}, bytes "
               f"{h.comm_bytes[-1]:.0f}, launches {launches}, trajectory by "
-              f"design {designs}", flush=True)
+              f"design {designs}, peak {peak_loop / 2 ** 20:.1f} MiB",
+              flush=True)
         want = expected_launches(rounds, int8=channel == "int8")
         if launches != want:
             raise AssertionError(f"paper-scale {name} run: launches "
@@ -963,6 +1107,59 @@ def paper_scale(clients, w_star, device) -> dict:
         if not (np.all(np.isfinite(h.loss)) and h.rel_error[-1] < h.rel_error[0]):
             raise AssertionError(f"paper-scale {name} run did not converge: "
                                  f"{h.rel_error.tolist()}")
+
+        round_fn = make_round_fn("fedosaa_svrg", prob, hp, channel,
+                                 device=device)
+        state = init_state(prob, device=device, channel=channel,
+                           algo="fedosaa_svrg")
+        runner = make_chunk_runner(round_fn, PAPER_CHUNK, w_star=ws)
+        s_eng = MemorySink()
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        with sync_warnings() as caught:
+            reads = ChunkReads(caught)
+            state, trace = run_rounds(round_fn, state, 10, chunk=PAPER_CHUNK,
+                                      w_star=ws, runner=runner,
+                                      sinks=[s_eng, reads])
+        peak = torch.cuda.max_memory_allocated(device)
+        counted = engine_launches(f"paper-scale {name} engine run",
+                                  trace.num_rounds, PAPER_CHUNK,
+                                  int8=channel == "int8")
+        per_chunk = reads.per_chunk
+        if any(n != 1 for n in per_chunk[1:]):
+            raise AssertionError(f"paper-scale {name} engine run: host reads "
+                                 f"per chunk {per_chunk}; one in each after "
+                                 f"the first")
+        same_as_loop(f"paper-scale {name}", s_loop, s_eng, h.final_params,
+                     state.params)
+        # the gated run's second chunk, then more replays, each ending in
+        # its one read
+        walls = [float(trace.round_wall[PAPER_CHUNK:].sum())]
+        for _ in range(PAPER_REPLAYS):
+            t0 = time.perf_counter()
+            state, *_ = runner(state, PAPER_CHUNK)
+            walls.append(time.perf_counter() - t0)
+        ms = float(np.median(walls)) / PAPER_CHUNK * 1e3
+        out[name]["engine"] = dict(
+            ms_per_round=ms, chunk_ms=[w * 1e3 for w in walls],
+            warmup_ms=runner.warmup_ms, capture_ms=runner.capture_ms,
+            reads_per_chunk=per_chunk, peak_mib=peak / 2 ** 20,
+            warmup_launches=runner.warmup_launches.launches, **counted)
+        print(f"  {name} [{h.channel}] engine (chunk={PAPER_CHUNK}): "
+              f"{trace.num_rounds} rounds = the loop's rows and final params; "
+              f"{ms:.3f} ms/round over {len(walls)} replayed chunks (chunk ms "
+              f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}), the loop "
+              f"{out[name]['ms_per_round']:.3f}; warm-up "
+              f"{runner.warmup_ms:.1f} ms, capture {runner.capture_ms:.1f} "
+              f"ms; host reads per chunk {per_chunk}; peak "
+              f"{peak / 2 ** 20:.1f} MiB; launches {counted['launches']} over "
+              f"{counted['slots']} slots, trajectory by design "
+              f"{counted['designs']}; warm-up launches (apart) "
+              f"{runner.warmup_launches.launches}", flush=True)
+        # the runner's graph pool and buffers stay allocated while it
+        # lives: free them before the next config's peaks are read
+        del runner, state, round_fn, h
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1006,11 +1203,14 @@ def no_host_read(clients, device) -> None:
 
 def compression(device) -> dict:
     """Phase 5: the reference's ext_compression configuration on the fp32,
-    bf16 and int8 wires, each run read on its own launch counts."""
+    bf16 and int8 wires, each by the per-round loop and then by the engine
+    (run_federated(chunk=8)), each run read on its own launch counts; the
+    engine's must equal the loop's rounds, rows and final params."""
     from repro_torch.core import AlgoHParams, run_federated, solve_reference
     from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
     from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
 
     X, y = make_binary_classification("covtype", n=20_000, seed=0)
     clients = partition(X, y, 20, "iid", seed=0, device=device)
@@ -1018,41 +1218,61 @@ def compression(device) -> dict:
     w_star = solve_reference(prob, iters=100)
     out = {}
     for spec, per_round in COMPRESSION_BYTES_PER_ROUND.items():
-        _build.reset_launches()
-        h = run_federated(prob, "fedosaa_svrg",
-                          AlgoHParams(eta=ETA, local_epochs=L_EPOCHS), 40,
-                          w_star=w_star, stop_rel_error=1e-6, device=device,
-                          channel=spec)
-        launches = dict(_build.LAUNCHES)
-        rounds = len(h.rounds)
-        designs = check_resident(spec, rounds)
-        ms = float(np.median(np.diff(h.wall_time) * 1e3))
-        loss_rel = abs(h.loss[-1] - COMPRESSION_LOSS) / COMPRESSION_LOSS
-        ref_rounds, ref_bytes = COMPRESSION_REF[spec]
-        out[spec] = dict(rounds=rounds, comm_bytes=float(h.comm_bytes[-1]),
-                         loss=float(h.loss[-1]), ms_per_round=ms,
-                         launches=launches, designs=designs)
-        print(f"  {h.channel:9s} rounds to 1e-6: {rounds} (reference "
-              f"{ref_rounds}), bytes {h.comm_bytes[-1]:.0f} (reference "
-              f"{ref_bytes:.0f}), final loss {h.loss[-1]!r} (rel "
-              f"{loss_rel:.2e}), median {ms:.3f} ms/round, launches "
-              f"{launches}", flush=True)
-        print("  rel-error curve " + json.dumps([float(v) for v in h.rel_error]),
-              flush=True)
-        if not (h.rel_error[-1] < 1e-6 and rounds <= 26):
-            raise AssertionError(f"{spec}: rel-error 1e-6 not reached within "
-                                 f"26 rounds ({rounds}, {h.rel_error[-1]:.3e})")
-        if not np.array_equal(h.comm_bytes,
-                              per_round * np.arange(1, rounds + 1)):
-            raise AssertionError(f"{spec}: bytes {h.comm_bytes.tolist()} are "
-                                 f"not {per_round:.0f} per round")
-        if not loss_rel <= 1e-10:
-            raise AssertionError(f"{spec}: final loss {h.loss[-1]!r} is "
-                                 f"{loss_rel:.2e} from {COMPRESSION_LOSS!r}")
-        want = expected_launches(rounds, int8=spec == "int8")
-        if launches != want:
-            raise AssertionError(f"{spec}: launches {launches} over {rounds} "
-                                 f"rounds, expected {want}")
+        runs = {}
+        for path, chunk in (("loop", None), ("engine", ACCEPT_CHUNK)):
+            sink = MemorySink()
+            _build.reset_launches()
+            h = run_federated(prob, "fedosaa_svrg",
+                              AlgoHParams(eta=ETA, local_epochs=L_EPOCHS), 40,
+                              w_star=w_star, stop_rel_error=1e-6,
+                              device=device, channel=spec, chunk=chunk,
+                              sinks=[sink])
+            rounds = len(h.rounds)
+            if chunk is None:
+                launches = dict(_build.LAUNCHES)
+                designs = check_resident(spec, rounds)
+                want = expected_launches(rounds, int8=spec == "int8")
+                if launches != want:
+                    raise AssertionError(f"{spec}: launches {launches} over "
+                                         f"{rounds} rounds, expected {want}")
+                counted = dict(launches=launches, designs=designs)
+            else:
+                counted = engine_launches(f"{spec} engine", rounds, chunk,
+                                          int8=spec == "int8")
+            skip = 1 if chunk is None else chunk
+            ms = float(np.median(per_round_ms(h.wall_time)[skip:]))
+            loss_rel = abs(h.loss[-1] - COMPRESSION_LOSS) / COMPRESSION_LOSS
+            ref_rounds, ref_bytes = COMPRESSION_REF[spec]
+            runs[path] = dict(h=h, sink=sink, rounds=rounds,
+                              comm_bytes=float(h.comm_bytes[-1]),
+                              loss=float(h.loss[-1]), ms_per_round=ms,
+                              **counted)
+            print(f"  {h.channel:9s} {path}: rounds to 1e-6: {rounds} "
+                  f"(reference {ref_rounds}), bytes {h.comm_bytes[-1]:.0f} "
+                  f"(reference {ref_bytes:.0f}), final loss {h.loss[-1]!r} "
+                  f"(rel {loss_rel:.2e}), median {ms:.3f} ms/round after "
+                  f"{'round 0' if chunk is None else 'the first chunk'}, "
+                  f"{counted}", flush=True)
+            if not (h.rel_error[-1] < 1e-6 and rounds <= 26):
+                raise AssertionError(f"{spec} {path}: rel-error 1e-6 not "
+                                     f"reached within 26 rounds ({rounds}, "
+                                     f"{h.rel_error[-1]:.3e})")
+            if not np.array_equal(h.comm_bytes,
+                                  per_round * np.arange(1, rounds + 1)):
+                raise AssertionError(f"{spec} {path}: bytes "
+                                     f"{h.comm_bytes.tolist()} are not "
+                                     f"{per_round:.0f} per round")
+            if not loss_rel <= 1e-10:
+                raise AssertionError(f"{spec} {path}: final loss "
+                                     f"{h.loss[-1]!r} is {loss_rel:.2e} from "
+                                     f"{COMPRESSION_LOSS!r}")
+        print("  rel-error curve " + json.dumps(
+            [float(v) for v in runs["loop"]["h"].rel_error]), flush=True)
+        same_as_loop(spec, runs["loop"]["sink"], runs["engine"]["sink"],
+                     runs["loop"]["h"].final_params,
+                     runs["engine"]["h"].final_params)
+        out[spec] = {path: {k: v for k, v in r.items() if k not in ("h", "sink")}
+                     for path, r in runs.items()}
     return out
 
 
@@ -1527,6 +1747,50 @@ def profile_rounds(clients, device, channel=None, rounds: int = 3) -> None:
           f"{launched / rounds:.1f} device kernels/round", flush=True)
 
 
+def profile_engine(clients, device, channel=None, chunks: int = 3) -> None:
+    """``--profile``: torch.profiler over ``chunks`` replays of a warm
+    paper-scale f64 engine runner (chunks of PAPER_CHUNK rounds, each
+    replay ending in its one read) on ``channel``: device time by kernel,
+    the device's busy time a round and its share of the wall (a
+    diagnostic, not a phase of the smoke run). A replayed graph shows its
+    kernels under ``cudaGraphLaunch``, without the ``fl.*`` scopes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn)
+    from repro_torch.models.logreg import make_logreg_problem
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    round_fn = make_round_fn("fedosaa_svrg", prob,
+                             AlgoHParams(eta=ETA, local_epochs=L_EPOCHS),
+                             channel, device=device)
+    state = init_state(prob, device=device, channel=channel,
+                       algo="fedosaa_svrg")
+    runner = make_chunk_runner(round_fn, PAPER_CHUNK)
+    for _ in range(2):
+        state, *_ = runner(state, PAPER_CHUNK)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            state, *_ = runner(state, PAPER_CHUNK)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events
+               if e.device_type == cuda and not e.key.startswith("fl.")]
+    busy_us = sum(getattr(e, key) for e in kernels)
+    launched = sum(e.count for e in kernels)
+    rounds = chunks * PAPER_CHUNK
+    print(events.table(sort_by=key, row_limit=25), flush=True)
+    print(f"  profile engine [{channel or 'identity'}]: {chunks} replays of "
+          f"{PAPER_CHUNK} rounds, wall {wall * 1e3 / rounds:.3f} ms/round, "
+          f"device busy {busy_us / 1e3 / rounds:.3f} ms/round "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of the wall), "
+          f"{launched / rounds:.1f} device kernels/round", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1582,6 +1846,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         for channel in (None, "int8"):
             profile_rounds(clients, device, channel)
+            profile_engine(clients, device, channel)
     del clients
     torch.cuda.empty_cache()
 

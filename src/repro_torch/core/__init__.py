@@ -27,4 +27,9 @@ from repro_torch.core.problem import (  # noqa: F401
     StackedClients,
     stack_client_arrays,
 )
+from repro_torch.core.engine import (  # noqa: F401
+    RoundTrace,
+    make_chunk_runner,
+    run_rounds,
+)
 from repro_torch.core.server import History, run_federated, solve_reference  # noqa: F401

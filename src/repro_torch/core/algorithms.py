@@ -92,6 +92,17 @@ class RoundMetrics(NamedTuple):
     cohort_ess: torch.Tensor    # effective sample size 1/Σw² of the weights
     comm_bytes: torch.Tensor    # bytes on the wire this round (a host
                                 # tensor: counted from shapes)
+    arrivals: torch.Tensor      # deadline-gated landings this round; nan (a
+                                # host tensor) while robust/async_agg is not
+                                # ported, as the reference's with async off
+    staleness_mean: torch.Tensor  # mean landed buffer age (nan, likewise)
+    staleness_max: torch.Tensor   # oldest landed buffer age (nan, likewise)
+
+
+#: the RoundMetrics fields that are host tensors: counted from shapes and the
+#: configuration, the same in every round of one round function. The engine
+#: reads them on the host and keeps them out of its device readout.
+HOST_METRICS = ("comm_bytes", "arrivals", "staleness_mean", "staleness_max")
 
 
 def _check_device(problem: FLProblem, device) -> torch.device:
@@ -203,17 +214,21 @@ def _fused_trajectory(problem: FLProblem, hp: AlgoHParams, w0: torch.Tensor,
 def _svrg_trajectory(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
                      batch: ClientBatch):
     """Every client's SVRG-corrected trajectory from the anchor w_t [d]:
-    the fused kernel when resolved, else the two-autodiff residual path."""
-    if hp.local_impl == "kernel":
-        return _fused_trajectory(problem, hp, w_t, batch, 1.0, g_global)
-    K = batch.x.shape[0]
-    # −∇f_k(w^t) + ∇f(w^t): the constant SVRG correction of full-batch steps
-    corr = g_global - _stack_grads(problem, w_t, *batch)
+    the fused kernel when resolved, else the two-autodiff residual path.
+    Runs inside the ``fl.local_trajectory`` profiler scope, as the
+    reference's named scope."""
+    with record_function("fl.local_trajectory"):
+        if hp.local_impl == "kernel":
+            return _fused_trajectory(problem, hp, w_t, batch, 1.0, g_global)
+        K = batch.x.shape[0]
+        # −∇f_k(w^t) + ∇f(w^t): the constant SVRG correction of full-batch
+        # steps
+        corr = g_global - _stack_grads(problem, w_t, *batch)
 
-    def residual(w):
-        return _stack_grads(problem, w, *batch) + corr
+        def residual(w):
+            return _stack_grads(problem, w, *batch) + corr
 
-    return _local_trajectory(hp, w_t.expand(K, -1), residual)
+        return _local_trajectory(hp, w_t.expand(K, -1), residual)
 
 
 def _client_svrg(problem: FLProblem, hp: AlgoHParams, use_aa: bool, w_t,
@@ -341,6 +356,9 @@ def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, weight,
         aa_clipped_max=R.nanmax(clipped),
         cohort_ess=R.ess(weight),
         comm_bytes=torch.tensor(comm_bytes),
+        arrivals=torch.tensor(torch.nan),
+        staleness_mean=torch.tensor(torch.nan),
+        staleness_max=torch.tensor(torch.nan),
     )
 
 
@@ -384,12 +402,22 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     be reproduced in torch, so a caller that needs its draws (the parity
     tests) passes ``uniforms={tag: [K, nc, C]}`` instead.
 
+    A chunk of rounds gets its uniforms ahead of time through two
+    attributes of the returned function: ``round.uniform_shapes``, {tag:
+    (K, nc, C)} for each uplink that draws (empty on a deterministic wire),
+    and ``round.fill_uniforms(bufs, t0)``, which writes into
+    ``bufs[tag][i]`` the uniforms round t0 + i would draw, by the same
+    generator calls. The engine (core/engine.py) fills its static
+    [B, K, nc, C] buffers so before each replay of its CUDA graph and passes
+    slot i's views as ``uniforms``: a graph would otherwise replay the
+    draws seeded at capture.
+
     On the card, with ``aa_impl`` "kernel" (or "auto", its default), a
     round makes no host read: every kernel and torch op is enqueued and
     nothing is read back (chip_smoke.py holds a round to it under
-    ``torch.cuda.set_sync_debug_mode("error")``). The "tree" AA path's
-    batched ``torch.linalg.eigh`` checks its info on the host once a
-    round."""
+    ``torch.cuda.set_sync_debug_mode("error")``), so the engine can capture
+    it. The "tree" AA path's batched ``torch.linalg.eigh`` checks its info
+    on the host once a round."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
     dev = _check_device(problem, device)
@@ -397,12 +425,31 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     hp = dataclasses.replace(hp, aa_impl=resolve_aa_impl(hp.aa_impl),
                              local_impl=resolve_local_impl(hp.local_impl, problem))
     channel = make_channel(channel)
-    comm_bytes = comm_bytes_per_round(algo, problem.init(None), channel)
+    params0 = problem.init(None)
+    comm_bytes = comm_bytes_per_round(algo, params0, channel)
     R = CrossClientReduce(channel)
     C = problem.clients
     use_aa = algo == "fedosaa_svrg"
     # reseeded for each uplink's draw
     gen = torch.Generator(device=dev)
+    folds, shapes = {}, {}
+    for spec in UPLINK_SCHEMAS[algo]:
+        shape = channel.up_codec(spec.kind).draw_shape(params0.shape[-1])
+        if shape is not None:
+            folds[spec.tag] = spec.fold
+            shapes[spec.tag] = (C.num_clients, *shape)
+
+    def uniforms_of(t: int, fold: int, shape: tuple,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """Round t's uniforms for the uplink of ``fold``."""
+        gen.manual_seed(_draw_seed(seed, t, fold))
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=dev, out=out)
+
+    def fill_uniforms(bufs: "dict[str, torch.Tensor]", t0: int) -> None:
+        for tag, buf in bufs.items():
+            for i in range(buf.shape[0]):
+                uniforms_of(t0 + i, folds[tag], shapes[tag], out=buf[i])
 
     def round_fn(state: ServerState, uniforms: "dict | None" = None):
         def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
@@ -412,15 +459,15 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                     raise ValueError(f"uplink {spec.tag!r}: uniforms of shape "
                                      f"{tuple(u.shape)}, expected {shape}")
                 return u
-            gen.manual_seed(_draw_seed(seed, state.t, spec.fold))
-            return torch.rand(shape, generator=gen, dtype=torch.float32,
-                              device=dev)
+            return uniforms_of(state.t, spec.fold, shape)
 
         new_params, metrics, comm = _svrg_round_core(
             problem, hp, use_aa, R, state.params, C.x, C.y, C.mask,
             C.weight, comm_bytes, state.comm, draw)
         return ServerState(new_params, state.t + 1, comm), metrics
 
+    round_fn.uniform_shapes = shapes
+    round_fn.fill_uniforms = fill_uniforms
     return round_fn
 
 

@@ -1,10 +1,11 @@
-"""Federated training loop (counterpart of repro/core/server.py).
+"""Federated training driver (counterpart of repro/core/server.py).
 
-``run_federated`` iterates one round of the chosen algorithm and collects
-the metric history the paper plots (relative error vs. aggregation round,
-communication, wall time). This slice ports the per-round loop; the
-device-resident chunked engine, telemetry sinks, fault plans and
-checkpointing come with later slices.
+``run_federated`` iterates rounds of the chosen algorithm and collects the
+metric history the paper plots (relative error vs. aggregation round,
+communication, wall time): round by round (``chunk=None``), or in chunks of
+rounds through the engine (core/engine.py; on the card one CUDA graph a
+chunk). Both feed the same telemetry rows to ``sinks`` (repro_torch/obs).
+Fault plans and checkpointing come with later slices.
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.comm import CommChannel, make_channel
-from repro_torch.core.algorithms import (AlgoHParams, _cg_solve, init_state,
+from repro_torch.comm.schema import uplink_byte_breakdown
+from repro_torch.core import engine
+from repro_torch.core.algorithms import (HOST_METRICS, UPLINK_SCHEMAS,
+                                         AlgoHParams, _cg_solve, init_state,
                                          make_round_fn)
 from repro_torch.core.problem import FLProblem
 from repro_torch.utils import tree_math as tm
@@ -35,6 +39,10 @@ class History:
     final_params: torch.Tensor | None = None
     channel: str = "identity"     # CommChannel.name of the run's wire
     gram_cond_max: np.ndarray | None = None  # worst AA Gram conditioning
+    arrivals: np.ndarray | None = None  # deadline-gated landings per round
+                                  # (nan: the deadline gate is not ported)
+    staleness_mean: np.ndarray | None = None  # mean landed buffer age (nan)
+    staleness_max: np.ndarray | None = None   # oldest landed buffer age (nan)
 
     def summary(self) -> str:
         return (
@@ -59,53 +67,132 @@ def run_federated(
     device: "str | torch.device" = DEFAULT_DEVICE,
     channel: "CommChannel | str | None" = None,
     seed: int = 0,
+    chunk: int | None = None,
+    sinks=(),
+    trace_capture=None,
 ) -> History:
     """Iterate ``num_rounds`` of ``algo`` and collect the metric history.
 
     Every wire crossing goes through ``channel`` (a ``--comm-codec`` spec
     such as ``"int8"``, or None for the lossless identity); ``seed`` seeds a
-    stochastic codec's draws. One round per call of the round function, one
-    host read of its metrics per round (the wall time of a round includes
-    that read, so it ends after the device has finished the round). Stops
-    early on a non-finite loss, or when the rel-error / gradient-norm
-    targets are met.
+    stochastic codec's draws. Stops early on a non-finite loss, or when the
+    rel-error / gradient-norm targets are met.
+
+    ``chunk=None`` runs the per-round loop: one call of the round function
+    and one host read of its metrics per round (a round's wall time
+    includes that read, so it ends after the device has finished the
+    round). ``chunk=B`` (>= 1) runs the engine (core/engine.run_rounds): B
+    rounds per call, one host read per chunk, the chunk's wall divided
+    equally over its executed rounds; on the card a chunk is one CUDA graph.
+    The History rows are the same either way, bit for bit; only the wall
+    times differ.
+
+    ``sinks`` (repro_torch/obs MetricsSinks) get a header, one row per
+    round and a footer on either path; a sink's ``stop_requested`` stops
+    the run after the round (loop) or the chunk (engine). ``trace_capture``
+    (obs.TraceCapture) opens torch.profiler windows at round or chunk
+    boundaries.
     """
+    if chunk is not None and chunk < 1:
+        # the per-round loop is chunk=None; a chunk of 0 names neither path
+        raise ValueError(f"chunk must be >= 1 (or None for the per-round "
+                         f"loop), got {chunk}")
+    from repro_torch.obs.sinks import (ROW_FIELDS, SCHEMA_VERSION,
+                                       build_footer, build_round_row)
+
     channel = make_channel(channel)
     state = init_state(problem, generator, device, channel, algo)
     if w0 is not None:
         state = state._replace(params=w0)
     round_fn = make_round_fn(algo, problem, hp, channel, seed, device)
-    w_star_norm = float(tm.tree_norm(w_star)) if w_star is not None else None
+    sinks = list(sinks)
+    run_info = {
+        "algo": algo,
+        "runtime": "vmap",          # the K clients stacked on one device
+        "channel": channel.name,
+        "backend": state.params.device.type,
+        "num_clients": problem.clients.num_clients,
+        "cohort_size": None,        # every client in every round
+        "uplink_bytes": uplink_byte_breakdown(
+            channel, UPLINK_SCHEMAS[algo], state.params),
+    }
 
+    if chunk is not None:
+        state, trace = engine.run_rounds(
+            round_fn, state, num_rounds, chunk=chunk, w_star=w_star,
+            stop_rel_error=stop_rel_error, stop_grad_norm=stop_grad_norm,
+            sinks=sinks, run_info=run_info, trace_capture=trace_capture)
+        return History(
+            algo=algo, rounds=np.arange(trace.num_rounds, dtype=np.float64),
+            loss=trace.loss, grad_norm=trace.grad_norm,
+            rel_error=trace.rel_error, theta_mean=trace.theta_mean,
+            comm_bytes=np.cumsum(trace.comm_bytes), wall_time=trace.wall_time,
+            final_params=state.params, channel=channel.name,
+            gram_cond_max=trace.gram_cond_max, arrivals=trace.arrivals,
+            staleness_mean=trace.staleness_mean,
+            staleness_max=trace.staleness_max)
+
+    w_star_norm = float(tm.tree_norm(w_star)) if w_star is not None else None
+    for s in sinks:
+        s.open({
+            "v": SCHEMA_VERSION, "kind": "header", "fields": list(ROW_FIELDS),
+            "num_rounds": num_rounds, "chunk": None, "start_round": 0,
+            **run_info,
+        })
+    cols = {f: [] for f in engine.METRIC_FIELDS}
     rows = []
     comm_total = 0.0
     t_total = 0.0
-    for t in range(num_rounds):
-        t0 = time.perf_counter()
-        state, m = round_fn(state)
-        rel_t = (tm.tree_norm(state.params - w_star) / max(w_star_norm, 1e-30)
-                 if w_star is not None else torch.full_like(m.loss, torch.nan))
-        # the round's one device -> host read
-        vals = torch.stack([v.to(torch.float64) for v in (
-            m.loss, m.grad_norm, rel_t, m.theta_mean, m.gram_cond_max)]).cpu()
-        dt = time.perf_counter() - t0
-        t_total += dt
-        loss, gnorm, rel, theta, gcond = vals.tolist()
-        comm_total += float(m.comm_bytes)
-        rows.append((t, loss, gnorm, rel, theta, gcond, comm_total, t_total))
-        if not np.isfinite(loss):
-            break
-        if stop_rel_error is not None and rel < stop_rel_error:
-            break
-        if stop_grad_norm is not None and gnorm < stop_grad_norm:
-            break
+    stopped = False
+    try:
+        for t in range(num_rounds):
+            if trace_capture is not None:
+                trace_capture.on_chunk_start(t, 1)
+            t0 = time.perf_counter()
+            state, m = round_fn(state)
+            rel_t = engine.rel_error(state.params, w_star, w_star_norm, m.loss)
+            # the round's one device -> host read
+            vals = torch.stack([getattr(m, f).to(torch.float64)
+                                for f in engine.DEVICE_FIELDS]
+                               + [rel_t.to(torch.float64)]).cpu().tolist()
+            dt = time.perf_counter() - t0
+            t_total += dt
+            mrow = dict(zip(engine.DEVICE_FIELDS, vals))
+            mrow.update((f, float(getattr(m, f))) for f in HOST_METRICS)
+            rel = vals[-1]
+            comm_total += mrow["comm_bytes"]
+            for f in engine.METRIC_FIELDS:
+                cols[f].append(mrow[f])
+            rows.append((t, rel, comm_total, t_total))
+            for s in sinks:
+                s.emit([build_round_row(t, mrow, rel, comm_total, dt, t_total)])
+            if trace_capture is not None:
+                trace_capture.on_chunk_end(t + 1)
+            if (not np.isfinite(mrow["loss"])
+                    or (stop_rel_error is not None and rel < stop_rel_error)
+                    or (stop_grad_norm is not None
+                        and mrow["grad_norm"] < stop_grad_norm)
+                    or any(getattr(s, "stop_requested", False) for s in sinks)):
+                stopped = True
+                break
+    finally:
+        if trace_capture is not None:
+            trace_capture.close()
+        alarms = [e for s in sinks for e in getattr(s, "events", [])]
+        footer = build_footer(len(rows), stopped, alarms)
+        for s in sinks:
+            s.close(footer)
 
-    arr = np.asarray(rows, dtype=np.float64).reshape(-1, 8)
+    arr = np.asarray(rows, dtype=np.float64).reshape(-1, 4)
+    col = {f: np.asarray(v, dtype=np.float64) for f, v in cols.items()}
     return History(
-        algo=algo, rounds=arr[:, 0], loss=arr[:, 1], grad_norm=arr[:, 2],
-        rel_error=arr[:, 3], theta_mean=arr[:, 4], gram_cond_max=arr[:, 5],
-        comm_bytes=arr[:, 6], wall_time=arr[:, 7],
-        final_params=state.params, channel=channel.name)
+        algo=algo, rounds=arr[:, 0], loss=col["loss"],
+        grad_norm=col["grad_norm"], rel_error=arr[:, 1],
+        theta_mean=col["theta_mean"], comm_bytes=arr[:, 2],
+        wall_time=arr[:, 3], final_params=state.params, channel=channel.name,
+        gram_cond_max=col["gram_cond_max"], arrivals=col["arrivals"],
+        staleness_mean=col["staleness_mean"],
+        staleness_max=col["staleness_max"])
 
 
 def solve_reference(problem: FLProblem, iters: int = 2000,

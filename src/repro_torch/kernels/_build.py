@@ -10,16 +10,21 @@ times this build against one nvcc for all sources. Each C entry point
 returns ``cudaGetLastError()`` right after its launch; ``launch`` raises
 if that is not 0.
 
-``LAUNCHES`` counts launches per kernel. Each wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels (chip_smoke.py resets and reads it).
-``DESIGN_LAUNCHES`` splits those of a kernel with more than one design
-(``trajectory``: resident or streaming) by the design that ran. ``noop``
-launches an empty kernel through the same path, counted nowhere: timed
-back to back, it is the launch floor every kernel's time includes.
+``LAUNCHES`` counts launches per kernel that reached the card. Each
+wrapper adds one where it launches its kernel and nowhere else, so a run
+can show that its main path went through the kernels (chip_smoke.py resets
+and reads it). ``DESIGN_LAUNCHES`` splits those of a kernel with more than
+one design (``trajectory``: resident or streaming) by the design that ran.
+A launch made while a CUDA graph is captured does not run: inside
+``recording()`` it goes into a ``LaunchRecord``, and each replay of the
+graph adds that record to both counters (``count_replay``); outside one it
+raises, so no replay goes uncounted. ``noop`` launches an empty kernel
+through the same path, counted nowhere: timed back to back, it is the
+launch floor every kernel's time includes.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -97,6 +102,54 @@ _lib = None
 _lock = threading.Lock()
 #: seconds the last build took (None: the library was already built)
 build_seconds: float | None = None
+
+
+class LaunchRecord:
+    """Launches counted apart from ``LAUNCHES``: kernel → launches and
+    kernel → design → launches, as ``recording()`` collected them."""
+
+    def __init__(self):
+        self.launches: dict[str, int] = {}
+        self.designs: dict[str, dict[str, int]] = {}
+
+    def add(self, name: str, design: str | None) -> None:
+        self.launches[name] = self.launches.get(name, 0) + 1
+        if design is not None:
+            by_design = self.designs.setdefault(name, {})
+            by_design[design] = by_design.get(design, 0) + 1
+
+
+#: where launches go instead of LAUNCHES while ``recording()`` is open
+_record: LaunchRecord | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches made inside into a fresh ``LaunchRecord`` (the
+    value of the ``with``) instead of ``LAUNCHES``: a CUDA graph's capture,
+    whose replays then add it (``count_replay``), or set-up work reported
+    apart from a run's counts."""
+    global _record
+    outer, _record = _record, LaunchRecord()
+    try:
+        yield _record
+    finally:
+        _record = outer
+
+
+def count_replay(record: LaunchRecord) -> None:
+    """One replay of a graph captured under ``recording()``: its launches
+    reached the card, so add them to ``LAUNCHES`` and ``DESIGN_LAUNCHES``."""
+    for name, n in record.launches.items():
+        LAUNCHES[name] += n
+    for name, designs in record.designs.items():
+        for design, n in designs.items():
+            DESIGN_LAUNCHES[name][design] += n
+
+
+def _capturing() -> bool:
+    """Whether the current stream is capturing a CUDA graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def reset_launches() -> None:
@@ -240,9 +293,17 @@ def _call(name: str, entry: str, *args) -> None:
 
 def launch(name: str, entry: str, *args, design: str | None = None) -> None:
     """Call C entry point ``entry`` on the current stream, raise on error,
-    and count the launch. ``design`` names the design that runs, for a
-    kernel with more than one."""
+    and count the launch: in ``LAUNCHES``, or in the open ``recording()``.
+    ``design`` names the design that runs, for a kernel with more than
+    one."""
     _call(name, entry, *args)
+    if _record is not None:
+        _record.add(name, design)
+        return
+    if _capturing():
+        raise RuntimeError(f"{name}: launched while a CUDA graph is captured "
+                           "outside _build.recording(); its replays would go "
+                           "uncounted")
     LAUNCHES[name] += 1
     if design is not None:
         DESIGN_LAUNCHES[name][design] += 1

@@ -613,3 +613,69 @@ def test_lm_kernel_wrappers_raise_on_what_the_kernel_does_not_take(card):
     q = torch.zeros(1, 8, 2, 24, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         flash_attention(q, q, q)
+
+
+def _engine_problem(card):
+    """synthetic_small, n=400, K=8 iid, gamma=1e-3, f64, on the card."""
+    from repro_torch.core import solve_reference
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.models.logreg import make_logreg_problem
+    X, y = make_binary_classification("synthetic_small", n=400, seed=0)
+    clients = partition(X, y, 8, "iid", seed=0, device=card)
+    prob = make_logreg_problem(clients, 1e-3, dtype=torch.float64, device=card)
+    return prob, solve_reference(prob, iters=50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel", [None, "int8"])
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_engine_graph_equals_the_loop_on_card(card, channel, chunk):
+    """The engine's CUDA graph against the per-round loop over 7 rounds
+    (the last chunk short): the same metrics, rel-errors, final params and
+    comm buffers bit for bit; every kernel of the round counted once per
+    slot replayed, the warm-up round apart."""
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn, run_rounds)
+    from repro_torch.core.engine import rel_error
+    from repro_torch.utils import tree_math as tm
+    prob, w_star = _engine_problem(card)
+    rf = make_round_fn("fedosaa_svrg", prob,
+                       AlgoHParams(eta=0.5, local_epochs=3), channel,
+                       device=card)
+    state = init_state(prob, device=card, channel=channel, algo="fedosaa_svrg")
+    loss, rel = [], []
+    norm = float(tm.tree_norm(w_star))
+    for _ in range(7):
+        state, m = rf(state)
+        loss.append(float(m.loss))
+        rel.append(float(rel_error(state.params, w_star, norm, m.loss)))
+    runner = make_chunk_runner(rf, chunk, w_star=w_star)
+    _build.reset_launches()
+    eng, trace = run_rounds(rf, init_state(prob, device=card, channel=channel,
+                                           algo="fedosaa_svrg"),
+                            7, chunk=chunk, w_star=w_star, runner=runner)
+    slots = chunk * -(-7 // chunk)
+    assert _build.LAUNCHES["trajectory"] == _build.LAUNCHES["gram"] == slots
+    assert _build.LAUNCHES["aa_step"] == slots
+    assert _build.LAUNCHES["int8_uplink"] == (2 * slots if channel else 0)
+    assert runner.warmup_launches.launches["aa_step"] == 1
+    assert trace.loss.tolist() == loss and trace.rel_error.tolist() == rel
+    assert eng.t == state.t == 7
+    assert torch.equal(eng.params, state.params)
+    for tag, bufs in (state.comm or {}).items():
+        for name, buf in bufs.items():
+            assert torch.equal(eng.comm[tag][name], buf), (tag, name)
+
+
+@pytest.mark.cuda
+def test_engine_refuses_a_round_with_a_host_read(card):
+    """aa_impl="tree" reads eigh's info back every round: the capture
+    raises with that cause, and nothing runs eagerly in its place."""
+    from repro_torch.core import (AlgoHParams, init_state, make_round_fn,
+                                  run_rounds)
+    prob, _ = _engine_problem(card)
+    rf = make_round_fn("fedosaa_svrg", prob,
+                       AlgoHParams(eta=0.5, local_epochs=3, aa_impl="tree"),
+                       device=card)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        run_rounds(rf, init_state(prob, device=card), 2, chunk=2)

@@ -46,6 +46,17 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(MODULES) > 20
 
 
+def test_scans_cover_the_engine_and_obs():
+    """The scans above and below walk the package by rglob: the engine and
+    the obs/ package are in them."""
+    new = {"repro_torch.core.engine", "repro_torch.obs",
+           "repro_torch.obs.sinks", "repro_torch.obs.alarms",
+           "repro_torch.obs.profiling"}
+    assert new <= set(MODULES)
+    assert {PORT / "core" / "engine.py",
+            PORT / "obs" / "profiling.py"} <= set(PORT_FILES)
+
+
 def test_sources_name_no_jax_and_no_reference_package():
     assert (ROOT / "chip_smoke.py") in PORT_FILES
     for p in PORT_FILES:
