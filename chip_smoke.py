@@ -63,7 +63,14 @@ port beside it. Every phase raises on failure; none is caught.
    steps; the plan -- cluster size, rows per block, shared bytes, clusters
    resident at once -- is printed), and, held the same way, the streaming
    one at a per-step shape (S=11 blocks of 528 of each paper-scale
-   client's rows); both bit-identical when run again.
+   client's rows); both bit-identical when run again. Both designs again
+   with ``anchor_scale=0`` (SCAFFOLD's and the AVG family's trajectory: no
+   anchor term), in float64 and float32, against ``trajectory_ref``, each
+   timed beside its bound. The Gram pass and the fused AA step also at the
+   trajectory family's variants: a per-client g [K, d] (FedOSAA-AVG's,
+   read at a client stride of d) and m=15 history columns (carried history
+   5 + L 10, from a trajectory of 16 steps), each against its plain
+   version, timed beside its bound.
    The LM kernels at the served shapes: ``ssd`` at Zamba2-7B's width (B=4,
    S=2048: 32 chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's
    (st=128, nh=80), ``flash_attention`` at B*H=128, S=2048, d=112 in
@@ -114,6 +121,19 @@ port beside it. Every phase raises on failure; none is caught.
    round on the identity wire and one on the int8 wire under
    ``torch.cuda.set_sync_debug_mode("error")``, where any synchronizing
    CUDA call raises and the raise fails the run.
+4b. The trajectory family at paper scale (float64, 10 rounds): SCAFFOLD,
+   FedOSAA-SCAFFOLD, FedAvg, FedOSAA-AVG and one-step L-BFGS on the
+   identity wire, FedOSAA-SVRG with minibatches of 64 rows a step and with
+   5 carried AA columns, and FedOSAA-SCAFFOLD on int8 (``FAMILY_RUNS``),
+   each by the loop and by the engine (chunks of 5), read on its own
+   launch counts: ``trajectory`` once a round (slot), resident at full
+   batch and streaming in minibatch mode; ``gram`` and ``aa_step`` once a
+   round only for the FedOSAA algorithms; ``int8_uplink`` once per upload
+   (two a round for SCAFFOLD). The engine equals the loop in every row and
+   in the final state (params, c, c_k, the carried columns, the comm
+   buffers) and reads the card once a chunk; a warmed-up round of each
+   makes no host read (``set_sync_debug_mode("error")``); ms per round,
+   engine against loop.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, by the loop and by the
@@ -123,7 +143,12 @@ port beside it. Every phase raises on failure; none is caught.
    each of ``trajectory`` (resident), ``gram`` and ``aa_step`` (none of
    ``update``) and, under int8, two of ``int8_uplink`` (and none of
    ``quantize`` or ``dequantize``); the engine's rows and final params
-   equal the loop's.
+   equal the loop's. Then SCAFFOLD's 200 rounds on the same three wires,
+   by the loop and by the engine, held to the reference's committed rows:
+   final rel-error within rel 1e-6 of 0.0026693003 / 0.0026693545 (fp32,
+   bf16) and 1e-3 of 0.0026693075 (int8, the port's own draws), bytes
+   exactly 86,400 / 43,200 / 23,200, loss within rel 1e-10; and
+   FedOSAA-SCAFFOLD's 200 fp32 rounds, printed, not held.
 6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
    from the port's seeded init. In f32 (the weights before their bf16
    rounding), a prefill's last-position logits within 1e-4 of the largest
@@ -149,10 +174,13 @@ port beside it. Every phase raises on failure; none is caught.
    the gradient uplink's buffers, every shape and buffer set in
    ``uplink``); each with the standalone kernel's phase-2 readings in
    ``standalone``.
-   Beyond the contract's keys, ``trajectory``'s row carries ``plan`` (the
-   resident plan at the main path's shape in f64), ``launches_by_design``
-   (the float64 identity run's resident and streaming launches),
-   ``rerun_equal`` and ``per_step_shape`` (the streaming design's check);
+   Beyond the contract's keys, every FL row's ``launches_by_run`` holds
+   each loop run of phases 4 and 4b; ``trajectory``'s row carries ``plan``
+   (the resident plan at the main path's shape in f64),
+   ``launches_by_design`` (each run's resident and streaming launches),
+   ``rerun_equal``, ``per_step_shape`` (the streaming design's check) and
+   ``anchor_scale_0``; ``gram``'s and ``update``'s carry ``variants`` (g
+   [K, d] and m=15);
    ``ssd``'s carries ``blocks_per_sm``, ``rerun_equal``, ``bound_split``
    and ``bound_ms_f32_count`` (the bound with every operation at the f32
    rate).
@@ -267,6 +295,13 @@ COMPRESSION_REF = {"fp32": (20, 8640.0), "bf16": (17, 3672.0),
                    "int8": (19, 2204.0)}
 COMPRESSION_BYTES_PER_ROUND = {"fp32": 432.0, "bf16": 216.0, "int8": 116.0}
 COMPRESSION_LOSS = 0.3128270332955105
+#: the reference's committed SCAFFOLD rows of ext_compression, 200 rounds:
+#: final rel-error, cumulative bytes, final loss
+SCAFFOLD_ROUNDS = 200
+COMPRESSION_SCAFFOLD = {
+    "fp32": (0.0026693003254825657, 86400.0, 0.31282822767293494),
+    "bf16": (0.0026693545469324937, 43200.0, 0.3128282277231577),
+    "int8": (0.002669307486806141, 23200.0, 0.31282822766549306)}
 
 
 def card_line() -> str:
@@ -520,6 +555,51 @@ def check_kernels(clients, dtype, device, floor: float) -> dict:
         raise AssertionError(
             f"trajectory (streaming, per-step shape) disagrees with its plain "
             f"version in {dtype}: {per_step['rel']:.3e} > {TOLERANCE[dtype]:.0e}")
+    # anchor_scale = 0 (SCAFFOLD, the AVG family): no anchor term, in both
+    # designs at the same two shapes, u the per-client correction c - c_k
+    anchor0 = {}
+    for design, (xa, ya_, ma) in (("resident", (x, y, mask)),
+                                  ("streaming", (xps, yps, mps))):
+        kw0 = dict(kw, anchor_scale=0.0)
+        inv0 = inverse_count(ma, dtype)
+
+        def kernel_a0():
+            return fused_trajectory(xa, ya_, ma, w0, u, **kw0)
+
+        def plain_a0():
+            return trajectory_ref(xa, ya_, ma, w0, u, inv0, **kw0)
+        _build.reset_launches()
+        wk0, rk0 = kernel_a0()
+        ran = dict(_build.DESIGN_LAUNCHES["trajectory"])
+        wp0, rp0 = plain_a0()
+        errs = [rel_diff(wk0, wp0), rel_diff(rk0, rp0)]
+        nb = xa.shape[2]
+        anchor0[design] = dict(
+            shape=f"K={K} S={xa.shape[1]} n={nb} d={d} {str(dtype)[6:]} a=0",
+            designs=ran, rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
+            ms=device_ms(kernel_a0, device), plain_ms=device_ms(plain_a0, device),
+            library_ms=None,
+            # live logits and X^T c every step, no anchor logits
+            bound=bound_ms(nbytes(xa, ya_, ma, w0, u, inv0, wk0, rk0),
+                           {dtype: K * nb * d * 4 * steps}),
+            rerun_equal=all(map(torch.equal, kernel_a0(), (wk0, rk0))))
+        a0 = anchor0[design]
+        print(f"  trajectory {str(dtype)[6:]:7s} anchor_scale=0 {design} "
+              f"[{a0['shape']}] ran {ran}: rel {a0['rel']:.3e} abs "
+              f"{a0['abs']:.3e}  kernel {a0['ms']:.4f} ms  plain "
+              f"{a0['plain_ms']:.4f} ms  bound {a0['bound'][0]:.4f} ms "
+              f"({a0['bound'][1]})  launch floor {floor:.4f} ms, rerun "
+              f"bit-identical {a0['rerun_equal']}", flush=True)
+        if ran != {"resident": int(design == "resident"),
+                   "streaming": int(design == "streaming")}:
+            raise AssertionError(f"trajectory anchor_scale=0 at the {design} "
+                                 f"shape ran {ran}")
+        if not (a0["rerun_equal"] and a0["rel"] <= TOLERANCE[dtype]):
+            raise AssertionError(
+                f"trajectory anchor_scale=0 ({design}) in {dtype}: rel "
+                f"{a0['rel']:.3e} (limit {TOLERANCE[dtype]:.0e}), rerun "
+                f"bit-identical {a0['rerun_equal']}")
+    results["trajectory"]["anchor0"] = anchor0
 
     s, ys = trajectory_to_sy(wp, rp)               # [K, m, d] each
     g = 0.01 * torch.randn(d, generator=gen, device=device, dtype=dtype)
@@ -579,6 +659,16 @@ def check_kernels(clients, dtype, device, floor: float) -> dict:
                        {dtype: K * d * (4 * m + 4)}))
     results["aa_step"] = check_aa_step(f"main {str(dtype)[6:]}", w, g, s, ys,
                                        device, floor)
+    # the AA kernels' slice-B variants: FedOSAA-AVG's per-client g [K, d]
+    # (client stride d), and m = 15 columns (carry_history 5 + L 10, from a
+    # trajectory of 16 steps)
+    g_k = 0.01 * torch.randn(K, d, generator=gen, device=device, dtype=dtype)
+    w16, r16 = trajectory_ref(x, y, mask, w0, u, invn, **dict(kw, steps=16))
+    s15, y15 = trajectory_to_sy(w16, r16)
+    for label, gv, sv, yv in (("g[K,d]", g_k, s, ys), ("m=15", g, s15, y15)):
+        results[f"gram {label}"] = check_gram_variant(label, yv, gv, device)
+        results[f"aa_step {label}"] = check_aa_step(
+            f"{label} {str(dtype)[6:]}", w, gv, sv, yv, device, floor)
 
     for name, r in results.items():
         print(f"  {name:10s} {str(dtype)[6:]:7s} rel {r['rel']:.3e} "
@@ -591,6 +681,41 @@ def check_kernels(clients, dtype, device, floor: float) -> dict:
                 f"{name} kernel disagrees with its plain version in {dtype}: "
                 f"{r['rel']:.3e} > {TOLERANCE[dtype]:.0e}")
     return results
+
+
+def check_gram_variant(label: str, y: torch.Tensor, g: torch.Tensor,
+                       device) -> dict:
+    """Phase 2, the Gram pass at a slice-B variant (g per client [K, d], or
+    m = 15 columns): against ``gram_ref`` (Y g relative to the sum of its
+    terms' magnitudes), a rerun bit-identical and the Gram matrix exactly
+    symmetric, one launch; timed beside its bound and plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.anderson import flat_gram
+    from repro_torch.kernels.anderson.ref import gram_ref
+
+    K, m, d = y.shape
+    _build.reset_launches()
+    gk, ygk = flat_gram(y, g)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    gp, ygp = gram_ref(y, g)
+    terms = (y.abs() @ g.abs().expand(K, d).unsqueeze(-1)).squeeze(-1)
+    errs = [rel_diff(gk, gp), rel_diff(ygk, ygp, terms)]
+    out = dict(
+        shape=f"K={K} m={m} d={d} g {list(g.shape)} {str(y.dtype)[6:]}",
+        rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
+        ms=device_ms(lambda: flat_gram(y, g), device),
+        plain_ms=device_ms(lambda: gram_ref(y, g), device), library_ms=None,
+        bound=bound_ms(nbytes(y, g, gk, ygk),
+                       {y.dtype: K * d * 2 * (m * (m + 1) // 2 + m)}),
+        rerun_equal=all(map(torch.equal, flat_gram(y, g), (gk, ygk))),
+        symmetric=torch.equal(gk, gk.transpose(1, 2)), launches=launches)
+    print(f"  gram       {label} [{out['shape']}]: launches {launches}, rerun "
+          f"bit-identical {out['rerun_equal']}, exactly symmetric "
+          f"{out['symmetric']}", flush=True)
+    if not (out["rerun_equal"] and out["symmetric"]) or launches != {"gram": 1}:
+        raise AssertionError(f"gram {label}: rerun {out['rerun_equal']}, "
+                             f"symmetric {out['symmetric']}, launches {launches}")
+    return out
 
 
 def jacobi_ops(sweeps: torch.Tensor, m: int) -> float:
@@ -917,27 +1042,36 @@ def check_uplink(device, floor: float) -> dict:
     return out
 
 
-def check_resident(what: str, rounds: int) -> dict:
-    """The trajectory launches of a full-batch run since the last reset, by
-    design: every one must have run the resident design."""
+def check_resident(what: str, rounds: int, design: str = "resident") -> dict:
+    """The trajectory launches of a run since the last reset, by design:
+    every one must have run ``design`` (a full-batch round the resident
+    one, a minibatch round, whose rows differ each step, the streaming
+    one)."""
     from repro_torch.kernels import _build
 
     designs = dict(_build.DESIGN_LAUNCHES["trajectory"])
-    if designs != {"resident": rounds, "streaming": 0}:
+    want = {"resident": 0, "streaming": 0, design: rounds}
+    if designs != want:
         raise AssertionError(f"{what}: trajectory ran {designs} over {rounds} "
-                             f"rounds; every full-batch round runs the "
-                             f"resident design")
+                             f"rounds; every round runs the {design} design")
     return designs
 
 
-def expected_launches(rounds: int, int8: bool) -> dict:
-    """Launches of a run of ``rounds`` FedOSAA-SVRG rounds: the trajectory,
-    the Gram pass and the fused AA step once a round; the fused int8 uplink
-    twice a round on the int8 wire; the standalone update and quant pair
-    and the LM kernels never."""
-    return {**{k: rounds for k in ROUND_KERNELS},
+def expected_launches(rounds: int, int8: bool,
+                      algo: str = "fedosaa_svrg") -> dict:
+    """Launches of a run of ``rounds`` rounds of ``algo``: the trajectory
+    once a round; the Gram pass and the fused AA step once a round of the
+    FedOSAA algorithms and never else; on the int8 wire the fused int8
+    uplink once a round per upload of the algorithm's schema (the SVRG
+    family, L-BFGS and SCAFFOLD two, the AVG family one); the standalone
+    update and quant pair and the LM kernels never."""
+    from repro_torch.core import UPLINK_SCHEMAS
+
+    aa = algo.startswith("fedosaa_")
+    return {"trajectory": rounds, "gram": rounds if aa else 0,
+            "aa_step": rounds if aa else 0,
             **{k: 0 for k in FUSED_KERNELS},
-            "int8_uplink": 2 * rounds if int8 else 0,
+            "int8_uplink": len(UPLINK_SCHEMAS[algo]) * rounds if int8 else 0,
             **{k: 0 for k in LM_KERNELS}}
 
 
@@ -974,16 +1108,18 @@ def per_round_ms(wall_time: np.ndarray) -> np.ndarray:
     return np.diff(np.concatenate([[0.0], wall_time])) * 1e3
 
 
-def engine_launches(what: str, rounds_run: int, chunk: int, int8: bool) -> dict:
+def engine_launches(what: str, rounds_run: int, chunk: int, int8: bool,
+                    algo: str = "fedosaa_svrg",
+                    design: str = "resident") -> dict:
     """Gate an engine run's launch counts (read just after it): each kernel
-    of the round once per slot replayed, every trajectory resident; the
-    warm-up round before the capture is counted apart, not here."""
+    of the round once per slot replayed, every trajectory in ``design``;
+    the warm-up round before the capture is counted apart, not here."""
     from repro_torch.kernels import _build
 
     launches = dict(_build.LAUNCHES)
     slots = slots_replayed(rounds_run, chunk)
-    designs = check_resident(what, slots)
-    want = expected_launches(slots, int8=int8)
+    designs = check_resident(what, slots, design)
+    want = expected_launches(slots, int8=int8, algo=algo)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches} over {slots} slots "
                              f"replayed, expected {want}")
@@ -1201,6 +1337,152 @@ def no_host_read(clients, device) -> None:
                                  f"{launches} (expected {want}), loss {loss}")
 
 
+#: phase 4b: the trajectory family at paper scale (f64, 10 rounds, by the
+#: loop and by the engine in chunks of PAPER_CHUNK): (run name, algorithm,
+#: AlgoHParams knobs, channel). Minibatch B=64 is the reference's
+#: fig1_batch_sweep's; carry_history=5 its ext_carry_history's L10_carry5.
+FAMILY_RUNS = (
+    ("scaffold", "scaffold", {}, None),
+    ("fedosaa_scaffold", "fedosaa_scaffold", {}, None),
+    ("fedavg", "fedavg", {}, None),
+    ("fedosaa_avg", "fedosaa_avg", {}, None),
+    ("lbfgs", "lbfgs", {}, None),
+    ("fedosaa_svrg_b64", "fedosaa_svrg", {"batch_size": 64}, None),
+    ("fedosaa_svrg_carry5", "fedosaa_svrg", {"carry_history": 5}, None),
+    ("fedosaa_scaffold_int8", "fedosaa_scaffold", {}, "int8"),
+)
+
+
+def same_state(what: str, s_loop, s_eng) -> None:
+    """Raise unless two ServerStates hold the same tensors bit for bit: the
+    params, SCAFFOLD's c and c_k, the carried AA columns and the comm
+    buffers, each where the state has it."""
+    bad = []
+    for f in ("params", "c", "c_k", "hist_s", "hist_y"):
+        a, b = getattr(s_loop, f), getattr(s_eng, f)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            bad.append(f)
+    comm_a, comm_b = s_loop.comm or {}, s_eng.comm or {}
+    if sorted(comm_a) != sorted(comm_b):
+        bad.append("comm")
+    for tag, bufs in comm_a.items():
+        for name, buf in bufs.items():
+            if not torch.equal(buf, comm_b.get(tag, {}).get(name, buf.new_empty(0))):
+                bad.append(f"comm[{tag}][{name}]")
+    if bad:
+        raise AssertionError(f"{what}: the engine's final state differs from "
+                             f"the loop's in {bad}")
+
+
+def trajectory_family(clients, w_star, device) -> dict:
+    """Phase 4b: every FAMILY_RUNS run at paper scale in float64, by the
+    per-round loop and then by the engine (10 rounds in chunks of
+    PAPER_CHUNK), each read on its own launch counts. Gates per run: the
+    trajectory once a round (slot), resident at full batch and streaming in
+    minibatch mode; gram and aa_step once only for the FedOSAA algorithms;
+    int8_uplink once per upload; the engine equals the loop in every row
+    and in the final state (params, c, c_k, hist_s, hist_y, comm) and reads
+    the card once a chunk after the first; one warmed-up round makes no
+    host read (``set_sync_debug_mode("error")``). Prints ms per round,
+    engine against loop."""
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn, run_federated, run_rounds)
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    out = {}
+    for name, algo, knobs, channel in FAMILY_RUNS:
+        hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS, **knobs)
+        design = "streaming" if knobs.get("batch_size") else "resident"
+        int8 = channel == "int8"
+        s_loop = MemorySink()
+        _build.reset_launches()
+        h = run_federated(prob, algo, hp, 10, w_star=w_star, device=device,
+                          channel=channel, sinks=[s_loop])
+        launches = dict(_build.LAUNCHES)
+        rounds = len(h.rounds)
+        designs = check_resident(f"{name} loop", rounds, design)
+        want = expected_launches(rounds, int8=int8, algo=algo)
+        if launches != want:
+            raise AssertionError(f"{name} loop: launches {launches} over "
+                                 f"{rounds} rounds, expected {want}")
+        if not np.all(np.isfinite(h.loss)):
+            raise AssertionError(f"{name} loop: a non-finite loss {h.loss}")
+        loop_ms = float(np.median(np.diff(h.wall_time) * 1e3))
+
+        round_fn = make_round_fn(algo, prob, hp, channel, device=device)
+        s_ref = init_state(prob, device=device, channel=channel, algo=algo,
+                           hp=hp)
+        for _ in range(rounds):
+            s_ref, _ = round_fn(s_ref)
+        state = init_state(prob, device=device, channel=channel, algo=algo,
+                           hp=hp)
+        runner = make_chunk_runner(round_fn, PAPER_CHUNK, w_star=w_star)
+        s_eng = MemorySink()
+        _build.reset_launches()
+        with sync_warnings() as caught:
+            reads = ChunkReads(caught)
+            state, trace = run_rounds(round_fn, state, 10, chunk=PAPER_CHUNK,
+                                      w_star=w_star, runner=runner,
+                                      sinks=[s_eng, reads])
+        counted = engine_launches(f"{name} engine", trace.num_rounds,
+                                  PAPER_CHUNK, int8, algo, design)
+        if any(n != 1 for n in reads.per_chunk[1:]):
+            raise AssertionError(f"{name} engine: host reads per chunk "
+                                 f"{reads.per_chunk}; one in each after the "
+                                 f"first")
+        same_as_loop(name, s_loop, s_eng, h.final_params, state.params)
+        same_state(name, s_ref, state)
+        walls = [float(trace.round_wall[PAPER_CHUNK:].sum())]
+        for _ in range(PAPER_REPLAYS):
+            t0 = time.perf_counter()
+            state, *_ = runner(state, PAPER_CHUNK)
+            walls.append(time.perf_counter() - t0)
+        eng_ms = float(np.median(walls)) / PAPER_CHUNK * 1e3
+
+        # one warmed-up round under the sync debug mode
+        st = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+        for _ in range(2):
+            st, _ = round_fn(st)
+        torch.cuda.synchronize(device)
+        _build.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, m = round_fn(st)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        one = dict(_build.LAUNCHES)
+        check_resident(f"{name} no-host-read round", 1, design)
+        if one != expected_launches(1, int8=int8, algo=algo) or not np.isfinite(
+                float(m.loss)):
+            raise AssertionError(f"{name} no-host-read round: launches {one}, "
+                                 f"loss {float(m.loss)}")
+        out[name] = dict(algo=algo, knobs=knobs, channel=channel or "identity",
+                         rounds=rounds, rel_error=float(h.rel_error[-1]),
+                         loss=float(h.loss[-1]), launches=launches,
+                         designs=designs, ms_per_round=loop_ms,
+                         engine=dict(ms_per_round=eng_ms,
+                                     chunk_ms=[w * 1e3 for w in walls],
+                                     reads_per_chunk=reads.per_chunk,
+                                     warmup_ms=runner.warmup_ms,
+                                     capture_ms=runner.capture_ms, **counted),
+                         no_host_read_launches={k: v for k, v in one.items() if v})
+        print(f"  {name:22s} [{channel or 'identity'}] loop {loop_ms:.3f} ms/round, "
+              f"engine (chunk={PAPER_CHUNK}) {eng_ms:.3f} ms/round; rel-error "
+              f"{h.rel_error[-1]:.3e}, loss {h.loss[-1]!r}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } over {rounds} "
+              f"rounds, trajectory {designs}; engine = loop (rows, final "
+              f"state), {counted['slots']} slots replayed, launches "
+              f"{ {k: v for k, v in counted['launches'].items() if v} }, host "
+              f"reads per chunk {reads.per_chunk}; no host read in a round "
+              f"({ {k: v for k, v in one.items() if v} })", flush=True)
+        del runner, state, round_fn, h, s_ref, st
+        torch.cuda.empty_cache()
+    return out
+
+
 def compression(device) -> dict:
     """Phase 5: the reference's ext_compression configuration on the fp32,
     bf16 and int8 wires, each by the per-round loop and then by the engine
@@ -1273,6 +1555,85 @@ def compression(device) -> dict:
                      runs["engine"]["h"].final_params)
         out[spec] = {path: {k: v for k, v in r.items() if k not in ("h", "sink")}
                      for path, r in runs.items()}
+    out["scaffold"] = scaffold_compression(prob, w_star, device)
+    return out
+
+
+def scaffold_compression(prob, w_star, device) -> dict:
+    """Phase 5, SCAFFOLD: the ext_compression config's 200 rounds on the
+    fp32, bf16 and int8 wires, by the loop and by the engine (chunk=8),
+    against the reference's committed rows (COMPRESSION_SCAFFOLD): the
+    final rel-error within rel 1e-6 (fp32, bf16) or 1e-3 (int8: the port's
+    own draws), the bytes exactly, the final loss within rel 1e-10; the
+    engine's rows and final params equal the loop's; per round (slot) one
+    ``trajectory`` (resident), no ``gram`` or ``aa_step``, and under int8
+    two ``int8_uplink``. Then FedOSAA-SCAFFOLD's 200 fp32 rounds by the
+    loop, printed and not held (the reference's committed row stalls at
+    0.163; PERF.md)."""
+    from repro_torch.core import AlgoHParams, run_federated
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MemorySink
+
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+    out = {}
+    for spec, (ref_rel, ref_bytes, ref_loss) in COMPRESSION_SCAFFOLD.items():
+        runs = {}
+        for path, chunk in (("loop", None), ("engine", ACCEPT_CHUNK)):
+            sink = MemorySink()
+            _build.reset_launches()
+            h = run_federated(prob, "scaffold", hp, SCAFFOLD_ROUNDS,
+                              w_star=w_star, device=device, channel=spec,
+                              chunk=chunk, sinks=[sink])
+            rounds = len(h.rounds)
+            if chunk is None:
+                launches = dict(_build.LAUNCHES)
+                designs = check_resident(f"scaffold {spec}", rounds)
+                want = expected_launches(rounds, spec == "int8", "scaffold")
+                if launches != want:
+                    raise AssertionError(f"scaffold {spec}: launches {launches}"
+                                         f" over {rounds} rounds, expected {want}")
+                counted = dict(launches=launches, designs=designs)
+            else:
+                counted = engine_launches(f"scaffold {spec} engine", rounds,
+                                          chunk, spec == "int8", "scaffold")
+            rel_rel = abs(h.rel_error[-1] - ref_rel) / ref_rel
+            loss_rel = abs(h.loss[-1] - ref_loss) / ref_loss
+            skip = 1 if chunk is None else chunk
+            ms = float(np.median(per_round_ms(h.wall_time)[skip:]))
+            runs[path] = dict(h=h, sink=sink, rounds=rounds,
+                              rel_error=float(h.rel_error[-1]),
+                              rel_error_vs_reference=rel_rel,
+                              comm_bytes=float(h.comm_bytes[-1]),
+                              loss=float(h.loss[-1]), loss_vs_reference=loss_rel,
+                              ms_per_round=ms, **counted)
+            print(f"  scaffold {spec:5s} {path}: {rounds} rounds, rel-error "
+                  f"{h.rel_error[-1]!r} (reference {ref_rel!r}, rel "
+                  f"{rel_rel:.2e}), bytes {h.comm_bytes[-1]:.0f} (reference "
+                  f"{ref_bytes:.0f}), final loss {h.loss[-1]!r} (rel "
+                  f"{loss_rel:.2e}), median {ms:.3f} ms/round, "
+                  f"{ {k: v for k, v in counted['launches'].items() if v} }",
+                  flush=True)
+            if not (rounds == SCAFFOLD_ROUNDS and h.comm_bytes[-1] == ref_bytes
+                    and rel_rel <= (1e-3 if spec == "int8" else 1e-6)
+                    and loss_rel <= 1e-10):
+                raise AssertionError(
+                    f"scaffold {spec} {path}: {rounds} rounds, rel-error "
+                    f"{h.rel_error[-1]!r} ({rel_rel:.2e} from {ref_rel!r}), "
+                    f"bytes {h.comm_bytes[-1]}, loss {h.loss[-1]!r} "
+                    f"({loss_rel:.2e} from {ref_loss!r})")
+        same_as_loop(f"scaffold {spec}", runs["loop"]["sink"],
+                     runs["engine"]["sink"], runs["loop"]["h"].final_params,
+                     runs["engine"]["h"].final_params)
+        out[spec] = {path: {k: v for k, v in r.items() if k not in ("h", "sink")}
+                     for path, r in runs.items()}
+    h = run_federated(prob, "fedosaa_scaffold", hp, SCAFFOLD_ROUNDS,
+                      w_star=w_star, device=device, channel="fp32")
+    out["fedosaa_scaffold_fp32"] = dict(
+        rounds=len(h.rounds), rel_error=float(h.rel_error[-1]),
+        min_rel_error=float(h.rel_error.min()), loss=float(h.loss[-1]))
+    print(f"  fedosaa_scaffold fp32 (recorded, not held): "
+          f"{out['fedosaa_scaffold_fp32']} (the reference's committed row: "
+          f"0.16330192310428826 after 200 rounds)", flush=True)
     return out
 
 
@@ -1839,6 +2200,9 @@ def main() -> int:
     print(f"  w* by Newton-CG in {time.perf_counter() - t0:.1f} s", flush=True)
     paper = paper_scale(clients, w_star, device)
     no_host_read(clients, device)
+    print("phase 4b: the trajectory family at paper scale (float64, 10 "
+          "rounds)", flush=True)
+    family = trajectory_family(clients, w_star, device)
 
     print("phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)
@@ -1893,20 +2257,36 @@ def main() -> int:
         row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paper["float64_int8" if wire else "float64"]["launches"][launched],
-            launches_by_run={run: paper[run]["launches"][launched] for run in paper},
+            launches_by_run={run: r_["launches"][launched]
+                             for run, r_ in {**paper, **family}.items()},
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             launch_floor_ms=floor)
         if name == "trajectory":
             ps = r["per_step"]
+            row["anchor_scale_0"] = {f"{design}/{str(dt)[6:]}": dict(
+                shape=a["shape"], max_abs_err=a["abs"], ms=a["ms"],
+                plain_ms=a["plain_ms"], bound_ms=a["bound"][0],
+                bound_by=a["bound"][1], rerun_equal=a["rerun_equal"])
+                for dt in checks for design, a in
+                checks[dt]["trajectory"]["anchor0"].items()}
+            row["launches_by_design"] = {
+                run: r_["designs"] for run, r_ in {**paper, **family}.items()}
             row.update(plan=r["plan"], rerun_equal=r["rerun_equal"],
-                       launches_by_design=paper["float64"]["designs"],
                        per_step_shape=dict(
                            shape=ps["shape"], design=ps["design"],
                            max_abs_err=ps["abs"], ms=ps["ms"],
                            plain_ms=ps["plain_ms"], bound_ms=ps["bound"][0],
                            bound_by=ps["bound"][1], rerun_equal=ps["rerun_equal"]))
+        if name in ("gram", "update"):
+            kind = "gram" if name == "gram" else "aa_step"
+            row["variants"] = {f"{label}/{str(dt)[6:]}": dict(
+                shape=v["shape"], max_abs_err=v["abs"], rel=v["rel"],
+                ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                bound_by=v["bound"][1], rerun_equal=v["rerun_equal"])
+                for dt in checks for label in ("g[K,d]", "m=15")
+                for v in (checks[dt][f"{kind} {label}"],)}
         if name == "gram":
             row.update(kernel_us=r["kernel_us"],
                        library_kernel_us=r["library_kernel_us"],
@@ -1931,7 +2311,8 @@ def main() -> int:
                 max_abs_err=upd["abs"], ms=upd["ms"], plain_ms=upd["plain_ms"],
                 bound_ms=upd["bound"][0], bound_by=upd["bound"][1],
                 library_ms=upd["library_ms"],
-                launches={run: paper[run]["launches"]["update"] for run in paper})
+                launches={run: r_["launches"]["update"]
+                          for run, r_ in {**paper, **family}.items()})
         if wire:
             row["launched_as"] = launched
             row["uplink"] = {key: dict(
@@ -1943,7 +2324,8 @@ def main() -> int:
                 max_abs_err=q[name]["abs"], ms=q[name]["ms"],
                 plain_ms=q[name]["plain_ms"], bound_ms=q[name]["bound"][0],
                 bound_by=q[name]["bound"][1], library_ms=q[name]["library_ms"],
-                launches={run: paper[run]["launches"][name] for run in paper})
+                launches={run: r_["launches"][name]
+                          for run, r_ in {**paper, **family}.items()})
                 for shape, q in quant.items()}
         rows.append(row)
     f32 = {name: {k: v for k, v in r.items()}

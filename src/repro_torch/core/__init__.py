@@ -2,19 +2,24 @@ from repro_torch.core.anderson import (  # noqa: F401
     AA_IMPLS,
     AAConfig,
     AAStats,
+    lbfgs_two_loop,
     multisecant_update,
     resolve_aa_impl,
     trajectory_to_sy,
 )
 from repro_torch.core.algorithms import (  # noqa: F401
     ALGORITHMS,
+    COMM_TABLE,
     LOCAL_IMPLS,
+    TRAJECTORY_ALGOS,
     AlgoHParams,
+    CommCost,
     RoundMetrics,
     ServerState,
     UPLINK_SCHEMAS,
     CrossClientReduce,
     comm_bytes_per_round,
+    comm_floats_per_round,
     init_comm_state,
     init_state,
     make_round_fn,
@@ -25,6 +30,8 @@ from repro_torch.core.problem import (  # noqa: F401
     FLProblem,
     LinearDesign,
     StackedClients,
+    sample_minibatch,
+    sample_minibatch_indices,
     stack_client_arrays,
 )
 from repro_torch.core.engine import (  # noqa: F401

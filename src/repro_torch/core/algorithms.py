@@ -1,22 +1,30 @@
-"""Federated round algorithms, the SVRG family (counterpart of the subset of
-repro/core/algorithms.py this slice ports).
+"""Federated round algorithms, the trajectory family (counterpart of the
+part of repro/core/algorithms.py whose local work is an L-step corrected-GD
+trajectory, ``TRAJECTORY_ALGOS``):
 
-  fedsvrg       — SVRG-corrected local steps (= FedLin)
-  fedosaa_svrg  — THE PAPER: FedSVRG local steps + one AA step (Alg. 1)
+  fedavg            — McMahan et al. baseline (no correction)
+  fedsvrg           — SVRG-corrected local steps (= FedLin)
+  scaffold          — control-variate corrected local steps (the paper's
+                      variant: c = ∇f(w^{t-1}), c_k = ∇f_k(w^{t-1}))
+  fedosaa_svrg      — THE PAPER: FedSVRG local steps + one AA step (Alg. 1)
+  fedosaa_scaffold  — SCAFFOLD local steps + one AA step (Alg. 2)
+  fedosaa_avg       — negative control (Appendix D.4): AA on uncorrected steps
+  lbfgs             — one-step L-BFGS on the same S/Y data (App. D.1)
 
-Every round function has the signature round(state) -> (state, RoundMetrics).
-The reference vmaps its per-client bodies over K; here the client axis is
-an explicit leading K axis, so each per-client stage is one batched call
-(one kernel launch per round on the card): the stacked gradients, the
-fused trajectory of every client, their Gram matrices, their eigen-solves,
-their updates, and each uplink's codec.
+Every round function has the signature round(state, draws=None) ->
+(state, RoundMetrics). The reference vmaps its per-client bodies over K;
+here the client axis is an explicit leading K axis, so each per-client
+stage is one batched call (one kernel launch per round on the card): the
+stacked gradients, the fused trajectory of every client, their Gram
+matrices, their AA steps, and each uplink's codec.
 
 Every wire crossing goes through a CommChannel (repro_torch/comm): the
 broadcasts through its downlink codec, the uploads through its uplink codec
 with error feedback and difference coding, as the uplink schema of the
-algorithm declares them. Every client takes part in every round with
-full-batch local steps; minibatches, cohorts, faults and the other
-algorithm families come with later slices.
+algorithm declares them. Local steps are full batch, or minibatches of
+``batch_size`` rows drawn per step; the SVRG family can carry AA columns
+across rounds (``carry_history``). Every client takes part in every round:
+cohorts, faults and the Newton family are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,34 +38,97 @@ from torch.profiler import record_function
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.comm import CommChannel, IdentityCodec, make_channel
-from repro_torch.comm.schema import (DELTA_UPLINK, GRAD_UPLINK, UplinkSpec,
-                                     init_schema_state, uplink_byte_breakdown,
-                                     validate_schema)
-from repro_torch.core.anderson import (AAConfig, AAStats, multisecant_update,
-                                       resolve_aa_impl, trajectory_to_sy)
-from repro_torch.core.problem import ClientBatch, FLProblem
+from repro_torch.comm.schema import (CTRL_UPLINK, DELTA_UPLINK, GRAD_UPLINK,
+                                     UplinkSpec, init_schema_state,
+                                     uplink_byte_breakdown, validate_schema)
+from repro_torch.core.anderson import (AAConfig, AAStats, lbfgs_two_loop,
+                                       multisecant_update, resolve_aa_impl,
+                                       trajectory_to_sy)
+from repro_torch.core.problem import (ClientBatch, FLProblem, sample_minibatch,
+                                      sample_minibatch_indices)
 from repro_torch.kernels.local_update import fused_trajectory
 from repro_torch.utils import tree_math as tm
 
-#: the round algorithms this package implements
-ALGORITHMS = ("fedsvrg", "fedosaa_svrg")
+#: the round algorithms this package implements: the reference's
+#: trajectory family (its TRAJECTORY_ALGOS)
+ALGORITHMS = ("fedavg", "fedsvrg", "scaffold", "fedosaa_svrg",
+              "fedosaa_scaffold", "fedosaa_avg", "lbfgs")
+#: algorithms whose local work is the L-step corrected-GD trajectory: the
+#: ones the fused trajectory kernel applies to
+TRAJECTORY_ALGOS = ALGORITHMS
+#: the algorithms that carry SCAFFOLD's control variates (ServerState.c/c_k)
+SCAFFOLD_ALGOS = ("scaffold", "fedosaa_scaffold")
+
+
+class CommCost(NamedTuple):
+    """Per-round communication accounting (paper Table 1).
+
+    round_trips — synchronous server↔client exchanges per round: 2 where
+      the global gradient ∇f(w^t) is needed before local work (the SVRG
+      family, L-BFGS), 1 where everything rides one exchange (FedAvg,
+      SCAFFOLD).
+    float_units — client-uplink floats per round in units of d: 1 for a
+      model delta alone, 2 when a gradient or a control variate travels
+      beside it. Each algorithm's uplink schema has that many records.
+    """
+
+    round_trips: int
+    float_units: float
+
+
+COMM_TABLE = {
+    "fedavg":           CommCost(1, 1.0),
+    "fedsvrg":          CommCost(2, 2.0),
+    "scaffold":         CommCost(1, 2.0),
+    "fedosaa_svrg":     CommCost(2, 2.0),
+    "fedosaa_scaffold": CommCost(1, 2.0),
+    "fedosaa_avg":      CommCost(1, 1.0),
+    "lbfgs":            CommCost(2, 2.0),
+}
+
+
+def comm_floats_per_round(algo: str, d: int) -> float:
+    """Floats on the wire for one client's uploads in one round of ``algo``
+    on a d-parameter model (Table 1's units times d)."""
+    return COMM_TABLE[algo].float_units * d
+
 
 #: the uploads of one round of each algorithm, in round order
-#: (comm/schema.py): the local gradient, then the model delta
+#: (comm/schema.py): the SVRG family and L-BFGS send the local gradient,
+#: then the model delta; SCAFFOLD the delta, then its control variate; the
+#: AVG family the delta alone
 _SVRG_UPLINKS = validate_schema((GRAD_UPLINK, DELTA_UPLINK))
+_SCAFFOLD_UPLINKS = validate_schema((DELTA_UPLINK, CTRL_UPLINK))
+_AVG_UPLINKS = validate_schema((DELTA_UPLINK,))
 UPLINK_SCHEMAS: "dict[str, tuple[UplinkSpec, ...]]" = {
-    "fedsvrg": _SVRG_UPLINKS,
-    "fedosaa_svrg": _SVRG_UPLINKS,
+    "fedavg":           _AVG_UPLINKS,
+    "fedosaa_avg":      _AVG_UPLINKS,
+    "fedsvrg":          _SVRG_UPLINKS,
+    "fedosaa_svrg":     _SVRG_UPLINKS,
+    "scaffold":         _SCAFFOLD_UPLINKS,
+    "fedosaa_scaffold": _SCAFFOLD_UPLINKS,
+    "lbfgs":            _SVRG_UPLINKS,
 }
+
+#: the name of a round's minibatch draw (make_round_fn), and the fold of its
+#: seed: distinct from every uplink's (comm/schema.py, 101–104)
+MINIBATCH = "minibatch"
+MINIBATCH_FOLD = 105
 
 
 @dataclasses.dataclass(frozen=True)
 class AlgoHParams:
-    """Tuning knobs of the SVRG family (paper §4 / Appendix D.1)."""
+    """Tuning knobs of the trajectory family (paper §4 / Appendix D.1)."""
 
     eta: float = 1.0            # local learning rate η
     local_epochs: int = 10      # L
+    batch_size: int | None = None   # rows drawn per local step; None: full
+                                # batch
     aa: AAConfig = AAConfig()
+    carry_history: int = 0      # (s, y) columns carried ACROSS rounds (paper
+                                # App. A option 1; the SVRG family only):
+                                # the last H fresh columns of each round
+                                # are prepended to the next round's
     aa_impl: str = "auto"       # AA step: "tree" (plain tensor ops),
                                 # "kernel" (single-pass Gram/update kernels),
                                 # "auto" (= kernel)
@@ -72,18 +143,24 @@ class ServerState(NamedTuple):
     """params: [d]; t: the round counter; comm: the clients' carried wire
     state, ``{tag: {"ef": [K, d], "ref": [K, d]}}`` keyed by the
     algorithm's uplink schema (comm/schema.py), or None on a lossless
-    channel. The reference's SCAFFOLD control variates (c, c_k) come with
-    that family. Its PRNG key has no counterpart: a stochastic codec's
-    uniforms are drawn from (seed, t, the uplink's fold) (make_round_fn)."""
+    channel; c [d] and c_k [K, d]: SCAFFOLD's server and client control
+    variates (None for the other algorithms); hist_s, hist_y [K, H, d]: the
+    AA columns carried across rounds (None unless ``carry_history`` > 0).
+    The reference's PRNG key has no counterpart: a round's draws come from
+    (seed, t, a fold of their own) (make_round_fn)."""
 
     params: torch.Tensor
     t: int
     comm: "dict | None" = None
+    c: "torch.Tensor | None" = None
+    c_k: "torch.Tensor | None" = None
+    hist_s: "torch.Tensor | None" = None
+    hist_y: "torch.Tensor | None" = None
 
 
 class RoundMetrics(NamedTuple):
     loss: torch.Tensor          # global f(w^t) before the update
-    grad_norm: torch.Tensor     # ‖∇f(w^t)‖
+    grad_norm: torch.Tensor     # ‖∇f(w^t)‖ (SCAFFOLD: ‖c‖ of the new c)
     theta_mean: torch.Tensor    # mean AA optimization gain (nan if n/a)
     gram_cond_max: torch.Tensor  # worst AA Gram conditioning (nan if n/a)
     gram_cond_mean: torch.Tensor  # mean AA Gram conditioning (nan if n/a)
@@ -116,19 +193,29 @@ def _check_device(problem: FLProblem, device) -> torch.device:
 def init_state(problem: FLProblem, generator: "torch.Generator | None" = None,
                device: "str | torch.device" = DEFAULT_DEVICE,
                channel: "CommChannel | str | None" = None,
-               algo: str | None = None) -> ServerState:
-    """Round 0: the problem's initial params and the comm buffers ``algo``
-    carries under ``channel`` (``algo`` may be None on the identity wire)."""
+               algo: str | None = None,
+               hp: AlgoHParams | None = None) -> ServerState:
+    """Round 0: the problem's initial params, the comm buffers ``algo``
+    carries under ``channel`` (``algo`` may be None on the identity wire),
+    zero control variates for the SCAFFOLD family, and zero carried AA
+    columns [K, H, d] when ``hp.carry_history`` = H > 0."""
     _check_device(problem, device)
     params = problem.init(generator)
     channel = make_channel(channel)
+    K = problem.clients.num_clients
+    hist_s = hist_y = c = c_k = None
+    if hp is not None and hp.carry_history > 0:
+        hist_s, hist_y = (params.new_zeros((K, hp.carry_history, *params.shape))
+                          for _ in range(2))
     if algo is None:
         if not channel.is_identity:
             raise ValueError(f"init_state: channel {channel.name!r} carries "
                              "per-algorithm comm state; pass algo")
-        return ServerState(params, 0, None)
-    comm = init_comm_state(channel, params, problem.clients.num_clients, algo)
-    return ServerState(params, 0, comm)
+        return ServerState(params, 0, None, hist_s=hist_s, hist_y=hist_y)
+    if algo in SCAFFOLD_ALGOS:
+        c, c_k = torch.zeros_like(params), params.new_zeros((K, *params.shape))
+    comm = init_comm_state(channel, params, K, algo)
+    return ServerState(params, 0, comm, c, c_k, hist_s, hist_y)
 
 
 def init_comm_state(channel: CommChannel, params: torch.Tensor, K: int,
@@ -143,8 +230,9 @@ def comm_bytes_per_round(algo: str, params: torch.Tensor,
     """Bytes on the wire for one client's uploads in one round of ``algo``
     through ``channel``: each record of its uplink schema at its kind's
     codec-exact rate. On the identity channel each upload carries d values
-    of the params' dtype (864 B per round at d=54 in f64); under int8 it
-    is 116 B per round at d=54 (54 B + one 4 B scale, twice)."""
+    of the params' dtype (864 B per round of FedOSAA-SVRG at d=54 in f64);
+    under int8 it is 116 B per round at d=54 (54 B + one 4 B scale,
+    twice). On fp32 it is 4 × ``comm_floats_per_round``."""
     channel = make_channel(channel)
     return float(sum(uplink_byte_breakdown(
         channel, UPLINK_SCHEMAS[algo], params).values()))
@@ -180,68 +268,159 @@ def _stack_losses(problem: FLProblem, w: torch.Tensor, x, y, mask) -> torch.Tens
 
 
 def _local_trajectory(hp: AlgoHParams, w0: torch.Tensor,
-                      residual_fn: Callable[[torch.Tensor], torch.Tensor]):
+                      residual_fn: Callable[[torch.Tensor, int], torch.Tensor]):
     """Run L corrected-GD steps from w0 [K, d] and return the full
     trajectory: (w_traj, r_traj), each [K, L+1, d] — FedOSAA evaluates L+1
-    residuals (Alg. 1 needs r_L for the last Y column)."""
+    residuals (Alg. 1 needs r_L for the last Y column). ``residual_fn(w,
+    step)`` gives step ``step``'s residual."""
     w = w0
     ws, rs = [], []
-    for _ in range(hp.local_epochs + 1):
-        r = residual_fn(w)
+    for step in range(hp.local_epochs + 1):
+        r = residual_fn(w, step)
         ws.append(w)
         rs.append(r)
         w = tm.tree_axpy(-hp.eta, r, w)
     return torch.stack(ws, 1), torch.stack(rs, 1)
 
 
+def _make_residual_fn(problem: FLProblem, w_t: torch.Tensor, batch: ClientBatch,
+                      idx: torch.Tensor | None, anchor: bool,
+                      corr: torch.Tensor | None):
+    """r(w; ζ) = ∇f_k(w; ζ) − a·∇f_k(w^t; ζ) + corr for every client (the
+    reference's _make_residual_fn, batched): a = 1 with corr = ∇f(w^t) is
+    the SVRG correction, taken on the SAME rows ζ as the live gradient; a =
+    0 with corr = c − c_k is SCAFFOLD's; a = 0 with no corr is FedAvg's.
+    ζ is the full batch, or step ℓ's rows ``idx[:, ℓ]`` [K, b]. A full
+    batch's SVRG correction is the same every step and is taken once."""
+    fixed = None
+    if anchor and idx is None:
+        fixed = corr - _stack_grads(problem, w_t, *batch)
+
+    def residual(w: torch.Tensor, step: int) -> torch.Tensor:
+        mb = batch if idx is None else sample_minibatch(batch, idx[:, step])
+        g = _stack_grads(problem, w, *mb)
+        if anchor:
+            return g + (fixed if idx is None
+                        else corr - _stack_grads(problem, w_t, *mb))
+        return g if corr is None else g + corr
+
+    return residual
+
+
 def _fused_trajectory(problem: FLProblem, hp: AlgoHParams, w0: torch.Tensor,
                       batch: ClientBatch, anchor_scale: float,
-                      corr: torch.Tensor | None):
+                      corr: torch.Tensor | None, idx: torch.Tensor | None):
     """The fused linear-design twin of _local_trajectory (kernels/
     local_update): both residual gradients of every step ride ONE sweep of
     the client's design. r(w) = ∇f_k(w) − a·∇f_k(w^t) + corr collapses to
-    Xᵀ(c(Xw) − a·c(Xw^t))/n + reg·w + u with u = corr − a·reg·w^t."""
+    Xᵀ(c(Xw) − a·c(Xw^t))/n + reg·w + u with u = corr − a·reg·w^t.
+    Minibatch mode gathers each step's rows ``idx`` [K, steps, b] into
+    x [K, steps, b, d] with a mask of ones (the kernel's streaming design)
+    and takes live and anchor gradients on the same rows."""
     design = problem.linear_design(batch)
+    if idx is None:
+        x, y, mask = design.x[:, None], design.y[:, None], batch.mask[:, None]
+    else:
+        x, y, mask = sample_minibatch(
+            ClientBatch(design.x, design.y, batch.mask), idx)
     u = torch.zeros_like(w0) if corr is None else corr
     if anchor_scale:
         u = u - design.reg * w0
     return fused_trajectory(
-        design.x[:, None], design.y[:, None], batch.mask[:, None], w0, u,
-        link=design.link, reg=design.reg, eta=hp.eta,
+        x, y, mask, w0, u, link=design.link, reg=design.reg, eta=hp.eta,
         anchor_scale=anchor_scale, steps=hp.local_epochs + 1)
 
 
-def _svrg_trajectory(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
-                     batch: ClientBatch):
-    """Every client's SVRG-corrected trajectory from the anchor w_t [d]:
-    the fused kernel when resolved, else the two-autodiff residual path.
-    Runs inside the ``fl.local_trajectory`` profiler scope, as the
-    reference's named scope."""
+def _trajectory(problem: FLProblem, hp: AlgoHParams, w_t: torch.Tensor,
+                batch: ClientBatch, idx: torch.Tensor | None,
+                anchor_scale: float, corr: torch.Tensor | None):
+    """Every client's trajectory of L+1 corrected steps from w_t [d] (see
+    _make_residual_fn for the corrections): the fused kernel when resolved,
+    else the autodiff residual path. Runs inside the
+    ``fl.local_trajectory`` profiler scope, as the reference's named
+    scope."""
     with record_function("fl.local_trajectory"):
         if hp.local_impl == "kernel":
-            return _fused_trajectory(problem, hp, w_t, batch, 1.0, g_global)
-        K = batch.x.shape[0]
-        # −∇f_k(w^t) + ∇f(w^t): the constant SVRG correction of full-batch
-        # steps
-        corr = g_global - _stack_grads(problem, w_t, *batch)
+            return _fused_trajectory(problem, hp, w_t, batch, anchor_scale,
+                                     corr, idx)
+        residual = _make_residual_fn(problem, w_t, batch, idx,
+                                     anchor_scale == 1.0, corr)
+        return _local_trajectory(hp, w_t.expand(batch.x.shape[0], -1),
+                                 residual)
 
-        def residual(w):
-            return _stack_grads(problem, w, *batch) + corr
 
-        return _local_trajectory(hp, w_t.expand(K, -1), residual)
-
+# --------------------------------------------------------------------------
+# the clients' local work, every client at once
+# --------------------------------------------------------------------------
 
 def _client_svrg(problem: FLProblem, hp: AlgoHParams, use_aa: bool, w_t,
-                 g_global, x, y, mask):
-    """Every client's local work: trajectory, then (FedOSAA) one AA step.
-    Returns (w_k [K, d], AAStats with [K] entries)."""
-    w_traj, r_traj = _svrg_trajectory(problem, hp, w_t, g_global,
-                                      ClientBatch(x, y, mask))
+                 g_global, batch: ClientBatch, idx=None, hist_s=None,
+                 hist_y=None):
+    """Every client's SVRG trajectory, then (FedOSAA) one AA step. With
+    carried columns hist_s/hist_y [K, H, d], they are prepended to the
+    round's (m = H + L) and the last H fresh columns are carried on
+    (App. A option 1). Returns (w_k [K, d], AAStats with [K] entries, the
+    new hist_s, hist_y; the old ones where no AA step runs)."""
+    w_traj, r_traj = _trajectory(problem, hp, w_t, batch, idx, 1.0, g_global)
     if not use_aa:
-        return w_traj[:, -1], _nan_stats(x.shape[0], w_t)
+        return (_last(w_traj), _nan_stats(batch.x.shape[0], w_t), hist_s,
+                hist_y)
     s, y_stack = trajectory_to_sy(w_traj, r_traj, hp.aa.residual_ema)
-    return multisecant_update(w_t, g_global, s, y_stack, hp.eta, hp.aa,
+    s_all, y_all = s, y_stack
+    if hist_s is not None:
+        H = hist_s.shape[1]
+        s_all, y_all = torch.cat([hist_s, s], 1), torch.cat([hist_y, y_stack], 1)
+        hist_s, hist_y = s[:, -H:], y_stack[:, -H:]
+    w_k, stats = multisecant_update(w_t, g_global, s_all, y_all, hp.eta, hp.aa,
+                                    impl=hp.aa_impl)
+    return w_k, stats, hist_s, hist_y
+
+
+def _client_scaffold(problem: FLProblem, hp: AlgoHParams, use_aa: bool, w_t,
+                     c, c_k, batch: ClientBatch, idx=None):
+    """Every client's SCAFFOLD trajectory (correction c − c_k), then
+    (FedOSAA-SCAFFOLD) one AA step against the server's c. The new c_k is
+    the full-batch ∇f_k(w^t) (Alg. 2), kept by the client uncompressed.
+    Returns (w_k, new c_k, AAStats)."""
+    w_traj, r_traj = _trajectory(problem, hp, w_t, batch, idx, 0.0, c - c_k)
+    if use_aa:
+        s, y_stack = trajectory_to_sy(w_traj, r_traj, hp.aa.residual_ema)
+        w_k, stats = multisecant_update(w_t, c, s, y_stack, hp.eta, hp.aa,
+                                        impl=hp.aa_impl)
+    else:
+        w_k, stats = _last(w_traj), _nan_stats(batch.x.shape[0], w_t)
+    return w_k, _stack_grads(problem, w_t, *batch), stats
+
+
+def _client_avg(problem: FLProblem, hp: AlgoHParams, use_aa: bool, w_t,
+                batch: ClientBatch, idx=None):
+    """Every client's uncorrected trajectory, then (FedOSAA-AVG, the
+    negative control) one AA step against each client's LOCAL gradient
+    r_0 = ∇f_k(w^t) [K, d] (no correction exists). The residuals are not
+    smoothed (no ``residual_ema``), as in the reference."""
+    w_traj, r_traj = _trajectory(problem, hp, w_t, batch, idx, 0.0, None)
+    if not use_aa:
+        return _last(w_traj), _nan_stats(batch.x.shape[0], w_t)
+    s, y_stack = trajectory_to_sy(w_traj, r_traj)
+    g_local = r_traj[:, 0].contiguous()     # [K, d], read at a stride of d
+    return multisecant_update(w_t, g_local, s, y_stack, hp.eta, hp.aa,
                               impl=hp.aa_impl)
+
+
+def _client_lbfgs(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
+                  batch: ClientBatch, idx=None) -> torch.Tensor:
+    """Every client's SVRG trajectory, then the two-loop L-BFGS direction
+    on its S/Y (no ``residual_ema``, as in the reference): w_k = w^t −
+    H⁻¹∇f(w^t)."""
+    w_traj, r_traj = _trajectory(problem, hp, w_t, batch, idx, 1.0, g_global)
+    s, y_stack = trajectory_to_sy(w_traj, r_traj)
+    return w_t - lbfgs_two_loop(g_global, s, y_stack, hp.eta)
+
+
+def _last(w_traj: torch.Tensor) -> torch.Tensor:
+    """Every client's last iterate [K, d] of a trajectory [K, L+1, d], as a
+    contiguous tensor: the wire's kernels read client k's row at k·d."""
+    return w_traj[:, -1].contiguous()
 
 
 def _nan_stats(k: int, like: torch.Tensor) -> AAStats:
@@ -362,29 +541,100 @@ def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, weight,
     )
 
 
+# --------------------------------------------------------------------------
+# round cores (repro/core/algorithms.py:998-1081)
+#
+# Each takes the server quantities, the stacked client arrays, the round's
+# minibatch rows ``idx`` (None: full batch) and the wire's ``comm`` state
+# and ``draw``. ``weight`` [K] weighs the clients both in the global
+# quantities and in the aggregate (every client takes part in every round).
+# --------------------------------------------------------------------------
+
 def _svrg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
-                     comm_bytes: float, comm=None, draw=None):
-    """SVRG family: corrected local steps (+ optional AA), delta aggregation
-    (repro/core/algorithms.py:998-1029). ``weight`` [K] weighs the clients
-    both in ∇f and in the aggregate (every client takes part in every round).
+                     comm_bytes: float, comm=None, draw=None, idx=None,
+                     hist_s=None, hist_y=None):
+    """SVRG family: corrected local steps (+ optional AA), delta aggregation.
 
     Two wire crossings: w^t travels down and the local full-batch gradients
     travel up; then ∇f travels down and the model deltas travel up, anchored
-    at the broadcast w^t. The metrics are taken at the broadcast w^t.
-    Returns (new params, metrics, the advanced comm state)."""
+    at the broadcast w^t. The carried AA history is client-local state and
+    never touches the wire. The metrics are taken at the broadcast w^t.
+    Returns (new params, metrics, the advanced comm state, the new carried
+    hist_s, hist_y)."""
     w_t = R.broadcast(w_t)
     g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
                          state=comm, draw=draw)
     g_global = R.broadcast(R.wsum(weight, g_k))
-    w_k, stats = _client_svrg(problem, hp, use_aa, w_t, g_global, x, y, mask)
+    w_k, stats, hist_s, hist_y = _client_svrg(
+        problem, hp, use_aa, w_t, g_global, ClientBatch(x, y, mask), idx,
+        hist_s, hist_y)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
     new_params = R.wsum(weight, w_k, anchor=w_t)
-    return new_params, _metric_parts(problem, R, w_t, g_global, stats, x, y,
-                                     mask, weight, comm_bytes), comm
+    return (new_params, _metric_parts(problem, R, w_t, g_global, stats, x, y,
+                                      mask, weight, comm_bytes),
+            comm, hist_s, hist_y)
+
+
+def _scaffold_round_core(problem, hp, use_aa, R, w_t, c, c_k, x, y, mask,
+                         weight, comm_bytes: float, comm=None, draw=None,
+                         idx=None):
+    """SCAFFOLD family: control-variate steps; c aggregated with the data
+    weights.
+
+    One exchange: (w^t, c) travel down, (Δw_k, c_k) travel up together.
+    The server keeps the decoded wire view only in the aggregates; the
+    client's own control variate stays client-side uncompressed (new c_k).
+    The metrics' gradient norm is ‖new c‖. Returns (new params, new c, new
+    c_k, metrics, the advanced comm state)."""
+    w_t = R.broadcast(w_t)
+    c = R.broadcast(c)
+    w_k, new_c_k, stats = _client_scaffold(problem, hp, use_aa, w_t, c, c_k,
+                                           ClientBatch(x, y, mask), idx)
+    w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
+    c_up, comm = R.uplink(new_c_k, CTRL_UPLINK, state=comm, draw=draw)
+    new_params = R.wsum(weight, w_k, anchor=w_t)
+    new_c = R.wsum(weight, c_up)
+    return (new_params, new_c, new_c_k,
+            _metric_parts(problem, R, w_t, new_c, stats, x, y, mask, weight,
+                          comm_bytes), comm)
+
+
+def _avg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
+                    comm_bytes: float, comm=None, draw=None, idx=None):
+    """FedAvg family (with the fedosaa_avg negative control): one exchange,
+    the model deltas up. The global gradient is a diagnostic only: FedAvg
+    ships no gradients, so it crosses no wire. Returns (new params,
+    metrics, the advanced comm state)."""
+    w_t = R.broadcast(w_t)
+    w_k, stats = _client_avg(problem, hp, use_aa, w_t, ClientBatch(x, y, mask),
+                             idx)
+    w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
+    new_params = R.wsum(weight, w_k, anchor=w_t)
+    g = R.wsum(weight, _stack_grads(problem, w_t, x, y, mask))
+    return new_params, _metric_parts(problem, R, w_t, g, stats, x, y, mask,
+                                     weight, comm_bytes), comm
+
+
+def _lbfgs_round_core(problem, hp, R, w_t, x, y, mask, weight,
+                      comm_bytes: float, comm=None, draw=None, idx=None):
+    """One-step L-BFGS: the SVRG family's two exchanges, the L-BFGS
+    direction in place of the AA step. Returns (new params, metrics, the
+    advanced comm state)."""
+    w_t = R.broadcast(w_t)
+    g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
+                         state=comm, draw=draw)
+    g_global = R.broadcast(R.wsum(weight, g_k))
+    w_k = _client_lbfgs(problem, hp, w_t, g_global, ClientBatch(x, y, mask),
+                        idx)
+    w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
+    new_params = R.wsum(weight, w_k, anchor=w_t)
+    return new_params, _metric_parts(problem, R, w_t, g_global,
+                                     _nan_stats(x.shape[0], w_t), x, y, mask,
+                                     weight, comm_bytes), comm
 
 
 def _draw_seed(seed: int, t: int, fold: int) -> int:
-    """The seed of one uplink's uniforms in round t (host arithmetic only)."""
+    """The seed of one draw of round t (host arithmetic only)."""
     return int(np.random.SeedSequence([seed, t, fold]).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
 
@@ -392,25 +642,28 @@ def _draw_seed(seed: int, t: int, fold: int) -> int:
 def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                   channel: "CommChannel | str | None" = None, seed: int = 0,
                   device: "str | torch.device" = DEFAULT_DEVICE):
-    """Return round(state, uniforms=None) -> (state, RoundMetrics) for
+    """Return round(state, draws=None) -> (state, RoundMetrics) for
     ``algo`` on ``problem`` (whose data must already be on ``device``),
     every wire crossing through ``channel`` (None: the lossless identity).
 
-    A stochastic codec's uniforms: one [K, nc, C] f32 tensor per uplink and
-    round, from a torch.Generator on the device seeded from (seed, t, the
-    uplink's fold); row k is client k. The reference's key streams cannot
-    be reproduced in torch, so a caller that needs its draws (the parity
-    tests) passes ``uniforms={tag: [K, nc, C]}`` instead.
+    A round's draws: a stochastic codec's uniforms, one [K, nc, C] f32
+    tensor per uplink (named by its tag), and in minibatch mode the rows of
+    every local step, one [K, L+1, batch_size] int64 tensor (named
+    ``MINIBATCH``; problem.py::sample_minibatch_indices). Each is drawn
+    from a torch.Generator on the device seeded from (seed, t, its fold:
+    the uplink's, or ``MINIBATCH_FOLD``); row k is client k. The
+    reference's key streams cannot be reproduced in torch, so a caller that
+    needs its draws (the parity tests) passes ``draws={name: tensor}``,
+    every draw of the round, instead.
 
-    A chunk of rounds gets its uniforms ahead of time through two
-    attributes of the returned function: ``round.uniform_shapes``, {tag:
-    (K, nc, C)} for each uplink that draws (empty on a deterministic wire),
-    and ``round.fill_uniforms(bufs, t0)``, which writes into
-    ``bufs[tag][i]`` the uniforms round t0 + i would draw, by the same
-    generator calls. The engine (core/engine.py) fills its static
-    [B, K, nc, C] buffers so before each replay of its CUDA graph and passes
-    slot i's views as ``uniforms``: a graph would otherwise replay the
-    draws seeded at capture.
+    A chunk of rounds gets its draws ahead of time through two attributes
+    of the returned function: ``round.draw_specs``, {name: (shape, dtype)}
+    for each draw of a round (empty on a deterministic full-batch round),
+    and ``round.fill_draws(bufs, t0)``, which writes into ``bufs[name][i]``
+    what round t0 + i would draw, by the same generator calls. The engine
+    (core/engine.py) fills its static [B, ...] buffers so before each
+    replay of its CUDA graph and passes slot i's views as ``draws``: a
+    graph would otherwise replay the draws seeded at capture.
 
     On the card, with ``aa_impl`` "kernel" (or "auto", its default), a
     round makes no host read: every kernel and torch op is enqueued and
@@ -420,6 +673,12 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     on the host once a round."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
+    if hp.batch_size is not None and hp.batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1 (or None), got {hp.batch_size}")
+    if not 0 <= hp.carry_history <= hp.local_epochs:
+        # the carried columns are the last H of a round's L fresh ones
+        raise ValueError(f"carry_history must be in [0, local_epochs="
+                         f"{hp.local_epochs}], got {hp.carry_history}")
     dev = _check_device(problem, device)
     # resolve the knobs once, so the round bodies see "tree"/"kernel"
     hp = dataclasses.replace(hp, aa_impl=resolve_aa_impl(hp.aa_impl),
@@ -429,45 +688,87 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     comm_bytes = comm_bytes_per_round(algo, params0, channel)
     R = CrossClientReduce(channel)
     C = problem.clients
-    use_aa = algo == "fedosaa_svrg"
-    # reseeded for each uplink's draw
-    gen = torch.Generator(device=dev)
-    folds, shapes = {}, {}
+    K = C.num_clients
+    # every draw of a round: name -> (shape, dtype, fold)
+    specs = {}
     for spec in UPLINK_SCHEMAS[algo]:
         shape = channel.up_codec(spec.kind).draw_shape(params0.shape[-1])
         if shape is not None:
-            folds[spec.tag] = spec.fold
-            shapes[spec.tag] = (C.num_clients, *shape)
+            specs[spec.tag] = ((K, *shape), torch.float32, spec.fold)
+    if hp.batch_size is not None:
+        specs[MINIBATCH] = ((K, hp.local_epochs + 1, hp.batch_size),
+                            torch.int64, MINIBATCH_FOLD)
+    # reseeded for each draw
+    gen = torch.Generator(device=dev)
 
-    def uniforms_of(t: int, fold: int, shape: tuple,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-        """Round t's uniforms for the uplink of ``fold``."""
+    def draw_of(name: str, t: int, out: torch.Tensor | None = None):
+        """Round t's draw ``name``."""
+        shape, dtype, fold = specs[name]
         gen.manual_seed(_draw_seed(seed, t, fold))
-        return torch.rand(shape, generator=gen, dtype=torch.float32,
-                          device=dev, out=out)
+        if dtype == torch.float32:
+            return torch.rand(shape, generator=gen, dtype=dtype, device=dev,
+                              out=out)
+        idx = sample_minibatch_indices(C.mask, torch.rand(
+            shape, generator=gen, dtype=torch.float64, device=dev))
+        return idx if out is None else out.copy_(idx)
 
-    def fill_uniforms(bufs: "dict[str, torch.Tensor]", t0: int) -> None:
-        for tag, buf in bufs.items():
+    def fill_draws(bufs: "dict[str, torch.Tensor]", t0: int) -> None:
+        for name, buf in bufs.items():
             for i in range(buf.shape[0]):
-                uniforms_of(t0 + i, folds[tag], shapes[tag], out=buf[i])
+                draw_of(name, t0 + i, out=buf[i])
 
-    def round_fn(state: ServerState, uniforms: "dict | None" = None):
+    family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
+              "scaffold" if algo in SCAFFOLD_ALGOS else
+              "avg" if algo in ("fedavg", "fedosaa_avg") else "lbfgs")
+    use_aa = algo.startswith("fedosaa_")
+
+    def round_fn(state: ServerState, draws: "dict | None" = None):
+        def take(name: str) -> torch.Tensor:
+            shape = specs[name][0]
+            if draws is None:
+                return draw_of(name, state.t)
+            if name not in draws:
+                raise ValueError(f"draws lack {name!r}; a round of {algo} "
+                                 f"draws {sorted(specs)}")
+            if tuple(draws[name].shape) != shape:
+                raise ValueError(f"draw {name!r} of shape "
+                                 f"{tuple(draws[name].shape)}, expected {shape}")
+            return draws[name]
+
         def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
-            if uniforms is not None:
-                u = uniforms[spec.tag]
-                if tuple(u.shape) != shape:
-                    raise ValueError(f"uplink {spec.tag!r}: uniforms of shape "
-                                     f"{tuple(u.shape)}, expected {shape}")
-                return u
-            return uniforms_of(state.t, spec.fold, shape)
+            return take(spec.tag)
 
-        new_params, metrics, comm = _svrg_round_core(
-            problem, hp, use_aa, R, state.params, C.x, C.y, C.mask,
-            C.weight, comm_bytes, state.comm, draw)
-        return ServerState(new_params, state.t + 1, comm), metrics
+        idx = take(MINIBATCH) if hp.batch_size is not None else None
+        args = (C.x, C.y, C.mask, C.weight, comm_bytes, state.comm, draw, idx)
+        upd = {}
+        if family == "svrg":
+            carry = hp.carry_history > 0 and state.hist_s is not None
+            new_params, metrics, comm, hist_s, hist_y = _svrg_round_core(
+                problem, hp, use_aa, R, state.params, *args,
+                state.hist_s if carry else None,
+                state.hist_y if carry else None)
+            if carry:
+                upd = dict(hist_s=hist_s, hist_y=hist_y)
+        elif family == "scaffold":
+            if state.c is None or state.c_k is None:
+                raise ValueError(f"{algo} carries control variates: build its "
+                                 f"state with init_state(..., algo={algo!r})")
+            new_params, c, c_k, metrics, comm = _scaffold_round_core(
+                problem, hp, use_aa, R, state.params, state.c, state.c_k,
+                *args)
+            upd = dict(c=c, c_k=c_k)
+        elif family == "avg":
+            new_params, metrics, comm = _avg_round_core(
+                problem, hp, use_aa, R, state.params, *args)
+        else:
+            new_params, metrics, comm = _lbfgs_round_core(
+                problem, hp, R, state.params, *args)
+        return state._replace(params=new_params, t=state.t + 1, comm=comm,
+                              **upd), metrics
 
-    round_fn.uniform_shapes = shapes
-    round_fn.fill_uniforms = fill_uniforms
+    round_fn.draw_specs = {name: (shape, dtype)
+                           for name, (shape, dtype, _) in specs.items()}
+    round_fn.fill_draws = fill_draws
     return round_fn
 
 

@@ -234,3 +234,37 @@ def trajectory_to_sy(w_traj: torch.Tensor, r_traj: torch.Tensor,
     s = w_traj[..., 1:, :] - w_traj[..., :-1, :]
     y = r_traj[..., 1:, :] - r_traj[..., :-1, :]
     return s, y
+
+
+def lbfgs_two_loop(g: torch.Tensor, s_stack: torch.Tensor,
+                   y_stack: torch.Tensor, eta: float) -> torch.Tensor:
+    """The classic L-BFGS two-loop recursion H⁻¹g over the same S/Y data
+    FedOSAA uses: the paper's one-step L-BFGS baseline (Appendix D.1).
+
+    g: [d] (shared) or [K, d]; s_stack, y_stack: [K, m, d], oldest column
+    first. Returns [K, d]. Plain tensor ops (the reference has no kernel
+    here); the guards (a pair with |s·y| < 1e-30 is skipped, the initial
+    scaling s·y/y·y of the newest pair falls back to η when y·y ≤ 1e-30)
+    are ``torch.where``, so the recursion reads nothing back."""
+    m = s_stack.shape[-2]
+    q = g.expand_as(s_stack[..., 0, :])
+    alphas, rhos = [], []
+    for i in range(m - 1, -1, -1):            # newest -> oldest
+        si, yi = s_stack[..., i, :], y_stack[..., i, :]
+        sy = tm.tree_dot(si, yi)
+        rho = 1.0 / torch.where(sy.abs() < 1e-30, torch.inf, sy)
+        a = rho * tm.tree_dot(si, q)
+        q = tm.tree_axpy(-a[..., None], yi, q)
+        alphas.append(a)
+        rhos.append(rho)
+    alphas.reverse()
+    rhos.reverse()
+    s_last, y_last = s_stack[..., m - 1, :], y_stack[..., m - 1, :]
+    sy_last, yy_last = tm.tree_dot(s_last, y_last), tm.tree_dot(y_last, y_last)
+    gamma0 = torch.where(yy_last > 1e-30,
+                         sy_last / torch.clamp(yy_last, min=1e-30), eta)
+    r = gamma0[..., None] * q
+    for i in range(m):                        # oldest -> newest
+        b = rhos[i] * tm.tree_dot(y_stack[..., i, :], r)
+        r = tm.tree_axpy((alphas[i] - b)[..., None], s_stack[..., i, :], r)
+    return r

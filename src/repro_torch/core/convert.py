@@ -1,8 +1,9 @@
 """Turn the JAX package's arrays into the port's tensors.
 
-Takes the reference's parameters, ``ServerState`` fields (params, t and
-the comm buffers), ``StackedClients`` fields, and an LM's parameters and
-decode caches (``lm_params``, ``lm_caches``) as numpy arrays
+Takes the reference's parameters, ``ServerState`` fields (params, t, the
+comm buffers, the control variates and the carried AA columns),
+``StackedClients`` fields, and an LM's parameters and decode caches
+(``lm_params``, ``lm_caches``) as numpy arrays
 (``np.asarray`` of the JAX arrays) — this module imports nothing of JAX —
 and returns the port's counterparts on ``device`` with the same dtypes and
 values, so both packages can start from one state.
@@ -32,15 +33,21 @@ def params(p, device: "str | torch.device" = DEFAULT_DEVICE) -> torch.Tensor:
     return tensor(p, device)
 
 
-def server_state(p, t, comm=None,
+def server_state(p, t, comm=None, c=None, c_k=None, hist_s=None, hist_y=None,
                  device: "str | torch.device" = DEFAULT_DEVICE) -> ServerState:
     """The reference ServerState's params, t and comm (its nested
-    ``{tag: {"ef"|"ref": [K, d]}}`` dict of wire buffers, or None). Its
-    SCAFFOLD control variates are not read by the SVRG family, and its PRNG
-    key has no counterpart: the port draws a codec's uniforms from its own
-    seed (core/algorithms.py::make_round_fn)."""
+    ``{tag: {"ef"|"ref": [K, d]}}`` dict of wire buffers, or None), and,
+    where given, SCAFFOLD's control variates c [d] and c_k [K, d] and the
+    carried AA columns hist_s, hist_y [K, H, d] (the port holds them only
+    for the algorithms that read them: pass the reference's c and c_k for
+    the SCAFFOLD family, its hist_* when ``carry_history`` > 0). Its PRNG
+    key has no counterpart: the port draws a round's uniforms and minibatch
+    rows from its own seed (core/algorithms.py::make_round_fn)."""
+    def opt(a):
+        return None if a is None else tensor(a, device)
     return ServerState(params(p, device), int(np.asarray(t)),
-                       comm_state(comm, device))
+                       comm_state(comm, device), opt(c), opt(c_k), opt(hist_s),
+                       opt(hist_y))
 
 
 def comm_state(comm, device: "str | torch.device" = DEFAULT_DEVICE):

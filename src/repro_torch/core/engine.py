@@ -32,11 +32,16 @@ emits the row before it breaks.
 What stays on the host. ``state.t`` is a Python int: the engine advances
 it by the executed rounds after the chunk's read. The host-tensor metrics
 (``algorithms.HOST_METRICS``: the wire bytes, counted from shapes) are read
-at capture, and the engine sums the bytes per live round. A stochastic
-codec's uniforms are drawn before each replay into static [B, K, nc, C]
-buffers, by the same generator calls the loop makes for rounds
-t0..t0+B−1 (``round.fill_uniforms``), and slot i reads its own: the draws,
-and so every int8 run, equal the loop's.
+at capture, and the engine sums the bytes per live round. A round's draws
+(``round.draw_specs``: a stochastic codec's f32 uniforms, a minibatch
+round's int64 row indices) are drawn before each replay into static
+[B, ...] buffers, by the same generator calls the loop makes for rounds
+t0..t0+B−1 (``round.fill_draws``), and slot i reads its own: the draws,
+and so every int8 and minibatch run, equal the loop's.
+
+The carried state is every tensor of ``ServerState``: the params, the comm
+buffers, SCAFFOLD's control variates and the carried AA columns, each
+where the state has it (``_tensors``, ``_map_state``).
 
 On the card there is no eager fallback: a round that cannot be captured (a
 host read inside it, as ``aa_impl="tree"``'s batched eigh makes) raises
@@ -47,7 +52,7 @@ included. The warm-up round before the capture (on a scratch copy of the
 state, on the capture stream, as torch's graph docs require) is counted
 apart, in ``runner.warmup_launches``.
 
-``run_rounds`` works with any ``round(state, uniforms) -> (state,
+``run_rounds`` works with any ``round(state, draws) -> (state,
 RoundMetrics)`` from ``make_round_fn``; pass a prebuilt ``runner`` to keep
 its graph across calls (a later call overwrites the state it returned).
 """
@@ -123,9 +128,15 @@ def _fetch(readout: torch.Tensor) -> np.ndarray:
     return readout.cpu().numpy()
 
 
+#: the ServerState fields that hold a tensor (or None), besides ``comm``
+_TENSOR_FIELDS = ("params", "c", "c_k", "hist_s", "hist_y")
+
+
 def _tensors(state: ServerState) -> list[torch.Tensor]:
-    """The state's tensors in a fixed order: params, then the comm buffers."""
-    out = [state.params]
+    """The state's tensors in a fixed order: the tensor fields it has
+    (params, c, c_k, hist_s, hist_y), then the comm buffers."""
+    out = [getattr(state, f) for f in _TENSOR_FIELDS
+           if getattr(state, f) is not None]
     for tag in sorted(state.comm or {}):
         sub = state.comm[tag]
         out.extend(sub[name] for name in sorted(sub))
@@ -133,13 +144,16 @@ def _tensors(state: ServerState) -> list[torch.Tensor]:
 
 
 def _map_state(fn, *states: ServerState) -> ServerState:
-    """``fn`` over the states' matching tensors; ``t`` from the first."""
+    """``fn`` over the states' matching tensors (every field the first
+    state has; a None field stays None); ``t`` from the first."""
     first = states[0]
     comm = None
     if first.comm is not None:
         comm = {tag: {name: fn(*(s.comm[tag][name] for s in states))
                       for name in sub} for tag, sub in first.comm.items()}
-    return ServerState(fn(*(s.params for s in states)), first.t, comm)
+    fields = {f: fn(*(getattr(s, f) for s in states)) for f in _TENSOR_FIELDS
+              if getattr(first, f) is not None}
+    return first._replace(comm=comm, **fields)
 
 
 class ChunkRunner:
@@ -182,7 +196,7 @@ class ChunkRunner:
         self.warmup_launches = self.record = None
 
     def _body(self, state: ServerState, n_live: torch.Tensor,
-              uniforms: "dict[str, torch.Tensor]"):
+              draws: "dict[str, torch.Tensor]"):
         """The chunk, eagerly: ``chunk`` unconditional rounds, each selected
         into the carried state while live. Returns (state, the [chunk,
         len(DEVICE_FIELDS) + 3] float64 readout, the host metrics of each
@@ -191,7 +205,7 @@ class ChunkRunner:
         rows, host = [], []
         for i in range(self.chunk):
             new, m = self.round_fn(
-                state, {tag: u[i] for tag, u in uniforms.items()} or None)
+                state, {name: b[i] for name, b in draws.items()} or None)
             rel = rel_error(new.params, self.w_star, self.w_star_norm, m.loss)
             live = ~done & (n_live > i)
             state = _map_state(lambda a, b: torch.where(live, a, b), new, state)
@@ -210,10 +224,11 @@ class ChunkRunner:
             host.append([float(getattr(m, f)) for f in HOST_METRICS])
         return state, torch.stack(rows), host
 
-    def _uniform_buffers(self, device) -> "dict[str, torch.Tensor]":
-        return {tag: torch.empty((self.chunk, *shape), dtype=torch.float32,
-                                 device=device)
-                for tag, shape in self.round_fn.uniform_shapes.items()}
+    def _draw_buffers(self, device) -> "dict[str, torch.Tensor]":
+        """[chunk, ...] buffers of each of the round's draws, in its dtype."""
+        return {name: torch.empty((self.chunk, *shape), dtype=dtype,
+                                  device=device)
+                for name, (shape, dtype) in self.round_fn.draw_specs.items()}
 
     def _capture(self, state: ServerState) -> None:
         """Own static copies of ``state``, warm up one round on a scratch
@@ -221,15 +236,15 @@ class ChunkRunner:
         dev = state.params.device
         self.static = _map_state(torch.clone, state)
         self.n_live = torch.zeros((), dtype=torch.int64, device=dev)
-        self.uniforms = self._uniform_buffers(dev)
-        self.round_fn.fill_uniforms(self.uniforms, state.t)
+        self.draws = self._draw_buffers(dev)
+        self.round_fn.fill_draws(self.draws, state.t)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
         with torch.cuda.stream(stream), _build.recording() as warm:
             scratch = _map_state(torch.clone, self.static)
-            self.round_fn(scratch, {tag: u[0] for tag, u in
-                                    self.uniforms.items()} or None)
+            self.round_fn(scratch, {name: b[0] for name, b in
+                                    self.draws.items()} or None)
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.warmup_ms = (time.perf_counter() - t0) * 1e3
@@ -241,7 +256,7 @@ class ChunkRunner:
             with (_build.recording() as record,
                   torch.cuda.graph(graph, stream=stream)):
                 out, self.readout, self.host = self._body(
-                    self.static, self.n_live, self.uniforms)
+                    self.static, self.n_live, self.draws)
                 # the chunk's final state back into the buffers the next
                 # replay reads
                 for dst, src in zip(_tensors(self.static), _tensors(out)):
@@ -263,17 +278,17 @@ class ChunkRunner:
     def __call__(self, state: ServerState, n_live: int):
         t0 = state.t
         if state.params.device.type == "cpu":
-            uniforms = self._uniform_buffers(state.params.device)
-            self.round_fn.fill_uniforms(uniforms, state.t)
+            draws = self._draw_buffers(state.params.device)
+            self.round_fn.fill_draws(draws, state.t)
             state, readout, host = self._body(
-                state, torch.tensor(n_live), uniforms)
+                state, torch.tensor(n_live), draws)
             out = _fetch(readout)
         else:
             if self.graph is None:
                 self._capture(state)
             else:
                 self._load(state)
-                self.round_fn.fill_uniforms(self.uniforms, state.t)
+                self.round_fn.fill_draws(self.draws, state.t)
             self.n_live.fill_(n_live)
             self.graph.replay()
             _build.count_replay(self.record)

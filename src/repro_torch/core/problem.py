@@ -129,6 +129,37 @@ class FLProblem:
         return self.clients.weight.to(losses.dtype) @ losses
 
 
+def sample_minibatch_indices(mask: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The row indices ``sample_minibatch`` gathers: for every uniform of
+    ``u`` [..., b] (in [0, 1)), one of the valid rows of ``mask`` [..., n]
+    (0/1 validity; the leading axes match), each with probability
+    mask/Σmask — drawn with replacement, as the reference's
+    ``jax.random.choice(n, (b,), p=mask/Σmask)``. The draw u·count is
+    floored to the j-th valid row (inverse CDF, no host read). torch
+    cannot reproduce the reference's key stream, so the uniforms come in
+    (core/algorithms.py draws them from its own seed) and a parity test
+    passes the reference's indices instead of calling this."""
+    lead = mask.shape[:-1]
+    cdf = torch.cumsum(mask.to(torch.float64), -1)
+    count = cdf[..., -1:]
+    flat = u.to(torch.float64).reshape(*lead, -1)
+    j = torch.minimum(torch.floor(flat * count), count - 1.0)
+    return torch.searchsorted(cdf, j, right=True).reshape(u.shape)
+
+
+def sample_minibatch(batch: ClientBatch, idx: torch.Tensor) -> ClientBatch:
+    """The rows ``idx`` [K, ..., b] of each client of a stacked batch (x [K,
+    n, d], y and mask [K, n]): x [K, ..., b, d], y [K, ..., b] and a mask of
+    ones (every drawn row is valid)."""
+    K, d = batch.x.shape[0], batch.x.shape[-1]
+    flat = idx.reshape(K, -1)
+    x = batch.x.gather(1, flat[..., None].expand(-1, -1, d))
+    y = batch.y.gather(1, flat)
+    return ClientBatch(x.reshape(*idx.shape, d), y.reshape(idx.shape),
+                       torch.ones(idx.shape, dtype=batch.mask.dtype,
+                                  device=idx.device))
+
+
 def stack_client_arrays(
     xs: list, ys: list, device: "str | torch.device" = DEFAULT_DEVICE,
 ) -> StackedClients:

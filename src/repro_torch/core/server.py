@@ -101,7 +101,7 @@ def run_federated(
                                        build_footer, build_round_row)
 
     channel = make_channel(channel)
-    state = init_state(problem, generator, device, channel, algo)
+    state = init_state(problem, generator, device, channel, algo, hp)
     if w0 is not None:
         state = state._replace(params=w0)
     round_fn = make_round_fn(algo, problem, hp, channel, seed, device)

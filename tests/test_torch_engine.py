@@ -16,6 +16,8 @@ stopping round and its first row within 1e-7.
 The launch counters' replay logic (kernels/_build.py) is tested here too,
 with the capture flag mocked: no card is needed.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +30,9 @@ from repro.core import run_federated as jax_run_federated
 from repro.data import make_binary_classification as jax_make
 from repro.data import partition as jax_partition
 from repro.models.logreg import make_logreg_problem as jax_logreg
-from repro_torch.core import (AlgoHParams, convert, engine, init_state,
-                              make_chunk_runner, make_round_fn, run_federated,
-                              run_rounds, solve_reference)
+from repro_torch.core import (ALGORITHMS, AlgoHParams, convert, engine,
+                              init_state, make_chunk_runner, make_round_fn,
+                              run_federated, run_rounds, solve_reference)
 from repro_torch.kernels import _build
 from repro_torch.models.logreg import make_logreg_problem
 from repro_torch.obs import ROW_FIELDS, AlarmMonitor, MemorySink
@@ -72,42 +74,71 @@ def assert_same_rows(s0, s1):
     assert s0.footer == s1.footer
 
 
-def loop_and_engine(prob, w_star, algo, rounds, chunk, **kw):
+def loop_and_engine(prob, w_star, algo, rounds, chunk, hp=HP, **kw):
     s0, s1 = MemorySink(), MemorySink()
-    h0 = run_federated(prob, algo, HP, rounds, w_star=w_star, device="cpu",
+    h0 = run_federated(prob, algo, hp, rounds, w_star=w_star, device="cpu",
                        sinks=[s0], **kw)
-    h1 = run_federated(prob, algo, HP, rounds, w_star=w_star, device="cpu",
+    h1 = run_federated(prob, algo, hp, rounds, w_star=w_star, device="cpu",
                        chunk=chunk, sinks=[s1], **kw)
     assert_same_history(h0, h1)
     assert_same_rows(s0, s1)
     return h0, h1
 
 
-@pytest.mark.parametrize("chunk", [1, 3, 4, 16])
-@pytest.mark.parametrize("channel", [None, "int8"])
-@pytest.mark.parametrize("algo", ["fedosaa_svrg", "fedsvrg"])
-def test_chunked_run_equals_the_loop(setup, algo, channel, chunk):
-    """Every History row, the final params and (int8) the carried comm
-    state, bit for bit, over 7 rounds: chunks of 1, of 3 and of 4 (the
-    last chunk short) and one chunk longer than the run."""
-    prob, w_star, _ = setup
-    loop_and_engine(prob, w_star, algo, 7, chunk, channel=channel)
-    if channel is None:
-        return
-    rf = make_round_fn(algo, prob, HP, channel, device="cpu")
-    s_loop = init_state(prob, device="cpu", channel=channel, algo=algo)
-    for _ in range(7):
+def assert_same_state(prob, w_star, algo, channel, chunk, hp=HP, rounds=7):
+    """The carried state of ``rounds`` rounds by the loop and by the engine:
+    the params, the comm buffers, the control variates and the carried AA
+    columns, bit for bit, each where the algorithm carries it."""
+    rf = make_round_fn(algo, prob, hp, channel, device="cpu")
+    s_loop = init_state(prob, device="cpu", channel=channel, algo=algo, hp=hp)
+    for _ in range(rounds):
         s_loop, _ = rf(s_loop)
     s_eng, trace = run_rounds(
-        rf, init_state(prob, device="cpu", channel=channel, algo=algo), 7,
-        chunk=chunk, w_star=w_star)
-    assert trace.num_rounds == 7 and s_eng.t == s_loop.t == 7
-    assert sorted(s_eng.comm) == sorted(s_loop.comm)
-    for tag, bufs in s_loop.comm.items():
+        rf, init_state(prob, device="cpu", channel=channel, algo=algo, hp=hp),
+        rounds, chunk=chunk, w_star=w_star)
+    assert trace.num_rounds == rounds and s_eng.t == s_loop.t == rounds
+    for f in ("params", "c", "c_k", "hist_s", "hist_y"):
+        a, b = getattr(s_loop, f), getattr(s_eng, f)
+        assert (a is None) == (b is None), f
+        assert a is None or torch.equal(a, b), f
+    assert (s_loop.c is not None) == (algo in ("scaffold", "fedosaa_scaffold"))
+    assert (s_loop.hist_s is not None) == (hp.carry_history > 0)
+    assert sorted(s_eng.comm or {}) == sorted(s_loop.comm or {})
+    for tag, bufs in (s_loop.comm or {}).items():
         assert sorted(s_eng.comm[tag]) == sorted(bufs)
         for name, buf in bufs.items():
             assert torch.equal(s_eng.comm[tag][name], buf), (tag, name)
-    assert torch.equal(s_eng.params, s_loop.params)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 4, 16])
+@pytest.mark.parametrize("channel", [None, "int8"])
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_chunked_run_equals_the_loop(setup, algo, channel, chunk):
+    """Every History row, the final params and the carried state (the
+    int8 comm buffers, SCAFFOLD's control variates), bit for bit, over 7
+    rounds of every algorithm: chunks of 1, of 3 and of 4 (the last chunk
+    short) and one chunk longer than the run."""
+    prob, w_star, _ = setup
+    loop_and_engine(prob, w_star, algo, 7, chunk, channel=channel)
+    assert_same_state(prob, w_star, algo, channel, chunk)
+
+
+@pytest.mark.parametrize("knob,algo,channel", [
+    *[("minibatch", a, None) for a in ALGORITHMS],
+    ("minibatch", "fedosaa_scaffold", "int8"),
+    ("carry", "fedosaa_svrg", None), ("carry", "fedosaa_svrg", "int8"),
+    ("carry", "fedsvrg", None)])
+def test_minibatch_and_carried_history_equal_the_loop(setup, knob, algo,
+                                                      channel):
+    """Minibatch rounds (the rows drawn per round are a draw the engine
+    fills before each chunk, as the int8 uniforms) and carried AA history
+    (state the chunk carries): rows, final params and state, bit for bit,
+    7 rounds in chunks of 3."""
+    prob, w_star, _ = setup
+    hp = dataclasses.replace(HP, **({"batch_size": 16} if knob == "minibatch"
+                                    else {"carry_history": 2}))
+    loop_and_engine(prob, w_star, algo, 7, 3, hp=hp, channel=channel)
+    assert_same_state(prob, w_star, algo, channel, 3, hp=hp)
 
 
 def test_rel_error_stop_mid_chunk(setup):
