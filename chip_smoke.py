@@ -28,8 +28,9 @@ port beside it. Every phase raises on failure; none is caught.
    more than the 50 MB L2 cache). The fused int8 uplink
    (``int8_uplink``: the uplink's anchor, reference and error-feedback
    arithmetic around both, one launch) at the same two shapes with the
-   gradient uplink's buffers (ref + ef) and the delta uplink's (anchor +
-   ef), one client's upload all zeros: its three outputs must equal the
+   gradient uplink's buffers (ref + ef), the delta uplink's (anchor + ef)
+   and the Newton direction's (the "dir" uplink: ef alone, no anchor, no
+   reference), one client's upload all zeros: its three outputs must equal the
    plain version's bit for bit, a rerun must be bit-identical, and one
    call must launch it once and neither ``quantize`` nor ``dequantize``;
    it is timed beside the two-launch composition it replaced
@@ -134,6 +135,19 @@ port beside it. Every phase raises on failure; none is caught.
    buffers) and reads the card once a chunk; a warmed-up round of each
    makes no host read (``set_sync_debug_mode("error")``); ms per round,
    engine against loop.
+4c. The Newton family at paper scale (float64, 10 rounds): GIANT, GIANT
+   with the line search, Newton-GMRES, DANE at fig6_walltime's 10 Newton
+   steps of 50 CG iterations, and GIANT on int8 (``NEWTON_RUNS``), each by
+   the loop and by the engine (chunks of 5; DANE's of 2, its round is ~500
+   Hessian-vector products), read on its own launch counts: no
+   ``trajectory``, ``gram`` or ``aa_step``, and on int8 two
+   ``int8_uplink`` a round (the gradient's and the direction's). The
+   engine equals the loop in every row and in the final state (params and
+   comm) and reads the card once a chunk; one warmed-up round of each
+   algorithm on the identity and on the int8 wire makes no host read. ms
+   per round (loop and engine), the capture ms and the rel-error after 10
+   rounds, printed beside FedOSAA-SVRG's from phase 4 (the paper's Fig. 6
+   comparison on this card).
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, by the loop and by the
@@ -148,7 +162,16 @@ port beside it. Every phase raises on failure; none is caught.
    final rel-error within rel 1e-6 of 0.0026693003 / 0.0026693545 (fp32,
    bf16) and 1e-3 of 0.0026693075 (int8, the port's own draws), bytes
    exactly 86,400 / 43,200 / 23,200, loss within rel 1e-10; and
-   FedOSAA-SCAFFOLD's 200 fp32 rounds, printed, not held.
+   FedOSAA-SCAFFOLD's 200 fp32 rounds, printed, not held. Then GIANT,
+   Newton-GMRES and DANE at their defaults (L=10; DANE 20 Newton steps of
+   100 CG iterations) on the three wires, by the loop and by the engine
+   (chunk 8; DANE by the engine alone, one round a graph: its loop is
+   host-bound at ~17 s a round), each to rel-error 1e-6 with a cap of 40
+   rounds:
+   at most one round more than the committed rows (6/6/6 fp32 and bf16,
+   9/8/9 int8), bytes exactly 432, 216 and 116 per round, final loss
+   within rel 1e-9 of 0.3128270332955105; each curve printed beside its
+   committed row, with the largest |log10| ratio of the two.
 6. Serving Zamba2-7B (configs/zamba2_7b.py) at full width, with weights
    from the port's seeded init. In f32 (the weights before their bf16
    rounding), a prefill's last-position logits within 1e-4 of the largest
@@ -175,7 +198,7 @@ port beside it. Every phase raises on failure; none is caught.
    ``uplink``); each with the standalone kernel's phase-2 readings in
    ``standalone``.
    Beyond the contract's keys, every FL row's ``launches_by_run`` holds
-   each loop run of phases 4 and 4b; ``trajectory``'s row carries ``plan``
+   each loop run of phases 4, 4b and 4c; ``trajectory``'s row carries ``plan``
    (the resident plan at the main path's shape in f64),
    ``launches_by_design`` (each run's resident and streaming launches),
    ``rerun_equal``, ``per_step_shape`` (the streaming design's check) and
@@ -295,6 +318,25 @@ COMPRESSION_REF = {"fp32": (20, 8640.0), "bf16": (17, 3672.0),
                    "int8": (19, 2204.0)}
 COMPRESSION_BYTES_PER_ROUND = {"fp32": 432.0, "bf16": 216.0, "int8": 116.0}
 COMPRESSION_LOSS = 0.3128270332955105
+#: the reference's committed Newton-family rows of ext_compression
+#: (default hyperparameters: L=10 CG/GMRES iterations; DANE 20 Newton
+#: steps of 100 CG iterations): rounds to rel-error 1e-6 on each wire, in
+#: the order of the port's NEWTON_ALGOS. The port must take at most one
+#: more, with the wire's bytes a round exactly and the final loss within
+#: rel 1e-9 of COMPRESSION_LOSS. The curves are read from
+#: benchmarks/results/ext_compression.json to be printed beside the port's.
+COMPRESSION_NEWTON_ROUNDS = {"fp32": (6, 6, 6), "bf16": (6, 6, 6),
+                             "int8": (9, 8, 9)}
+COMPRESSION_NEWTON_LOSS_RTOL = 1e-9
+#: the paths of each run on the ext_compression config: (path, chunk).
+#: DANE's default round is ~2,000 Hessian-vector products, host-bound in
+#: the loop (~8-9 ms of torch.func dispatch a product on the H100 machine's
+#: host, ~17 s a round), so it runs by the engine alone, one round a graph;
+#: its engine is held equal to its loop at paper scale in phase 4c
+COMPRESSION_NEWTON_PATHS = {
+    "giant": (("loop", None), ("engine", ACCEPT_CHUNK)),
+    "newton_gmres": (("loop", None), ("engine", ACCEPT_CHUNK)),
+    "dane": (("engine", 1),)}
 #: the reference's committed SCAFFOLD rows of ext_compression, 200 rounds:
 #: final rel-error, cumulative bytes, final loss
 SCAFFOLD_ROUNDS = 200
@@ -945,8 +987,9 @@ def check_quant(device, floor: float) -> dict:
 def check_uplink(device, floor: float) -> dict:
     """Phase 2, the fused int8 uplink (``int8_uplink``) at the main path's
     shape (K=100, d=54, float64) and at the streaming shape (K=16, d=2^20,
-    float32), with the gradient uplink's buffers (ref + ef) and the delta
-    uplink's (anchor + ef); client 0's upload is all zeros. Its outputs
+    float32), with the gradient uplink's buffers (ref + ef), the delta
+    uplink's (anchor + ef) and the Newton direction's (the "dir" uplink: ef
+    alone, no anchor, no reference); client 0's upload is all zeros. Its outputs
     (dec, new_e, new_h) must equal the plain version's bit for bit, and so
     must a rerun's and the two-launch composition's (``Codec.uplink``'s
     arithmetic around the standalone pair); one call launches it once and
@@ -976,7 +1019,8 @@ def check_uplink(device, floor: float) -> dict:
         u = torch.rand((K, chunk_rows(d, DEFAULT_CHUNK), DEFAULT_CHUNK),
                        generator=gen, device=device)
         for spec, bufs in (("grad", dict(ref=ref, ef=ef)),
-                           ("delta", dict(anchor=anchor, ef=ef))):
+                           ("delta", dict(anchor=anchor, ef=ef)),
+                           ("dir", dict(ef=ef))):
             xs = x.clone()
             xs[0] = anchor if "anchor" in bufs else 0.0   # an all-zero upload
 
@@ -1060,15 +1104,19 @@ def check_resident(what: str, rounds: int, design: str = "resident") -> dict:
 def expected_launches(rounds: int, int8: bool,
                       algo: str = "fedosaa_svrg") -> dict:
     """Launches of a run of ``rounds`` rounds of ``algo``: the trajectory
-    once a round; the Gram pass and the fused AA step once a round of the
-    FedOSAA algorithms and never else; on the int8 wire the fused int8
-    uplink once a round per upload of the algorithm's schema (the SVRG
-    family, L-BFGS and SCAFFOLD two, the AVG family one); the standalone
-    update and quant pair and the LM kernels never."""
-    from repro_torch.core import UPLINK_SCHEMAS
+    once a round of the trajectory family (TRAJECTORY_ALGOS) and never in
+    a Newton round (GIANT, Newton-GMRES and DANE take Hessian-vector
+    products, torch ops); the Gram pass and the fused AA step once a round
+    of the FedOSAA algorithms and never else; on the int8 wire the fused
+    int8 uplink once a round per upload of the algorithm's schema (two for
+    the SVRG family, L-BFGS, SCAFFOLD and the Newton family, one for the
+    AVG family) and never on another wire; the standalone update and quant
+    pair and the LM kernels never."""
+    from repro_torch.core import TRAJECTORY_ALGOS, UPLINK_SCHEMAS
 
     aa = algo.startswith("fedosaa_")
-    return {"trajectory": rounds, "gram": rounds if aa else 0,
+    traj = algo in TRAJECTORY_ALGOS
+    return {"trajectory": rounds if traj else 0, "gram": rounds if aa else 0,
             "aa_step": rounds if aa else 0,
             **{k: 0 for k in FUSED_KERNELS},
             "int8_uplink": len(UPLINK_SCHEMAS[algo]) * rounds if int8 else 0,
@@ -1112,13 +1160,17 @@ def engine_launches(what: str, rounds_run: int, chunk: int, int8: bool,
                     algo: str = "fedosaa_svrg",
                     design: str = "resident") -> dict:
     """Gate an engine run's launch counts (read just after it): each kernel
-    of the round once per slot replayed, every trajectory in ``design``;
-    the warm-up round before the capture is counted apart, not here."""
+    of the round once per slot replayed, every trajectory in ``design``
+    (none in a Newton round); the warm-up round before the capture is
+    counted apart, not here."""
     from repro_torch.kernels import _build
+
+    from repro_torch.core import TRAJECTORY_ALGOS
 
     launches = dict(_build.LAUNCHES)
     slots = slots_replayed(rounds_run, chunk)
-    designs = check_resident(what, slots, design)
+    designs = check_resident(what, slots if algo in TRAJECTORY_ALGOS else 0,
+                             design)
     want = expected_launches(slots, int8=int8, algo=algo)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches} over {slots} slots "
@@ -1385,101 +1437,181 @@ def trajectory_family(clients, w_star, device) -> dict:
     the card once a chunk after the first; one warmed-up round makes no
     host read (``set_sync_debug_mode("error")``). Prints ms per round,
     engine against loop."""
-    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
-                                  make_round_fn, run_federated, run_rounds)
-    from repro_torch.kernels import _build
     from repro_torch.models.logreg import make_logreg_problem
-    from repro_torch.obs import MemorySink
 
     prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
-    out = {}
-    for name, algo, knobs, channel in FAMILY_RUNS:
-        hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS, **knobs)
-        design = "streaming" if knobs.get("batch_size") else "resident"
-        int8 = channel == "int8"
-        s_loop = MemorySink()
-        _build.reset_launches()
-        h = run_federated(prob, algo, hp, 10, w_star=w_star, device=device,
-                          channel=channel, sinks=[s_loop])
-        launches = dict(_build.LAUNCHES)
-        rounds = len(h.rounds)
-        designs = check_resident(f"{name} loop", rounds, design)
-        want = expected_launches(rounds, int8=int8, algo=algo)
-        if launches != want:
-            raise AssertionError(f"{name} loop: launches {launches} over "
-                                 f"{rounds} rounds, expected {want}")
-        if not np.all(np.isfinite(h.loss)):
-            raise AssertionError(f"{name} loop: a non-finite loss {h.loss}")
-        loop_ms = float(np.median(np.diff(h.wall_time) * 1e3))
+    return {name: loop_and_engine_run(prob, name, algo, knobs, channel, w_star,
+                                      device)
+            for name, algo, knobs, channel in FAMILY_RUNS}
 
-        round_fn = make_round_fn(algo, prob, hp, channel, device=device)
-        s_ref = init_state(prob, device=device, channel=channel, algo=algo,
-                           hp=hp)
-        for _ in range(rounds):
-            s_ref, _ = round_fn(s_ref)
-        state = init_state(prob, device=device, channel=channel, algo=algo,
-                           hp=hp)
-        runner = make_chunk_runner(round_fn, PAPER_CHUNK, w_star=w_star)
-        s_eng = MemorySink()
-        _build.reset_launches()
-        with sync_warnings() as caught:
-            reads = ChunkReads(caught)
-            state, trace = run_rounds(round_fn, state, 10, chunk=PAPER_CHUNK,
-                                      w_star=w_star, runner=runner,
-                                      sinks=[s_eng, reads])
-        counted = engine_launches(f"{name} engine", trace.num_rounds,
-                                  PAPER_CHUNK, int8, algo, design)
-        if any(n != 1 for n in reads.per_chunk[1:]):
-            raise AssertionError(f"{name} engine: host reads per chunk "
-                                 f"{reads.per_chunk}; one in each after the "
-                                 f"first")
-        same_as_loop(name, s_loop, s_eng, h.final_params, state.params)
-        same_state(name, s_ref, state)
-        walls = [float(trace.round_wall[PAPER_CHUNK:].sum())]
-        for _ in range(PAPER_REPLAYS):
-            t0 = time.perf_counter()
-            state, *_ = runner(state, PAPER_CHUNK)
-            walls.append(time.perf_counter() - t0)
-        eng_ms = float(np.median(walls)) / PAPER_CHUNK * 1e3
 
-        # one warmed-up round under the sync debug mode
-        st = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
-        for _ in range(2):
-            st, _ = round_fn(st)
-        torch.cuda.synchronize(device)
-        _build.reset_launches()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            st, m = round_fn(st)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        one = dict(_build.LAUNCHES)
-        check_resident(f"{name} no-host-read round", 1, design)
-        if one != expected_launches(1, int8=int8, algo=algo) or not np.isfinite(
-                float(m.loss)):
-            raise AssertionError(f"{name} no-host-read round: launches {one}, "
-                                 f"loss {float(m.loss)}")
-        out[name] = dict(algo=algo, knobs=knobs, channel=channel or "identity",
-                         rounds=rounds, rel_error=float(h.rel_error[-1]),
-                         loss=float(h.loss[-1]), launches=launches,
-                         designs=designs, ms_per_round=loop_ms,
-                         engine=dict(ms_per_round=eng_ms,
-                                     chunk_ms=[w * 1e3 for w in walls],
-                                     reads_per_chunk=reads.per_chunk,
-                                     warmup_ms=runner.warmup_ms,
-                                     capture_ms=runner.capture_ms, **counted),
-                         no_host_read_launches={k: v for k, v in one.items() if v})
-        print(f"  {name:22s} [{channel or 'identity'}] loop {loop_ms:.3f} ms/round, "
-              f"engine (chunk={PAPER_CHUNK}) {eng_ms:.3f} ms/round; rel-error "
-              f"{h.rel_error[-1]:.3e}, loss {h.loss[-1]!r}; launches "
-              f"{ {k: v for k, v in launches.items() if v} } over {rounds} "
-              f"rounds, trajectory {designs}; engine = loop (rows, final "
-              f"state), {counted['slots']} slots replayed, launches "
-              f"{ {k: v for k, v in counted['launches'].items() if v} }, host "
-              f"reads per chunk {reads.per_chunk}; no host read in a round "
-              f"({ {k: v for k, v in one.items() if v} })", flush=True)
-        del runner, state, round_fn, h, s_ref, st
-        torch.cuda.empty_cache()
+def no_host_read_round(prob, name: str, algo: str, hp, channel, device,
+                       design: str = "resident") -> dict:
+    """One round of ``algo`` after two warm-up rounds under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing CUDA
+    call raises and fails the run), launching what a round launches.
+    Returns its launches."""
+    from repro_torch.core import (TRAJECTORY_ALGOS, init_state,
+                                  make_round_fn)
+    from repro_torch.kernels import _build
+
+    int8 = channel == "int8"
+    round_fn = make_round_fn(algo, prob, hp, channel, device=device)
+    st = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    for _ in range(2):
+        st, _ = round_fn(st)
+    torch.cuda.synchronize(device)
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = round_fn(st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    one = dict(_build.LAUNCHES)
+    check_resident(f"{name} no-host-read round",
+                   1 if algo in TRAJECTORY_ALGOS else 0, design)
+    if one != expected_launches(1, int8=int8, algo=algo) or not np.isfinite(
+            float(m.loss)):
+        raise AssertionError(f"{name} no-host-read round [{channel}]: "
+                             f"launches {one}, loss {float(m.loss)}")
+    return {k: v for k, v in one.items() if v}
+
+
+def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
+                        w_star, device, chunk: int = PAPER_CHUNK,
+                        sync_wires=None) -> dict:
+    """One run of phases 4b and 4c: 10 rounds of ``algo`` (AlgoHParams
+    with ``knobs``) on ``channel`` by the per-round loop, then by the
+    engine in chunks of ``chunk`` (then PAPER_REPLAYS more replays for its
+    ms per round), each read on its own launch counts; the engine must
+    equal the loop in every row and in the final state and read the card
+    once a chunk after the first. Then one warmed-up round on each of
+    ``sync_wires`` (default: the run's own wire) under the sync debug
+    mode. Prints and returns the run's readings."""
+    from repro_torch.core import (TRAJECTORY_ALGOS, AlgoHParams, init_state,
+                                  make_chunk_runner, make_round_fn,
+                                  run_federated, run_rounds)
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MemorySink
+
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS, **knobs)
+    design = "streaming" if knobs.get("batch_size") else "resident"
+    int8 = channel == "int8"
+    s_loop = MemorySink()
+    _build.reset_launches()
+    h = run_federated(prob, algo, hp, 10, w_star=w_star, device=device,
+                      channel=channel, sinks=[s_loop])
+    launches = dict(_build.LAUNCHES)
+    rounds = len(h.rounds)
+    designs = check_resident(f"{name} loop",
+                             rounds if algo in TRAJECTORY_ALGOS else 0, design)
+    want = expected_launches(rounds, int8=int8, algo=algo)
+    if launches != want:
+        raise AssertionError(f"{name} loop: launches {launches} over "
+                             f"{rounds} rounds, expected {want}")
+    if not np.all(np.isfinite(h.loss)):
+        raise AssertionError(f"{name} loop: a non-finite loss {h.loss}")
+    loop_ms = float(np.median(np.diff(h.wall_time) * 1e3))
+
+    round_fn = make_round_fn(algo, prob, hp, channel, device=device)
+    s_ref = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    for _ in range(rounds):
+        s_ref, _ = round_fn(s_ref)
+    state = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    runner = make_chunk_runner(round_fn, chunk, w_star=w_star)
+    s_eng = MemorySink()
+    _build.reset_launches()
+    with sync_warnings() as caught:
+        reads = ChunkReads(caught)
+        state, trace = run_rounds(round_fn, state, 10, chunk=chunk,
+                                  w_star=w_star, runner=runner,
+                                  sinks=[s_eng, reads])
+    counted = engine_launches(f"{name} engine", trace.num_rounds, chunk, int8,
+                              algo, design)
+    if any(n != 1 for n in reads.per_chunk[1:]):
+        raise AssertionError(f"{name} engine: host reads per chunk "
+                             f"{reads.per_chunk}; one in each after the first")
+    same_as_loop(name, s_loop, s_eng, h.final_params, state.params)
+    same_state(name, s_ref, state)
+    # the gated run's second chunk, then more replays
+    walls = [float(trace.round_wall[chunk:2 * chunk].sum())]
+    for _ in range(PAPER_REPLAYS):
+        t0 = time.perf_counter()
+        state, *_ = runner(state, chunk)
+        walls.append(time.perf_counter() - t0)
+    eng_ms = float(np.median(walls)) / chunk * 1e3
+    no_read = {wire or "identity": no_host_read_round(
+        prob, name, algo, hp, wire, device, design)
+        for wire in (sync_wires or (channel,))}
+    out = dict(algo=algo, knobs=knobs, channel=channel or "identity",
+               rounds=rounds, rel_error=float(h.rel_error[-1]),
+               loss=float(h.loss[-1]), launches=launches, designs=designs,
+               ms_per_round=loop_ms,
+               engine=dict(ms_per_round=eng_ms, chunk=chunk,
+                           chunk_ms=[w * 1e3 for w in walls],
+                           reads_per_chunk=reads.per_chunk,
+                           warmup_ms=runner.warmup_ms,
+                           capture_ms=runner.capture_ms, **counted),
+               no_host_read_launches=no_read)
+    print(f"  {name:22s} [{channel or 'identity'}] loop {loop_ms:.3f} ms/round, "
+          f"engine (chunk={chunk}) {eng_ms:.3f} ms/round (capture "
+          f"{runner.capture_ms:.1f} ms); rel-error {h.rel_error[-1]:.3e}, loss "
+          f"{h.loss[-1]!r}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } over {rounds} "
+          f"rounds, trajectory {designs}; engine = loop (rows, final "
+          f"state), {counted['slots']} slots replayed, launches "
+          f"{ {k: v for k, v in counted['launches'].items() if v} }, host "
+          f"reads per chunk {reads.per_chunk}; no host read in a round "
+          f"{no_read}", flush=True)
+    del runner, state, round_fn, h, s_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 4c: the Newton family at paper scale (f64, 10 rounds, by the loop
+#: and by the engine): (run name, algorithm, AlgoHParams knobs, channel,
+#: engine chunk). DANE takes fig6_walltime's 10 Newton steps of 50 CG
+#: iterations (benchmarks/fig6_walltime.py), ~500 Hessian-vector products a
+#: round, so its graph holds fewer rounds.
+NEWTON_RUNS = (
+    ("giant", "giant", {}, None, PAPER_CHUNK),
+    ("giant_line_search", "giant", {"line_search": True}, None, PAPER_CHUNK),
+    ("newton_gmres", "newton_gmres", {}, None, PAPER_CHUNK),
+    ("dane_fig6", "dane", {"dane_newton_iters": 10, "dane_cg_iters": 50},
+     None, 2),
+    ("giant_int8", "giant", {}, "int8", PAPER_CHUNK),
+)
+
+
+def newton_family(clients, w_star, device, paper: dict) -> dict:
+    """Phase 4c: every NEWTON_RUNS run at paper scale in float64, by the
+    per-round loop and then by the engine, each read on its own launch
+    counts (no ``trajectory``, ``gram`` or ``aa_step``; on int8 two
+    ``int8_uplink`` a round, the gradient's and the direction's); the
+    engine equals the loop in every row and in the final state (params and
+    the comm buffers) and reads the card once a chunk after the first; one
+    warmed-up round of each algorithm on the identity and on the int8 wire
+    makes no host read. Prints ms per round (loop and engine), the
+    engine's capture ms and the rel-error after 10 rounds beside
+    FedOSAA-SVRG's from phase 4 (the paper's Fig. 6 comparison on this
+    card)."""
+    from repro_torch.models.logreg import make_logreg_problem
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    out = {name: loop_and_engine_run(
+        prob, name, algo, knobs, channel, w_star, device, chunk,
+        sync_wires=(None, "int8") if channel is None else None)
+        for name, algo, knobs, channel, chunk in NEWTON_RUNS}
+    svrg = paper["float64"]
+    print(f"  Fig. 6 on this card (10 rounds, float64, identity wire): "
+          f"fedosaa_svrg rel-error {svrg['rel_error']:.3e}, loop "
+          f"{svrg['ms_per_round']:.3f} ms/round, engine "
+          f"{svrg['engine']['ms_per_round']:.3f} ms/round; " + "; ".join(
+              f"{name} {r['rel_error']:.3e}, loop {r['ms_per_round']:.3f}, "
+              f"engine {r['engine']['ms_per_round']:.3f} ms/round "
+              f"(capture {r['engine']['capture_ms']:.0f} ms)"
+              for name, r in out.items() if r["channel"] == "identity"),
+          flush=True)
     return out
 
 
@@ -1556,6 +1688,102 @@ def compression(device) -> dict:
         out[spec] = {path: {k: v for k, v in r.items() if k not in ("h", "sink")}
                      for path, r in runs.items()}
     out["scaffold"] = scaffold_compression(prob, w_star, device)
+    out["newton"] = newton_compression(prob, w_star, device)
+    return out
+
+
+def newton_compression(prob, w_star, device) -> dict:
+    """Phase 5, the Newton family: GIANT, Newton-GMRES and DANE (default
+    hyperparameters) on the fp32, bf16 and int8 wires, by the paths of
+    COMPRESSION_NEWTON_PATHS, each to rel-error 1e-6 with a cap of 40
+    rounds, against the reference's committed rows: at most one
+    round more than COMPRESSION_NEWTON_ROUNDS, the bytes exactly the
+    wire's per round, the final loss within rel 1e-9 of COMPRESSION_LOSS;
+    per round (slot) no ``trajectory``, ``gram`` or ``aa_step`` and under
+    int8 two ``int8_uplink``; where both paths run, the engine's rows and
+    final params equal the loop's. Prints each curve beside its committed
+    row and the largest |log10| ratio of the two over their common
+    rounds."""
+    from repro_torch.core import NEWTON_ALGOS, AlgoHParams, run_federated
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MemorySink
+
+    committed = {r["name"]: r.get("rel_error_curve") for r in json.loads(
+        (ROOT / "benchmarks/results/ext_compression.json").read_text())}
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+    out = {}
+    for spec, ref_rounds in COMPRESSION_NEWTON_ROUNDS.items():
+        per_round = COMPRESSION_BYTES_PER_ROUND[spec]
+        for algo, want_rounds in zip(NEWTON_ALGOS, ref_rounds):
+            ref_curve = np.asarray(committed[f"ext_compression/{spec}/{algo}"])
+            runs = {}
+            for path, chunk in COMPRESSION_NEWTON_PATHS[algo]:
+                sink = MemorySink()
+                _build.reset_launches()
+                h = run_federated(prob, algo, hp, 40, w_star=w_star,
+                                  stop_rel_error=1e-6, device=device,
+                                  channel=spec, chunk=chunk, sinks=[sink])
+                rounds = len(h.rounds)
+                if chunk is None:
+                    launches = dict(_build.LAUNCHES)
+                    want = expected_launches(rounds, spec == "int8", algo)
+                    if launches != want:
+                        raise AssertionError(f"{algo} {spec}: launches "
+                                             f"{launches} over {rounds} "
+                                             f"rounds, expected {want}")
+                    counted = dict(launches=launches)
+                else:
+                    counted = engine_launches(f"{algo} {spec} engine", rounds,
+                                              chunk, spec == "int8", algo)
+                loss_rel = abs(h.loss[-1] - COMPRESSION_LOSS) / COMPRESSION_LOSS
+                n = min(rounds, len(ref_curve))
+                apart = float(np.max(np.abs(np.log10(
+                    h.rel_error[:n] / ref_curve[:n]))))
+                skip = 1 if chunk is None else chunk
+                ms = float(np.median(per_round_ms(h.wall_time)[skip:])) \
+                    if rounds > skip else float("nan")
+                runs[path] = dict(h=h, sink=sink, rounds=rounds,
+                                  committed_rounds=want_rounds,
+                                  comm_bytes=float(h.comm_bytes[-1]),
+                                  loss=float(h.loss[-1]),
+                                  loss_vs_reference=loss_rel,
+                                  max_log10_apart=apart, ms_per_round=ms,
+                                  chunk=chunk, **counted)
+                print(f"  {algo:12s} {spec:5s} {path}: rounds to 1e-6: "
+                      f"{rounds} (reference {want_rounds}), bytes "
+                      f"{h.comm_bytes[-1]:.0f}, final loss {h.loss[-1]!r} "
+                      f"(rel {loss_rel:.2e}), curve apart from the "
+                      f"reference's by at most {apart:.3f} decades, median "
+                      f"{ms:.3f} ms/round, "
+                      f"{ {k: v for k, v in counted['launches'].items() if v} }",
+                      flush=True)
+                if not (h.rel_error[-1] < 1e-6 and rounds <= want_rounds + 1):
+                    raise AssertionError(f"{algo} {spec} {path}: rel-error "
+                                         f"1e-6 not reached within "
+                                         f"{want_rounds + 1} rounds ({rounds}, "
+                                         f"{h.rel_error[-1]:.3e})")
+                if not np.array_equal(h.comm_bytes,
+                                      per_round * np.arange(1, rounds + 1)):
+                    raise AssertionError(f"{algo} {spec} {path}: bytes "
+                                         f"{h.comm_bytes.tolist()} are not "
+                                         f"{per_round:.0f} per round")
+                if not loss_rel <= COMPRESSION_NEWTON_LOSS_RTOL:
+                    raise AssertionError(f"{algo} {spec} {path}: final loss "
+                                         f"{h.loss[-1]!r} is {loss_rel:.2e} "
+                                         f"from {COMPRESSION_LOSS!r}")
+            first = runs[COMPRESSION_NEWTON_PATHS[algo][0][0]]
+            print(f"  {algo} {spec} rel-error curve " + json.dumps(
+                [float(v) for v in first["h"].rel_error])
+                + " committed " + json.dumps([float(v) for v in ref_curve]),
+                flush=True)
+            if len(runs) == 2:
+                same_as_loop(f"{algo} {spec}", runs["loop"]["sink"],
+                             runs["engine"]["sink"],
+                             runs["loop"]["h"].final_params,
+                             runs["engine"]["h"].final_params)
+            out[f"{spec}/{algo}"] = {
+                path: {k: v for k, v in r.items() if k not in ("h", "sink")}
+                for path, r in runs.items()}
     return out
 
 
@@ -2203,6 +2431,9 @@ def main() -> int:
     print("phase 4b: the trajectory family at paper scale (float64, 10 "
           "rounds)", flush=True)
     family = trajectory_family(clients, w_star, device)
+    print("phase 4c: the Newton family at paper scale (float64, 10 rounds)",
+          flush=True)
+    newton = newton_family(clients, w_star, device, paper)
 
     print("phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)
@@ -2258,7 +2489,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paper["float64_int8" if wire else "float64"]["launches"][launched],
             launches_by_run={run: r_["launches"][launched]
-                             for run, r_ in {**paper, **family}.items()},
+                             for run, r_ in {**paper, **family,
+                                             **newton}.items()},
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
@@ -2272,7 +2504,8 @@ def main() -> int:
                 for dt in checks for design, a in
                 checks[dt]["trajectory"]["anchor0"].items()}
             row["launches_by_design"] = {
-                run: r_["designs"] for run, r_ in {**paper, **family}.items()}
+                run: r_["designs"] for run, r_ in {**paper, **family,
+                                                   **newton}.items()}
             row.update(plan=r["plan"], rerun_equal=r["rerun_equal"],
                        per_step_shape=dict(
                            shape=ps["shape"], design=ps["design"],
@@ -2312,7 +2545,8 @@ def main() -> int:
                 bound_ms=upd["bound"][0], bound_by=upd["bound"][1],
                 library_ms=upd["library_ms"],
                 launches={run: r_["launches"]["update"]
-                          for run, r_ in {**paper, **family}.items()})
+                          for run, r_ in {**paper, **family,
+                                          **newton}.items()})
         if wire:
             row["launched_as"] = launched
             row["uplink"] = {key: dict(
@@ -2325,7 +2559,8 @@ def main() -> int:
                 plain_ms=q[name]["plain_ms"], bound_ms=q[name]["bound"][0],
                 bound_by=q[name]["bound"][1], library_ms=q[name]["library_ms"],
                 launches={run: r_["launches"][name]
-                          for run, r_ in {**paper, **family}.items()})
+                          for run, r_ in {**paper, **family,
+                                          **newton}.items()})
                 for shape, q in quant.items()}
         rows.append(row)
     f32 = {name: {k: v for k, v in r.items()}

@@ -10,7 +10,9 @@ from repro_torch.core.anderson import (  # noqa: F401
 from repro_torch.core.algorithms import (  # noqa: F401
     ALGORITHMS,
     COMM_TABLE,
+    LINE_SEARCH_ALGOS,
     LOCAL_IMPLS,
+    NEWTON_ALGOS,
     TRAJECTORY_ALGOS,
     AlgoHParams,
     CommCost,

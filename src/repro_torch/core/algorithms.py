@@ -1,6 +1,8 @@
-"""Federated round algorithms, the trajectory family (counterpart of the
-part of repro/core/algorithms.py whose local work is an L-step corrected-GD
-trajectory, ``TRAJECTORY_ALGOS``):
+"""Federated round algorithms (counterpart of repro/core/algorithms.py):
+all ten of the reference's.
+
+The trajectory family, ``TRAJECTORY_ALGOS`` (local work: an L-step
+corrected-GD trajectory, the fused trajectory kernel's):
 
   fedavg            — McMahan et al. baseline (no correction)
   fedsvrg           — SVRG-corrected local steps (= FedLin)
@@ -11,20 +13,31 @@ trajectory, ``TRAJECTORY_ALGOS``):
   fedosaa_avg       — negative control (Appendix D.4): AA on uncorrected steps
   lbfgs             — one-step L-BFGS on the same S/Y data (App. D.1)
 
+The Newton family, ``NEWTON_ALGOS`` (local work: Hessian-vector products,
+forward-over-reverse autodiff as the reference's):
+
+  giant             — local Newton-CG on the global gradient (Wang et al.)
+  newton_gmres      — GIANT with GMRES in place of CG (core/krylov.py)
+  dane              — exact local minimization of the DANE surrogate by
+                      damped Newton-CG with backtracking
+
 Every round function has the signature round(state, draws=None) ->
 (state, RoundMetrics). The reference vmaps its per-client bodies over K;
 here the client axis is an explicit leading K axis, so each per-client
 stage is one batched call (one kernel launch per round on the card): the
 stacked gradients, the fused trajectory of every client, their Gram
-matrices, their AA steps, and each uplink's codec.
+matrices, their AA steps, every client's CG or GMRES iteration, and each
+uplink's codec.
 
 Every wire crossing goes through a CommChannel (repro_torch/comm): the
 broadcasts through its downlink codec, the uploads through its uplink codec
 with error feedback and difference coding, as the uplink schema of the
-algorithm declares them. Local steps are full batch, or minibatches of
-``batch_size`` rows drawn per step; the SVRG family can carry AA columns
-across rounds (``carry_history``). Every client takes part in every round:
-cohorts, faults and the Newton family are not ported yet.
+algorithm declares them. Local steps of the trajectory family are full
+batch, or minibatches of ``batch_size`` rows drawn per step; the SVRG family
+can carry AA columns across rounds (``carry_history``). GIANT and
+Newton-GMRES can end a round with the reference's global line search
+(``line_search``). Every client takes part in every round: cohorts and
+faults are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,24 +51,30 @@ from torch.profiler import record_function
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.comm import CommChannel, IdentityCodec, make_channel
-from repro_torch.comm.schema import (CTRL_UPLINK, DELTA_UPLINK, GRAD_UPLINK,
-                                     UplinkSpec, init_schema_state,
+from repro_torch.comm.schema import (CTRL_UPLINK, DELTA_UPLINK, DIR_UPLINK,
+                                     GRAD_UPLINK, UplinkSpec, init_schema_state,
                                      uplink_byte_breakdown, validate_schema)
 from repro_torch.core.anderson import (AAConfig, AAStats, lbfgs_two_loop,
                                        multisecant_update, resolve_aa_impl,
                                        trajectory_to_sy)
+from repro_torch.core.krylov import gmres
 from repro_torch.core.problem import (ClientBatch, FLProblem, sample_minibatch,
                                       sample_minibatch_indices)
 from repro_torch.kernels.local_update import fused_trajectory
 from repro_torch.utils import tree_math as tm
 
-#: the round algorithms this package implements: the reference's
-#: trajectory family (its TRAJECTORY_ALGOS)
+#: the round algorithms this package implements: the reference's ten
 ALGORITHMS = ("fedavg", "fedsvrg", "scaffold", "fedosaa_svrg",
-              "fedosaa_scaffold", "fedosaa_avg", "lbfgs")
+              "fedosaa_scaffold", "fedosaa_avg", "lbfgs", "giant",
+              "newton_gmres", "dane")
 #: algorithms whose local work is the L-step corrected-GD trajectory: the
 #: ones the fused trajectory kernel applies to
-TRAJECTORY_ALGOS = ALGORITHMS
+TRAJECTORY_ALGOS = ALGORITHMS[:7]
+#: the Newton family: local Hessian-vector products, no trajectory
+NEWTON_ALGOS = ("giant", "newton_gmres", "dane")
+#: the algorithms that aggregate Newton directions and may end a round with
+#: the global line search (AlgoHParams.line_search)
+LINE_SEARCH_ALGOS = ("giant", "newton_gmres")
 #: the algorithms that carry SCAFFOLD's control variates (ServerState.c/c_k)
 SCAFFOLD_ALGOS = ("scaffold", "fedosaa_scaffold")
 
@@ -65,8 +84,8 @@ class CommCost(NamedTuple):
 
     round_trips — synchronous server↔client exchanges per round: 2 where
       the global gradient ∇f(w^t) is needed before local work (the SVRG
-      family, L-BFGS), 1 where everything rides one exchange (FedAvg,
-      SCAFFOLD).
+      family, L-BFGS, the Newton family), 1 where everything rides one
+      exchange (FedAvg, SCAFFOLD).
     float_units — client-uplink floats per round in units of d: 1 for a
       model delta alone, 2 when a gradient or a control variate travels
       beside it. Each algorithm's uplink schema has that many records.
@@ -84,22 +103,29 @@ COMM_TABLE = {
     "fedosaa_scaffold": CommCost(1, 2.0),
     "fedosaa_avg":      CommCost(1, 1.0),
     "lbfgs":            CommCost(2, 2.0),
+    "giant":            CommCost(2, 2.0),
+    "newton_gmres":     CommCost(2, 2.0),
+    "dane":             CommCost(2, 2.0),
 }
 
 
-def comm_floats_per_round(algo: str, d: int) -> float:
+def comm_floats_per_round(algo: str, d: int, line_search: bool = False) -> float:
     """Floats on the wire for one client's uploads in one round of ``algo``
-    on a d-parameter model (Table 1's units times d)."""
-    return COMM_TABLE[algo].float_units * d
+    on a d-parameter model (Table 1's units times d), plus d for the line
+    search's broadcast of the aggregated direction (GIANT, Newton-GMRES)."""
+    extra = float(d) if line_search and algo in LINE_SEARCH_ALGOS else 0.0
+    return COMM_TABLE[algo].float_units * d + extra
 
 
 #: the uploads of one round of each algorithm, in round order
-#: (comm/schema.py): the SVRG family and L-BFGS send the local gradient,
-#: then the model delta; SCAFFOLD the delta, then its control variate; the
-#: AVG family the delta alone
+#: (comm/schema.py): the SVRG family, L-BFGS and DANE send the local
+#: gradient, then the model delta; SCAFFOLD the delta, then its control
+#: variate; the AVG family the delta alone; GIANT and Newton-GMRES the
+#: gradient, then the Newton direction (unanchored, error feedback only)
 _SVRG_UPLINKS = validate_schema((GRAD_UPLINK, DELTA_UPLINK))
 _SCAFFOLD_UPLINKS = validate_schema((DELTA_UPLINK, CTRL_UPLINK))
 _AVG_UPLINKS = validate_schema((DELTA_UPLINK,))
+_NEWTON_UPLINKS = validate_schema((GRAD_UPLINK, DIR_UPLINK))
 UPLINK_SCHEMAS: "dict[str, tuple[UplinkSpec, ...]]" = {
     "fedavg":           _AVG_UPLINKS,
     "fedosaa_avg":      _AVG_UPLINKS,
@@ -108,6 +134,9 @@ UPLINK_SCHEMAS: "dict[str, tuple[UplinkSpec, ...]]" = {
     "scaffold":         _SCAFFOLD_UPLINKS,
     "fedosaa_scaffold": _SCAFFOLD_UPLINKS,
     "lbfgs":            _SVRG_UPLINKS,
+    "giant":            _NEWTON_UPLINKS,
+    "newton_gmres":     _NEWTON_UPLINKS,
+    "dane":             _SVRG_UPLINKS,
 }
 
 #: the name of a round's minibatch draw (make_round_fn), and the fold of its
@@ -118,17 +147,22 @@ MINIBATCH_FOLD = 105
 
 @dataclasses.dataclass(frozen=True)
 class AlgoHParams:
-    """Tuning knobs of the trajectory family (paper §4 / Appendix D.1)."""
+    """Tuning knobs shared by all algorithms (paper §4 / Appendix D.1)."""
 
     eta: float = 1.0            # local learning rate η
-    local_epochs: int = 10      # L
+    local_epochs: int = 10      # L (the CG/GMRES iterations q of GIANT and
+                                # Newton-GMRES)
     batch_size: int | None = None   # rows drawn per local step; None: full
-                                # batch
+                                # batch (the trajectory family only)
     aa: AAConfig = AAConfig()
+    line_search: bool = False   # GIANT-style global backtracking (GIANT,
+                                # Newton-GMRES): one extra broadcast
     carry_history: int = 0      # (s, y) columns carried ACROSS rounds (paper
                                 # App. A option 1; the SVRG family only):
                                 # the last H fresh columns of each round
                                 # are prepended to the next round's
+    dane_newton_iters: int = 20  # DANE: damped Newton steps a round
+    dane_cg_iters: int = 100    # DANE: CG iterations a Newton step
     aa_impl: str = "auto"       # AA step: "tree" (plain tensor ops),
                                 # "kernel" (single-pass Gram/update kernels),
                                 # "auto" (= kernel)
@@ -226,16 +260,22 @@ def init_comm_state(channel: CommChannel, params: torch.Tensor, K: int,
 
 
 def comm_bytes_per_round(algo: str, params: torch.Tensor,
-                         channel: "CommChannel | str | None" = None) -> float:
+                         channel: "CommChannel | str | None" = None,
+                         line_search: bool = False) -> float:
     """Bytes on the wire for one client's uploads in one round of ``algo``
     through ``channel``: each record of its uplink schema at its kind's
-    codec-exact rate. On the identity channel each upload carries d values
-    of the params' dtype (864 B per round of FedOSAA-SVRG at d=54 in f64);
-    under int8 it is 116 B per round at d=54 (54 B + one 4 B scale,
-    twice). On fp32 it is 4 × ``comm_floats_per_round``."""
+    codec-exact rate, plus, with ``line_search`` on GIANT or Newton-GMRES,
+    the broadcast of the aggregated direction at the downlink's rate. On
+    the identity channel each upload carries d values of the params' dtype
+    (864 B per round of FedOSAA-SVRG at d=54 in f64); under int8 it is
+    116 B per round at d=54 (54 B + one 4 B scale, twice). On fp32 it is 4
+    × ``comm_floats_per_round``."""
     channel = make_channel(channel)
-    return float(sum(uplink_byte_breakdown(
-        channel, UPLINK_SCHEMAS[algo], params).values()))
+    total = sum(uplink_byte_breakdown(
+        channel, UPLINK_SCHEMAS[algo], params).values())
+    if line_search and algo in LINE_SEARCH_ALGOS:
+        total += channel.downlink_bytes(params)
+    return float(total)
 
 
 # --------------------------------------------------------------------------
@@ -264,7 +304,17 @@ def _stack_grads(problem: FLProblem, w: torch.Tensor, x, y, mask) -> torch.Tenso
 
 
 def _stack_losses(problem: FLProblem, w: torch.Tensor, x, y, mask) -> torch.Tensor:
-    return vmap(problem.loss, in_dims=(None, 0))(w, ClientBatch(x, y, mask))
+    """[K] client losses at w [d] (shared) or at w [K, d] (per client)."""
+    return vmap(problem.loss, in_dims=(None if w.dim() == 1 else 0, 0))(
+        w, ClientBatch(x, y, mask))
+
+
+def _losses_along(problem: FLProblem, ws: torch.Tensor,
+                  batch: ClientBatch) -> torch.Tensor:
+    """[K, m] client losses at m points each, in one batched call: ws [m,
+    d] (the same points for every client) or [K, m, d] (per client)."""
+    along = vmap(problem.loss, in_dims=(0, None))
+    return vmap(along, in_dims=(None if ws.dim() == 2 else 0, 0))(ws, batch)
 
 
 def _local_trajectory(hp: AlgoHParams, w0: torch.Tensor,
@@ -415,6 +465,85 @@ def _client_lbfgs(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
     w_traj, r_traj = _trajectory(problem, hp, w_t, batch, idx, 1.0, g_global)
     s, y_stack = trajectory_to_sy(w_traj, r_traj)
     return w_t - lbfgs_two_loop(g_global, s, y_stack, hp.eta)
+
+
+def _cg_solve(matvec, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain CG on SPD systems, fixed iteration count (GIANT's q): one
+    system b [d], or one per row of b [K, d] with ``matvec`` mapping [K, d]
+    to [K, d]. Each system keeps its own step sizes (``rs``, ``alpha`` and
+    ``beta`` carry a trailing axis of 1)."""
+    x = torch.zeros_like(b)
+    r = b
+    p = r
+    rs = tm.tree_dot(r, r)[..., None]
+    for _ in range(iters):
+        ap = matvec(p)
+        alpha = rs / torch.clamp(tm.tree_dot(p, ap)[..., None], min=1e-30)
+        x = tm.tree_axpy(alpha, p, x)
+        r = tm.tree_axpy(-alpha, ap, r)
+        rs_new = tm.tree_dot(r, r)[..., None]
+        p = tm.tree_axpy(rs_new / torch.clamp(rs, min=1e-30), p, r)
+        rs = rs_new
+    return x
+
+
+def _client_giant(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
+                  batch: ClientBatch) -> torch.Tensor:
+    """Every client's GIANT direction p_k [K, d]: L CG iterations on
+    ∇²f_k(w^t) p = ∇f(w^t)."""
+    b = g_global.expand(batch.x.shape[0], -1)
+    return _cg_solve(lambda v: problem.stacked_hvps(w_t, batch, v), b,
+                     hp.local_epochs)
+
+
+def _client_newton_gmres(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
+                         batch: ClientBatch) -> torch.Tensor:
+    """Every client's Newton-GMRES direction p_k [K, d]: one restart of
+    GMRES (restart L) on ∇²f_k(w^t) p = ∇f(w^t) (core/krylov.py)."""
+    b = g_global.expand(batch.x.shape[0], -1)
+    return gmres(lambda v: problem.stacked_hvps(w_t, batch, v), b,
+                 hp.local_epochs)
+
+
+#: DANE's backtracking steps, and the line search's (_newton_round_core)
+DANE_STEPS = (1.0, 0.5, 0.25, 0.125, 0.0625)
+LINE_SEARCH_STEPS = (4.0, 2.0, 1.0, 0.5, 0.25, 0.125, 0.0625)
+
+
+def _client_dane(problem: FLProblem, hp: AlgoHParams, w_t, g_global,
+                 batch: ClientBatch, steps: torch.Tensor) -> torch.Tensor:
+    """Every client's exact local minimisation of the DANE surrogate h_k(w)
+    = f_k(w) − <∇f_k(w^t) − ∇f(w^t), w> (App. D.1: "no tuning parameter"),
+    by ``dane_newton_iters`` damped Newton steps from w^t, each a CG of
+    ``dane_cg_iters`` iterations and a backtracking over ``steps``
+    (DANE_STEPS, on the device): every client's trial values [K, 5] in one
+    batched call, the first step that passes Armijo, or 0 if none does.
+    Returns w_k [K, d]."""
+    shift = _stack_grads(problem, w_t, *batch) - g_global
+    K = batch.x.shape[0]
+
+    def h_val(w: torch.Tensor) -> torch.Tensor:
+        """[K] h_k at w [K, d]; [K, m] at w [K, m, d]."""
+        if w.dim() == 2:
+            return _stack_losses(problem, w, *batch) - tm.tree_dot(shift, w)
+        return (_losses_along(problem, w, batch)
+                - tm.tree_dot(shift[:, None], w))
+
+    w = w_t.expand(K, -1).contiguous()
+    for _ in range(hp.dane_newton_iters):
+        g = _stack_grads(problem, w, *batch) - shift
+        p = _cg_solve(lambda v, w=w: problem.stacked_hvps(w, batch, v), g,
+                      hp.dane_cg_iters)
+        f0 = h_val(w)
+        gTp = tm.tree_dot(g, p)
+        vals = h_val(tm.tree_axpy(-steps[:, None], p[:, None], w[:, None]))
+        ok = vals < f0[:, None] - 1e-4 * steps * gTp[:, None]
+        # the first step that passes (argmax of the mask), else 0
+        a = torch.where(ok.any(-1),
+                        steps.index_select(0, ok.to(torch.int8).argmax(-1)),
+                        0.0)
+        w = tm.tree_axpy(-a[:, None], p, w)
+    return w
 
 
 def _last(w_traj: torch.Tensor) -> torch.Tensor:
@@ -633,6 +762,62 @@ def _lbfgs_round_core(problem, hp, R, w_t, x, y, mask, weight,
                                      weight, comm_bytes), comm
 
 
+def _newton_round_core(problem, hp, client_fn, R, w_t, x, y, mask, weight,
+                       comm_bytes: float, comm=None, draw=None,
+                       ls_steps: torch.Tensor | None = None):
+    """GIANT / Newton-GMRES: aggregate the clients' Newton directions, then
+    optionally the global line search.
+
+    Two wire crossings: the local gradients travel up (difference-coded
+    against the carried reference), ∇f travels down, and the directions p_k
+    travel up unanchored, with error feedback only (the "dir" uplink); the
+    server steps along p = Σ_k w_k p_k, which is not a delta form. With
+    ``ls_steps`` (LINE_SEARCH_STEPS on the device) p is broadcast once more
+    and every client evaluates its loss at w^t − a·p_b for every step a in
+    one batched call; the server steps with its exact p and the first step
+    of least weighted loss. Returns (new params, metrics, the advanced comm
+    state)."""
+    w_t = R.broadcast(w_t)
+    batch = ClientBatch(x, y, mask)
+    g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
+                         state=comm, draw=draw)
+    g_global = R.broadcast(R.wsum(weight, g_k))
+    p_k = client_fn(problem, hp, w_t, g_global, batch)
+    p_k, comm = R.uplink(p_k, DIR_UPLINK, state=comm, draw=draw)
+    p = R.wsum(weight, p_k)
+    if ls_steps is None:
+        new_params = tm.tree_axpy(-1.0, p, w_t)
+    else:
+        p_b = R.broadcast(p)
+        vals = R.wsum(weight, _losses_along(
+            problem, tm.tree_axpy(-ls_steps[:, None], p_b, w_t), batch))
+        a = ls_steps.index_select(0, vals.argmin().reshape(1))
+        new_params = tm.tree_axpy(-a, p, w_t)
+    return new_params, _metric_parts(problem, R, w_t, g_global,
+                                     _nan_stats(x.shape[0], w_t), x, y, mask,
+                                     weight, comm_bytes), comm
+
+
+def _dane_round_core(problem, hp, R, w_t, x, y, mask, weight,
+                     comm_bytes: float, comm=None, draw=None,
+                     steps: torch.Tensor | None = None):
+    """DANE: the SVRG family's two exchanges (gradients up, then model
+    deltas anchored at w^t up) around every client's local minimisation of
+    its surrogate (``steps``: DANE_STEPS on the device); a delta-form
+    aggregate. Returns (new params, metrics, the advanced comm state)."""
+    w_t = R.broadcast(w_t)
+    g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
+                         state=comm, draw=draw)
+    g_global = R.broadcast(R.wsum(weight, g_k))
+    w_k = _client_dane(problem, hp, w_t, g_global, ClientBatch(x, y, mask),
+                       steps)
+    w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
+    new_params = R.wsum(weight, w_k, anchor=w_t)
+    return new_params, _metric_parts(problem, R, w_t, g_global,
+                                     _nan_stats(x.shape[0], w_t), x, y, mask,
+                                     weight, comm_bytes), comm
+
+
 def _draw_seed(seed: int, t: int, fold: int) -> int:
     """The seed of one draw of round t (host arithmetic only)."""
     return int(np.random.SeedSequence([seed, t, fold]).generate_state(
@@ -670,9 +855,24 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     nothing is read back (chip_smoke.py holds a round to it under
     ``torch.cuda.set_sync_debug_mode("error")``), so the engine can capture
     it. The "tree" AA path's batched ``torch.linalg.eigh`` checks its info
-    on the host once a round."""
+    on the host once a round. The Newton family's rounds have no branch on
+    data either: CG and GMRES run their full iteration counts (GMRES keeps
+    each client's steps with ``torch.where``), and the line search's and
+    DANE's backtracking pick their steps on the device.
+
+    ``hp.line_search`` adds the global line search to GIANT and
+    Newton-GMRES (and its broadcast to their bytes); the other algorithms
+    ignore it, as the reference's do. The Newton family takes no minibatch
+    and no carried history (``batch_size``, ``carry_history``): the
+    reference ignores them there, the port refuses them."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
+    if algo in NEWTON_ALGOS and (hp.batch_size is not None
+                                 or hp.carry_history > 0):
+        raise ValueError(f"{algo} takes full-batch Hessian products and "
+                         f"carries no AA history: batch_size="
+                         f"{hp.batch_size}, carry_history={hp.carry_history}"
+                         " are trajectory-family knobs")
     if hp.batch_size is not None and hp.batch_size < 1:
         raise ValueError(f"batch_size must be >= 1 (or None), got {hp.batch_size}")
     if not 0 <= hp.carry_history <= hp.local_epochs:
@@ -685,7 +885,7 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                              local_impl=resolve_local_impl(hp.local_impl, problem))
     channel = make_channel(channel)
     params0 = problem.init(None)
-    comm_bytes = comm_bytes_per_round(algo, params0, channel)
+    comm_bytes = comm_bytes_per_round(algo, params0, channel, hp.line_search)
     R = CrossClientReduce(channel)
     C = problem.clients
     K = C.num_clients
@@ -719,8 +919,18 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
 
     family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
               "scaffold" if algo in SCAFFOLD_ALGOS else
-              "avg" if algo in ("fedavg", "fedosaa_avg") else "lbfgs")
+              "avg" if algo in ("fedavg", "fedosaa_avg") else
+              "newton" if algo in LINE_SEARCH_ALGOS else algo)
     use_aa = algo.startswith("fedosaa_")
+    # the step sizes a round tries, made on the device once (a graph
+    # replays no host-to-device copy)
+    ls_steps = dane_steps = None
+    if family == "newton" and hp.line_search:
+        ls_steps = torch.tensor(LINE_SEARCH_STEPS, dtype=params0.dtype,
+                                device=dev)
+    if family == "dane":
+        dane_steps = torch.tensor(DANE_STEPS, dtype=params0.dtype, device=dev)
+    client_fn = _client_giant if algo == "giant" else _client_newton_gmres
 
     def round_fn(state: ServerState, draws: "dict | None" = None):
         def take(name: str) -> torch.Tensor:
@@ -760,6 +970,13 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         elif family == "avg":
             new_params, metrics, comm = _avg_round_core(
                 problem, hp, use_aa, R, state.params, *args)
+        elif family == "newton":
+            new_params, metrics, comm = _newton_round_core(
+                problem, hp, client_fn, R, state.params, *args[:-1],
+                ls_steps=ls_steps)
+        elif family == "dane":
+            new_params, metrics, comm = _dane_round_core(
+                problem, hp, R, state.params, *args[:-1], steps=dane_steps)
         else:
             new_params, metrics, comm = _lbfgs_round_core(
                 problem, hp, R, state.params, *args)
@@ -771,19 +988,3 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     round_fn.fill_draws = fill_draws
     return round_fn
 
-
-def _cg_solve(matvec, b: torch.Tensor, iters: int) -> torch.Tensor:
-    """Plain CG on an SPD system, fixed iteration count."""
-    x = torch.zeros_like(b)
-    r = b
-    p = r
-    rs = tm.tree_dot(r, r)
-    for _ in range(iters):
-        ap = matvec(p)
-        alpha = rs / torch.clamp(tm.tree_dot(p, ap), min=1e-30)
-        x = tm.tree_axpy(alpha, p, x)
-        r = tm.tree_axpy(-alpha, ap, r)
-        rs_new = tm.tree_dot(r, r)
-        p = tm.tree_axpy(rs_new / torch.clamp(rs, min=1e-30), p, r)
-        rs = rs_new
-    return x

@@ -119,6 +119,14 @@ class FLProblem:
         """[K, d] stacked Hessian-vector products ∇²f_k(params)·v."""
         return vmap(self.hvp, in_dims=(None, 0, None))(params, self._batch(), v)
 
+    def stacked_hvps(self, params: torch.Tensor, batch: ClientBatch,
+                     v: torch.Tensor) -> torch.Tensor:
+        """[K, d] products ∇²f_k(params_k)·v_k over a stacked batch (x [K,
+        n, d]): params [d] (shared) or [K, d] (one point per client, as
+        DANE's local iterates), v [K, d]."""
+        return vmap(self.hvp, in_dims=(None if params.dim() == 1 else 0, 0, 0))(
+            params, batch, v)
+
     def global_grad(self, params: torch.Tensor) -> torch.Tensor:
         """∇f(params) = Σ_k (N_k/N) ∇f_k(params)."""
         g = self.client_grads(params)

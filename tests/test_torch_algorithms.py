@@ -199,7 +199,7 @@ def test_round_matches_reference(problems, reference, algo, local, channel):
 
 
 @pytest.mark.parametrize("local", IMPLS)
-@pytest.mark.parametrize("algo,channel", [(a, None) for a in ALGORITHMS]
+@pytest.mark.parametrize("algo,channel", [(a, None) for a in TRAJECTORY_ALGOS]
                          + [("fedosaa_svrg", "int8"), ("scaffold", "int8")])
 def test_minibatch_round_matches_reference(problems, reference, algo, channel,
                                            local):
@@ -279,8 +279,9 @@ def test_comm_table_matches_schemas_and_table1():
     """Each algorithm's uplink schema has its COMM_TABLE float units of
     records; on the fp32 channel its bytes are 4 × comm_floats_per_round,
     the committed benchmarks/results/table1_comm.json rows at d=54; the
-    table and the schemas are the reference's."""
-    assert TRAJECTORY_ALGOS == ALGORITHMS == jax_algos.TRAJECTORY_ALGOS
+    table, the schemas and the two algorithm lists are the reference's."""
+    assert TRAJECTORY_ALGOS == jax_algos.TRAJECTORY_ALGOS
+    assert ALGORITHMS == jax_algos.ALGORITHMS
     committed = {r["name"].split("/")[1]: r for r in json.loads(
         (ROOT / "benchmarks/results/table1_comm.json").read_text())}
     params = torch.zeros(D, dtype=torch.float64)
@@ -302,7 +303,9 @@ def test_kernel_inputs_are_contiguous(problems, monkeypatch, algo):
     pointers on and raise on a strided view on the card (check_cuda);
     every tensor a round of each algorithm hands them here on the CPU must
     be contiguous (FedAvg's last iterate and FedOSAA-AVG's g = r_0 are
-    views of the trajectory until made contiguous)."""
+    views of the trajectory until made contiguous). The trajectory family
+    runs full batch and minibatch rounds, the Newton family full batch
+    (DANE with 2 Newton steps of 5 CG iterations)."""
     import repro_torch.comm.codecs as port_codecs
     import repro_torch.core.anderson as port_aa
 
@@ -322,7 +325,8 @@ def test_kernel_inputs_are_contiguous(problems, monkeypatch, algo):
     monkeypatch.setattr(port_aa.aa_ops, "aa_step",
                         checked(port_aa.aa_ops.aa_step, "aa_step"))
     _, pp = problems
-    for kw in ({}, {"batch_size": 16}):
+    for kw in (({}, {"batch_size": 16}) if algo in TRAJECTORY_ALGOS else
+               ({"dane_newton_iters": 2, "dane_cg_iters": 5},)):
         rf = make_round_fn(algo, pp, AlgoHParams(eta=1.0, local_epochs=L, **kw),
                            channel="int8", device="cpu")
         state = init_state(pp, device="cpu", channel="int8", algo=algo)

@@ -30,14 +30,29 @@ from repro.core import run_federated as jax_run_federated
 from repro.data import make_binary_classification as jax_make
 from repro.data import partition as jax_partition
 from repro.models.logreg import make_logreg_problem as jax_logreg
-from repro_torch.core import (ALGORITHMS, AlgoHParams, convert, engine,
-                              init_state, make_chunk_runner, make_round_fn,
-                              run_federated, run_rounds, solve_reference)
+from repro_torch.core import (NEWTON_ALGOS, TRAJECTORY_ALGOS, AlgoHParams,
+                              convert, engine, init_state, make_chunk_runner,
+                              make_round_fn, run_federated, run_rounds,
+                              solve_reference)
 from repro_torch.kernels import _build
 from repro_torch.models.logreg import make_logreg_problem
 from repro_torch.obs import ROW_FIELDS, AlarmMonitor, MemorySink
 
 HP = AlgoHParams(eta=0.5, local_epochs=3)
+#: the (algorithm, channel, chunk) cases of the engine's parity test: the
+#: trajectory family at every chunk; the Newton family and GIANT with the
+#: line search at a chunk of 3 (a short last chunk), their rounds' eager
+#: Hessian-vector products being the CPU's slowest, and two of them on the
+#: topk and bf16 wires. DANE takes 2 Newton steps of 5 CG iterations (as
+#: the reference's tests/test_algorithms.py runs it).
+ENGINE_CASES = ([(a, ch, c) for a in TRAJECTORY_ALGOS for ch in (None, "int8")
+                 for c in (1, 3, 4, 16)]
+                + [(a, ch, 3) for a in NEWTON_ALGOS + ("giant+line_search",)
+                   for ch in (None, "int8")]
+                + [("giant", "topk:0.05", 3), ("newton_gmres", "bf16", 3)])
+CASE_HP = {"dane": dataclasses.replace(HP, dane_newton_iters=2,
+                                       dane_cg_iters=5),
+           "giant+line_search": dataclasses.replace(HP, line_search=True)}
 #: History columns compared bit for bit (wall times are the paths' own)
 HISTORY_FIELDS = ("rounds", "loss", "grad_norm", "rel_error", "theta_mean",
                   "comm_bytes", "gram_cond_max", "arrivals", "staleness_mean",
@@ -110,21 +125,22 @@ def assert_same_state(prob, w_star, algo, channel, chunk, hp=HP, rounds=7):
             assert torch.equal(s_eng.comm[tag][name], buf), (tag, name)
 
 
-@pytest.mark.parametrize("chunk", [1, 3, 4, 16])
-@pytest.mark.parametrize("channel", [None, "int8"])
-@pytest.mark.parametrize("algo", ALGORITHMS)
+@pytest.mark.parametrize("algo,channel,chunk", ENGINE_CASES)
 def test_chunked_run_equals_the_loop(setup, algo, channel, chunk):
     """Every History row, the final params and the carried state (the
     int8 comm buffers, SCAFFOLD's control variates), bit for bit, over 7
-    rounds of every algorithm: chunks of 1, of 3 and of 4 (the last chunk
-    short) and one chunk longer than the run."""
+    rounds of every algorithm (and GIANT with the line search): chunks of
+    1, of 3 and of 4 (the last chunk short) and one chunk longer than the
+    run."""
     prob, w_star, _ = setup
-    loop_and_engine(prob, w_star, algo, 7, chunk, channel=channel)
-    assert_same_state(prob, w_star, algo, channel, chunk)
+    hp = CASE_HP.get(algo, HP)
+    algo = algo.split("+")[0]
+    loop_and_engine(prob, w_star, algo, 7, chunk, hp=hp, channel=channel)
+    assert_same_state(prob, w_star, algo, channel, chunk, hp=hp)
 
 
 @pytest.mark.parametrize("knob,algo,channel", [
-    *[("minibatch", a, None) for a in ALGORITHMS],
+    *[("minibatch", a, None) for a in TRAJECTORY_ALGOS],
     ("minibatch", "fedosaa_scaffold", "int8"),
     ("carry", "fedosaa_svrg", None), ("carry", "fedosaa_svrg", "int8"),
     ("carry", "fedsvrg", None)])
