@@ -148,6 +148,26 @@ port beside it. Every phase raises on failure; none is caught.
    per round (loop and engine), the capture ms and the rel-error after 10
    rounds, printed beside FedOSAA-SVRG's from phase 4 (the paper's Fig. 6
    comparison on this card).
+4d. Cohorts: the paper-scale data at participation 0.1 (C=10 of K=100
+   clients a round, drawn on the card, ``COHORT_RUNS``): FedOSAA-SVRG on
+   the identity and the int8 wire, FedOSAA-SCAFFOLD (c_k rows), FedOSAA-SVRG
+   with 5 carried AA columns (history rows) and GIANT, each 10 rounds by the
+   loop and by the engine (chunks of 5), gated as 4b: launches a round as
+   the dense run's (each kernel takes the cohort's clients in one launch),
+   the engine equal to the loop in every row and in the whole K-sized store,
+   one read a chunk, no host read in a warmed-up round (the cohort draw
+   included); and the store rows of the clients no round drew bit-equal to
+   their initial values. Each printed beside its dense run (ms a round,
+   loop and engine; rel-error), with its capture ms and peak memory; then
+   ``trajectory`` at the cohort's shape (10 clients' rows) against its
+   plain version, its plan and time beside phase 2's K=100. Then the
+   reference's ext_cohort point (benchmarks/ext_cohort.py: synthetic_small,
+   8 rows a client, float32, eta=0.5, L=2, FedOSAA-SVRG by the engine in
+   chunks of 4, 8 rounds) at K = 32, 512 and 4096, a cohort of 16 against
+   the dense round: ms a round, capture ms, peak memory and the global loss;
+   gate: at K=4096 the cohort run's global (all-K, data-weighted) loss ends
+   below 0.7 of its initial value; ``trajectory`` at that cohort's shape
+   (16 clients of 8 rows) against its plain version.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, by the loop and by the
@@ -198,8 +218,9 @@ port beside it. Every phase raises on failure; none is caught.
    ``uplink``); each with the standalone kernel's phase-2 readings in
    ``standalone``.
    Beyond the contract's keys, every FL row's ``launches_by_run`` holds
-   each loop run of phases 4, 4b and 4c; ``trajectory``'s row carries ``plan``
-   (the resident plan at the main path's shape in f64),
+   each loop run of phases 4, 4b, 4c and 4d; ``trajectory``'s row carries
+   ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
+   (its checks at phase 4d's two cohort shapes),
    ``launches_by_design`` (each run's resident and streaming launches),
    ``rerun_equal``, ``per_step_shape`` (the streaming design's check) and
    ``anchor_scale_0``; ``gram``'s and ``update``'s carry ``variants`` (g
@@ -212,6 +233,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -478,6 +500,21 @@ def bf16_steps(o: torch.Tensor, o_p: torch.Tensor) -> float:
     rms = o_p.pow(2).mean(-1, keepdim=True).sqrt()
     limit = LM_TOLERANCE[torch.bfloat16] * o_p.abs() + LM_BF16_ROW_FLOOR * rms
     return float(((o - o_p).abs() / limit.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def free_memory() -> None:
+    """Collect a finished run's runner (its graph sits in reference
+    cycles) and return the allocator's cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def memory_mark(device) -> int:
+    """Reset the peak-memory counter and return the bytes allocated now: a
+    run's peak above this mark is what the run itself allocated."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
 
 
 def nbytes(*ts: torch.Tensor) -> int:
@@ -1479,13 +1516,15 @@ def no_host_read_round(prob, name: str, algo: str, hp, channel, device,
 
 def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
                         w_star, device, chunk: int = PAPER_CHUNK,
-                        sync_wires=None) -> dict:
-    """One run of phases 4b and 4c: 10 rounds of ``algo`` (AlgoHParams
+                        sync_wires=None, state_gate=None) -> dict:
+    """One run of phases 4b, 4c and 4d: 10 rounds of ``algo`` (AlgoHParams
     with ``knobs``) on ``channel`` by the per-round loop, then by the
     engine in chunks of ``chunk`` (then PAPER_REPLAYS more replays for its
-    ms per round), each read on its own launch counts; the engine must
-    equal the loop in every row and in the final state and read the card
-    once a chunk after the first. Then one warmed-up round on each of
+    ms per round), each read on its own launch counts and its peak memory;
+    the engine must equal the loop in every row and in the final state and
+    read the card once a chunk after the first; ``state_gate(round_fn,
+    initial state, engine state)`` then holds the engine's final state
+    (before the extra replays) to more. Then one warmed-up round on each of
     ``sync_wires`` (default: the run's own wire) under the sync debug
     mode. Prints and returns the run's readings."""
     from repro_torch.core import (TRAJECTORY_ALGOS, AlgoHParams, init_state,
@@ -1499,9 +1538,11 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     int8 = channel == "int8"
     s_loop = MemorySink()
     _build.reset_launches()
+    base_loop = memory_mark(device)
     h = run_federated(prob, algo, hp, 10, w_star=w_star, device=device,
                       channel=channel, sinks=[s_loop])
     launches = dict(_build.LAUNCHES)
+    peak_loop = torch.cuda.max_memory_allocated(device) - base_loop
     rounds = len(h.rounds)
     designs = check_resident(f"{name} loop",
                              rounds if algo in TRAJECTORY_ALGOS else 0, design)
@@ -1517,15 +1558,17 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     s_ref = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
     for _ in range(rounds):
         s_ref, _ = round_fn(s_ref)
-    state = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    s0 = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
     runner = make_chunk_runner(round_fn, chunk, w_star=w_star)
     s_eng = MemorySink()
     _build.reset_launches()
+    base = memory_mark(device)
     with sync_warnings() as caught:
         reads = ChunkReads(caught)
-        state, trace = run_rounds(round_fn, state, 10, chunk=chunk,
+        state, trace = run_rounds(round_fn, s0, 10, chunk=chunk,
                                   w_star=w_star, runner=runner,
                                   sinks=[s_eng, reads])
+    peak = torch.cuda.max_memory_allocated(device) - base
     counted = engine_launches(f"{name} engine", trace.num_rounds, chunk, int8,
                               algo, design)
     if any(n != 1 for n in reads.per_chunk[1:]):
@@ -1533,6 +1576,7 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
                              f"{reads.per_chunk}; one in each after the first")
     same_as_loop(name, s_loop, s_eng, h.final_params, state.params)
     same_state(name, s_ref, state)
+    gated = state_gate(round_fn, s0, state) if state_gate else None
     # the gated run's second chunk, then more replays
     walls = [float(trace.round_wall[chunk:2 * chunk].sum())]
     for _ in range(PAPER_REPLAYS):
@@ -1546,13 +1590,15 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     out = dict(algo=algo, knobs=knobs, channel=channel or "identity",
                rounds=rounds, rel_error=float(h.rel_error[-1]),
                loss=float(h.loss[-1]), launches=launches, designs=designs,
-               ms_per_round=loop_ms,
+               ms_per_round=loop_ms, peak_above_mib=peak_loop / 2 ** 20,
+               base_mib=base_loop / 2 ** 20,
                engine=dict(ms_per_round=eng_ms, chunk=chunk,
                            chunk_ms=[w * 1e3 for w in walls],
                            reads_per_chunk=reads.per_chunk,
                            warmup_ms=runner.warmup_ms,
-                           capture_ms=runner.capture_ms, **counted),
-               no_host_read_launches=no_read)
+                           capture_ms=runner.capture_ms,
+                           peak_above_mib=peak / 2 ** 20, **counted),
+               no_host_read_launches=no_read, gated=gated)
     print(f"  {name:22s} [{channel or 'identity'}] loop {loop_ms:.3f} ms/round, "
           f"engine (chunk={chunk}) {eng_ms:.3f} ms/round (capture "
           f"{runner.capture_ms:.1f} ms); rel-error {h.rel_error[-1]:.3e}, loss "
@@ -1562,9 +1608,12 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
           f"state), {counted['slots']} slots replayed, launches "
           f"{ {k: v for k, v in counted['launches'].items() if v} }, host "
           f"reads per chunk {reads.per_chunk}; no host read in a round "
-          f"{no_read}", flush=True)
-    del runner, state, round_fn, h, s_ref
-    torch.cuda.empty_cache()
+          f"{no_read}; peak above the {base_loop / 2 ** 20:.1f} MiB held "
+          f"before: loop {peak_loop / 2 ** 20:.1f} MiB, engine "
+          f"{peak / 2 ** 20:.1f} MiB{'' if gated is None else f'; {gated}'}",
+          flush=True)
+    del runner, state, round_fn, h, s_ref, s0
+    free_memory()
     return out
 
 
@@ -1613,6 +1662,268 @@ def newton_family(clients, w_star, device, paper: dict) -> dict:
               for name, r in out.items() if r["channel"] == "identity"),
           flush=True)
     return out
+
+
+#: phase 4d: cohorts at paper scale, participation 0.1 (C = 10 of K = 100,
+#: a usual cross-device rate): (run name, algorithm, AlgoHParams knobs,
+#: channel), each by the loop and by the engine in chunks of PAPER_CHUNK
+COHORT_PARTICIPATION = 0.1
+COHORT_RUNS = (
+    ("cohort_fedosaa_svrg", "fedosaa_svrg", {}, None),
+    ("cohort_fedosaa_svrg_int8", "fedosaa_svrg", {}, "int8"),
+    ("cohort_fedosaa_scaffold", "fedosaa_scaffold", {}, None),
+    ("cohort_fedosaa_svrg_carry5", "fedosaa_svrg", {"carry_history": 5}, None),
+    ("cohort_giant", "giant", {}, None),
+)
+#: the phase-4/4b/4c dense run each cohort run is printed beside
+COHORT_DENSE = {"cohort_fedosaa_svrg": "float64",
+                "cohort_fedosaa_svrg_int8": "float64_int8",
+                "cohort_fedosaa_scaffold": "fedosaa_scaffold",
+                "cohort_fedosaa_svrg_carry5": "fedosaa_svrg_carry5",
+                "cohort_giant": "giant"}
+#: the reference's ext_cohort point (benchmarks/ext_cohort.py):
+#: synthetic_small, max(2048, 8K) rows over K iid clients (8 a client from
+#: K=256 up), float32, FedOSAA-SVRG, eta=0.5, L=2, by the engine in chunks
+#: of 4, 8 rounds; a cohort of 16 against the dense round at each K
+EXT_COHORT_KS, EXT_COHORT_C = (32, 512, 4096), 16
+EXT_COHORT_ROUNDS, EXT_COHORT_CHUNK, EXT_COHORT_REPLAYS = 8, 4, 5
+#: its gate (the reference's test_k4096_engine_run_converges): the global
+#: loss of the K=4096, C=16 run ends below this share of its initial value
+EXT_COHORT_LOSS_SHARE = 0.7
+
+
+def frozen_rows(round_fn, s0, state) -> dict:
+    """Phase 4d's state gate: the store rows (c_k, the carried columns, the
+    comm buffers) of the clients no round of the run drew are bit-equal to
+    their initial values. Returns the counts of clients drawn and not."""
+    from repro_torch.core import ClientStateStore
+    from repro_torch.core.algorithms import COHORT
+
+    dev = s0.params.device
+    bufs = {COHORT: torch.empty((state.t - s0.t,
+                                 *round_fn.draw_specs[COHORT][0]),
+                                dtype=torch.int64, device=dev)}
+    round_fn.fill_draws(bufs, s0.t)
+    drawn = set(torch.unique(bufs[COHORT]).tolist())
+    fields = [(f, getattr(s0, f), getattr(state, f))
+              for f in ("c_k", "hist_s", "hist_y") if getattr(s0, f) is not None]
+    fields += [(f"comm[{tag}][{b}]", x, state.comm[tag][b])
+               for tag, sub in (s0.comm or {}).items() for b, x in sub.items()]
+    if not fields:
+        return dict(drawn=len(drawn), store_fields=0)
+    n = ClientStateStore.from_state(s0).num_clients
+    never = torch.tensor(sorted(set(range(n)) - drawn), dtype=torch.int64,
+                         device=dev)
+    bad = [f for f, a, b in fields
+           if not torch.equal(a.index_select(0, never), b.index_select(0, never))]
+    if bad or len(never) == 0:
+        raise AssertionError(f"cohort run: rows of the {len(never)} clients "
+                             f"never drawn changed in {bad}")
+    return dict(drawn=len(drawn), never_drawn=len(never),
+                store_fields=len(fields))
+
+
+def trajectory_at(label: str, x, y, mask, dtype, device, floor: float,
+                  steps: int, eta: float) -> dict:
+    """Phase 4d: ``trajectory`` at a cohort's shape (x [C, n, d] of the
+    cohort's clients, full batch) against its plain version, from a random
+    anchor: one launch of the design ``plan_trajectory`` picks (resident),
+    within TOLERANCE of the plain result, a rerun bit-identical; its plan,
+    time, plain time and bound."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.local_update import fused_trajectory
+    from repro_torch.kernels.local_update.ops import (inverse_count,
+                                                      plan_trajectory,
+                                                      resident_occupancy)
+    from repro_torch.kernels.local_update.ref import trajectory_ref
+
+    x, y, mask = (t.to(dtype)[:, None].contiguous() for t in (x, y, mask))
+    C, _, n, d = x.shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    w0 = 0.1 * torch.randn(C, d, generator=gen, device=device, dtype=dtype)
+    u = 0.01 * torch.randn(C, d, generator=gen, device=device, dtype=dtype)
+    invn = inverse_count(mask, dtype)
+    kw = dict(link="logistic", reg=GAMMA, eta=eta, anchor_scale=1.0,
+              steps=steps)
+
+    def kernel():
+        return fused_trajectory(x, y, mask, w0, u, **kw)
+
+    def plain():
+        return trajectory_ref(x, y, mask, w0, u, invn, **kw)
+
+    _build.reset_launches()
+    wk, rk = kernel()
+    designs = dict(_build.DESIGN_LAUNCHES["trajectory"])
+    wp, rp = plain()
+    errs = [rel_diff(wk, wp), rel_diff(rk, rp)]
+    plan = plan_trajectory(C, 1, n, d, dtype)
+    occ = resident_occupancy(dtype, "logistic", True, n, d, plan.cluster)
+    out = dict(
+        shape=f"C={C} n={n} d={d} steps={steps} {str(dtype)[6:]}",
+        rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
+        ms=device_ms(kernel, device), plain_ms=device_ms(plain, device),
+        bound=bound_ms(nbytes(x, y, mask, w0, u, invn, wk, rk),
+                       {dtype: C * n * d * (4 * steps + 2)}),
+        rerun_equal=all(map(torch.equal, kernel(), (wk, rk))),
+        plan=dict(design=plan.design, cluster=plan.cluster,
+                  rows_per_block=plan.rows_per_block,
+                  shared_bytes=occ["shared_bytes"],
+                  active_clusters=occ["active_clusters"]),
+        designs=designs)
+    print(f"  trajectory at {label} [{out['shape']}]: plan {out['plan']}, "
+          f"launches by design {designs}; rel {out['rel']:.3e} abs "
+          f"{out['abs']:.3e}  kernel {out['ms']:.4f} ms  plain "
+          f"{out['plain_ms']:.4f} ms  bound {out['bound'][0]:.5f} ms "
+          f"({out['bound'][1]})  launch floor {floor:.4f} ms, rerun "
+          f"bit-identical {out['rerun_equal']}", flush=True)
+    if designs != {"resident": 1, "streaming": 0} or not out["rerun_equal"]:
+        raise AssertionError(f"trajectory at {label}: designs {designs}, "
+                             f"rerun equal {out['rerun_equal']}")
+    if not out["rel"] <= TOLERANCE[dtype]:
+        raise AssertionError(f"trajectory at {label} disagrees with its plain "
+                             f"version: {out['rel']:.3e} > {TOLERANCE[dtype]:.0e}")
+    return out
+
+
+def ext_cohort(device, floor: float) -> dict:
+    """Phase 4d: the reference's ext_cohort point by the engine, a cohort
+    of EXT_COHORT_C against the dense round at each of EXT_COHORT_KS: ms a
+    round over EXT_COHORT_REPLAYS replayed chunks after the 8-round run
+    (host clock, each ending in its read), the run's peak memory
+    (``max_memory_allocated``, the data included; capture included), the
+    launches a slot, and the global (all-K, data-weighted) loss after the
+    run. Gate: at the largest K the cohort run's global loss ends below
+    EXT_COHORT_LOSS_SHARE of its initial value. ``trajectory`` at the
+    cohort's shape is held against its plain version."""
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn, run_rounds)
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+
+    rows = {}
+    for K in EXT_COHORT_KS:
+        X, y = make_binary_classification("synthetic_small",
+                                          n=max(2048, 8 * K), seed=0)
+        clients = partition(X, y, K, "iid", seed=0, device=device)
+        prob = make_logreg_problem(clients, 1e-3, device=device)
+        data_mib = nbytes(clients.x, clients.y, clients.mask) / 2 ** 20
+        for mode, csize in (("cohort", EXT_COHORT_C), ("dense", None)):
+            hp = AlgoHParams(eta=0.5, local_epochs=2, cohort_size=csize)
+            round_fn = make_round_fn("fedosaa_svrg", prob, hp, device=device)
+            state = init_state(prob, device=device)
+            loss0 = float(prob.global_loss(state.params))
+            runner = make_chunk_runner(round_fn, EXT_COHORT_CHUNK)
+            base = memory_mark(device)
+            _build.reset_launches()
+            state, trace = run_rounds(round_fn, state, EXT_COHORT_ROUNDS,
+                                      chunk=EXT_COHORT_CHUNK, runner=runner)
+            peak = torch.cuda.max_memory_allocated(device) - base
+            counted = engine_launches(f"ext_cohort K={K} {mode}",
+                                      trace.num_rounds, EXT_COHORT_CHUNK,
+                                      int8=False)
+            loss = float(prob.global_loss(state.params))
+            walls = []
+            for _ in range(EXT_COHORT_REPLAYS):
+                t0 = time.perf_counter()
+                runner(state, EXT_COHORT_CHUNK)
+                walls.append(time.perf_counter() - t0)
+            ms = float(np.median(walls)) / EXT_COHORT_CHUNK * 1e3
+            # one round by the loop, after a warm-up round: its own
+            # temporaries, with no capture stream of its own
+            st, _ = round_fn(init_state(prob, device=device))
+            base_round = memory_mark(device)
+            round_fn(st)
+            round_peak = torch.cuda.max_memory_allocated(device) - base_round
+            rows[f"K={K}/{mode}"] = r = dict(
+                num_clients=K, cohort=csize, rows_per_client=clients.x.shape[1],
+                ms_per_round=ms, chunk_ms=[w * 1e3 for w in walls],
+                capture_ms=runner.capture_ms, peak_above_mib=peak / 2 ** 20,
+                base_mib=base / 2 ** 20, data_mib=data_mib, loss0=loss0,
+                loss=loss, round_peak_above_mib=round_peak / 2 ** 20,
+                launches=counted["launches"],
+                trace_loss_finite=bool(np.all(np.isfinite(trace.loss))))
+            print(f"  ext_cohort K={K:5d} {mode:6s} (C="
+                  f"{csize or K}, {r['rows_per_client']} rows a client): "
+                  f"{ms:.3f} ms/round (chunk ms "
+                  f"{', '.join(f'{w:.2f}' for w in r['chunk_ms'])}), capture "
+                  f"{runner.capture_ms:.1f} ms, peak {r['peak_above_mib']:.2f} "
+                  f"MiB above the {r['base_mib']:.1f} MiB held before (its data "
+                  f"{data_mib:.2f} MiB; one loop round's peak "
+                  f"{r['round_peak_above_mib']:.3f} MiB above its start), "
+                  f"global loss {loss0:.6f} -> "
+                  f"{loss:.6f} after {trace.num_rounds} rounds, launches "
+                  f"{ {k: v for k, v in counted['launches'].items() if v} }",
+                  flush=True)
+            if not r["trace_loss_finite"]:
+                raise AssertionError(f"ext_cohort K={K} {mode}: a non-finite "
+                                     f"round loss")
+            del runner, state, round_fn, st
+            free_memory()
+        del prob, clients
+        free_memory()
+    top = rows[f"K={EXT_COHORT_KS[-1]}/cohort"]
+    if not top["loss"] < EXT_COHORT_LOSS_SHARE * top["loss0"]:
+        raise AssertionError(f"ext_cohort K={EXT_COHORT_KS[-1]}, C="
+                             f"{EXT_COHORT_C}: global loss {top['loss']} not "
+                             f"below {EXT_COHORT_LOSS_SHARE} x {top['loss0']}")
+    X, y = make_binary_classification("synthetic_small",
+                                      n=8 * EXT_COHORT_KS[-1], seed=0)
+    clients = partition(X, y, EXT_COHORT_KS[-1], "iid", seed=0, device=device)
+    idx = torch.arange(EXT_COHORT_C, device=device)
+    traj = trajectory_at(
+        f"the ext_cohort point (K={EXT_COHORT_KS[-1]}, C={EXT_COHORT_C})",
+        *(t.index_select(0, idx) for t in (clients.x, clients.y,
+                                           clients.mask)),
+        torch.float32, device, floor, steps=3, eta=0.5)
+    return dict(rows=rows, trajectory=traj)
+
+
+def cohorts(clients, w_star, device, floor: float, dense: dict,
+            traj_dense: dict) -> dict:
+    """Phase 4d: cohorts. Each COHORT_RUNS run at paper scale in float64 at
+    participation COHORT_PARTICIPATION, by the loop and by the engine
+    (``loop_and_engine_run``: launches a round as the dense run's, since
+    each kernel takes the cohort's clients in one launch; engine = loop in
+    every row and the whole K-sized store; one host read a chunk; a
+    warmed-up round, the cohort draw included, makes no host read), and
+    the rows of clients never drawn bit-equal to their initial values
+    (``frozen_rows``); each printed beside its dense run of phases 4, 4b
+    and 4c (``dense``). Then ``trajectory`` at a cohort's shape beside the
+    dense shape's time (``traj_dense``), and the ext_cohort point."""
+    from repro_torch.core import AlgoHParams, resolve_cohort_size
+    from repro_torch.models.logreg import make_logreg_problem
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    C = resolve_cohort_size(AlgoHParams(participation=COHORT_PARTICIPATION),
+                            K_MAIN)
+    runs = {name: loop_and_engine_run(
+        prob, name, algo, {**knobs, "participation": COHORT_PARTICIPATION},
+        channel, w_star, device, state_gate=frozen_rows)
+        for name, algo, knobs, channel in COHORT_RUNS}
+    for name, r in runs.items():
+        d = dense[COHORT_DENSE[name]]
+        print(f"  {name} (C={C} of K={K_MAIN}) against its dense run "
+              f"{COHORT_DENSE[name]}: loop {r['ms_per_round']:.3f} / "
+              f"{d['ms_per_round']:.3f} ms a round, engine "
+              f"{r['engine']['ms_per_round']:.3f} / "
+              f"{d['engine']['ms_per_round']:.3f}, rel-error after 10 rounds "
+              f"{r['rel_error']:.3e} / {d['rel_error']:.3e}, engine peak above "
+              f"its start {r['engine']['peak_above_mib']:.1f} / "
+              f"{d['engine'].get('peak_above_mib', float('nan')):.1f} MiB",
+              flush=True)
+    idx = torch.arange(C, device=device) * (K_MAIN // C)
+    traj = trajectory_at(f"paper scale, C={C}",
+                         *(t.index_select(0, idx) for t in (
+                             clients.x, clients.y, clients.mask)),
+                         torch.float64, device, floor, steps=L_EPOCHS + 1,
+                         eta=ETA)
+    print(f"  trajectory at C={C}: {traj['ms']:.4f} ms against "
+          f"{traj_dense['ms']:.4f} ms at K={K_MAIN} (plan "
+          f"{traj_dense['plan']})", flush=True)
+    return dict(cohort_size=C, runs=runs, trajectory=traj,
+                ext_cohort=ext_cohort(device, floor))
 
 
 def compression(device) -> dict:
@@ -2434,6 +2745,14 @@ def main() -> int:
     print("phase 4c: the Newton family at paper scale (float64, 10 rounds)",
           flush=True)
     newton = newton_family(clients, w_star, device, paper)
+    print(f"phase 4d: cohorts (participation {COHORT_PARTICIPATION} at paper "
+          f"scale; the ext_cohort point)", flush=True)
+    t0 = time.perf_counter()
+    cohort = cohorts(clients, w_star, device, floor,
+                     {**paper, **family, **newton},
+                     checks[torch.float64]["trajectory"])
+    print(f"  phase 4d took {time.perf_counter() - t0:.1f} s", flush=True)
+    fl_runs = {**paper, **family, **newton, **cohort["runs"]}
 
     print("phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)
@@ -2489,8 +2808,7 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paper["float64_int8" if wire else "float64"]["launches"][launched],
             launches_by_run={run: r_["launches"][launched]
-                             for run, r_ in {**paper, **family,
-                                             **newton}.items()},
+                             for run, r_ in fl_runs.items()},
             max_abs_err=r["abs"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
@@ -2504,8 +2822,10 @@ def main() -> int:
                 for dt in checks for design, a in
                 checks[dt]["trajectory"]["anchor0"].items()}
             row["launches_by_design"] = {
-                run: r_["designs"] for run, r_ in {**paper, **family,
-                                                   **newton}.items()}
+                run: r_["designs"] for run, r_ in fl_runs.items()}
+            row["cohort"] = {
+                "paper_scale": cohort["trajectory"],
+                "ext_cohort": cohort["ext_cohort"]["trajectory"]}
             row.update(plan=r["plan"], rerun_equal=r["rerun_equal"],
                        per_step_shape=dict(
                            shape=ps["shape"], design=ps["design"],
@@ -2545,8 +2865,7 @@ def main() -> int:
                 bound_ms=upd["bound"][0], bound_by=upd["bound"][1],
                 library_ms=upd["library_ms"],
                 launches={run: r_["launches"]["update"]
-                          for run, r_ in {**paper, **family,
-                                          **newton}.items()})
+                          for run, r_ in fl_runs.items()})
         if wire:
             row["launched_as"] = launched
             row["uplink"] = {key: dict(
@@ -2559,8 +2878,7 @@ def main() -> int:
                 plain_ms=q[name]["plain_ms"], bound_ms=q[name]["bound"][0],
                 bound_by=q[name]["bound"][1], library_ms=q[name]["library_ms"],
                 launches={run: r_["launches"][name]
-                          for run, r_ in {**paper, **family,
-                                          **newton}.items()})
+                          for run, r_ in fl_runs.items()})
                 for shape, q in quant.items()}
         rows.append(row)
     f32 = {name: {k: v for k, v in r.items()}

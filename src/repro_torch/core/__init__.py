@@ -25,8 +25,10 @@ from repro_torch.core.algorithms import (  # noqa: F401
     init_comm_state,
     init_state,
     make_round_fn,
+    resolve_cohort_size,
     resolve_local_impl,
 )
+from repro_torch.core.client_store import ClientStateStore  # noqa: F401
 from repro_torch.core.problem import (  # noqa: F401
     ClientBatch,
     FLProblem,

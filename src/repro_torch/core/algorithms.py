@@ -36,8 +36,16 @@ algorithm declares them. Local steps of the trajectory family are full
 batch, or minibatches of ``batch_size`` rows drawn per step; the SVRG family
 can carry AA columns across rounds (``carry_history``). GIANT and
 Newton-GMRES can end a round with the reference's global line search
-(``line_search``). Every client takes part in every round: cohorts and
-faults are not ported yet.
+(``line_search``).
+
+Cohorts (``participation`` < 1 or ``cohort_size``): a round computes on C
+of the K clients, drawn without replacement with p ∝ data size. Their data,
+draws and per-client state rows (c_k, hist_s/hist_y, the comm buffers;
+core/client_store.py) are gathered to [C, ...], the unchanged round core
+runs on them, and the updated rows are scattered back into the K-sized
+store: clients outside the cohort keep their rows bit for bit. C = K is
+the identity cohort, bit for bit the dense round. Faults and the async gate
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ from repro_torch.comm.schema import (CTRL_UPLINK, DELTA_UPLINK, DIR_UPLINK,
 from repro_torch.core.anderson import (AAConfig, AAStats, lbfgs_two_loop,
                                        multisecant_update, resolve_aa_impl,
                                        trajectory_to_sy)
+from repro_torch.core.client_store import ClientStateStore
 from repro_torch.core.krylov import gmres
 from repro_torch.core.problem import (ClientBatch, FLProblem, sample_minibatch,
                                       sample_minibatch_indices)
@@ -143,6 +152,9 @@ UPLINK_SCHEMAS: "dict[str, tuple[UplinkSpec, ...]]" = {
 #: seed: distinct from every uplink's (comm/schema.py, 101–104)
 MINIBATCH = "minibatch"
 MINIBATCH_FOLD = 105
+#: the name of a cohort round's draw of its C client indices, and its fold
+COHORT = "cohort"
+COHORT_FOLD = 106
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +169,12 @@ class AlgoHParams:
     aa: AAConfig = AAConfig()
     line_search: bool = False   # GIANT-style global backtracking (GIANT,
                                 # Newton-GMRES): one extra broadcast
+    participation: float = 1.0  # share of the clients in a round: < 1
+                                # draws a cohort of C = max(1, round(p·K))
+                                # (resolve_cohort_size)
+    cohort_size: int | None = None  # an explicit cohort size C (wins over
+                                # ``participation``); C = K is the identity
+                                # cohort; None with p >= 1: the dense round
     carry_history: int = 0      # (s, y) columns carried ACROSS rounds (paper
                                 # App. A option 1; the SVRG family only):
                                 # the last H fresh columns of each round
@@ -645,24 +663,25 @@ class CrossClientReduce:
         return self.channel.broadcast(x)
 
 
-def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, weight,
-                  comm_bytes: float) -> RoundMetrics:
-    """f(w), ‖g‖ and the AA health stats, reduced across every client, and
-    the round's wire bytes. The column counts are nan where a client ran no
-    AA step (theta is nan)."""
+def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, dweight,
+                  pweight, comm_bytes: float) -> RoundMetrics:
+    """f(w) (weighed by ``dweight``), ‖g‖ and the AA health stats, reduced
+    across the round's clients, the effective sample size of ``pweight``,
+    and the round's wire bytes. The column counts are nan where a client
+    ran no AA step (theta is nan)."""
     no_aa = torch.isnan(stats.theta)
     used = torch.where(no_aa, torch.nan, stats.used_columns.to(torch.float32))
     clipped = torch.where(no_aa, torch.nan,
                           stats.clipped_columns.to(torch.float32))
     return RoundMetrics(
-        loss=R.wsum(weight, _stack_losses(problem, w, x, y, mask)),
+        loss=R.wsum(dweight, _stack_losses(problem, w, x, y, mask)),
         grad_norm=tm.tree_norm(g),
         theta_mean=R.nanmean(stats.theta),
         gram_cond_max=R.nanmax(stats.gram_cond),
         gram_cond_mean=R.nanmean(stats.gram_cond),
         aa_used_min=R.nanmin(used),
         aa_clipped_max=R.nanmax(clipped),
-        cohort_ess=R.ess(weight),
+        cohort_ess=R.ess(pweight),
         comm_bytes=torch.tensor(comm_bytes),
         arrivals=torch.tensor(torch.nan),
         staleness_mean=torch.tensor(torch.nan),
@@ -673,14 +692,17 @@ def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, weight,
 # --------------------------------------------------------------------------
 # round cores (repro/core/algorithms.py:998-1081)
 #
-# Each takes the server quantities, the stacked client arrays, the round's
-# minibatch rows ``idx`` (None: full batch) and the wire's ``comm`` state
-# and ``draw``. ``weight`` [K] weighs the clients both in the global
-# quantities and in the aggregate (every client takes part in every round).
+# Each takes the server quantities, the stacked client arrays of the
+# round's clients (all K, or a cohort's C), the round's minibatch rows
+# ``idx`` (None: full batch) and the wire's ``comm`` state and ``draw``.
+# Two weights: ``dweight`` weighs the clients in the global quantities (the
+# losses, ∇f, SCAFFOLD's c), ``pweight`` in the model aggregate. The dense
+# round and a cohort pass the same weights twice; they part under dropout
+# and the async gate (the reference's robust/).
 # --------------------------------------------------------------------------
 
-def _svrg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
-                     comm_bytes: float, comm=None, draw=None, idx=None,
+def _svrg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, dweight,
+                     pweight, comm_bytes: float, comm=None, draw=None, idx=None,
                      hist_s=None, hist_y=None):
     """SVRG family: corrected local steps (+ optional AA), delta aggregation.
 
@@ -693,19 +715,19 @@ def _svrg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
     w_t = R.broadcast(w_t)
     g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
                          state=comm, draw=draw)
-    g_global = R.broadcast(R.wsum(weight, g_k))
+    g_global = R.broadcast(R.wsum(dweight, g_k))
     w_k, stats, hist_s, hist_y = _client_svrg(
         problem, hp, use_aa, w_t, g_global, ClientBatch(x, y, mask), idx,
         hist_s, hist_y)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
-    new_params = R.wsum(weight, w_k, anchor=w_t)
+    new_params = R.wsum(pweight, w_k, anchor=w_t)
     return (new_params, _metric_parts(problem, R, w_t, g_global, stats, x, y,
-                                      mask, weight, comm_bytes),
+                                      mask, dweight, pweight, comm_bytes),
             comm, hist_s, hist_y)
 
 
 def _scaffold_round_core(problem, hp, use_aa, R, w_t, c, c_k, x, y, mask,
-                         weight, comm_bytes: float, comm=None, draw=None,
+                         dweight, pweight, comm_bytes: float, comm=None, draw=None,
                          idx=None):
     """SCAFFOLD family: control-variate steps; c aggregated with the data
     weights.
@@ -721,15 +743,15 @@ def _scaffold_round_core(problem, hp, use_aa, R, w_t, c, c_k, x, y, mask,
                                            ClientBatch(x, y, mask), idx)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
     c_up, comm = R.uplink(new_c_k, CTRL_UPLINK, state=comm, draw=draw)
-    new_params = R.wsum(weight, w_k, anchor=w_t)
-    new_c = R.wsum(weight, c_up)
+    new_params = R.wsum(pweight, w_k, anchor=w_t)
+    new_c = R.wsum(dweight, c_up)
     return (new_params, new_c, new_c_k,
-            _metric_parts(problem, R, w_t, new_c, stats, x, y, mask, weight,
-                          comm_bytes), comm)
+            _metric_parts(problem, R, w_t, new_c, stats, x, y, mask, dweight,
+                          pweight, comm_bytes), comm)
 
 
-def _avg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
-                    comm_bytes: float, comm=None, draw=None, idx=None):
+def _avg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, dweight,
+                    pweight, comm_bytes: float, comm=None, draw=None, idx=None):
     """FedAvg family (with the fedosaa_avg negative control): one exchange,
     the model deltas up. The global gradient is a diagnostic only: FedAvg
     ships no gradients, so it crosses no wire. Returns (new params,
@@ -738,13 +760,13 @@ def _avg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, weight,
     w_k, stats = _client_avg(problem, hp, use_aa, w_t, ClientBatch(x, y, mask),
                              idx)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
-    new_params = R.wsum(weight, w_k, anchor=w_t)
-    g = R.wsum(weight, _stack_grads(problem, w_t, x, y, mask))
+    new_params = R.wsum(pweight, w_k, anchor=w_t)
+    g = R.wsum(dweight, _stack_grads(problem, w_t, x, y, mask))
     return new_params, _metric_parts(problem, R, w_t, g, stats, x, y, mask,
-                                     weight, comm_bytes), comm
+                                     dweight, pweight, comm_bytes), comm
 
 
-def _lbfgs_round_core(problem, hp, R, w_t, x, y, mask, weight,
+def _lbfgs_round_core(problem, hp, R, w_t, x, y, mask, dweight, pweight,
                       comm_bytes: float, comm=None, draw=None, idx=None):
     """One-step L-BFGS: the SVRG family's two exchanges, the L-BFGS
     direction in place of the AA step. Returns (new params, metrics, the
@@ -752,18 +774,18 @@ def _lbfgs_round_core(problem, hp, R, w_t, x, y, mask, weight,
     w_t = R.broadcast(w_t)
     g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
                          state=comm, draw=draw)
-    g_global = R.broadcast(R.wsum(weight, g_k))
+    g_global = R.broadcast(R.wsum(dweight, g_k))
     w_k = _client_lbfgs(problem, hp, w_t, g_global, ClientBatch(x, y, mask),
                         idx)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
-    new_params = R.wsum(weight, w_k, anchor=w_t)
+    new_params = R.wsum(pweight, w_k, anchor=w_t)
     return new_params, _metric_parts(problem, R, w_t, g_global,
                                      _nan_stats(x.shape[0], w_t), x, y, mask,
-                                     weight, comm_bytes), comm
+                                     dweight, pweight, comm_bytes), comm
 
 
-def _newton_round_core(problem, hp, client_fn, R, w_t, x, y, mask, weight,
-                       comm_bytes: float, comm=None, draw=None,
+def _newton_round_core(problem, hp, client_fn, R, w_t, x, y, mask, dweight,
+                       pweight, comm_bytes: float, comm=None, draw=None,
                        ls_steps: torch.Tensor | None = None):
     """GIANT / Newton-GMRES: aggregate the clients' Newton directions, then
     optionally the global line search.
@@ -781,24 +803,24 @@ def _newton_round_core(problem, hp, client_fn, R, w_t, x, y, mask, weight,
     batch = ClientBatch(x, y, mask)
     g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
                          state=comm, draw=draw)
-    g_global = R.broadcast(R.wsum(weight, g_k))
+    g_global = R.broadcast(R.wsum(dweight, g_k))
     p_k = client_fn(problem, hp, w_t, g_global, batch)
     p_k, comm = R.uplink(p_k, DIR_UPLINK, state=comm, draw=draw)
-    p = R.wsum(weight, p_k)
+    p = R.wsum(pweight, p_k)
     if ls_steps is None:
         new_params = tm.tree_axpy(-1.0, p, w_t)
     else:
         p_b = R.broadcast(p)
-        vals = R.wsum(weight, _losses_along(
+        vals = R.wsum(dweight, _losses_along(
             problem, tm.tree_axpy(-ls_steps[:, None], p_b, w_t), batch))
         a = ls_steps.index_select(0, vals.argmin().reshape(1))
         new_params = tm.tree_axpy(-a, p, w_t)
     return new_params, _metric_parts(problem, R, w_t, g_global,
                                      _nan_stats(x.shape[0], w_t), x, y, mask,
-                                     weight, comm_bytes), comm
+                                     dweight, pweight, comm_bytes), comm
 
 
-def _dane_round_core(problem, hp, R, w_t, x, y, mask, weight,
+def _dane_round_core(problem, hp, R, w_t, x, y, mask, dweight, pweight,
                      comm_bytes: float, comm=None, draw=None,
                      steps: torch.Tensor | None = None):
     """DANE: the SVRG family's two exchanges (gradients up, then model
@@ -808,14 +830,115 @@ def _dane_round_core(problem, hp, R, w_t, x, y, mask, weight,
     w_t = R.broadcast(w_t)
     g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
                          state=comm, draw=draw)
-    g_global = R.broadcast(R.wsum(weight, g_k))
+    g_global = R.broadcast(R.wsum(dweight, g_k))
     w_k = _client_dane(problem, hp, w_t, g_global, ClientBatch(x, y, mask),
                        steps)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
-    new_params = R.wsum(weight, w_k, anchor=w_t)
+    new_params = R.wsum(pweight, w_k, anchor=w_t)
     return new_params, _metric_parts(problem, R, w_t, g_global,
                                      _nan_stats(x.shape[0], w_t), x, y, mask,
-                                     weight, comm_bytes), comm
+                                     dweight, pweight, comm_bytes), comm
+
+
+# --------------------------------------------------------------------------
+# cohorts (repro/core/algorithms.py:664-777)
+# --------------------------------------------------------------------------
+
+def resolve_cohort_size(hp: AlgoHParams, num_clients: int) -> int | None:
+    """The round's cohort size C, or None for the dense all-K round. An
+    explicit ``hp.cohort_size`` wins (C = K runs the cohort machinery, the
+    identity cohort) and must lie in [1, K]; else ``participation`` < 1
+    gives C = max(1, round(p·K)), and p >= 1 the dense round."""
+    if hp.cohort_size is not None:
+        c = int(hp.cohort_size)
+        if not 1 <= c <= num_clients:
+            raise ValueError(
+                f"cohort_size={c} must be in [1, num_clients={num_clients}]")
+        return c
+    if hp.participation >= 1.0:
+        return None
+    return max(1, int(round(hp.participation * num_clients)))
+
+
+def _cohort_indices(weight: torch.Tensor, cohort_size: int,
+                    u: torch.Tensor) -> torch.Tensor:
+    """C = ``cohort_size`` distinct client indices [C] int64, drawn without
+    replacement with p ∝ ``weight`` [K] from the uniforms ``u`` [K] (f64,
+    in [0, 1)): the C largest Gumbel keys log w_k − log(−log u_k). That is
+    the distribution of successive weighted draws without replacement (the
+    reference's ``jax.random.choice(replace=False, p=weight)``), taken on
+    the device with no host read (C < K)."""
+    keys = torch.log(weight.to(torch.float64)) - torch.log(-torch.log(u))
+    return torch.topk(keys, cohort_size).indices
+
+
+def _cohort_weights(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The cohort's weights ``weight[idx]`` renormalised to sum 1."""
+    cw = weight.index_select(0, idx)
+    return cw / torch.clamp(cw.sum(), min=1e-30)
+
+
+def _sample_cohort(weight: torch.Tensor, cohort_size: int, u: torch.Tensor):
+    """The round's cohort: ([C] indices, [C] weights). C >= K returns
+    arange(K) and the RAW weights: renormalising would move their last ulp
+    and break the identity cohort's bit-identity with the dense round."""
+    K = weight.shape[0]
+    if cohort_size >= K:
+        return torch.arange(K, device=weight.device), weight
+    idx = _cohort_indices(weight, cohort_size, u)
+    return idx, _cohort_weights(weight, idx)
+
+
+class CohortPlan(NamedTuple):
+    """One round's client axis: the [C, ...] views the round core reads and
+    what the commit needs to scatter its updates back."""
+
+    idx: "torch.Tensor | None"  # [C] cohort indices; None: the dense round
+    x: torch.Tensor             # [C, ...] the clients' data
+    y: torch.Tensor
+    mask: torch.Tensor
+    dweight: torch.Tensor       # [C] weights of the losses and ∇f
+    pweight: torch.Tensor       # [C] weights of the model aggregate
+    store: ClientStateStore     # the K-sized store (the scatter's target)
+    cohort: ClientStateStore    # its [C, ...] rows, which the core reads
+
+
+def _plan_round(clients, csize: int | None, state: ServerState,
+                idx: "torch.Tensor | None") -> CohortPlan:
+    """The round's client axis. Dense (``csize`` None): the full stacks and
+    store pass through untouched. The identity cohort (C = K): the original
+    tensors are the cohort's view (no gather) with the raw weights; the
+    scatter still runs. C < K: the data and the store rows at ``idx`` [C]
+    (the round's "cohort" draw), with the renormalised weights."""
+    store = ClientStateStore.from_state(state)
+    w = clients.weight
+    if csize is None:
+        return CohortPlan(None, clients.x, clients.y, clients.mask, w, w,
+                          store, store)
+    if csize >= clients.num_clients:
+        return CohortPlan(idx, clients.x, clients.y, clients.mask, w, w,
+                          store, store)
+    with record_function("fl.cohort_gather"):
+        cw = _cohort_weights(w, idx)
+        return CohortPlan(idx, clients.x.index_select(0, idx),
+                          clients.y.index_select(0, idx),
+                          clients.mask.index_select(0, idx), cw, cw, store,
+                          store.gather(idx))
+
+
+def _commit_plan(plan: CohortPlan, **updates) -> dict:
+    """ServerState field updates from a round core's per-client outputs
+    (c_k, hist_s, hist_y, comm; [C, ...] in a cohort round). Dense: passed
+    through. A cohort: scattered into the K-sized store; the rows outside
+    the cohort keep their bits, and a field the core did not return (None)
+    is the store's own tensor."""
+    if plan.idx is None:
+        return updates
+    rows = ClientStateStore(**{f: updates.get(f)
+                               for f in ClientStateStore._fields})
+    with record_function("fl.scatter"):
+        new = plan.store.scatter(plan.idx, rows)
+    return {k: getattr(new, k) for k in updates}
 
 
 def _draw_seed(seed: int, t: int, fold: int) -> int:
@@ -840,6 +963,14 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     reference's key streams cannot be reproduced in torch, so a caller that
     needs its draws (the parity tests) passes ``draws={name: tensor}``,
     every draw of the round, instead.
+
+    A cohort round (``resolve_cohort_size``: C clients of K) draws first
+    its clients, ``COHORT``: [C] int64 indices (Gumbel top-k over [K] f64
+    uniforms of fold ``COHORT_FOLD``; arange(K) for the identity cohort).
+    Its other draws are rows ``idx`` of the dense round's [K, ...] draws,
+    so a cohort client k draws what client k would draw in a dense round,
+    whoever else was drawn (the reference's ``rngs_K[idx]``), and the round
+    sees [C, ...] draws; ``draws`` passes them so.
 
     A chunk of rounds gets its draws ahead of time through two attributes
     of the returned function: ``round.draw_specs``, {name: (shape, dtype)}
@@ -889,8 +1020,15 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     R = CrossClientReduce(channel)
     C = problem.clients
     K = C.num_clients
-    # every draw of a round: name -> (shape, dtype, fold)
+    csize = resolve_cohort_size(hp, K)
+    # the clients a round computes on, and whether their draws are rows of
+    # the dense round's (C < K) or the dense round's own (dense, C = K)
+    n_round = K if csize is None else csize
+    gathers = csize is not None and csize < K
+    # every draw of a round: name -> (the dense round's shape, dtype, fold)
     specs = {}
+    if csize is not None:
+        specs[COHORT] = ((K,), torch.int64, COHORT_FOLD)
     for spec in UPLINK_SCHEMAS[algo]:
         shape = channel.up_codec(spec.kind).draw_shape(params0.shape[-1])
         if shape is not None:
@@ -898,24 +1036,40 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     if hp.batch_size is not None:
         specs[MINIBATCH] = ((K, hp.local_epochs + 1, hp.batch_size),
                             torch.int64, MINIBATCH_FOLD)
+    # the shapes a round takes: [C, ...] in a cohort round
+    draw_specs = {name: ((n_round, *shape[1:]), dtype)
+                  for name, (shape, dtype, _) in specs.items()}
     # reseeded for each draw
     gen = torch.Generator(device=dev)
 
-    def draw_of(name: str, t: int, out: torch.Tensor | None = None):
-        """Round t's draw ``name``."""
+    def draw_of(name: str, t: int, idx: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        """Round t's draw ``name``; with ``idx``, its rows ``idx``."""
         shape, dtype, fold = specs[name]
-        gen.manual_seed(_draw_seed(seed, t, fold))
-        if dtype == torch.float32:
-            return torch.rand(shape, generator=gen, dtype=dtype, device=dev,
-                              out=out)
-        idx = sample_minibatch_indices(C.mask, torch.rand(
-            shape, generator=gen, dtype=torch.float64, device=dev))
-        return idx if out is None else out.copy_(idx)
+        if name == COHORT and not gathers:
+            v = torch.arange(K, device=dev)         # the identity cohort
+        else:
+            gen.manual_seed(_draw_seed(seed, t, fold))
+            u = torch.rand(shape, generator=gen, device=dev, dtype=(
+                torch.float32 if dtype == torch.float32 else torch.float64))
+            if name == COHORT:
+                v = _cohort_indices(C.weight, csize, u)
+            else:
+                mask = C.mask
+                if idx is not None:
+                    u, mask = u.index_select(0, idx), mask.index_select(0, idx)
+                v = (u if dtype == torch.float32
+                     else sample_minibatch_indices(mask, u))
+        return v if out is None else out.copy_(v)
 
     def fill_draws(bufs: "dict[str, torch.Tensor]", t0: int) -> None:
-        for name, buf in bufs.items():
-            for i in range(buf.shape[0]):
-                draw_of(name, t0 + i, out=buf[i])
+        for i in range(next(iter(bufs.values())).shape[0] if bufs else 0):
+            idx = None
+            if COHORT in bufs:
+                idx = draw_of(COHORT, t0 + i, out=bufs[COHORT][i])
+            for name, buf in bufs.items():
+                if name != COHORT:
+                    draw_of(name, t0 + i, idx if gathers else None, out=buf[i])
 
     family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
               "scaffold" if algo in SCAFFOLD_ALGOS else
@@ -933,10 +1087,10 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     client_fn = _client_giant if algo == "giant" else _client_newton_gmres
 
     def round_fn(state: ServerState, draws: "dict | None" = None):
-        def take(name: str) -> torch.Tensor:
-            shape = specs[name][0]
+        def take(name: str, rows: torch.Tensor | None = None) -> torch.Tensor:
+            shape = draw_specs[name][0]
             if draws is None:
-                return draw_of(name, state.t)
+                return draw_of(name, state.t, rows)
             if name not in draws:
                 raise ValueError(f"draws lack {name!r}; a round of {algo} "
                                  f"draws {sorted(specs)}")
@@ -945,18 +1099,28 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                                  f"{tuple(draws[name].shape)}, expected {shape}")
             return draws[name]
 
-        def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
-            return take(spec.tag)
+        idx = None
+        if csize is not None:
+            with record_function("fl.cohort_plan"):
+                idx = take(COHORT)
+        # a cohort's draws are rows idx of the dense round's
+        rows = idx if gathers else None
 
-        idx = take(MINIBATCH) if hp.batch_size is not None else None
-        args = (C.x, C.y, C.mask, C.weight, comm_bytes, state.comm, draw, idx)
+        def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
+            return take(spec.tag, rows)
+
+        plan = _plan_round(C, csize, state, idx)
+        mb = take(MINIBATCH, rows) if hp.batch_size is not None else None
+        cohort = plan.cohort
+        args = (plan.x, plan.y, plan.mask, plan.dweight, plan.pweight,
+                comm_bytes, cohort.comm, draw, mb)
         upd = {}
         if family == "svrg":
             carry = hp.carry_history > 0 and state.hist_s is not None
             new_params, metrics, comm, hist_s, hist_y = _svrg_round_core(
                 problem, hp, use_aa, R, state.params, *args,
-                state.hist_s if carry else None,
-                state.hist_y if carry else None)
+                cohort.hist_s if carry else None,
+                cohort.hist_y if carry else None)
             if carry:
                 upd = dict(hist_s=hist_s, hist_y=hist_y)
         elif family == "scaffold":
@@ -964,9 +1128,10 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                 raise ValueError(f"{algo} carries control variates: build its "
                                  f"state with init_state(..., algo={algo!r})")
             new_params, c, c_k, metrics, comm = _scaffold_round_core(
-                problem, hp, use_aa, R, state.params, state.c, state.c_k,
+                problem, hp, use_aa, R, state.params, state.c, cohort.c_k,
                 *args)
-            upd = dict(c=c, c_k=c_k)
+            upd = dict(c_k=c_k)
+            state = state._replace(c=c)
         elif family == "avg":
             new_params, metrics, comm = _avg_round_core(
                 problem, hp, use_aa, R, state.params, *args)
@@ -980,11 +1145,10 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         else:
             new_params, metrics, comm = _lbfgs_round_core(
                 problem, hp, R, state.params, *args)
-        return state._replace(params=new_params, t=state.t + 1, comm=comm,
-                              **upd), metrics
+        upd = _commit_plan(plan, comm=comm, **upd)
+        return state._replace(params=new_params, t=state.t + 1, **upd), metrics
 
-    round_fn.draw_specs = {name: (shape, dtype)
-                           for name, (shape, dtype, _) in specs.items()}
+    round_fn.draw_specs = draw_specs
     round_fn.fill_draws = fill_draws
     return round_fn
 

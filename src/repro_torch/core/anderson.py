@@ -42,6 +42,7 @@ class AAConfig:
     filter_rtol: drop eigen-directions of the Gram matrix below
       filter_rtol × λ_max. 0 disables.
     damping: β, the scale on the quasi-Newton correction. 1.0 = paper.
+    min_history: read nowhere, as in the reference (kept for its callers).
     residual_ema: EMA over the residuals before building Y (App. A option 3).
     clip_rtol: drop history columns with clip_rtol·‖y_i‖ > median(‖y‖)
       before the solve. 0 disables (and is an exact no-op).
@@ -50,6 +51,7 @@ class AAConfig:
     tikhonov: float = 1e-10
     filter_rtol: float = 0.0
     damping: float = 1.0
+    min_history: int = 1
     residual_ema: float = 0.0
     clip_rtol: float = 0.0
 

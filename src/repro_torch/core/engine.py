@@ -41,7 +41,14 @@ and so every int8 and minibatch run, equal the loop's.
 
 The carried state is every tensor of ``ServerState``: the params, the comm
 buffers, SCAFFOLD's control variates and the carried AA columns, each
-where the state has it (``_tensors``, ``_map_state``).
+where the state has it (``_tensors``, ``_map_state``). A tensor the round
+returned as the same object (a field it never advanced) passes the select
+and the copy back into the static buffers untouched, as the reference's
+``tree_where`` does: under cohorts (core/client_store.py) the K-sized
+store stays in the runner's static buffers, each round gathers its
+cohort's rows and scatters them back inside the captured chunk, and the
+cohort indices are one more draw (``"cohort"``, filled before each replay
+with the rest).
 
 On the card there is no eager fallback: a round that cannot be captured (a
 host read inside it, as ``aa_impl="tree"``'s batched eigh makes) raises
@@ -208,7 +215,9 @@ class ChunkRunner:
                 state, {name: b[i] for name, b in draws.items()} or None)
             rel = rel_error(new.params, self.w_star, self.w_star_norm, m.loss)
             live = ~done & (n_live > i)
-            state = _map_state(lambda a, b: torch.where(live, a, b), new, state)
+            state = _map_state(
+                lambda a, b: a if a is b else torch.where(live, a, b),
+                new, state)
             # the loop's break order: the row is emitted, then the stop fires
             stop = ~torch.isfinite(m.loss)
             if self.stop_rel_error is not None:
@@ -260,7 +269,8 @@ class ChunkRunner:
                 # the chunk's final state back into the buffers the next
                 # replay reads
                 for dst, src in zip(_tensors(self.static), _tensors(out)):
-                    dst.copy_(src)
+                    if src is not dst:
+                        dst.copy_(src)
         except RuntimeError as e:
             raise RuntimeError(
                 f"engine: the round cannot be captured as a CUDA graph (a "

@@ -5,7 +5,9 @@ metric history the paper plots (relative error vs. aggregation round,
 communication, wall time): round by round (``chunk=None``), or in chunks of
 rounds through the engine (core/engine.py; on the card one CUDA graph a
 chunk). Both feed the same telemetry rows to ``sinks`` (repro_torch/obs).
-Fault plans and checkpointing come with later slices.
+``hp.cohort_size`` or ``hp.participation`` < 1 runs every round on a
+sampled cohort of the clients (core/algorithms.py). Fault plans and
+checkpointing come with later slices.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.comm.schema import uplink_byte_breakdown
 from repro_torch.core import engine
 from repro_torch.core.algorithms import (HOST_METRICS, UPLINK_SCHEMAS,
                                          AlgoHParams, _cg_solve, init_state,
-                                         make_round_fn)
+                                         make_round_fn, resolve_cohort_size)
 from repro_torch.core.problem import FLProblem
 from repro_torch.utils import tree_math as tm
 
@@ -43,6 +45,12 @@ class History:
                                   # (nan: the deadline gate is not ported)
     staleness_mean: np.ndarray | None = None  # mean landed buffer age (nan)
     staleness_max: np.ndarray | None = None   # oldest landed buffer age (nan)
+
+    @property
+    def comm_floats(self) -> np.ndarray:
+        """fp32-equivalent floats on the wire (bytes / 4), the paper's
+        Table 1 unit."""
+        return self.comm_bytes / 4.0
 
     def summary(self) -> str:
         return (
@@ -112,7 +120,7 @@ def run_federated(
         "channel": channel.name,
         "backend": state.params.device.type,
         "num_clients": problem.clients.num_clients,
-        "cohort_size": None,        # every client in every round
+        "cohort_size": resolve_cohort_size(hp, problem.clients.num_clients),
         "uplink_bytes": uplink_byte_breakdown(
             channel, UPLINK_SCHEMAS[algo], state.params),
     }

@@ -8,7 +8,8 @@ rounds [T, T+N) starts the profiler before the first chunk that overlaps
 the window and stops it after the first chunk boundary at or past T+N.
 Time inside the trace is attributed to round phases by the
 ``record_function`` scopes in core/algorithms.py and core/anderson.py
-("fl.local_trajectory", "fl.aa_step", "fl.uplink").
+("fl.local_trajectory", "fl.aa_step", "fl.uplink", and in a cohort round
+"fl.cohort_plan", "fl.cohort_gather", "fl.scatter").
 
 Those scopes are host-side: they mark the eager round (the CPU path and
 the per-round loop). A chunk replayed from a CUDA graph shows its kernels

@@ -305,7 +305,8 @@ def test_kernel_inputs_are_contiguous(problems, monkeypatch, algo):
     be contiguous (FedAvg's last iterate and FedOSAA-AVG's g = r_0 are
     views of the trajectory until made contiguous). The trajectory family
     runs full batch and minibatch rounds, the Newton family full batch
-    (DANE with 2 Newton steps of 5 CG iterations)."""
+    (DANE with 2 Newton steps of 5 CG iterations); each also as a cohort
+    round (C=2 of 4: gathered data, draws and comm rows)."""
     import repro_torch.comm.codecs as port_codecs
     import repro_torch.core.anderson as port_aa
 
@@ -325,8 +326,9 @@ def test_kernel_inputs_are_contiguous(problems, monkeypatch, algo):
     monkeypatch.setattr(port_aa.aa_ops, "aa_step",
                         checked(port_aa.aa_ops.aa_step, "aa_step"))
     _, pp = problems
-    for kw in (({}, {"batch_size": 16}) if algo in TRAJECTORY_ALGOS else
-               ({"dane_newton_iters": 2, "dane_cg_iters": 5},)):
+    base = (({}, {"batch_size": 16}) if algo in TRAJECTORY_ALGOS else
+            ({"dane_newton_iters": 2, "dane_cg_iters": 5},))
+    for kw in base + tuple({**k, "cohort_size": 2} for k in base):
         rf = make_round_fn(algo, pp, AlgoHParams(eta=1.0, local_epochs=L, **kw),
                            channel="int8", device="cpu")
         state = init_state(pp, device="cpu", channel="int8", algo=algo)

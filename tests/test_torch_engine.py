@@ -39,17 +39,30 @@ from repro_torch.models.logreg import make_logreg_problem
 from repro_torch.obs import ROW_FIELDS, AlarmMonitor, MemorySink
 
 HP = AlgoHParams(eta=0.5, local_epochs=3)
-#: the (algorithm, channel, chunk) cases of the engine's parity test: the
-#: trajectory family at every chunk; the Newton family and GIANT with the
-#: line search at a chunk of 3 (a short last chunk), their rounds' eager
-#: Hessian-vector products being the CPU's slowest, and two of them on the
-#: topk and bf16 wires. DANE takes 2 Newton steps of 5 CG iterations (as
-#: the reference's tests/test_algorithms.py runs it).
-ENGINE_CASES = ([(a, ch, c) for a in TRAJECTORY_ALGOS for ch in (None, "int8")
-                 for c in (1, 3, 4, 16)]
-                + [(a, ch, 3) for a in NEWTON_ALGOS + ("giant+line_search",)
-                   for ch in (None, "int8")]
+
+
+def trajectory_cases(algos):
+    return [(a, ch, c) for a in algos for ch in (None, "int8")
+            for c in (1, 3, 4, 16)]
+
+
+#: the (algorithm, channel, chunk) cases of the engine's parity test
+#: (test_chunked_run_equals_the_loop), in three files of similar time: the
+#: trajectory family at every chunk, FedSVRG, FedOSAA-SVRG, L-BFGS and
+#: FedAvg in test_torch_engine_family_svrg.py, SCAFFOLD, FedOSAA-SCAFFOLD
+#: and FedOSAA-AVG in test_torch_engine_family_scaffold.py; the Newton
+#: family and GIANT with the line search at a chunk of 3 (a short last
+#: chunk), their rounds' eager Hessian-vector products being the CPU's
+#: slowest, and two of them on the topk and bf16 wires, in
+#: test_torch_engine_family_newton.py. DANE takes 2 Newton steps of 5 CG
+#: iterations (as the reference's tests/test_algorithms.py runs it).
+SVRG_CASES = trajectory_cases(("fedsvrg", "fedosaa_svrg", "lbfgs", "fedavg"))
+SCAFFOLD_CASES = trajectory_cases(("scaffold", "fedosaa_scaffold",
+                                   "fedosaa_avg"))
+NEWTON_CASES = ([(a, ch, 3) for a in NEWTON_ALGOS + ("giant+line_search",)
+                 for ch in (None, "int8")]
                 + [("giant", "topk:0.05", 3), ("newton_gmres", "bf16", 3)])
+ENGINE_CASES = SVRG_CASES + SCAFFOLD_CASES + NEWTON_CASES
 CASE_HP = {"dane": dataclasses.replace(HP, dane_newton_iters=2,
                                        dane_cg_iters=5),
            "giant+line_search": dataclasses.replace(HP, line_search=True)}
@@ -125,18 +138,25 @@ def assert_same_state(prob, w_star, algo, channel, chunk, hp=HP, rounds=7):
             assert torch.equal(s_eng.comm[tag][name], buf), (tag, name)
 
 
-@pytest.mark.parametrize("algo,channel,chunk", ENGINE_CASES)
-def test_chunked_run_equals_the_loop(setup, algo, channel, chunk):
-    """Every History row, the final params and the carried state (the
-    int8 comm buffers, SCAFFOLD's control variates), bit for bit, over 7
-    rounds of every algorithm (and GIANT with the line search): chunks of
-    1, of 3 and of 4 (the last chunk short) and one chunk longer than the
-    run."""
+def check_chunked_run(setup, algo, channel, chunk):
+    """test_chunked_run_equals_the_loop's case: every History row, the
+    final params and the carried state (the int8 comm buffers, SCAFFOLD's
+    control variates), bit for bit, over 7 rounds of ``algo`` (or GIANT
+    with the line search): chunks of 1, of 3 and of 4 (the last chunk
+    short) and one chunk longer than the run."""
     prob, w_star, _ = setup
     hp = CASE_HP.get(algo, HP)
     algo = algo.split("+")[0]
     loop_and_engine(prob, w_star, algo, 7, chunk, hp=hp, channel=channel)
     assert_same_state(prob, w_star, algo, channel, chunk, hp=hp)
+
+
+def test_engine_cases_cover_every_algorithm():
+    """The three files of test_chunked_run_equals_the_loop run every
+    algorithm, each case once."""
+    assert len(set(ENGINE_CASES)) == len(ENGINE_CASES) == 66
+    assert ({a.split("+")[0] for a, _, _ in ENGINE_CASES}
+            == set(TRAJECTORY_ALGOS + NEWTON_ALGOS))
 
 
 @pytest.mark.parametrize("knob,algo,channel", [

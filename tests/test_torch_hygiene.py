@@ -47,14 +47,14 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_scans_cover_the_engine_and_obs():
-    """The scans above and below walk the package by rglob: the engine and
-    the obs/ package are in them."""
+    """The scans above and below walk the package by rglob: the engine, the
+    obs/ package and the cohorts' client store are in them."""
     new = {"repro_torch.core.engine", "repro_torch.obs",
            "repro_torch.obs.sinks", "repro_torch.obs.alarms",
-           "repro_torch.obs.profiling"}
+           "repro_torch.obs.profiling", "repro_torch.core.client_store"}
     assert new <= set(MODULES)
-    assert {PORT / "core" / "engine.py",
-            PORT / "obs" / "profiling.py"} <= set(PORT_FILES)
+    assert {PORT / "core" / "engine.py", PORT / "obs" / "profiling.py",
+            PORT / "core" / "client_store.py"} <= set(PORT_FILES)
 
 
 def test_sources_name_no_jax_and_no_reference_package():
@@ -87,6 +87,12 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     h = run_federated(prob, "fedosaa_svrg", hp, 1, device="cpu")
+    assert np.isfinite(h.loss).all()
+    # a cohort round too
+    cohort = AlgoHParams(local_epochs=2, cohort_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_federated(prob, "fedosaa_svrg", cohort, 1)
+    h = run_federated(prob, "fedosaa_svrg", cohort, 1, device="cpu", chunk=1)
     assert np.isfinite(h.loss).all()
 
 
