@@ -35,7 +35,11 @@ port beside it. Every phase raises on failure; none is caught.
    call must launch it once and neither ``quantize`` nor ``dequantize``;
    it is timed beside the two-launch composition it replaced
    (``Codec.uplink``'s arithmetic around the standalone pair, the same
-   uniforms: the draw is in neither). The slice-A kernels at the main
+   uniforms: the draw is in neither). The same with its ``post`` operand
+   (the DP noise added to the decoded value, robust/faults.py) on the
+   gradient's and the delta's buffers, one upload holding a NaN and one
+   an Inf: bit for bit its plain version's, NaN where NaN, timed beside
+   the call without it. The slice-A kernels at the main
    path's shapes (K=100 clients x 5810 rows, d=54, 11 local steps, m=10
    history columns), in float64 and float32: the largest difference relative
    to the plain result's largest magnitude must stay within 1e-12 (float64)
@@ -168,6 +172,37 @@ port beside it. Every phase raises on failure; none is caught.
    gate: at K=4096 the cohort run's global (all-K, data-weighted) loss ends
    below 0.7 of its initial value; ``trajectory`` at that cohort's shape
    (16 clients of 8 rows) against its plain version.
+4e. The robustness layer (``repro_torch/robust``: faults and the deadline
+   gate). The reference's ext_robustness quick matrix by the engine
+   (chunks of 5): the acceptance data, FedOSAA-SVRG, seven plans (clean,
+   dropout 0.2, stale 0.2, sign-flip and noise byzantine uplinks at 5,
+   one byzantine history client at 1e24, DP 1e-3) on the identity and the
+   int8 wire, clip_rtol off and 1e-3, at most 40 rounds; each row's rounds
+   to 1e-6 beside the committed one. Gates: the clean run bit-identical
+   with the screen on and off; the defended history run within 1.5x the
+   port's own clean rounds; the undefended float64 history run finite and
+   reaching 1e-4 and 1e-6 within one round of the reference's rounds 10
+   and 15 with f64 accumulation (a contract finding: the reference's run
+   dies of its f32 Gram accumulation; scripts/reference_history_f64.py,
+   ROADMAP §3),
+   and in float32 the undefended run non-finite while the defended one
+   stays finite and falls; two runs of the determinism plan (drop 0.2,
+   stale 0.2, history 1e24, DP 1e-4) bit-identical. The reference's
+   ext_async quick configuration (lognormal latencies, deadline 2,
+   min_arrivals 5, alpha 0.5, at most 60 rounds): the gated run within 2x
+   the barriered run's rounds to 1e-6 and its simulated wall to target
+   below the barriered run's, replayed on the host from the round's own
+   latency draws; AsyncConfig() bit-identical to none; two latency and
+   dropout runs bit-identical; the history guard on and off recorded.
+   Then at paper scale (``ROBUST_RUNS``, 10 rounds, by the loop and the
+   engine): FedOSAA-SVRG with dropout and stale anchors, with 10 history
+   clients at 1e24 and clip_rtol, and on int8 with DP; FedOSAA-SCAFFOLD
+   with dropout; DANE (2 Newton steps of 10 CG) under the gate; a C=10
+   cohort with dropout and the gate. Gated as 4b (launches as the clean
+   round's, engine = loop in every row and the whole state with the
+   anchor rows, buffer rows and ages, one read a chunk, no host read in a
+   warmed-up round), the cohort's never-drawn rows frozen; engine ms a
+   round, capture ms and peak memory beside the clean run's.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, by the loop and by the
@@ -218,7 +253,7 @@ port beside it. Every phase raises on failure; none is caught.
    ``uplink``); each with the standalone kernel's phase-2 readings in
    ``standalone``.
    Beyond the contract's keys, every FL row's ``launches_by_run`` holds
-   each loop run of phases 4, 4b, 4c and 4d; ``trajectory``'s row carries
+   each loop run of phases 4, 4b, 4c, 4d and 4e; ``trajectory``'s row carries
    ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
    (its checks at phase 4d's two cohort shapes),
    ``launches_by_design`` (each run's resident and streaming launches),
@@ -366,6 +401,75 @@ COMPRESSION_SCAFFOLD = {
     "fp32": (0.0026693003254825657, 86400.0, 0.31282822767293494),
     "bf16": (0.0026693545469324937, 43200.0, 0.3128282277231577),
     "int8": (0.002669307486806141, 23200.0, 0.31282822766549306)}
+#: phase 4e, the robustness layer (repro_torch/robust). The reference's
+#: ext_robustness quick matrix (benchmarks/ext_robustness.py): the
+#: acceptance data (covtype n=10,000, K=10 iid, float64, eta=1, L=10),
+#: FedOSAA-SVRG, each plan x {identity, int8} x clip_rtol {0, 1e-3}, at
+#: most 40 rounds, stopping at rel-error 1e-8, by the engine in chunks of
+#: 5; rounds to rel-error 1e-6 printed beside the committed rows
+#: (benchmarks/results/ext_robustness.json)
+ROBUST_CAP, ROBUST_CHUNK, ROBUST_STOP = 40, 5, 1e-8
+ROBUST_TARGET, ROBUST_FAIL, ROBUST_CLIP = 1e-6, 1e-4, 1e-3
+BYZ_HISTORY_SCALE = 1e24
+ROBUST_PLANS = (
+    ("clean", None),
+    ("drop0.2", dict(drop_rate=0.2)),
+    ("stale0.2", dict(stale_rate=0.2)),
+    ("sign_flip", dict(byz_clients=1, byz_mode="sign_flip", byz_scale=5.0)),
+    ("noise", dict(byz_clients=1, byz_mode="noise", byz_scale=5.0)),
+    ("history", dict(byz_clients=1, byz_mode="history",
+                     byz_scale=BYZ_HISTORY_SCALE)),
+    ("dp1e-3", dict(dp_sigma=1e-3)),
+)
+#: its gates: the defended history run within this multiple of the port's
+#: own clean rounds; two runs of this plan (clip on, 6 rounds) bit-identical
+ROBUST_DEFENDED_RATIO = 1.5
+ROBUST_DET_PLAN = dict(drop_rate=0.2, stale_rate=0.2, byz_clients=1,
+                       byz_mode="history", byz_scale=BYZ_HISTORY_SCALE,
+                       dp_sigma=1e-4)
+#: the undefended history run is a contract finding in float64: the
+#: reference's run dies of its f32 Gram accumulation overflowing at 1e24;
+#: rerun with f64 accumulation on this configuration
+#: (scripts/reference_history_f64.py; ROADMAP §3) it stays finite and
+#: reaches rel-error 1e-4 and 1e-6 in rounds 10 and 15. The port
+#: accumulates in f64: its run must stay finite and reach both within one
+#: round of those; the attack landing (a non-finite loss) is gated in
+#: float32 instead, on the same data, over ROBUST_F32_ROUNDS rounds, where
+#: the defended run stays finite and falls
+REFERENCE_F64_HISTORY = (10, 15)
+ROBUST_F32_ROUNDS = 10
+#: the reference's ext_async quick configuration (benchmarks/ext_async.py):
+#: the same data, lognormal latencies (scale 1, sigma 1.5, plan seed 0),
+#: deadline 2.0, min_arrivals max(2, K/2) = 5, alpha 0.5, at most 60
+#: rounds; the gated run within this multiple of the barriered run's rounds
+ASYNC_CAP, ASYNC_ROUND_MULTIPLE = 60, 2.0
+ASYNC_LATENCY = dict(latency_dist="lognormal", latency_scale=1.0,
+                     latency_shape=1.5)
+ASYNC_GATE = dict(deadline=2.0, min_arrivals=5, staleness_alpha=0.5)
+ASYNC_DET_PLAN = dict(seed=3, drop_rate=0.15, **ASYNC_LATENCY)
+#: phase 4e at paper scale (float64, 10 rounds, loop and engine, chunks of
+#: PAPER_CHUNK): (run name, algorithm, AlgoHParams knobs, channel, plan,
+#: gate, the clean run printed beside it: a run of phases 4-4d, or, where
+#: none has its knobs, a clean run made here). DANE takes 2 Newton steps
+#: of 10 CG iterations (phase 4c runs fig6's 10 x 50: its captures take
+#: 11-14 s)
+ROBUST_RUNS = (
+    ("robust_svrg_drop_stale", "fedosaa_svrg", {}, None,
+     dict(seed=1, drop_rate=0.2, stale_rate=0.2), None, "float64"),
+    ("robust_svrg_history_clip", "fedosaa_svrg",
+     {"aa_clip_rtol": ROBUST_CLIP}, None,
+     dict(byz_clients=10, byz_mode="history", byz_scale=BYZ_HISTORY_SCALE),
+     None, "float64"),
+    ("robust_svrg_int8_dp", "fedosaa_svrg", {}, "int8",
+     dict(seed=2, dp_sigma=1e-4), None, "float64_int8"),
+    ("robust_scaffold_drop", "fedosaa_scaffold", {}, None,
+     dict(seed=3, drop_rate=0.2), None, "fedosaa_scaffold"),
+    ("robust_dane_gate", "dane", {"dane_newton_iters": 2, "dane_cg_iters": 10},
+     None, dict(seed=4, **ASYNC_LATENCY), ASYNC_GATE, "dane_2x10"),
+    ("robust_cohort_drop_gate", "fedosaa_svrg", {"participation": 0.1}, None,
+     dict(seed=5, drop_rate=0.2, **ASYNC_LATENCY), ASYNC_GATE,
+     "cohort_fedosaa_svrg"),
+)
 
 
 def card_line() -> str:
@@ -1021,20 +1125,34 @@ def check_quant(device, floor: float) -> dict:
     return out
 
 
+def same_bits(a, b) -> bool:
+    """Equal element for element, NaN where NaN (a NaN's payload aside)."""
+    if a is None or b is None:
+        return a is None and b is None
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a),
+                                               torch.where(nb, 0.0, b))
+
+
 def check_uplink(device, floor: float) -> dict:
     """Phase 2, the fused int8 uplink (``int8_uplink``) at the main path's
     shape (K=100, d=54, float64) and at the streaming shape (K=16, d=2^20,
     float32), with the gradient uplink's buffers (ref + ef), the delta
     uplink's (anchor + ef) and the Newton direction's (the "dir" uplink: ef
-    alone, no anchor, no reference); client 0's upload is all zeros. Its outputs
-    (dec, new_e, new_h) must equal the plain version's bit for bit, and so
-    must a rerun's and the two-launch composition's (``Codec.uplink``'s
-    arithmetic around the standalone pair); one call launches it once and
-    neither standalone kernel. Times: the fused launch, the composition,
-    the plain version, all from the same uniforms (the draw is in none of
-    them). Bound: each input read once (x, the buffers, the anchor once
-    for all clients, the draws of the n live values) and each output
-    written once."""
+    alone, no anchor, no reference); client 0's upload is all zeros. Then
+    the ``post`` variant (the DP noise added to the decoded value before
+    the residual, robust/faults.py) on the gradient's and the delta's
+    buffers, with client 1's upload holding a NaN and client 2's an Inf
+    (a NaN's code is 0, an Inf's chunk decodes to NaN, as the reference's
+    codec gives them). Its outputs (dec, new_e, new_h) must equal the
+    plain version's bit for bit (NaN where NaN), and so must a rerun's and
+    the two-launch composition's (``Codec.uplink``'s arithmetic around the
+    standalone pair); one call launches it once and neither standalone
+    kernel. Times: the fused launch, the composition, the plain version,
+    all from the same uniforms (the draw is in none of them); a post
+    variant's beside its variant without ``post``. Bound: each input read
+    once (x, the buffers, the anchor once for all clients, the draws of
+    the n live values) and each output written once."""
     from repro_torch.comm.codecs import Codec, Int8SRCodec
     from repro_torch.kernels import _build
     from repro_torch.kernels.quant import (DEFAULT_CHUNK, chunk_rows,
@@ -1052,14 +1170,20 @@ def check_uplink(device, floor: float) -> dict:
                                        dtype=dtype)
         x, anchor = randn(K, d), randn(d)
         ref, ef = randn(K, d, scale=0.1), randn(K, d, scale=1e-3)
+        post = randn(K, d, scale=1e-3)
         ref[0], ef[0] = 0.0, 0.0
         u = torch.rand((K, chunk_rows(d, DEFAULT_CHUNK), DEFAULT_CHUNK),
                        generator=gen, device=device)
         for spec, bufs in (("grad", dict(ref=ref, ef=ef)),
                            ("delta", dict(anchor=anchor, ef=ef)),
-                           ("dir", dict(ef=ef))):
+                           ("dir", dict(ef=ef)),
+                           ("grad+post", dict(ref=ref, ef=ef, post=post)),
+                           ("delta+post", dict(anchor=anchor, ef=ef,
+                                               post=post))):
             xs = x.clone()
             xs[0] = anchor if "anchor" in bufs else 0.0   # an all-zero upload
+            if "post" in bufs:
+                xs[1, 3], xs[2, 5] = float("nan"), float("inf")
 
             def fused():
                 return int8_sr_uplink(xs, u, **bufs)
@@ -1075,13 +1199,11 @@ def check_uplink(device, floor: float) -> dict:
             want = plain()
 
             def same(a, b):
-                return all((p is None and q is None) or (
-                    p is not None and q is not None and torch.equal(p, q))
-                    for p, q in zip(a, b))
+                return all(same_bits(p, q) for p, q in zip(a, b))
             equal, rerun_equal = same(got, want), same(fused(), got)
             composed_equal = same(composed(), got)
-            errs = [float((p - q).abs().max()) for p, q in zip(got, want)
-                    if p is not None]
+            errs = [float(torch.nan_to_num((p - q).abs(), nan=0.0).max())
+                    for p, q in zip(got, want) if p is not None]
             # the outputs it writes: dec and new_e; new_h apart only with an
             # anchor after the reference (with ref alone it is dec)
             written = {id(t): t for t in got if t is not None}.values()
@@ -1102,6 +1224,9 @@ def check_uplink(device, floor: float) -> dict:
                                ops),
                 launch_floor_ms=floor)
             r = out[key]
+            if "post" in bufs:
+                r["without_post_ms"] = out[f"{label}/{spec[:-5]}"]["ms"]
+                r["nan_outputs"] = int(torch.isnan(got[0]).sum())
             print(f"  int8_uplink {key:15s} [{r['shape']}]: outputs equal "
                   f"{equal}, rerun bit-identical {rerun_equal}, composition "
                   f"equal {composed_equal}, launches "
@@ -1109,7 +1234,10 @@ def check_uplink(device, floor: float) -> dict:
                   f"{r['ms']:.4f} ms  composition (two launches and the "
                   f"torch glue) {r['composed_ms']:.4f} ms  plain "
                   f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms "
-                  f"({r['bound'][1]})  launch floor {floor:.4f} ms", flush=True)
+                  f"({r['bound'][1]})  launch floor {floor:.4f} ms"
+                  + (f"  without post {r['without_post_ms']:.4f} ms, "
+                     f"{r['nan_outputs']} NaN outputs (the NaN and Inf "
+                     f"chunks')" if "post" in bufs else ""), flush=True)
             if not (equal and rerun_equal and composed_equal):
                 raise AssertionError(
                     f"int8_uplink at {key}: outputs equal {equal}, rerun "
@@ -1118,7 +1246,7 @@ def check_uplink(device, floor: float) -> dict:
             if launches != want_launches:
                 raise AssertionError(f"int8_uplink at {key}: one call launched "
                                      f"{launches}, expected {want_launches}")
-        del x, anchor, ref, ef, u, xs
+        del x, anchor, ref, ef, post, u, xs
     torch.cuda.empty_cache()
     return out
 
@@ -1221,14 +1349,10 @@ def acceptance(device) -> dict:
     graph a chunk), which must stop on the loop's round with its rows and
     final params."""
     from repro_torch.core import AlgoHParams, run_federated, solve_reference
-    from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
-    from repro_torch.models.logreg import make_logreg_problem
     from repro_torch.obs import MemorySink
 
-    X, y = make_binary_classification("covtype", n=10_000, seed=0)
-    clients = partition(X, y, 10, "iid", seed=0, device=device)
-    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    prob = acceptance_problem(device)
     w_star = solve_reference(prob, iters=100)
     hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
     runs = {}
@@ -1442,6 +1566,20 @@ FAMILY_RUNS = (
 )
 
 
+def comm_rows(state) -> list:
+    """(name, tensor) of every per-client tensor of the state's comm: each
+    uplink's buffers, and the robustness layer's reserved keys (the stale
+    anchors, the gate's buffer rows and int32 ages), by sorted key."""
+    out = []
+    for tag in sorted(state.comm or {}):
+        sub = state.comm[tag]
+        if isinstance(sub, torch.Tensor):
+            out.append((f"comm[{tag}]", sub))
+        else:
+            out.extend((f"comm[{tag}][{b}]", sub[b]) for b in sorted(sub))
+    return out
+
+
 def same_state(what: str, s_loop, s_eng) -> None:
     """Raise unless two ServerStates hold the same tensors bit for bit: the
     params, SCAFFOLD's c and c_k, the carried AA columns and the comm
@@ -1454,10 +1592,9 @@ def same_state(what: str, s_loop, s_eng) -> None:
     comm_a, comm_b = s_loop.comm or {}, s_eng.comm or {}
     if sorted(comm_a) != sorted(comm_b):
         bad.append("comm")
-    for tag, bufs in comm_a.items():
-        for name, buf in bufs.items():
-            if not torch.equal(buf, comm_b.get(tag, {}).get(name, buf.new_empty(0))):
-                bad.append(f"comm[{tag}][{name}]")
+    for (key, buf), (_, other) in zip(comm_rows(s_loop), comm_rows(s_eng)):
+        if buf.dtype != other.dtype or not torch.equal(buf, other):
+            bad.append(key)
     if bad:
         raise AssertionError(f"{what}: the engine's final state differs from "
                              f"the loop's in {bad}")
@@ -1482,19 +1619,38 @@ def trajectory_family(clients, w_star, device) -> dict:
             for name, algo, knobs, channel in FAMILY_RUNS}
 
 
+def start_state(prob, algo: str, hp, channel, device, robust=None):
+    """The run's initial state, with the rows a fault plan with stale
+    anchors and an active deadline gate carry (``robust``: the
+    run_federated keywords ``faults``/``async_cfg``), as run_federated
+    attaches them."""
+    from repro_torch.core import init_state
+    from repro_torch.robust import init_async_comm, init_fault_comm
+
+    st = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    faults, gate = (robust or {}).get("faults"), (robust or {}).get("async_cfg")
+    K = prob.clients.num_clients
+    if faults is not None and faults.active and faults.stale_rate > 0.0:
+        st = st._replace(comm=init_fault_comm(st.comm, st.params, K))
+    if gate is not None and gate.active:
+        st = st._replace(comm=init_async_comm(st.comm, st.params, K))
+    return st
+
+
 def no_host_read_round(prob, name: str, algo: str, hp, channel, device,
-                       design: str = "resident") -> dict:
+                       design: str = "resident", robust=None) -> dict:
     """One round of ``algo`` after two warm-up rounds under
     ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing CUDA
-    call raises and fails the run), launching what a round launches.
-    Returns its launches."""
-    from repro_torch.core import (TRAJECTORY_ALGOS, init_state,
-                                  make_round_fn)
+    call raises and fails the run), launching what a round launches; with
+    ``robust``, the fault plan's and the gate's round. Returns its
+    launches."""
+    from repro_torch.core import TRAJECTORY_ALGOS, make_round_fn
     from repro_torch.kernels import _build
 
     int8 = channel == "int8"
-    round_fn = make_round_fn(algo, prob, hp, channel, device=device)
-    st = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    round_fn = make_round_fn(algo, prob, hp, channel, device=device,
+                             **(robust or {}))
+    st = start_state(prob, algo, hp, channel, device, robust)
     for _ in range(2):
         st, _ = round_fn(st)
     torch.cuda.synchronize(device)
@@ -1514,9 +1670,21 @@ def no_host_read_round(prob, name: str, algo: str, hp, channel, device,
     return {k: v for k, v in one.items() if v}
 
 
+def hp_knobs(knobs: dict) -> dict:
+    """AlgoHParams keywords from a run's knobs: ``aa_clip_rtol`` names the
+    AA step's clip_rtol screen (AAConfig), the others are AlgoHParams
+    fields."""
+    from repro_torch.core import AAConfig
+
+    out = {k: v for k, v in knobs.items() if k != "aa_clip_rtol"}
+    if "aa_clip_rtol" in knobs:
+        out["aa"] = AAConfig(clip_rtol=knobs["aa_clip_rtol"])
+    return out
+
+
 def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
                         w_star, device, chunk: int = PAPER_CHUNK,
-                        sync_wires=None, state_gate=None) -> dict:
+                        sync_wires=None, state_gate=None, robust=None) -> dict:
     """One run of phases 4b, 4c and 4d: 10 rounds of ``algo`` (AlgoHParams
     with ``knobs``) on ``channel`` by the per-round loop, then by the
     engine in chunks of ``chunk`` (then PAPER_REPLAYS more replays for its
@@ -1526,21 +1694,23 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     initial state, engine state)`` then holds the engine's final state
     (before the extra replays) to more. Then one warmed-up round on each of
     ``sync_wires`` (default: the run's own wire) under the sync debug
-    mode. Prints and returns the run's readings."""
-    from repro_torch.core import (TRAJECTORY_ALGOS, AlgoHParams, init_state,
+    mode. ``robust`` (run_federated's ``faults``/``async_cfg``) runs it
+    under a fault plan and the deadline gate. Prints and returns the run's
+    readings."""
+    from repro_torch.core import (TRAJECTORY_ALGOS, AlgoHParams,
                                   make_chunk_runner, make_round_fn,
                                   run_federated, run_rounds)
     from repro_torch.kernels import _build
     from repro_torch.obs import MemorySink
 
-    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS, **knobs)
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS, **hp_knobs(knobs))
     design = "streaming" if knobs.get("batch_size") else "resident"
     int8 = channel == "int8"
     s_loop = MemorySink()
     _build.reset_launches()
     base_loop = memory_mark(device)
     h = run_federated(prob, algo, hp, 10, w_star=w_star, device=device,
-                      channel=channel, sinks=[s_loop])
+                      channel=channel, sinks=[s_loop], **(robust or {}))
     launches = dict(_build.LAUNCHES)
     peak_loop = torch.cuda.max_memory_allocated(device) - base_loop
     rounds = len(h.rounds)
@@ -1554,11 +1724,12 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
         raise AssertionError(f"{name} loop: a non-finite loss {h.loss}")
     loop_ms = float(np.median(np.diff(h.wall_time) * 1e3))
 
-    round_fn = make_round_fn(algo, prob, hp, channel, device=device)
-    s_ref = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    round_fn = make_round_fn(algo, prob, hp, channel, device=device,
+                             **(robust or {}))
+    s_ref = start_state(prob, algo, hp, channel, device, robust)
     for _ in range(rounds):
         s_ref, _ = round_fn(s_ref)
-    s0 = init_state(prob, device=device, channel=channel, algo=algo, hp=hp)
+    s0 = start_state(prob, algo, hp, channel, device, robust)
     runner = make_chunk_runner(round_fn, chunk, w_star=w_star)
     s_eng = MemorySink()
     _build.reset_launches()
@@ -1585,7 +1756,7 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
         walls.append(time.perf_counter() - t0)
     eng_ms = float(np.median(walls)) / chunk * 1e3
     no_read = {wire or "identity": no_host_read_round(
-        prob, name, algo, hp, wire, device, design)
+        prob, name, algo, hp, wire, device, design, robust)
         for wire in (sync_wires or (channel,))}
     out = dict(algo=algo, knobs=knobs, channel=channel or "identity",
                rounds=rounds, rel_error=float(h.rel_error[-1]),
@@ -1707,8 +1878,8 @@ def frozen_rows(round_fn, s0, state) -> dict:
     drawn = set(torch.unique(bufs[COHORT]).tolist())
     fields = [(f, getattr(s0, f), getattr(state, f))
               for f in ("c_k", "hist_s", "hist_y") if getattr(s0, f) is not None]
-    fields += [(f"comm[{tag}][{b}]", x, state.comm[tag][b])
-               for tag, sub in (s0.comm or {}).items() for b, x in sub.items()]
+    fields += [(key, x, y) for (key, x), (_, y) in zip(comm_rows(s0),
+                                                       comm_rows(state))]
     if not fields:
         return dict(drawn=len(drawn), store_fields=0)
     n = ClientStateStore.from_state(s0).num_clients
@@ -1924,6 +2095,261 @@ def cohorts(clients, w_star, device, floor: float, dense: dict,
           f"{traj_dense['plan']})", flush=True)
     return dict(cohort_size=C, runs=runs, trajectory=traj,
                 ext_cohort=ext_cohort(device, floor))
+
+
+def rounds_to(curve, target: float):
+    """The first round (counted from 1) whose rel-error is below target."""
+    hit = np.nonzero(np.asarray(curve) < target)[0]
+    return int(hit[0]) + 1 if len(hit) else None
+
+
+def acceptance_problem(device, dtype=torch.float64):
+    """The acceptance configuration's data (covtype n=10,000, K=10 iid,
+    gamma=1e-3) as a logistic problem in ``dtype``."""
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.models.logreg import make_logreg_problem
+
+    X, y = make_binary_classification("covtype", n=10_000, seed=0)
+    clients = partition(X, y, 10, "iid", seed=0, device=device)
+    return make_logreg_problem(clients, GAMMA, dtype=dtype, device=device)
+
+
+def robust_run(prob, w_star, hp, cap: int, device, channel=None,
+               chunk: int = ROBUST_CHUNK, **robust) -> dict:
+    """One FedOSAA-SVRG run of phase 4e by the engine (stopping at
+    rel-error ROBUST_STOP): its curves, rounds to ROBUST_TARGET and
+    ROBUST_FAIL, finiteness and median ms a round after its first chunk."""
+    from repro_torch.core import run_federated
+
+    h = run_federated(prob, "fedosaa_svrg", hp, cap, w_star=w_star,
+                      stop_rel_error=ROBUST_STOP, device=device,
+                      channel=channel, chunk=chunk, **robust)
+    ms = per_round_ms(h.wall_time)
+    return dict(rounds=len(h.rounds), to_target=rounds_to(h.rel_error,
+                                                          ROBUST_TARGET),
+                to_fail=rounds_to(h.rel_error, ROBUST_FAIL),
+                finite=bool(np.isfinite(h.loss).all()),
+                loss=[float(v) for v in h.loss],
+                rel=[float(v) for v in h.rel_error],
+                arrivals=[float(v) for v in h.arrivals],
+                ms_per_round=(float(np.median(ms[chunk:])) if len(ms) > chunk
+                              else None))
+
+
+def ext_robustness(device) -> dict:
+    """Phase 4e: the reference's ext_robustness quick matrix by the engine
+    (ROBUST_PLANS x {identity, int8} x clip_rtol {0, 1e-3}), each row's
+    rounds to 1e-6 printed beside the committed one. Gates: clean runs
+    bit-identical with the screen on and off (each wire); the defended
+    history run within ROBUST_DEFENDED_RATIO x the port's own clean rounds;
+    the undefended float64 history run finite (the contract finding, see
+    ROBUST_F32_ROUNDS) and, in float32 on the same data, the undefended run
+    non-finite while the defended one stays finite and falls; two runs of
+    ROBUST_DET_PLAN bit-identical."""
+    from repro_torch.core import AAConfig, AlgoHParams, solve_reference
+    from repro_torch.robust import FaultPlan
+
+    prob = acceptance_problem(device)
+    w_star = solve_reference(prob, iters=100)
+    committed = {r["name"]: r for r in json.loads(
+        (ROOT / "benchmarks/results/ext_robustness.json").read_text())}
+    hps = {d: AlgoHParams(eta=ETA, local_epochs=L_EPOCHS,
+                          aa=AAConfig(clip_rtol=c))
+           for d, c in (("off", 0.0), ("on", ROBUST_CLIP))}
+    rows = {}
+    t0 = time.perf_counter()
+    for cname, channel in (("identity", None), ("int8", "int8")):
+        for fname, kw in ROBUST_PLANS:
+            for dname, hp in hps.items():
+                name = f"ext_robustness/{cname}/{fname}/{dname}"
+                r = rows[name] = robust_run(
+                    prob, w_star, hp, ROBUST_CAP, device, channel,
+                    faults=FaultPlan(**kw) if kw else None)
+                r["committed_to_target"] = committed[name]["rounds_to_target"]
+                print(f"  {name:38s} rounds to 1e-6: {r['to_target']} "
+                      f"(committed {r['committed_to_target']}), to 1e-4: "
+                      f"{r['to_fail']}, rounds run {r['rounds']}, finite "
+                      f"{r['finite']}, final rel-error {r['rel'][-1]:.3e}, "
+                      f"{r['ms_per_round'] or float('nan'):.3f} ms/round",
+                      flush=True)
+    matrix_s = time.perf_counter() - t0
+    for cname in ("identity", "int8"):
+        a, b = (rows[f"ext_robustness/{cname}/clean/{d}"]["loss"]
+                for d in ("off", "on"))
+        if a != b:
+            raise AssertionError(f"{cname}: the clean run differs with the "
+                                 f"clip_rtol screen on: {a} / {b}")
+    clean = rows["ext_robustness/identity/clean/off"]["to_target"]
+    dfd = rows["ext_robustness/identity/history/on"]
+    und = rows["ext_robustness/identity/history/off"]
+    ratio = (dfd["to_target"] / clean if dfd["to_target"] and clean
+             else None)
+    if ratio is None or ratio > ROBUST_DEFENDED_RATIO:
+        raise AssertionError(f"defended history: {dfd['to_target']} rounds "
+                             f"to 1e-6 against the clean {clean} (ratio "
+                             f"{ratio}, limit {ROBUST_DEFENDED_RATIO})")
+    to_fail, to_target = REFERENCE_F64_HISTORY
+    if not (und["finite"] and und["to_fail"] is not None
+            and abs(und["to_fail"] - to_fail) <= 1
+            and und["to_target"] is not None
+            and abs(und["to_target"] - to_target) <= 1):
+        raise AssertionError(
+            f"the undefended float64 history run: finite {und['finite']}, "
+            f"rounds to 1e-4 / 1e-6 {und['to_fail']} / {und['to_target']}, "
+            f"against the f64-accumulating reference's {to_fail} / "
+            f"{to_target} (within one)")
+    # the attack landing: float32, as the reference's f32 accumulation
+    p32 = acceptance_problem(device, torch.float32)
+    f32 = {d: robust_run(p32, w_star.to(torch.float32), hp, ROBUST_F32_ROUNDS,
+                         device, faults=FaultPlan(**dict(ROBUST_PLANS)["history"]))
+           for d, hp in hps.items()}
+    if f32["off"]["finite"] or not (f32["on"]["finite"] and
+                                    f32["on"]["loss"][-1] < f32["on"]["loss"][0]):
+        raise AssertionError(f"float32 history pair: undefended finite "
+                             f"{f32['off']['finite']} (must not be), "
+                             f"defended {f32['on']['loss']}")
+    det = [robust_run(prob, w_star, hps["on"], 6, device,
+                      faults=FaultPlan(**ROBUST_DET_PLAN)) for _ in range(2)]
+    if det[0]["loss"] != det[1]["loss"]:
+        raise AssertionError(f"determinism plan: two runs differ: "
+                             f"{det[0]['loss']} / {det[1]['loss']}")
+    summary = dict(
+        clean_defense_parity_bitwise=True, clean_rounds_to_target=clean,
+        defended_rounds_to_target=dfd["to_target"],
+        defended_rounds_vs_clean=ratio,
+        undefended_f64_finite=und["finite"],
+        undefended_f64_rounds_to_1e4=und["to_fail"],
+        undefended_f32_finite=f32["off"]["finite"],
+        defended_f32_loss=f32["on"]["loss"],
+        fault_determinism_bit_identical=True, matrix_s=matrix_s)
+    print("  ext_robustness summary " + json.dumps(summary), flush=True)
+    return dict(rows={k: {f: v for f, v in r.items() if f not in ("loss",)}
+                      for k, r in rows.items()}, summary=summary)
+
+
+def ext_async(device) -> dict:
+    """Phase 4e: the reference's ext_async quick configuration by the
+    engine: barriered without and with the latency plan, deadline-gated
+    with the history guard on and off. Gates: the gated run reaches 1e-6
+    within ASYNC_ROUND_MULTIPLE x the barriered run's rounds, and its
+    simulated wall to target (each round's effective deadline) is strictly
+    below the barriered run's (each round's slowest latency), replayed on
+    the host from the port's own latency draws (the round's
+    ``fill_draws``, the same generator calls); AsyncConfig() bit-identical
+    to no config; two gated runs of ASYNC_DET_PLAN (latency and dropout)
+    bit-identical."""
+    from repro_torch.core import AlgoHParams, make_round_fn, solve_reference
+    from repro_torch.robust import AsyncConfig, FaultPlan, plan_async, realize
+    from repro_torch.robust.faults import LATENCY
+
+    prob = acceptance_problem(device)
+    w_star = solve_reference(prob, iters=100)
+    K = prob.clients.num_clients
+    committed = {r["name"]: r for r in json.loads(
+        (ROOT / "benchmarks/results/ext_async.json").read_text())}
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+    plan = FaultPlan(seed=0, **ASYNC_LATENCY)
+    gate = AsyncConfig(**ASYNC_GATE)
+    noguard = dataclasses.replace(gate, guard_history=False)
+    runs = {}
+    for name, robust in (("sync/clean", {}), ("sync/latency", dict(faults=plan)),
+                         ("gated/guard", dict(faults=plan, async_cfg=gate)),
+                         ("gated/noguard", dict(faults=plan,
+                                                async_cfg=noguard))):
+        r = runs[name] = robust_run(prob, w_star, hp, ASYNC_CAP, device,
+                                    **robust)
+        r["committed_to_target"] = committed[f"ext_async/{name}"][
+            "rounds_to_target"]
+        print(f"  ext_async/{name:14s} rounds to 1e-6: {r['to_target']} "
+              f"(committed {r['committed_to_target']}), rounds run "
+              f"{r['rounds']}, arrivals {r['arrivals'][:8]}..., "
+              f"{r['ms_per_round'] or float('nan'):.3f} ms/round", flush=True)
+    r_sync = runs["sync/latency"]["to_target"]
+    r_gated = runs["gated/guard"]["to_target"]
+    if not (r_sync and r_gated and r_gated <= ASYNC_ROUND_MULTIPLE * r_sync):
+        raise AssertionError(f"gated {r_gated} rounds against barriered "
+                             f"{r_sync} (limit x{ASYNC_ROUND_MULTIPLE})")
+    # the wall-clock replay from the round's own latency draws
+    horizon = max(r_sync, r_gated)
+    rf = make_round_fn("fedosaa_svrg", prob, hp, device=device, faults=plan,
+                       async_cfg=gate)
+    bufs = {LATENCY: torch.empty((horizon, K), device=device)}
+    rf.fill_draws(bufs, 0)
+    ids = torch.arange(K)
+    barrier, gated = [], []
+    for z in bufs[LATENCY].cpu():
+        lat = realize(plan, {LATENCY: z}, ids).latency
+        barrier.append(float(lat.max()))
+        gated.append(float(plan_async(gate, lat, torch.zeros(K, dtype=torch.int32),
+                                      torch.full((K,), 1.0 / K)).deadline))
+    wall_sync, wall_gated = sum(barrier[:r_sync]), sum(gated[:r_gated])
+    if not wall_gated < wall_sync:
+        raise AssertionError(f"gated simulated wall {wall_gated} is not below "
+                             f"the barriered {wall_sync}")
+    base, off = (robust_run(prob, w_star, hp, 6, device, **kw)
+                 for kw in ({}, dict(async_cfg=AsyncConfig())))
+    det = [robust_run(prob, w_star, hp, 6, device,
+                      faults=FaultPlan(**ASYNC_DET_PLAN), async_cfg=gate)
+           for _ in range(2)]
+    if base["loss"] != off["loss"]:
+        raise AssertionError("AsyncConfig() differs from no config")
+    if det[0]["loss"] != det[1]["loss"] or det[0]["arrivals"] != det[1]["arrivals"]:
+        raise AssertionError("two gated runs of the latency+dropout plan differ")
+    summary = dict(
+        gated_rounds_vs_barriered=r_gated / r_sync,
+        barriered_rounds_to_target=r_sync, gated_rounds_to_target=r_gated,
+        noguard_rounds_to_target=runs["gated/noguard"]["to_target"],
+        barriered_sim_wall_to_target=wall_sync,
+        gated_sim_wall_to_target=wall_gated,
+        gated_wall_below_barriered=True, inactive_parity_bitwise=True,
+        repeat_bit_identical=True)
+    print("  ext_async summary " + json.dumps(summary), flush=True)
+    return dict(runs=runs, summary=summary)
+
+
+def robust_paper(clients, w_star, device, dense: dict) -> dict:
+    """Phase 4e at paper scale: each ROBUST_RUNS run by the loop and by the
+    engine (``loop_and_engine_run``: launches a round as the clean run's,
+    the faults adding only torch ops; engine = loop in every row and the
+    whole state, the anchor rows, buffer rows and ages included; one host
+    read a chunk; a warmed-up round, its fault draws included, makes no
+    host read), the cohort run's never-drawn rows frozen; each printed
+    beside its clean run of phases 4-4d (``dense``; one with the run's
+    knobs is made here where none has them): engine ms a round, capture
+    ms, peak memory."""
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.robust import AsyncConfig, FaultPlan
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    out = {}
+    for name, algo, knobs, channel, plan, gate, clean in ROBUST_RUNS:
+        robust = dict(faults=FaultPlan(**plan),
+                      async_cfg=AsyncConfig(**gate) if gate else None)
+        r = out[name] = loop_and_engine_run(
+            prob, name, algo, knobs, channel, w_star, device,
+            state_gate=frozen_rows if "participation" in knobs else None,
+            robust=robust)
+        d = dense.get(clean) or out.get(clean)
+        if d is None:
+            d = out[clean] = loop_and_engine_run(
+                prob, clean, algo, knobs, channel, w_star, device,
+                state_gate=frozen_rows if "participation" in knobs else None)
+        # phase 4's runs record the engine's absolute peak, the others the
+        # peak above the run's start
+        peak = (f"{d['engine']['peak_above_mib']:.1f} MiB"
+                if "peak_above_mib" in d["engine"] else
+                f"(phase 4: {d['engine']['peak_mib']:.1f} MiB absolute)")
+        print(f"  {name} against its clean run {clean}: engine "
+              f"{r['engine']['ms_per_round']:.3f} / "
+              f"{d['engine']['ms_per_round']:.3f} ms a round, loop "
+              f"{r['ms_per_round']:.3f} / {d['ms_per_round']:.3f}, capture "
+              f"{r['engine']['capture_ms']:.1f} / "
+              f"{d['engine']['capture_ms']:.1f} ms, engine peak above its "
+              f"start {r['engine']['peak_above_mib']:.1f} MiB / {peak}, "
+              f"rel-error after 10 rounds {r['rel_error']:.3e} / "
+              f"{d['rel_error']:.3e}", flush=True)
+        r["clean_run"] = clean
+    return out
 
 
 def compression(device) -> dict:
@@ -2701,6 +3127,11 @@ def main() -> int:
     from repro_torch.models.logreg import make_logreg_problem
 
     device = torch.device("cuda", 0)
+    start = time.perf_counter()
+
+    def clock() -> str:
+        """Seconds since the card was found, before each phase's line."""
+        return f"[{time.perf_counter() - start:.1f} s]"
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2708,7 +3139,7 @@ def main() -> int:
           f"{''.join(map(str, torch.cuda.get_device_capability(0)))}", flush=True)
     t0 = time.perf_counter()
     _build.library()
-    print(f"phase 1: kernels built in {_build.build_seconds or 0.0:.1f} s "
+    print(f"{clock()} phase 1: kernels built in {_build.build_seconds or 0.0:.1f} s "
           f"(nvcc), loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -2718,7 +3149,7 @@ def main() -> int:
           f"{clients.x.shape[1]}, d={clients.x.shape[2]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print("phase 2: kernels against their plain versions", flush=True)
+    print(f"{clock()} phase 2: kernels against their plain versions", flush=True)
     floor = launch_floor(device)
     quant = check_quant(device, floor)
     uplink = check_uplink(device, floor)
@@ -2727,11 +3158,11 @@ def main() -> int:
     aa_wide = check_aa_step_wide(device, floor)
     lm_checks = check_lm_kernels(device, floor)
 
-    print("phase 3: acceptance configuration (n=10,000, K=10, float64)",
+    print(f"{clock()} phase 3: acceptance configuration (n=10,000, K=10, float64)",
           flush=True)
     acceptance(device)
 
-    print("phase 4: paper scale (N=581,012, K=100)", flush=True)
+    print(f"{clock()} phase 4: paper scale (N=581,012, K=100)", flush=True)
     t0 = time.perf_counter()
     w_star = solve_reference(
         make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device),
@@ -2739,22 +3170,32 @@ def main() -> int:
     print(f"  w* by Newton-CG in {time.perf_counter() - t0:.1f} s", flush=True)
     paper = paper_scale(clients, w_star, device)
     no_host_read(clients, device)
-    print("phase 4b: the trajectory family at paper scale (float64, 10 "
+    print(f"{clock()} phase 4b: the trajectory family at paper scale (float64, 10 "
           "rounds)", flush=True)
     family = trajectory_family(clients, w_star, device)
-    print("phase 4c: the Newton family at paper scale (float64, 10 rounds)",
+    print(f"{clock()} phase 4c: the Newton family at paper scale (float64, 10 rounds)",
           flush=True)
     newton = newton_family(clients, w_star, device, paper)
-    print(f"phase 4d: cohorts (participation {COHORT_PARTICIPATION} at paper "
+    print(f"{clock()} phase 4d: cohorts (participation {COHORT_PARTICIPATION} at paper "
           f"scale; the ext_cohort point)", flush=True)
     t0 = time.perf_counter()
     cohort = cohorts(clients, w_star, device, floor,
                      {**paper, **family, **newton},
                      checks[torch.float64]["trajectory"])
     print(f"  phase 4d took {time.perf_counter() - t0:.1f} s", flush=True)
-    fl_runs = {**paper, **family, **newton, **cohort["runs"]}
+    print(f"{clock()} phase 4e: the robustness layer (faults and the deadline gate: "
+          "ext_robustness, ext_async, paper scale)", flush=True)
+    t0 = time.perf_counter()
+    robust = dict(ext_robustness=ext_robustness(device),
+                  ext_async=ext_async(device),
+                  paper=robust_paper(clients, w_star, device,
+                                     {**paper, **family, **newton,
+                                      **cohort["runs"]}))
+    print(f"  phase 4e took {time.perf_counter() - t0:.1f} s", flush=True)
+    fl_runs = {**paper, **family, **newton, **cohort["runs"],
+               **robust["paper"]}
 
-    print("phase 5: the wire on the ext_compression config (n=20,000, K=20, "
+    print(f"{clock()} phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)
     compression(device)
     if "--profile" in sys.argv[1:]:
@@ -2764,7 +3205,7 @@ def main() -> int:
     del clients
     torch.cuda.empty_cache()
 
-    print(f"phase 6: serving {LM_ARCH} at full width (prefill {LM_BATCH}x"
+    print(f"{clock()} phase 6: serving {LM_ARCH} at full width (prefill {LM_BATCH}x"
           f"{LM_PROMPT}, {LM_DECODE} decode steps, the slot server)", flush=True)
     served = serving(device)
 
@@ -2871,7 +3312,9 @@ def main() -> int:
             row["uplink"] = {key: dict(
                 shape=u["shape"], max_abs_err=u["abs"], ms=u["ms"],
                 composed_ms=u["composed_ms"], plain_ms=u["plain_ms"],
-                bound_ms=u["bound"][0], bound_by=u["bound"][1])
+                bound_ms=u["bound"][0], bound_by=u["bound"][1],
+                **({"without_post_ms": u["without_post_ms"]}
+                   if "without_post_ms" in u else {}))
                 for key, u in uplink.items()}
             row["standalone"] = {shape: dict(
                 max_abs_err=q[name]["abs"], ms=q[name]["ms"],

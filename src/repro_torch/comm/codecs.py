@@ -63,21 +63,25 @@ class Codec:
     def uplink(self, x: torch.Tensor, u: torch.Tensor | None = None,
                anchor: torch.Tensor | None = None,
                ref: torch.Tensor | None = None,
-               ef: torch.Tensor | None = None):
+               ef: torch.Tensor | None = None,
+               post: torch.Tensor | None = None):
         """Every client's upload x [K, d] through this codec, as an uplink
         carries it (repro/core/algorithms.py:837-911): v = x − anchor (the
         anchor [d] broadcast over clients), less the carried reference ref
         (difference coding), plus the error-feedback residual ef, is
-        roundtripped with the uniforms u. Returns (the server's view
-        roundtrip(v) + ref + anchor, the next residual v − roundtrip(v) or
-        None without ef, the next reference roundtrip(v) + ref or None
-        without ref)."""
+        roundtripped with the uniforms u, and the addend ``post`` [K, d]
+        (the DP noise of robust/faults.py) joins the decoded value before
+        the residual is taken. With dec = roundtrip(v) + post, returns (the
+        server's view dec + ref + anchor, the next residual v − dec or None
+        without ef, the next reference dec + ref or None without ref)."""
         v = x - anchor if anchor is not None else x
         if ref is not None:
             v = v - ref
         if ef is not None:
             v = v + ef
         dec = self.roundtrip(v, u)
+        if post is not None:
+            dec = dec + post
         new_e = v - dec if ef is not None else None
         if ref is not None:
             # the reference tracks the decoded stream on both ends
@@ -158,10 +162,10 @@ class Int8SRCodec(Codec):
         return int8_sr_roundtrip(flat, u.reshape(flat.shape[0], *u.shape[-2:])
                                  ).reshape(x.shape)
 
-    def uplink(self, x, u=None, anchor=None, ref=None, ef=None):
+    def uplink(self, x, u=None, anchor=None, ref=None, ef=None, post=None):
         if u is None:
             raise ValueError("int8 codec: the uniforms u are an input")
-        return int8_sr_uplink(x, u, anchor, ref, ef)
+        return int8_sr_uplink(x, u, anchor, ref, ef, post)
 
     def draw_shape(self, n):
         return (chunk_rows(n, self.chunk), self.chunk)

@@ -44,8 +44,16 @@ draws and per-client state rows (c_k, hist_s/hist_y, the comm buffers;
 core/client_store.py) are gathered to [C, ...], the unchanged round core
 runs on them, and the updated rows are scattered back into the K-sized
 store: clients outside the cohort keep their rows bit for bit. C = K is
-the identity cohort, bit for bit the dense round. Faults and the async gate
-are not ported yet.
+the identity cohort, bit for bit the dense round.
+
+Faults and the deadline gate (``faults=``, ``async_cfg=``;
+repro_torch/robust): the round draws its fault realization with its other
+draws, zeroes dropped clients' weights, wraps the reduce so the uplinks
+carry the byzantine, stale and DP perturbations, poisons the byzantine
+clients' last AA column (the SVRG family's FedOSAA), and after the
+unchanged round core refreshes the stale anchors, freezes the dropped
+clients' rows and runs the gate's buffer fold and transition, dense or in
+a cohort, with no host read.
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ from repro_torch.core.krylov import gmres
 from repro_torch.core.problem import (ClientBatch, FLProblem, sample_minibatch,
                                       sample_minibatch_indices)
 from repro_torch.kernels.local_update import fused_trajectory
+from repro_torch.robust import async_agg, faults as flt
 from repro_torch.utils import tree_math as tm
 
 #: the round algorithms this package implements: the reference's ten
@@ -221,16 +230,18 @@ class RoundMetrics(NamedTuple):
     cohort_ess: torch.Tensor    # effective sample size 1/Σw² of the weights
     comm_bytes: torch.Tensor    # bytes on the wire this round (a host
                                 # tensor: counted from shapes)
-    arrivals: torch.Tensor      # deadline-gated landings this round; nan (a
-                                # host tensor) while robust/async_agg is not
-                                # ported, as the reference's with async off
-    staleness_mean: torch.Tensor  # mean landed buffer age (nan, likewise)
-    staleness_max: torch.Tensor   # oldest landed buffer age (nan, likewise)
+    arrivals: torch.Tensor      # deadline-gated landings this round (a
+                                # device tensor); nan, a host tensor, with
+                                # the gate off
+    staleness_mean: torch.Tensor  # mean landed buffer age (likewise)
+    staleness_max: torch.Tensor   # oldest landed buffer age (likewise)
 
 
-#: the RoundMetrics fields that are host tensors: counted from shapes and the
-#: configuration, the same in every round of one round function. The engine
-#: reads them on the host and keeps them out of its device readout.
+#: the RoundMetrics fields that are host tensors in a synchronous round:
+#: counted from shapes and the configuration, the same in every round of
+#: one round function. A round function names its own in ``host_metrics``
+#: (the gated round's arrivals and staleness are device tensors); the
+#: engine reads those on the host and keeps them out of its device readout.
 HOST_METRICS = ("comm_bytes", "arrivals", "staleness_mean", "staleness_max")
 
 
@@ -423,17 +434,23 @@ def _trajectory(problem: FLProblem, hp: AlgoHParams, w_t: torch.Tensor,
 
 def _client_svrg(problem: FLProblem, hp: AlgoHParams, use_aa: bool, w_t,
                  g_global, batch: ClientBatch, idx=None, hist_s=None,
-                 hist_y=None):
+                 hist_y=None, poison=None):
     """Every client's SVRG trajectory, then (FedOSAA) one AA step. With
     carried columns hist_s/hist_y [K, H, d], they are prepended to the
     round's (m = H + L) and the last H fresh columns are carried on
-    (App. A option 1). Returns (w_k [K, d], AAStats with [K] entries, the
-    new hist_s, hist_y; the old ones where no AA step runs)."""
+    (App. A option 1). ``poison`` = (flags [K], noise [K, d], scale): the
+    byzantine history fault, applied to the flagged clients' last fresh Y
+    column after the trajectory and before the columns are carried on
+    (robust/faults.py::poison_last_column). Returns (w_k [K, d], AAStats
+    with [K] entries, the new hist_s, hist_y; the old ones where no AA
+    step runs)."""
     w_traj, r_traj = _trajectory(problem, hp, w_t, batch, idx, 1.0, g_global)
     if not use_aa:
         return (_last(w_traj), _nan_stats(batch.x.shape[0], w_t), hist_s,
                 hist_y)
     s, y_stack = trajectory_to_sy(w_traj, r_traj, hp.aa.residual_ema)
+    if poison is not None:
+        y_stack = flt.poison_last_column(y_stack, *poison)
     s_all, y_all = s, y_stack
     if hist_s is not None:
         H = hist_s.shape[1]
@@ -619,7 +636,8 @@ class CrossClientReduce:
 
     def uplink(self, stacked: torch.Tensor, spec: UplinkSpec,
                anchor: torch.Tensor | None = None, state: "dict | None" = None,
-               draw: "Callable[[UplinkSpec, tuple], torch.Tensor] | None" = None):
+               draw: "Callable[[UplinkSpec, tuple], torch.Tensor] | None" = None,
+               post: torch.Tensor | None = None):
         """Channel roundtrip of every client's upload stacked [K, d],
         declared by ``spec`` (repro/core/algorithms.py:837-911).
 
@@ -627,17 +645,20 @@ class CrossClientReduce:
         the carried reference ``state[spec.tag]["ref"]`` when there is one
         (difference coding), plus the error-feedback residual
         ``state[spec.tag]["ef"]``; ``codec.uplink`` does that arithmetic
-        around the codec. ``draw(spec, shape)`` gives a stochastic
+        around the codec. ``post`` [K, d] (the DP noise) is added to the
+        decoded value before the residual is taken, so the residual and
+        the reference track the noised wire; with it, the identity codec
+        runs that arithmetic too. ``draw(spec, shape)`` gives a stochastic
         codec's uniforms [K, nc, C]. ``state`` is the whole comm dict (or
-        None); tags other than ``spec.tag`` pass through. Returns (the
-        server's view of the uploads [K, d], the comm dict with this tag's
-        buffers advanced)."""
+        None); tags and reserved keys other than ``spec.tag`` pass through.
+        Returns (the server's view of the uploads [K, d], the comm dict
+        with this tag's buffers advanced)."""
         if spec.anchored != (anchor is not None):
             raise ValueError(
                 f"uplink {spec.tag!r}: anchored={spec.anchored} but anchor "
                 f"{'missing' if anchor is None else 'given'}")
         codec = self.channel.up_codec(spec.kind)
-        if isinstance(codec, IdentityCodec):
+        if isinstance(codec, IdentityCodec) and post is None:
             return stacked, state
         sub = state.get(spec.tag) if state is not None else None
         ef = sub.get("ef") if sub else None
@@ -648,7 +669,7 @@ class CrossClientReduce:
                 raise ValueError(f"uplink {spec.tag!r}: codec {codec} draws "
                                  "uniforms; pass draw")
             u = None if shape is None else draw(spec, (stacked.shape[0], *shape))
-            dec, new_e, new_h = codec.uplink(stacked, u, anchor, ref, ef)
+            dec, new_e, new_h = codec.uplink(stacked, u, anchor, ref, ef, post)
         if not sub:
             return dec, state
         new_sub = {}
@@ -698,27 +719,28 @@ def _metric_parts(problem, R, w, g, stats: AAStats, x, y, mask, dweight,
 # Two weights: ``dweight`` weighs the clients in the global quantities (the
 # losses, ∇f, SCAFFOLD's c), ``pweight`` in the model aggregate. The dense
 # round and a cohort pass the same weights twice; they part under dropout
-# and the async gate (the reference's robust/).
+# and the async gate (robust/).
 # --------------------------------------------------------------------------
 
 def _svrg_round_core(problem, hp, use_aa, R, w_t, x, y, mask, dweight,
                      pweight, comm_bytes: float, comm=None, draw=None, idx=None,
-                     hist_s=None, hist_y=None):
+                     hist_s=None, hist_y=None, poison=None):
     """SVRG family: corrected local steps (+ optional AA), delta aggregation.
 
     Two wire crossings: w^t travels down and the local full-batch gradients
     travel up; then ∇f travels down and the model deltas travel up, anchored
     at the broadcast w^t. The carried AA history is client-local state and
     never touches the wire. The metrics are taken at the broadcast w^t.
-    Returns (new params, metrics, the advanced comm state, the new carried
-    hist_s, hist_y)."""
+    ``poison``: the byzantine history fault (see _client_svrg). Returns
+    (new params, metrics, the advanced comm state, the new carried hist_s,
+    hist_y)."""
     w_t = R.broadcast(w_t)
     g_k, comm = R.uplink(_stack_grads(problem, w_t, x, y, mask), GRAD_UPLINK,
                          state=comm, draw=draw)
     g_global = R.broadcast(R.wsum(dweight, g_k))
     w_k, stats, hist_s, hist_y = _client_svrg(
         problem, hp, use_aa, w_t, g_global, ClientBatch(x, y, mask), idx,
-        hist_s, hist_y)
+        hist_s, hist_y, poison)
     w_k, comm = R.uplink(w_k, DELTA_UPLINK, anchor=w_t, state=comm, draw=draw)
     new_params = R.wsum(pweight, w_k, anchor=w_t)
     return (new_params, _metric_parts(problem, R, w_t, g_global, stats, x, y,
@@ -947,9 +969,25 @@ def _draw_seed(seed: int, t: int, fold: int) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
+class _Draw(NamedTuple):
+    """One draw of a round: the dense round's shape, its dtype, the seed
+    and fold of its generator, and its kind: "uniform" (torch.rand),
+    "normal" (torch.randn), "tiny" (a uniform clamped to at least f32's
+    tiny), "minibatch" (f64 uniforms turned into row indices), "cohort"
+    (f64 uniforms turned into C client indices)."""
+
+    shape: tuple
+    dtype: torch.dtype
+    fold: int
+    kind: str
+    seed: int
+
+
 def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                   channel: "CommChannel | str | None" = None, seed: int = 0,
-                  device: "str | torch.device" = DEFAULT_DEVICE):
+                  device: "str | torch.device" = DEFAULT_DEVICE,
+                  faults: "flt.FaultPlan | None" = None,
+                  async_cfg: "async_agg.AsyncConfig | None" = None):
     """Return round(state, draws=None) -> (state, RoundMetrics) for
     ``algo`` on ``problem`` (whose data must already be on ``device``),
     every wire crossing through ``channel`` (None: the lossless identity).
@@ -971,6 +1009,24 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     so a cohort client k draws what client k would draw in a dense round,
     whoever else was drawn (the reference's ``rngs_K[idx]``), and the round
     sees [C, ...] draws; ``draws`` passes them so.
+
+    ``faults`` (robust/faults.py) injects a FaultPlan's dropout, stale
+    anchors, byzantine uplinks or history, DP noise and latencies;
+    ``async_cfg`` (robust/async_agg.py) closes the round at a deadline:
+    late clients' post-codec updates wait in buffer rows and fold in later,
+    weighted down by their staleness. Their draws join the round's
+    (robust/faults.py::fault_draws: ``"fault.drop"``, ``"fault.stale"``,
+    ``"fault.latency"`` [K] f32; ``"fault.byz.<tag>"``,
+    ``"fault.dp.<tag>"``, ``"fault.poison"`` [K, d] standard normals in the
+    params' dtype), each seeded from (``faults.seed``, t, its fold), so a
+    plan's seed keys its stream whatever ``seed`` is. The state must carry
+    the plan's rows: ``init_fault_comm`` with ``stale_rate`` > 0 and
+    ``init_async_comm`` with an active gate (run_federated attaches them).
+    None or an inactive plan or config builds the round without them, bit
+    for bit, with the same draws. GIANT and Newton-GMRES aggregate
+    directions, not deltas: they take faults and refuse an active gate.
+    With the gate on, the round's ``arrivals`` and ``staleness_*`` metrics
+    are device tensors; ``round.host_metrics`` names the host ones.
 
     A chunk of rounds gets its draws ahead of time through two attributes
     of the returned function: ``round.draw_specs``, {name: (shape, dtype)}
@@ -1010,6 +1066,13 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         # the carried columns are the last H of a round's L fresh ones
         raise ValueError(f"carry_history must be in [0, local_epochs="
                          f"{hp.local_epochs}], got {hp.carry_history}")
+    # an absent or inactive plan or gate builds the plain round
+    faults = faults if faults is not None and faults.active else None
+    async_cfg = async_cfg if async_cfg is not None and async_cfg.active else None
+    if async_cfg is not None and algo in LINE_SEARCH_ALGOS:
+        raise ValueError(
+            f"AsyncConfig requires a delta-form model aggregation; {algo!r} "
+            "aggregates Newton directions and cannot buffer client deltas")
     dev = _check_device(problem, device)
     # resolve the knobs once, so the round bodies see "tree"/"kernel"
     hp = dataclasses.replace(hp, aa_impl=resolve_aa_impl(hp.aa_impl),
@@ -1020,46 +1083,73 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     R = CrossClientReduce(channel)
     C = problem.clients
     K = C.num_clients
+    d = params0.shape[-1]
     csize = resolve_cohort_size(hp, K)
     # the clients a round computes on, and whether their draws are rows of
     # the dense round's (C < K) or the dense round's own (dense, C = K)
     n_round = K if csize is None else csize
     gathers = csize is not None and csize < K
-    # every draw of a round: name -> (the dense round's shape, dtype, fold)
-    specs = {}
+    family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
+              "scaffold" if algo in SCAFFOLD_ALGOS else
+              "avg" if algo in ("fedavg", "fedosaa_avg") else
+              "newton" if algo in LINE_SEARCH_ALGOS else algo)
+    use_aa = algo.startswith("fedosaa_")
+    poisons = (faults is not None and faults.poisons_history and use_aa
+               and family == "svrg")
+    # every draw of a round
+    specs: "dict[str, _Draw]" = {}
     if csize is not None:
-        specs[COHORT] = ((K,), torch.int64, COHORT_FOLD)
+        specs[COHORT] = _Draw((K,), torch.int64, COHORT_FOLD, "cohort", seed)
     for spec in UPLINK_SCHEMAS[algo]:
-        shape = channel.up_codec(spec.kind).draw_shape(params0.shape[-1])
+        shape = channel.up_codec(spec.kind).draw_shape(d)
         if shape is not None:
-            specs[spec.tag] = ((K, *shape), torch.float32, spec.fold)
+            specs[spec.tag] = _Draw((K, *shape), torch.float32, spec.fold,
+                                    "uniform", seed)
     if hp.batch_size is not None:
-        specs[MINIBATCH] = ((K, hp.local_epochs + 1, hp.batch_size),
-                            torch.int64, MINIBATCH_FOLD)
+        specs[MINIBATCH] = _Draw((K, hp.local_epochs + 1, hp.batch_size),
+                                 torch.int64, MINIBATCH_FOLD, "minibatch", seed)
+    fault_names = ()
+    if faults is not None:
+        for name, (kind, fold) in flt.fault_draws(
+                faults, UPLINK_SCHEMAS[algo], poisons).items():
+            if kind == "noise":
+                specs[name] = _Draw((K, d), params0.dtype, fold, "normal",
+                                    faults.seed)
+            else:
+                specs[name] = _Draw((K,), torch.float32, fold, kind,
+                                    faults.seed)
+            fault_names += (name,)
     # the shapes a round takes: [C, ...] in a cohort round
-    draw_specs = {name: ((n_round, *shape[1:]), dtype)
-                  for name, (shape, dtype, _) in specs.items()}
+    draw_specs = {name: ((n_round, *sp.shape[1:]), sp.dtype)
+                  for name, sp in specs.items()}
     # reseeded for each draw
     gen = torch.Generator(device=dev)
+    tiny = torch.finfo(torch.float32).tiny
 
     def draw_of(name: str, t: int, idx: torch.Tensor | None = None,
                 out: torch.Tensor | None = None) -> torch.Tensor:
         """Round t's draw ``name``; with ``idx``, its rows ``idx``."""
-        shape, dtype, fold = specs[name]
-        if name == COHORT and not gathers:
+        sp = specs[name]
+        if sp.kind == "cohort" and not gathers:
             v = torch.arange(K, device=dev)         # the identity cohort
         else:
-            gen.manual_seed(_draw_seed(seed, t, fold))
-            u = torch.rand(shape, generator=gen, device=dev, dtype=(
-                torch.float32 if dtype == torch.float32 else torch.float64))
-            if name == COHORT:
-                v = _cohort_indices(C.weight, csize, u)
+            gen.manual_seed(_draw_seed(sp.seed, t, sp.fold))
+            if sp.kind == "normal":
+                v = torch.randn(sp.shape, generator=gen, device=dev,
+                                dtype=sp.dtype)
             else:
-                mask = C.mask
-                if idx is not None:
-                    u, mask = u.index_select(0, idx), mask.index_select(0, idx)
-                v = (u if dtype == torch.float32
-                     else sample_minibatch_indices(mask, u))
+                v = torch.rand(sp.shape, generator=gen, device=dev, dtype=(
+                    torch.float64 if sp.kind in ("cohort", "minibatch")
+                    else torch.float32))
+            if sp.kind == "tiny":
+                v = torch.clamp(v, min=tiny)
+            if sp.kind == "cohort":
+                v = _cohort_indices(C.weight, csize, v)
+            elif idx is not None:
+                v = v.index_select(0, idx)
+            if sp.kind == "minibatch":
+                mask = C.mask if idx is None else C.mask.index_select(0, idx)
+                v = sample_minibatch_indices(mask, v)
         return v if out is None else out.copy_(v)
 
     def fill_draws(bufs: "dict[str, torch.Tensor]", t0: int) -> None:
@@ -1071,20 +1161,101 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                 if name != COHORT:
                     draw_of(name, t0 + i, idx if gathers else None, out=buf[i])
 
-    family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
-              "scaffold" if algo in SCAFFOLD_ALGOS else
-              "avg" if algo in ("fedavg", "fedosaa_avg") else
-              "newton" if algo in LINE_SEARCH_ALGOS else algo)
-    use_aa = algo.startswith("fedosaa_")
-    # the step sizes a round tries, made on the device once (a graph
-    # replays no host-to-device copy)
+    # the step sizes a round tries, and the dense round's client ids, made
+    # on the device once (a graph replays no host-to-device copy)
     ls_steps = dane_steps = None
     if family == "newton" and hp.line_search:
         ls_steps = torch.tensor(LINE_SEARCH_STEPS, dtype=params0.dtype,
                                 device=dev)
     if family == "dane":
         dane_steps = torch.tensor(DANE_STEPS, dtype=params0.dtype, device=dev)
+    all_ids = torch.arange(K, device=dev) if faults is not None else None
     client_fn = _client_giant if algo == "giant" else _client_newton_gmres
+
+    def reserved(plan: CohortPlan, key: str, init: str) -> torch.Tensor:
+        """The cohort's rows of a reserved comm key, or a clear refusal."""
+        comm = plan.cohort.comm
+        if comm is None or key not in comm:
+            raise ValueError(f"the state carries no {key!r} rows: attach them "
+                             f"with robust.{init} (run_federated does)")
+        return comm[key]
+
+    def fault_ctx(plan: CohortPlan, take, rows):
+        """(reduce, dweight, pweight, realization) of the round: the
+        realization from its draws, the dropped clients' weights zeroed
+        (SCAFFOLD's dweight too: its control variates ride the lost
+        uplink; the other families' gradients landed before the drop), and
+        the reduce wrapped with the uplink faults."""
+        if faults is None:
+            return R, plan.dweight, plan.pweight, None
+        fr = flt.realize(faults, {n: take(n, rows) for n in fault_names},
+                         all_ids if plan.idx is None else plan.idx)
+        dw, pw = plan.dweight, plan.pweight
+        if faults.drop_rate > 0.0:
+            pw = flt.drop_weights(fr.drop, pw)
+            if family == "scaffold":
+                dw = flt.drop_weights(fr.drop, dw)
+        anchors = None
+        if faults.stale_rate > 0.0:
+            anchors = reserved(plan, flt.FAULT_ANCHOR_KEY, "init_fault_comm")
+        return flt.FaultyReduce(R, faults, fr, anchors), dw, pw, fr
+
+    def fault_epilogue(plan: CohortPlan, fr, w_t, upd: dict) -> dict:
+        """The stale anchors refreshed, then the dropped rows frozen (a
+        dropped client's refreshed anchor freezes back too)."""
+        if faults is None:
+            return upd
+        if faults.stale_rate > 0.0 and upd.get("comm") is not None:
+            upd = {**upd, "comm": flt.advance_anchor(upd["comm"], fr.stale, w_t)}
+        if faults.drop_rate > 0.0:
+            upd = flt.freeze_dropped(fr.drop, plan.cohort, upd)
+        return upd
+
+    def async_ctx(plan: CohortPlan, Rr, fr, dw, pw):
+        """The gate's partition of the round's clients by latency (all on
+        time without a latency plan), the core's weights (the fresh
+        clients'; SCAFFOLD's dweight renormalized over them), and the
+        reduce wrapped to capture the model uplink's post-codec rows."""
+        if async_cfg is None:
+            return Rr, dw, pw, None
+        latency = fr.latency if fr is not None else torch.zeros_like(pw)
+        drop = fr.drop if (faults is not None and faults.drop_rate > 0.0) \
+            else None
+        ar = async_agg.plan_async(
+            async_cfg, latency,
+            reserved(plan, async_agg.ASYNC_AGE_KEY, "init_async_comm"), pw,
+            drop=drop)
+        if family == "scaffold":
+            # the control variates ride the model uplink: only fresh
+            # arrivals enter c (a fold's c_up is lost)
+            dwz = torch.where(ar.fresh, dw, 0.0)
+            dw = dwz / torch.clamp(dwz.sum(), min=1e-30)
+        return async_agg.CaptureReduce(Rr), dw, ar.fresh_weights, ar
+
+    def async_epilogue(plan: CohortPlan, ar, Rc, w_t, new_params, upd):
+        """The buffer fold into the params and the buffer transition, after
+        fault_epilogue (the dropped-row freeze must not undo the buffer
+        writes); a non-fresh client's c_k reverts; busy clients' history
+        rows are guarded. Returns (params, updates, the async stats)."""
+        if async_cfg is None:
+            return new_params, upd, None
+        comm_in = plan.cohort.comm
+        buf = comm_in[async_agg.ASYNC_BUF_KEY]
+        new_params = async_agg.fold_buffered(new_params, ar.fold_weights, buf)
+        # encode at send: the deferred client's row is its post-codec delta
+        # against this round's anchor, captured off the model uplink
+        new_buf, new_age = async_agg.advance_buffer(
+            ar, Rc.captured - w_t, buf, comm_in[async_agg.ASYNC_AGE_KEY])
+        comm = dict(upd["comm"] if upd.get("comm") is not None else comm_in)
+        comm[async_agg.ASYNC_BUF_KEY] = new_buf
+        comm[async_agg.ASYNC_AGE_KEY] = new_age
+        upd = {**upd, "comm": comm}
+        if upd.get("c_k") is not None:
+            upd["c_k"] = flt.tree_select(~ar.fresh, plan.cohort.c_k, upd["c_k"])
+        if async_cfg.guard_history:
+            upd = async_agg.guard_history_rows(ar.fold | ar.retain,
+                                               plan.cohort, upd)
+        return new_params, upd, async_agg.async_round_stats(ar)
 
     def round_fn(state: ServerState, draws: "dict | None" = None):
         def take(name: str, rows: torch.Tensor | None = None) -> torch.Tensor:
@@ -1111,16 +1282,22 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
 
         plan = _plan_round(C, csize, state, idx)
         mb = take(MINIBATCH, rows) if hp.batch_size is not None else None
+        with record_function("fl.faults"):
+            Rr, dw, pw, fr = fault_ctx(plan, take, rows)
+            Rr, dw, pw, ar = async_ctx(plan, Rr, fr, dw, pw)
         cohort = plan.cohort
-        args = (plan.x, plan.y, plan.mask, plan.dweight, plan.pweight,
-                comm_bytes, cohort.comm, draw, mb)
+        args = (plan.x, plan.y, plan.mask, dw, pw, comm_bytes, cohort.comm,
+                draw, mb)
         upd = {}
+        c_old = state.c
         if family == "svrg":
             carry = hp.carry_history > 0 and state.hist_s is not None
+            poison = ((fr.byz, fr.noise[flt.POISON], faults.byz_scale)
+                      if poisons else None)
             new_params, metrics, comm, hist_s, hist_y = _svrg_round_core(
-                problem, hp, use_aa, R, state.params, *args,
+                problem, hp, use_aa, Rr, state.params, *args,
                 cohort.hist_s if carry else None,
-                cohort.hist_y if carry else None)
+                cohort.hist_y if carry else None, poison)
             if carry:
                 upd = dict(hist_s=hist_s, hist_y=hist_y)
         elif family == "scaffold":
@@ -1128,27 +1305,42 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                 raise ValueError(f"{algo} carries control variates: build its "
                                  f"state with init_state(..., algo={algo!r})")
             new_params, c, c_k, metrics, comm = _scaffold_round_core(
-                problem, hp, use_aa, R, state.params, state.c, cohort.c_k,
+                problem, hp, use_aa, Rr, state.params, state.c, cohort.c_k,
                 *args)
             upd = dict(c_k=c_k)
             state = state._replace(c=c)
         elif family == "avg":
             new_params, metrics, comm = _avg_round_core(
-                problem, hp, use_aa, R, state.params, *args)
+                problem, hp, use_aa, Rr, state.params, *args)
         elif family == "newton":
             new_params, metrics, comm = _newton_round_core(
-                problem, hp, client_fn, R, state.params, *args[:-1],
+                problem, hp, client_fn, Rr, state.params, *args[:-1],
                 ls_steps=ls_steps)
         elif family == "dane":
             new_params, metrics, comm = _dane_round_core(
-                problem, hp, R, state.params, *args[:-1], steps=dane_steps)
+                problem, hp, Rr, state.params, *args[:-1], steps=dane_steps)
         else:
             new_params, metrics, comm = _lbfgs_round_core(
-                problem, hp, R, state.params, *args)
-        upd = _commit_plan(plan, comm=comm, **upd)
+                problem, hp, Rr, state.params, *args)
+        upd = dict(comm=comm, **upd)
+        with record_function("fl.faults"):
+            upd = fault_epilogue(plan, fr, state.params, upd)
+            new_params, upd, astats = async_epilogue(
+                plan, ar, Rr, state.params, new_params, upd)
+        if astats is not None:
+            if family == "scaffold":
+                # c's aggregate is not delta-form: a round with no fresh
+                # arrival keeps the old c
+                state = state._replace(
+                    c=torch.where(ar.fresh.any(), state.c, c_old))
+            metrics = metrics._replace(arrivals=astats[0],
+                                       staleness_mean=astats[1],
+                                       staleness_max=astats[2])
+        upd = _commit_plan(plan, **upd)
         return state._replace(params=new_params, t=state.t + 1, **upd), metrics
 
     round_fn.draw_specs = draw_specs
     round_fn.fill_draws = fill_draws
+    round_fn.host_metrics = (("comm_bytes",) if async_cfg is not None
+                             else HOST_METRICS)
     return round_fn
-

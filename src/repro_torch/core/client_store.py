@@ -22,9 +22,11 @@ object, so no op touches state the round never advanced (the engine's
 live/stop select passes such a field through by identity too).
 
 The ``comm`` slot is ``{tag: {"ef"/"ref": [K, ...]}}``, the port's own
-layout; it will also carry the reserved per-client keys of the robustness
-layer when that is ported (the reference's fault anchor and async buffers
-ride it so that they survive gather and scatter).
+layout, plus the robustness layer's reserved keys, each holding its tensor
+directly: ``__fault_anchor__`` (the stale anchors, [K, d]),
+``__async_buf__`` ([K, d]) and ``__async_age__`` ([K] int32), the deadline
+gate's buffered deltas and their ages (repro_torch/robust). Riding the comm
+slot is what carries them through gather and scatter.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ class ClientStateStore(NamedTuple):
     c_k: "torch.Tensor | None" = None     # [K, d] client control variates
     hist_s: "torch.Tensor | None" = None  # [K, H, d] carried AA columns
     hist_y: "torch.Tensor | None" = None
-    comm: "dict | None" = None            # {tag: {"ef"/"ref": [K, d]}}
+    comm: "dict | None" = None            # {tag: {"ef"/"ref": [K, d]}} and
+                                          # the reserved robust/ keys
 
     @classmethod
     def from_state(cls, state) -> "ClientStateStore":

@@ -52,11 +52,17 @@ def server_state(p, t, comm=None, c=None, c_k=None, hist_s=None, hist_y=None,
 
 def comm_state(comm, device: "str | torch.device" = DEFAULT_DEVICE):
     """The reference's ``ServerState.comm`` as the port's: the same tags and
-    buffers, each a [K, d] tensor on ``device``; None stays None."""
+    buffers, each a [K, d] tensor on ``device``, and the robustness layer's
+    reserved keys (its dunder names), whose arrays (the [K, d] anchor and
+    buffer rows, the [K] int32 ages) become tensors as they are; None stays
+    None."""
     if comm is None:
         return None
     out = {}
     for tag, bufs in comm.items():
+        if tag.startswith("__"):
+            out[tag] = tensor(bufs, device)
+            continue
         for name, a in bufs.items():
             if np.ndim(a) != 2:
                 raise ValueError(f"comm[{tag!r}][{name!r}]: the port's buffers "

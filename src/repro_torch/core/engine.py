@@ -31,8 +31,10 @@ emits the row before it breaks.
 
 What stays on the host. ``state.t`` is a Python int: the engine advances
 it by the executed rounds after the chunk's read. The host-tensor metrics
-(``algorithms.HOST_METRICS``: the wire bytes, counted from shapes) are read
-at capture, and the engine sums the bytes per live round. A round's draws
+(``round.host_metrics``, ``algorithms.HOST_METRICS`` by default: the wire
+bytes, counted from shapes, and the deadline gate's metrics when it is
+off) are read at capture, and the engine sums the bytes per live round;
+the others join the device readout. A round's draws
 (``round.draw_specs``: a stochastic codec's f32 uniforms, a minibatch
 round's int64 row indices) are drawn before each replay into static
 [B, ...] buffers, by the same generator calls the loop makes for rounds
@@ -40,7 +42,8 @@ t0..t0+B−1 (``round.fill_draws``), and slot i reads its own: the draws,
 and so every int8 and minibatch run, equal the loop's.
 
 The carried state is every tensor of ``ServerState``: the params, the comm
-buffers, SCAFFOLD's control variates and the carried AA columns, each
+buffers (the robustness layer's anchor rows, buffer rows and int32 ages
+among them), SCAFFOLD's control variates and the carried AA columns, each
 where the state has it (``_tensors``, ``_map_state``). A tensor the round
 returned as the same object (a field it never advanced) passes the select
 and the copy back into the static buffers untouched, as the reference's
@@ -85,10 +88,16 @@ METRIC_FIELDS = (
     "aa_used_min", "aa_clipped_max", "cohort_ess", "comm_bytes",
     "arrivals", "staleness_mean", "staleness_max",
 )
-#: the metrics read from the device, in the readout's column order; then
-#: the rel-error, live and done columns
+#: the metrics a synchronous round reads from the device, in the readout's
+#: column order; then the rel-error, live and done columns
 DEVICE_FIELDS = tuple(f for f in METRIC_FIELDS if f not in HOST_METRICS)
-_REL, _LIVE, _DONE = len(DEVICE_FIELDS), len(DEVICE_FIELDS) + 1, len(DEVICE_FIELDS) + 2
+
+
+def metric_fields(round_fn) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(device fields, host fields) of ``round_fn``'s metrics: the host ones
+    are its ``host_metrics`` (HOST_METRICS for a round without it)."""
+    host = tuple(getattr(round_fn, "host_metrics", HOST_METRICS))
+    return tuple(f for f in METRIC_FIELDS if f not in host), host
 
 
 @dataclasses.dataclass
@@ -139,15 +148,28 @@ def _fetch(readout: torch.Tensor) -> np.ndarray:
 _TENSOR_FIELDS = ("params", "c", "c_k", "hist_s", "hist_y")
 
 
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a tensor or a nested dict of them, by sorted key."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree]
+
+
+def _map_tree(fn, *trees):
+    """``fn`` over matching tensors of tensors or nested dicts of them (the
+    keys of the first)."""
+    if isinstance(trees[0], dict):
+        return {k: _map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def _tensors(state: ServerState) -> list[torch.Tensor]:
     """The state's tensors in a fixed order: the tensor fields it has
-    (params, c, c_k, hist_s, hist_y), then the comm buffers."""
+    (params, c, c_k, hist_s, hist_y), then the comm state's (its
+    ``{tag: {name: tensor}}`` buffers and the reserved keys' tensors)."""
     out = [getattr(state, f) for f in _TENSOR_FIELDS
            if getattr(state, f) is not None]
-    for tag in sorted(state.comm or {}):
-        sub = state.comm[tag]
-        out.extend(sub[name] for name in sorted(sub))
-    return out
+    return out + (_leaves(state.comm) if state.comm is not None else [])
 
 
 def _map_state(fn, *states: ServerState) -> ServerState:
@@ -156,8 +178,7 @@ def _map_state(fn, *states: ServerState) -> ServerState:
     first = states[0]
     comm = None
     if first.comm is not None:
-        comm = {tag: {name: fn(*(s.comm[tag][name] for s in states))
-                      for name in sub} for tag, sub in first.comm.items()}
+        comm = _map_tree(fn, *(s.comm for s in states))
     fields = {f: fn(*(getattr(s, f) for s in states)) for f in _TENSOR_FIELDS
               if getattr(first, f) is not None}
     return first._replace(comm=comm, **fields)
@@ -197,6 +218,7 @@ class ChunkRunner:
                             else None)
         self.stop_rel_error = stop_rel_error
         self.stop_grad_norm = stop_grad_norm
+        self.device_fields, self.host_fields = metric_fields(round_fn)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.static: ServerState | None = None
         self.warmup_ms = self.capture_ms = None
@@ -206,7 +228,7 @@ class ChunkRunner:
               draws: "dict[str, torch.Tensor]"):
         """The chunk, eagerly: ``chunk`` unconditional rounds, each selected
         into the carried state while live. Returns (state, the [chunk,
-        len(DEVICE_FIELDS) + 3] float64 readout, the host metrics of each
+        len(device_fields) + 3] float64 readout, the host metrics of each
         slot). The CPU path calls it; the card captures it."""
         done = torch.zeros((), dtype=torch.bool, device=state.params.device)
         rows, host = [], []
@@ -227,10 +249,10 @@ class ChunkRunner:
                                < self.stop_grad_norm)
             done = done | (live & stop)
             rows.append(torch.stack(
-                [getattr(m, f).to(torch.float64) for f in DEVICE_FIELDS]
+                [getattr(m, f).to(torch.float64) for f in self.device_fields]
                 + [rel.to(torch.float64), live.to(torch.float64),
                    done.to(torch.float64)]))
-            host.append([float(getattr(m, f)) for f in HOST_METRICS])
+            host.append([float(getattr(m, f)) for f in self.host_fields])
         return state, torch.stack(rows), host
 
     def _draw_buffers(self, device) -> "dict[str, torch.Tensor]":
@@ -305,12 +327,13 @@ class ChunkRunner:
             out = _fetch(self.readout)
             host = self.host
             state = self.static
-        live = out[:, _LIVE] != 0
-        metrics = {f: out[:, j] for j, f in enumerate(DEVICE_FIELDS)}
-        for j, f in enumerate(HOST_METRICS):
+        n_dev = len(self.device_fields)
+        live = out[:, n_dev + 1] != 0
+        metrics = {f: out[:, j] for j, f in enumerate(self.device_fields)}
+        for j, f in enumerate(self.host_fields):
             metrics[f] = np.array([row[j] for row in host])
         state = state._replace(t=t0 + int(live.sum()))
-        return state, bool(out[-1, _DONE]), metrics, out[:, _REL], live
+        return state, bool(out[-1, n_dev + 2]), metrics, out[:, n_dev], live
 
 
 def make_chunk_runner(round_fn: Callable, chunk: int, *,

@@ -6,8 +6,9 @@ communication, wall time): round by round (``chunk=None``), or in chunks of
 rounds through the engine (core/engine.py; on the card one CUDA graph a
 chunk). Both feed the same telemetry rows to ``sinks`` (repro_torch/obs).
 ``hp.cohort_size`` or ``hp.participation`` < 1 runs every round on a
-sampled cohort of the clients (core/algorithms.py). Fault plans and
-checkpointing come with later slices.
+sampled cohort of the clients (core/algorithms.py); ``faults=`` and
+``async_cfg=`` inject a FaultPlan and gate the rounds at a deadline
+(repro_torch/robust). Checkpointing comes with a later slice.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.comm import CommChannel, make_channel
 from repro_torch.comm.schema import uplink_byte_breakdown
 from repro_torch.core import engine
-from repro_torch.core.algorithms import (HOST_METRICS, UPLINK_SCHEMAS,
-                                         AlgoHParams, _cg_solve, init_state,
-                                         make_round_fn, resolve_cohort_size)
+from repro_torch.core.algorithms import (UPLINK_SCHEMAS, AlgoHParams,
+                                         _cg_solve, init_state, make_round_fn,
+                                         resolve_cohort_size)
 from repro_torch.core.problem import FLProblem
+from repro_torch.robust import (AsyncConfig, FaultPlan, init_async_comm,
+                                init_fault_comm)
 from repro_torch.utils import tree_math as tm
 
 
@@ -42,9 +45,10 @@ class History:
     channel: str = "identity"     # CommChannel.name of the run's wire
     gram_cond_max: np.ndarray | None = None  # worst AA Gram conditioning
     arrivals: np.ndarray | None = None  # deadline-gated landings per round
-                                  # (nan: the deadline gate is not ported)
-    staleness_mean: np.ndarray | None = None  # mean landed buffer age (nan)
-    staleness_max: np.ndarray | None = None   # oldest landed buffer age (nan)
+                                  # (nan everywhere with the gate off)
+    staleness_mean: np.ndarray | None = None  # mean landed buffer age (nan
+                                  # if n/a)
+    staleness_max: np.ndarray | None = None   # oldest landed buffer age
 
     @property
     def comm_floats(self) -> np.ndarray:
@@ -78,6 +82,8 @@ def run_federated(
     chunk: int | None = None,
     sinks=(),
     trace_capture=None,
+    faults: FaultPlan | None = None,
+    async_cfg: AsyncConfig | None = None,
 ) -> History:
     """Iterate ``num_rounds`` of ``algo`` and collect the metric history.
 
@@ -100,6 +106,18 @@ def run_federated(
     the run after the round (loop) or the chunk (engine). ``trace_capture``
     (obs.TraceCapture) opens torch.profiler windows at round or chunk
     boundaries.
+
+    ``faults`` (robust.FaultPlan) injects its dropout, stale anchors,
+    byzantine uplinks or history, DP noise and latencies in every round;
+    ``async_cfg`` (robust.AsyncConfig) gates the rounds at its deadline,
+    late updates waiting in buffer rows (core/algorithms.make_round_fn).
+    A plan with ``stale_rate`` > 0 gets every client's anchor row at the
+    starting params, an active gate empty buffer rows, both in the comm
+    state, so they ride the cohort gather/scatter and the engine's graph.
+    None or an inactive plan or config runs the plain rounds bit for bit.
+    ``History.arrivals`` and ``staleness_*`` hold the gate's per-round
+    activity; the run header carries both configs (``dataclasses.asdict``,
+    None when absent).
     """
     if chunk is not None and chunk < 1:
         # the per-round loop is chunk=None; a chunk of 0 names neither path
@@ -112,7 +130,16 @@ def run_federated(
     state = init_state(problem, generator, device, channel, algo, hp)
     if w0 is not None:
         state = state._replace(params=w0)
-    round_fn = make_round_fn(algo, problem, hp, channel, seed, device)
+    K = problem.clients.num_clients
+    if faults is not None and faults.active and faults.stale_rate > 0.0:
+        # every client's anchor starts at the starting point
+        state = state._replace(comm=init_fault_comm(state.comm, state.params, K))
+    if async_cfg is not None and async_cfg.active:
+        # every client starts with an empty buffer (age 0)
+        state = state._replace(comm=init_async_comm(state.comm, state.params, K))
+    round_fn = make_round_fn(algo, problem, hp, channel, seed, device,
+                             faults=faults, async_cfg=async_cfg)
+    device_fields, host_fields = engine.metric_fields(round_fn)
     sinks = list(sinks)
     run_info = {
         "algo": algo,
@@ -123,6 +150,9 @@ def run_federated(
         "cohort_size": resolve_cohort_size(hp, problem.clients.num_clients),
         "uplink_bytes": uplink_byte_breakdown(
             channel, UPLINK_SCHEMAS[algo], state.params),
+        "faults": dataclasses.asdict(faults) if faults is not None else None,
+        "async": (dataclasses.asdict(async_cfg) if async_cfg is not None
+                  else None),
     }
 
     if chunk is not None:
@@ -161,12 +191,12 @@ def run_federated(
             rel_t = engine.rel_error(state.params, w_star, w_star_norm, m.loss)
             # the round's one device -> host read
             vals = torch.stack([getattr(m, f).to(torch.float64)
-                                for f in engine.DEVICE_FIELDS]
+                                for f in device_fields]
                                + [rel_t.to(torch.float64)]).cpu().tolist()
             dt = time.perf_counter() - t0
             t_total += dt
-            mrow = dict(zip(engine.DEVICE_FIELDS, vals))
-            mrow.update((f, float(getattr(m, f))) for f in HOST_METRICS)
+            mrow = dict(zip(device_fields, vals))
+            mrow.update((f, float(getattr(m, f))) for f in host_fields)
             rel = vals[-1]
             comm_total += mrow["comm_bytes"]
             for f in engine.METRIC_FIELDS:

@@ -18,11 +18,13 @@
 // repro_int8_uplink computes both on the main path, for every client's
 // upload x in T (float32 or float64), with the uplink's optional buffers:
 // anchor [n] (broadcast over clients), the difference-coding reference ref
-// and the error-feedback residual ef (both [B, n]). In the order of
-// CrossClientReduce.uplink, every step rounded in T:
+// and the error-feedback residual ef (both [B, n]), and an optional addend
+// post [B, n] to the decoded value (the DP noise of robust/faults.py). In
+// the order of CrossClientReduce.uplink, every step rounded in T:
 //
 //   v = x - anchor - ref + ef       (each term where present, in that order)
 //   dec = (T) decode(encode((float) v))
+//   dec = dec + post                (with post)
 //   new_e = v - dec                 (with ef)
 //   dec = dec + ref                 (with ref; new_h = dec, written apart
 //                                    only when an anchor follows)
@@ -53,6 +55,12 @@
 // copy nor its ROW_TILE=8 padding of the chunk count is needed. Outputs are
 // written for the first n columns of each row only.
 //
+// A NaN value's code is 0, as XLA's float-to-int conversion gives it
+// (a chunk holding a NaN has scale 1: NaN > 0 is false; a chunk holding
+// an Inf has scale Inf, and Inf / Inf is NaN). The plain version maps NaN
+// to 0 explicitly too: a float NaN cast to int8 is undefined in C++ and
+// in torch.
+//
 // Exactness: x / scale and amax / 127 are IEEE divisions (__fdiv_rn; the
 // library builds without --use_fast_math), every add and subtract is an
 // _rn intrinsic (never contracted into an FMA), the decode is the float32
@@ -70,7 +78,7 @@ constexpr int kQuantWarps = 8;
 constexpr int kQuantThreads = kQuantWarps * 32;
 constexpr int kMaxChunk = 1024;
 // which of the uplink's optional buffers are present (a bit each)
-constexpr int kAnchor = 1, kRef = 2, kEf = 4;
+constexpr int kAnchor = 1, kRef = 2, kEf = 4, kPost = 8;
 
 // max that propagates NaN, as torch.amax and jnp.max do
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -104,9 +112,10 @@ __device__ __forceinline__ float chunk_scale(float amax) {
 }
 
 // The stochastic-rounding code of v, with its uniform r, in a chunk of
-// this scale.
+// this scale; 0 for a NaN (fmaxf would return -127 for it).
 __device__ __forceinline__ int8_t sr_code(float v, float r, float scale) {
   const float f = floorf(__fadd_rn(__fdiv_rn(v, scale), r));
+  if (f != f) return 0;
   return static_cast<int8_t>(__float2int_rz(fminf(fmaxf(f, -127.0f), 127.0f)));
 }
 
@@ -171,15 +180,17 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales
   }
 }
 
-// BUF: which of anchor / ref / ef are present (kAnchor | kRef | kEf).
-// new_e is written with ef, new_h with both ref and an anchor.
+// BUF: which of anchor / ref / ef / post are present (kAnchor | kRef |
+// kEf | kPost). new_e is written with ef, new_h with both ref and an anchor.
 template <typename T, int VPL, int BUF>
 __global__ void __launch_bounds__(kQuantThreads)
 uplink_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
               const T* __restrict__ ref, const T* __restrict__ ef,
-              const float* __restrict__ u, T* __restrict__ dec, T* __restrict__ new_e,
-              T* __restrict__ new_h, long long n, long long chunks, int nc, int C) {
-  constexpr bool kA = BUF & kAnchor, kR = BUF & kRef, kE = BUF & kEf;
+              const T* __restrict__ post, const float* __restrict__ u,
+              T* __restrict__ dec, T* __restrict__ new_e, T* __restrict__ new_h,
+              long long n, long long chunks, int nc, int C) {
+  constexpr bool kA = BUF & kAnchor, kR = BUF & kRef, kE = BUF & kEf,
+                 kP = BUF & kPost;
   const ChunkAt at = chunk_at(nc, C);
   if (at.chunk >= chunks) return;
   const long long row0 = at.row * n;
@@ -213,6 +224,7 @@ uplink_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
     const long long col = at.col0 + j;
     if (j < C && col < n) {
       T d = decode<T>(sr_code(to_f32(v[i]), r[i], scale), scale);
+      if constexpr (kP) d = add_rn(d, post[row0 + col]);
       if constexpr (kE) new_e[row0 + col] = sub_rn(v[i], d);
       if constexpr (kR) {
         d = add_rn(d, hr[i]);
@@ -255,7 +267,15 @@ cudaError_t with_buffers(int buf, F&& f) {
     case 4: return f(std::integral_constant<int, 4>());
     case 5: return f(std::integral_constant<int, 5>());
     case 6: return f(std::integral_constant<int, 6>());
-    default: return f(std::integral_constant<int, 7>());
+    case 7: return f(std::integral_constant<int, 7>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 9: return f(std::integral_constant<int, 9>());
+    case 10: return f(std::integral_constant<int, 10>());
+    case 11: return f(std::integral_constant<int, 11>());
+    case 12: return f(std::integral_constant<int, 12>());
+    case 13: return f(std::integral_constant<int, 13>());
+    case 14: return f(std::integral_constant<int, 14>());
+    default: return f(std::integral_constant<int, 15>());
   }
 }
 
@@ -287,16 +307,17 @@ cudaError_t launch_dq(const void* q, const void* scales, void* out, long long n,
 
 template <typename T>
 cudaError_t launch_uplink(int buf, const void* x, const void* anchor, const void* ref,
-                          const void* ef, const void* u, void* dec, void* new_e,
-                          void* new_h, long long n, long long chunks, int nc, int C,
-                          cudaStream_t st) {
+                          const void* ef, const void* post, const void* u, void* dec,
+                          void* new_e, void* new_h, long long n, long long chunks,
+                          int nc, int C, cudaStream_t st) {
   return with_buffers(buf, [&](auto b) {
     return with_vpl(C, [&](auto vpl) {
       uplink_kernel<T, decltype(vpl)::value, decltype(b)::value>
           <<<grid(chunks), kQuantThreads, 0, st>>>(
               static_cast<const T*>(x), static_cast<const T*>(anchor),
               static_cast<const T*>(ref), static_cast<const T*>(ef),
-              static_cast<const float*>(u), static_cast<T*>(dec), static_cast<T*>(new_e),
+              static_cast<const T*>(post), static_cast<const float*>(u),
+              static_cast<T*>(dec), static_cast<T*>(new_e),
               static_cast<T*>(new_h), n, chunks, nc, C);
       return cudaGetLastError();
     });
@@ -345,25 +366,26 @@ extern "C" int repro_dequantize(int out_dtype, const void* q, const void* scales
 }
 
 // dtype: 0 = float32, 1 = float64, the type T of x, the buffers and the
-// outputs. x, ref, ef, dec, new_e, new_h: B rows of n values (row stride
-// n); anchor: n values; u: [B, nc, C] float32, nc = ceil(n / C). anchor,
-// ref and ef are each null when absent; new_e is given exactly when ef is,
-// new_h exactly when both ref and anchor are (with ref alone, dec is the
-// new reference). Returns the cudaError_t of the launch.
+// outputs. x, ref, ef, post, dec, new_e, new_h: B rows of n values (row
+// stride n); anchor: n values; u: [B, nc, C] float32, nc = ceil(n / C).
+// anchor, ref, ef and post are each null when absent; new_e is given
+// exactly when ef is, new_h exactly when both ref and anchor are (with ref
+// alone, dec is the new reference). Returns the cudaError_t of the launch.
 extern "C" int repro_int8_uplink(int dtype, const void* x, const void* anchor,
-                                 const void* ref, const void* ef, const void* u,
-                                 void* dec, void* new_e, void* new_h, long long n, int B,
-                                 int nc, int C, void* stream) {
-  const int buf = (anchor ? kAnchor : 0) | (ref ? kRef : 0) | (ef ? kEf : 0);
+                                 const void* ref, const void* ef, const void* post,
+                                 const void* u, void* dec, void* new_e, void* new_h,
+                                 long long n, int B, int nc, int C, void* stream) {
+  const int buf = (anchor ? kAnchor : 0) | (ref ? kRef : 0) | (ef ? kEf : 0) |
+                  (post ? kPost : 0);
   if (bad_shape(dtype, B, nc, C, n) || !x || !u || !dec || (!ef != !new_e) ||
       (!(anchor && ref) != !new_h))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long chunks = static_cast<long long>(B) * nc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      dtype == 0 ? launch_uplink<float>(buf, x, anchor, ref, ef, u, dec, new_e, new_h, n,
-                                        chunks, nc, C, st)
-                 : launch_uplink<double>(buf, x, anchor, ref, ef, u, dec, new_e, new_h, n,
-                                         chunks, nc, C, st);
+      dtype == 0 ? launch_uplink<float>(buf, x, anchor, ref, ef, post, u, dec, new_e,
+                                        new_h, n, chunks, nc, C, st)
+                 : launch_uplink<double>(buf, x, anchor, ref, ef, post, u, dec, new_e,
+                                         new_h, n, chunks, nc, C, st);
   return static_cast<int>(e);
 }

@@ -70,9 +70,10 @@ _SIGNATURES = {
     "repro_quantize": [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
     # out_dtype, q, scales, out, n, B, nc, C, stream
     "repro_dequantize": [_I, _P, _P, _P, _LL, _I, _I, _I, _P],
-    # dtype, x, anchor, ref, ef, u, dec, new_e, new_h, n, B, nc, C, stream
-    "repro_int8_uplink": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                          _P],
+    # dtype, x, anchor, ref, ef, post, u, dec, new_e, new_h, n, B, nc, C,
+    # stream
+    "repro_int8_uplink": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                          _I, _P],
     # x, dt, da, B, C, cb, y, state, G, Q, nh, hd, st, stream
     "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, q, k, v, out, B, S, H, KV, d, causal, window, stream

@@ -90,21 +90,23 @@ def int8_sr_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def int8_sr_uplink(x: torch.Tensor, u: torch.Tensor,
                    anchor: torch.Tensor | None = None,
                    ref: torch.Tensor | None = None,
-                   ef: torch.Tensor | None = None):
+                   ef: torch.Tensor | None = None,
+                   post: torch.Tensor | None = None):
     """The int8 uplink of every client's upload x [K, n] (f32 or f64) with
     the uniforms u [K, nc, C]: v = x − anchor − ref + ef (each where given;
-    anchor [n], ref and ef [K, n], in x's dtype) goes through the codec;
+    anchor [n], ref and ef [K, n], in x's dtype) goes through the codec,
+    and ``post`` [K, n] (the DP noise) is added to the decoded value;
     returns (dec, new_e, new_h): what the server sees (plus ref and anchor),
-    the next error-feedback residual v − roundtrip(v) (None without ef) and
-    the next reference roundtrip(v) + ref (None without ref). One launch on
-    the card (ref.py::int8_sr_uplink_ref spells out the steps)."""
+    the next error-feedback residual v − dec (None without ef) and the next
+    reference dec + ref (None without ref). One launch on the card
+    (ref.py::int8_sr_uplink_ref spells out the steps)."""
     K, n = x.shape
     C = u.shape[-1]
     if u.shape != (K, chunk_rows(n, C), C):
         raise ValueError(f"int8_sr_uplink: u {tuple(u.shape)} does not cover "
                          f"x {tuple(x.shape)} in chunks of {C}")
     for name, buf, shape in (("anchor", anchor, (n,)), ("ref", ref, x.shape),
-                             ("ef", ef, x.shape)):
+                             ("ef", ef, x.shape), ("post", post, x.shape)):
         if buf is None:
             continue
         if buf.shape != shape:
@@ -114,11 +116,11 @@ def int8_sr_uplink(x: torch.Tensor, u: torch.Tensor,
             raise TypeError(f"int8_sr_uplink: {name} is {buf.dtype}, x "
                             f"{x.dtype}")
     if x.device.type == "cpu":
-        return int8_sr_uplink_ref(x, u, anchor, ref, ef)
-    return _uplink_cuda(x, u, anchor, ref, ef)
+        return int8_sr_uplink_ref(x, u, anchor, ref, ef, post)
+    return _uplink_cuda(x, u, anchor, ref, ef, post)
 
 
-def _uplink_cuda(x, u, anchor, ref, ef):
+def _uplink_cuda(x, u, anchor, ref, ef, post=None):
     """Launch repro_int8_uplink: x [K, n], u [K, nc, C] -> (dec, new_e,
     new_h), each [K, n] in x's dtype; new_h is dec itself without anchor."""
     K, nc, C = u.shape
@@ -126,7 +128,7 @@ def _uplink_cuda(x, u, anchor, ref, ef):
     if not 0 < C <= MAX_CHUNK:
         raise ValueError(f"int8 uplink kernel: u {tuple(u.shape)} (chunk <= "
                          f"{MAX_CHUNK})")
-    bufs = [b for b in (anchor, ref, ef) if b is not None]
+    bufs = [b for b in (anchor, ref, ef, post) if b is not None]
     dev = _build.check_cuda("int8_uplink", x, *bufs)
     _build.check_cuda("int8_uplink", u, dtypes=(torch.float32,))
     if u.device != dev:
@@ -141,7 +143,7 @@ def _uplink_cuda(x, u, anchor, ref, ef):
     with torch.cuda.device(dev):
         _build.launch("int8_uplink", "repro_int8_uplink",
                       _build.DTYPE_CODE[x.dtype], x.data_ptr(), ptr(anchor),
-                      ptr(ref), ptr(ef), u.data_ptr(), dec.data_ptr(),
+                      ptr(ref), ptr(ef), ptr(post), u.data_ptr(), dec.data_ptr(),
                       ptr(new_e), ptr(new_h), n, K, nc, C)
     if ref is not None and not split_h:
         new_h = dec

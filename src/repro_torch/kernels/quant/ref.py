@@ -24,7 +24,9 @@ def quantize_ref(x: torch.Tensor, u: torch.Tensor):
     scale = torch.where(amax > 0.0, amax / amax.new_full((), 127.0),
                         torch.ones_like(amax))
     q = torch.floor(x32 / scale + u.to(torch.float32))
-    q = torch.clamp(q, -127.0, 127.0)
+    # a NaN's code is 0, as XLA's conversion gives it (and csrc/quant.cu):
+    # casting a float NaN to int8 is undefined
+    q = torch.where(torch.isnan(q), 0.0, torch.clamp(q, -127.0, 127.0))
     return q.to(torch.int8), scale
 
 
@@ -36,12 +38,14 @@ def dequantize_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 def int8_sr_uplink_ref(x: torch.Tensor, u: torch.Tensor,
                        anchor: torch.Tensor | None = None,
                        ref: torch.Tensor | None = None,
-                       ef: torch.Tensor | None = None):
+                       ef: torch.Tensor | None = None,
+                       post: torch.Tensor | None = None):
     """The int8 uplink of every client's upload x [K, n] (f32 or f64), with
-    the uniforms u [K, nc, C] and the optional anchor [n], reference and
-    error-feedback residual [K, n]; every step in x's dtype:
-    v = x − anchor − ref + ef, dec = the f32 roundtrip of v widened back,
-    new_e = v − dec, new_h = dec + ref, dec = new_h + anchor.
+    the uniforms u [K, nc, C] and the optional anchor [n], reference,
+    error-feedback residual and post-codec addend [K, n]; every step in x's
+    dtype: v = x − anchor − ref + ef, dec = the f32 roundtrip of v widened
+    back, dec = dec + post, new_e = v − dec, new_h = dec + ref,
+    dec = new_h + anchor.
     Returns (dec, new_e or None without ef, new_h or None without ref)."""
     v = x - anchor if anchor is not None else x
     if ref is not None:
@@ -53,6 +57,8 @@ def int8_sr_uplink_ref(x: torch.Tensor, u: torch.Tensor,
     v32 = torch.nn.functional.pad(v.to(torch.float32), (0, nc * C - n))
     q, scales = quantize_ref(v32.reshape(K, nc, C), u)
     dec = dequantize_ref(q, scales).reshape(K, -1)[:, :n].to(v.dtype)
+    if post is not None:
+        dec = dec + post
     new_e = v - dec if ef is not None else None
     if ref is not None:
         dec = dec + ref

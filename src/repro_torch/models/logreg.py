@@ -2,6 +2,8 @@
 repro/models/logreg.py)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
@@ -16,8 +18,15 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     itself above 20, about 2e-9 away from the exact value, which breaks f64
     loss parity with the reference. logaddexp's derivative at 0 is 1/2, as
     the reference's, which the |z| form does not give at w = 0.
+
+    x is first clamped to at least log(tiny) of its dtype (−708.4 in f64,
+    −87.3 in f32): below it torch's second derivative of logaddexp is
+    inf/inf = NaN (exp(−x) overflows), which made a Hessian-vector product
+    NaN at a saturated logit where the reference's is finite. The value
+    moves by less than the dtype's tiny, the derivatives there are 0.
     """
-    return torch.logaddexp(x, torch.zeros_like(x))
+    lo = math.log(torch.finfo(x.dtype).tiny)
+    return torch.logaddexp(torch.clamp(x, min=lo), torch.zeros_like(x))
 
 
 def make_logreg_problem(

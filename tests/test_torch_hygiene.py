@@ -48,13 +48,17 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_scans_cover_the_engine_and_obs():
     """The scans above and below walk the package by rglob: the engine, the
-    obs/ package and the cohorts' client store are in them."""
+    obs/ package, the cohorts' client store and the robust/ package are in
+    them."""
     new = {"repro_torch.core.engine", "repro_torch.obs",
            "repro_torch.obs.sinks", "repro_torch.obs.alarms",
-           "repro_torch.obs.profiling", "repro_torch.core.client_store"}
+           "repro_torch.obs.profiling", "repro_torch.core.client_store",
+           "repro_torch.robust", "repro_torch.robust.faults",
+           "repro_torch.robust.async_agg"}
     assert new <= set(MODULES)
     assert {PORT / "core" / "engine.py", PORT / "obs" / "profiling.py",
-            PORT / "core" / "client_store.py"} <= set(PORT_FILES)
+            PORT / "core" / "client_store.py", PORT / "robust" / "faults.py",
+            PORT / "robust" / "async_agg.py"} <= set(PORT_FILES)
 
 
 def test_sources_name_no_jax_and_no_reference_package():
@@ -94,6 +98,15 @@ def test_entry_points_default_to_the_card():
         run_federated(prob, "fedosaa_svrg", cohort, 1)
     h = run_federated(prob, "fedosaa_svrg", cohort, 1, device="cpu", chunk=1)
     assert np.isfinite(h.loss).all()
+    # a faulted, gated round too
+    from repro_torch.robust import AsyncConfig, FaultPlan
+    kw = dict(faults=FaultPlan(drop_rate=0.3, stale_rate=0.3, dp_sigma=1e-3,
+                               latency_scale=1.0),
+              async_cfg=AsyncConfig(deadline=2.0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_federated(prob, "fedosaa_svrg", hp, 1, **kw)
+    h = run_federated(prob, "fedosaa_svrg", hp, 1, device="cpu", **kw)
+    assert np.isfinite(h.loss).all() and np.isfinite(h.arrivals).all()
 
 
 @pytest.mark.parametrize("name,n", [("covtype", 1234), ("w8a", 500),

@@ -244,10 +244,10 @@ class TestCompressedRound:
 
         port_up = port_codecs.int8_sr_uplink
 
-        def rec_port(x, u, anchor=None, ref=None, ef=None):
+        def rec_port(x, u, anchor=None, ref=None, ef=None, post=None):
             # the int8 uplink's entry point: record the v it rounds (formed
             # from its arguments in the uplink's order) and the dec it returns
-            out = port_up(x, u, anchor, ref, ef)
+            out = port_up(x, u, anchor, ref, ef, post)
             v = x - anchor if anchor is not None else x
             if ref is not None:
                 v = v - ref
