@@ -203,6 +203,39 @@ port beside it. Every phase raises on failure; none is caught.
    anchor rows, buffer rows and ages, one read a chunk, no host read in a
    warmed-up round), the cohort's never-drawn rows frozen; engine ms a
    round, capture ms and peak memory beside the clean run's.
+4f. Checkpoint and resume (``repro_torch/checkpoint``). The reference
+   test's adversarial case at paper scale (FedOSAA-SVRG on int8, float64,
+   eta=1, L=10, 2 carried AA columns, its latency plan (seed 5, lognormal
+   scale 1, sigma 1.5) and gate (deadline 2, min_arrivals 2, alpha 0.5), 10
+   rounds, engine chunks of 2, a save every 2 rounds, keep all). (a) A run
+   whose save 2 dies after its first write (``FaultyFs``): only round 2
+   committed, a ``.tmp-*`` remnant left; ``resume="auto"`` by the engine
+   then gives rows 2..9 equal to the never-killed run's (loss, grad_norm,
+   rel_error, every row field), its launches a clean run's for its slots,
+   and its last checkpoint (round 10) equal to the straight run's final
+   state in every tensor (params, both comm tags, history, buffer rows,
+   int32 ages) and ``t``: saved by the engine (``async``) and by the loop
+   (``sync``). (b) The same at C=10 of K=100 (``async``), the never-drawn
+   clients' store rows bit-equal to their start. (c) A real death: a child
+   process (``--checkpoint-child``) whose save 2 ends it with
+   ``os._exit(43)`` from the writer thread must exit with 43; a second
+   child resumes with ``"auto"``; their rows join into the straight run's
+   bit for bit; their output is captured and summarized. (d) ``async`` with
+   a save every chunk: each committed checkpoint equals the loop's state
+   after its round, although the next replay overwrote the runner's
+   buffers; ``maybe_save`` runs under ``set_sync_debug_mode("error")``; one
+   ``_fetch`` and one host read a chunk; launches as without checkpointing.
+   (e) The reference's ext_checkpoint quick setup (covtype n=20,000, K=32,
+   float32, int8, L=10, carry 2, 42 rounds in chunks of 6, a save every
+   chunk) in the modes none, ``async``, ``sync`` and ``sync_gather``, each
+   best of 2: the median chunk wall after the first chunk, boundary to
+   boundary (the save included) and by the History (the reference's
+   measure, which leaves the save out), ``checkpoint_save_ms``, bytes,
+   stalls; gates: identical loss curves, 7 commits in ``async`` and
+   ``sync``, no failure; the async overhead printed beside the reference's
+   10% budget (not held), and one save's parts alone in host ms (snapshot,
+   wait, serialization, sha256, one fsync'd file, one directory fsync, the
+   whole write), best of 5.
 5. The wire: the JAX reference's ext_compression configuration (synthetic
    covtype n=20,000, K=20 iid, gamma=1e-3, eta=1, L=10, float64,
    FedOSAA-SVRG) on the fp32, bf16 and int8 wires, by the loop and by the
@@ -253,7 +286,9 @@ port beside it. Every phase raises on failure; none is caught.
    ``uplink``); each with the standalone kernel's phase-2 readings in
    ``standalone``.
    Beyond the contract's keys, every FL row's ``launches_by_run`` holds
-   each loop run of phases 4, 4b, 4c, 4d and 4e; ``trajectory``'s row carries
+   each loop run of phases 4, 4b, 4c, 4d and 4e and phase 4f's resumed
+   engine runs and its snapshot run (launches per slot replayed);
+   ``trajectory``'s row carries
    ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
    (its checks at phase 4d's two cohort shapes),
    ``launches_by_design`` (each run's resident and streaming launches),
@@ -271,6 +306,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2352,6 +2389,552 @@ def robust_paper(clients, w_star, device, dense: dict) -> dict:
     return out
 
 
+#: phase 4f, checkpoint and resume (repro_torch/checkpoint): the reference
+#: test's adversarial case (tests/test_checkpoint_preempt.py: int8, two
+#: carried AA columns, its LATENCY_PLAN and GATE) at paper scale (float64,
+#: FedOSAA-SVRG, eta=1, L=10), 10 rounds, engine chunks of 2, a save every 2
+#: rounds (keep all); the kill lands in save 2 (round 4) after its first
+#: write, so only round 2 commits
+CKPT_ROUNDS, CKPT_CHUNK = 10, 2
+CKPT_LATENCY = dict(seed=5, latency_scale=1.0, latency_shape=1.5)
+CKPT_GATE = dict(deadline=2.0, min_arrivals=2, staleness_alpha=0.5)
+CKPT_KILL = dict(kill_at_save=2, kill_after_writes=1)
+#: the reference's ext_checkpoint quick setup (benchmarks/ext_checkpoint.py):
+#: synthetic covtype n=20,000, K=32 iid, gamma=1e-3, float32, FedOSAA-SVRG
+#: on int8, eta=1, L=10, carry 2, AAConfig(tikhonov=1e-6, damping=0.7), 42
+#: rounds in chunks of 6, a save at every chunk (keep all); each mode best
+#: of 2 by its median chunk wall; its async overhead budget
+EXT_CKPT_N, EXT_CKPT_K, EXT_CKPT_ROUNDS, EXT_CKPT_CHUNK = 20_000, 32, 42, 6
+EXT_CKPT_MODES, EXT_CKPT_REPS, OVERHEAD_BUDGET = (
+    (None, "async", "sync", "sync_gather"), 2, 0.10)
+
+
+def strict_saves(policy):
+    """A CheckpointManager of ``policy`` whose ``maybe_save`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing CUDA call
+    in it raises and fails the run. ``dispatched`` counts its saves."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class StrictSaves(CheckpointManager):
+        dispatched = 0
+
+        def maybe_save(self, state, round_idx, chunk_wall=None):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                saved = super().maybe_save(state, round_idx, chunk_wall)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.dispatched += saved
+            return saved
+
+    return StrictSaves(policy)
+
+
+class EmitClock:
+    """A MetricsSink that stamps the host clock at each chunk's emit (right
+    after the chunk's read): the gaps are the chunk walls from boundary to
+    boundary, the previous boundary's save included."""
+
+    def __init__(self):
+        self.stamps = []
+
+    def open(self, header):
+        pass
+
+    def emit(self, rows):
+        self.stamps.append(time.perf_counter())
+
+    def close(self, footer):
+        pass
+
+
+def same_rows(what: str, rows, want) -> None:
+    """Raise unless two lists of telemetry rows hold the same values in
+    every field but the wall times and the cumulative bytes (a resumed run
+    counts its own), nan (or a JSON null) where nan."""
+    from repro_torch.obs import ROW_FIELDS
+
+    fields = ("round",) + tuple(
+        f for f in ROW_FIELDS
+        if f not in ("round_wall_s", "wall_time_s", "comm_bytes_total"))
+    a, b = (np.array([[np.nan if r[f] is None else r[f] for f in fields]
+                      for r in rs], dtype=np.float64) for rs in (rows, want))
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: {len(a)} rows against {len(b)}")
+    bad = [f for j, f in enumerate(fields)
+           if not np.array_equal(a[:, j], b[:, j], equal_nan=True)]
+    if bad:
+        raise AssertionError(f"{what}: the rows differ in {bad}")
+
+
+def ckpt_config(prob, cohort: bool) -> dict:
+    """run_federated's keywords of a phase-4f run (less the problem's)."""
+    from repro_torch.core import AlgoHParams
+    from repro_torch.robust import AsyncConfig, FaultPlan
+
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS, carry_history=2,
+                     participation=COHORT_PARTICIPATION if cohort else 1.0)
+    return dict(problem=prob, algo="fedosaa_svrg", hp=hp,
+                num_rounds=CKPT_ROUNDS, channel="int8",
+                faults=FaultPlan(**CKPT_LATENCY),
+                async_cfg=AsyncConfig(**CKPT_GATE))
+
+
+def straight_run(kw: dict, w_star, device) -> dict:
+    """The run never killed: its History and rows by the engine, and its
+    final state by ``run_rounds`` from the same start (the state the resumed
+    run must end in), with the round function and that start."""
+    from repro_torch.core import make_round_fn, run_federated, run_rounds
+    from repro_torch.obs import MemorySink
+
+    sink = MemorySink()
+    h = run_federated(**kw, w_star=w_star, device=device, chunk=CKPT_CHUNK,
+                      sinks=[sink])
+    round_fn = make_round_fn(kw["algo"], kw["problem"], kw["hp"],
+                             kw["channel"], device=device, faults=kw["faults"],
+                             async_cfg=kw["async_cfg"])
+    robust = dict(faults=kw["faults"], async_cfg=kw["async_cfg"])
+    s0 = start_state(kw["problem"], kw["algo"], kw["hp"], kw["channel"],
+                     device, robust)
+    state, _ = run_rounds(round_fn, s0, CKPT_ROUNDS, chunk=CKPT_CHUNK,
+                          w_star=w_star)
+    return dict(h=h, sink=sink, state=state, round_fn=round_fn, s0=s0,
+                robust=robust)
+
+
+def kill_and_resume(name: str, kw: dict, straight: dict, w_star, device,
+                    save_chunk, mode: str, state_gate=None) -> dict:
+    """Phase 4f (a)/(b): a run whose save 2 dies after its first write (on
+    ``save_chunk``'s path, in ``mode``), then ``resume="auto"`` by the
+    engine. Gates: only round 2 committed beside a ``.tmp-*`` remnant; the
+    resumed run starts at 2, its rows 2..9 and History equal the straight
+    run's, its launches are a clean run's for its slots; its last
+    checkpoint (round 10) equals the straight run's final state in every
+    tensor (``same_state``) and ``t``; ``state_gate(round_fn, start,
+    final)`` holds it to more."""
+    import tempfile
+
+    from repro_torch.checkpoint import (CheckpointPolicy, list_checkpoints,
+                                        load_checkpoint)
+    from repro_torch.core import run_federated
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MemorySink
+    from repro_torch.robust import FaultyFs, FSFaultPlan
+
+    d = tempfile.mkdtemp(prefix=f"ckpt_{name}_")
+    pol = CheckpointPolicy(directory=d, every=CKPT_CHUNK, keep=0, mode=mode)
+    t0 = time.perf_counter()
+    run_federated(**kw, w_star=w_star, device=device, chunk=save_chunk,
+                  checkpoint=pol, checkpoint_fs=FaultyFs(FSFaultPlan(**CKPT_KILL)))
+    committed = [r for r, _ in list_checkpoints(d)]
+    remnants = [n for n in os.listdir(d) if n.startswith(".tmp-")]
+    if committed != [CKPT_CHUNK] or not remnants:
+        raise AssertionError(f"{name}: after the kill {committed} committed, "
+                             f"remnants {remnants}; expected [2] and a .tmp-*")
+    killed_s = time.perf_counter() - t0
+    sink = MemorySink()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    h = run_federated(**kw, w_star=w_star, device=device, chunk=CKPT_CHUNK,
+                      checkpoint=pol, resume="auto", sinks=[sink])
+    resumed_s = time.perf_counter() - t0
+    counted = engine_launches(f"{name} resumed", len(h.rounds), CKPT_CHUNK,
+                              int8=True)
+    rounds = list(range(CKPT_CHUNK, CKPT_ROUNDS))
+    if (sink.header["start_round"] != CKPT_CHUNK
+            or [r["round"] for r in sink.rows] != rounds
+            or not np.array_equal(h.rounds, rounds)):
+        raise AssertionError(f"{name}: resumed at {sink.header['start_round']}"
+                             f", rows {[r['round'] for r in sink.rows]}")
+    same_rows(f"{name} resumed", sink.rows, straight["sink"].rows[CKPT_CHUNK:])
+    s = straight["h"]
+    for f in ("loss", "grad_norm", "rel_error", "arrivals", "staleness_mean",
+              "staleness_max"):
+        if not np.array_equal(getattr(h, f), getattr(s, f)[CKPT_CHUNK:],
+                              equal_nan=True):
+            raise AssertionError(f"{name}: resumed {f} differs")
+    final, manifest = load_checkpoint(
+        os.path.join(d, f"ckpt_{CKPT_ROUNDS:08d}"), straight["s0"])
+    same_state(f"{name} resumed final state", straight["state"], final)
+    if final.t != CKPT_ROUNDS or not torch.equal(h.final_params,
+                                                 straight["state"].params):
+        raise AssertionError(f"{name}: final t {final.t}, params equal "
+                             f"{torch.equal(h.final_params, straight['state'].params)}")
+    gated = (state_gate(straight["round_fn"], straight["s0"], final)
+             if state_gate else None)
+    out = dict(committed_after_kill=committed, remnants=len(remnants),
+               resumed_rows=len(sink.rows), footer={
+                   k: v for k, v in sink.footer.items()
+                   if k.startswith("checkpoint")},
+               inventory=manifest["inventory"], killed_run_s=killed_s,
+               resumed_run_s=resumed_s, gated=gated, **counted)
+    print(f"  {name}: killed in save 2 ({mode}, "
+          f"{'loop' if save_chunk is None else f'engine chunk={save_chunk}'}"
+          f"): committed {committed}, {len(remnants)} .tmp-* remnant; "
+          f"resume='auto' by the engine from round {sink.header['start_round']}"
+          f": rows {rounds[0]}..{rounds[-1]}, loss, grad_norm, rel_error and "
+          f"the final state (params, comm {sorted(final.comm)}, history, "
+          f"t={final.t}) equal the straight run bit for bit; launches "
+          f"{ {k: v for k, v in counted['launches'].items() if v} } over "
+          f"{counted['slots']} slots; footer {out['footer']}"
+          f"{'' if gated is None else f'; {gated}'}", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def checkpoint_child(argv: list) -> int:
+    """Phase 4f (c)'s child process: ``--checkpoint-child kill|resume <dir>
+    <rows.jsonl> <w_star.npy> <device>``. The paper-scale data, the dense phase-4f
+    run by the engine in ``async`` mode saving into <dir>, its rows streamed
+    to <rows.jsonl>; ``kill``: save 2 ends the process with
+    os._exit(KILL_EXIT_CODE) from the writer thread; ``resume``:
+    ``resume="auto"`` from <dir>."""
+    from repro_torch.checkpoint import CheckpointPolicy
+    from repro_torch.core import run_federated
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import JsonlSink
+    from repro_torch.robust import FaultyFs, FSFaultPlan
+
+    what, d, rows_path, w_path, device = argv
+    device = torch.device(device)
+    _build.library()
+    X, y = make_binary_classification("covtype", n=N_PAPER, seed=0)
+    clients = partition(X, y, K_MAIN, "iid", seed=0, device=device)
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64,
+                               device=device)
+    w_star = torch.from_numpy(np.load(w_path)).to(device)
+    pol = CheckpointPolicy(directory=d, every=CKPT_CHUNK, keep=0, mode="async")
+    extra = (dict(checkpoint_fs=FaultyFs(FSFaultPlan(**CKPT_KILL,
+                                                     kill_hard=True)))
+             if what == "kill" else dict(resume="auto"))
+    run_federated(**ckpt_config(prob, cohort=False), w_star=w_star,
+                  device=device, chunk=CKPT_CHUNK, checkpoint=pol,
+                  sinks=[JsonlSink(rows_path)], **extra)
+    return 0
+
+
+def read_rows(path: str) -> tuple[dict, list]:
+    """(header, round rows) of a JsonlSink file; a torn last line (the
+    process may die while it writes) is dropped."""
+    with open(path) as f:
+        lines = [line for line in f if line.strip()]
+    objs = []
+    for i, line in enumerate(lines):
+        try:
+            objs.append(json.loads(line))
+        except ValueError:
+            if i != len(lines) - 1:
+                raise
+    return objs[0], [o for o in objs if o.get("kind") == "round"]
+
+
+def real_death(straight: dict, w_star, device) -> dict:
+    """Phase 4f (c): a child process on the card, killed by the fault
+    harness's hard kill inside save 2 (``os._exit`` from the writer thread
+    while the next chunk runs), must exit with KILL_EXIT_CODE; a second
+    child resumes with ``"auto"``; the first's rows before the resume round
+    and the second's join into the straight run's rows bit for bit (the
+    first's rows past the resume round, where it got that far, equal them
+    too). The children's output is captured and summarized."""
+    import tempfile
+
+    from repro_torch.checkpoint import list_checkpoints
+    from repro_torch.robust import KILL_EXIT_CODE
+
+    tmp = tempfile.mkdtemp(prefix="ckpt_death_")
+    d = os.path.join(tmp, "ckpt")
+    w_path = os.path.join(tmp, "w_star.npy")
+    np.save(w_path, w_star.cpu().numpy())
+    out = {}
+    for what, want_rc in (("kill", KILL_EXIT_CODE), ("resume", 0)):
+        rows_path = os.path.join(tmp, f"{what}.jsonl")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--checkpoint-child", what, d, rows_path,
+                              w_path, str(device)], capture_output=True,
+                             text=True,
+                             timeout=300, cwd=str(ROOT))
+        secs = time.perf_counter() - t0
+        tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
+        header, rows = read_rows(rows_path)
+        out[what] = dict(rc=res.returncode, seconds=secs, rows=len(rows),
+                         start_round=header["start_round"],
+                         committed=[r for r, _ in list_checkpoints(d)])
+        print(f"  child {what}: exit {res.returncode} in {secs:.1f} s, "
+              f"{len(rows)} rows from round {header['start_round']}, "
+              f"committed {out[what]['committed']}; its output's last lines: "
+              f"{tail}", flush=True)
+        if res.returncode != want_rc:
+            raise AssertionError(f"child {what} exited {res.returncode}, "
+                                 f"expected {want_rc}: {tail}")
+        out[what]["rows_list"] = rows
+    first, second = out["kill"].pop("rows_list"), out["resume"].pop("rows_list")
+    want = straight["sink"].rows
+    if out["kill"]["committed"] != [CKPT_CHUNK]:
+        raise AssertionError(f"the killed child committed "
+                             f"{out['kill']['committed']}, expected [2]")
+    if out["resume"]["start_round"] != CKPT_CHUNK:
+        raise AssertionError("the resumed child did not start at round 2")
+    joined = [r for r in first if r["round"] < CKPT_CHUNK] + second
+    same_rows("the killed and the resumed child's rows", joined, want)
+    same_rows("the killed child's rows", first, want[:len(first)])
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  the two segments' rows (rounds 0..{CKPT_CHUNK - 1} of the "
+          f"killed child, {CKPT_CHUNK}..{CKPT_ROUNDS - 1} of the resumed one) "
+          f"equal the straight run's bit for bit", flush=True)
+    return out
+
+
+def snapshot_gate(prob, w_star, device) -> dict:
+    """Phase 4f (d): the dense run by the engine in ``async`` mode with a
+    save at every chunk. Gates: every committed checkpoint equals the
+    loop's state after its round in every tensor and ``t``, although the
+    next replay overwrote the runner's buffers after the snapshot;
+    ``maybe_save`` runs under ``set_sync_debug_mode("error")``; one
+    ``_fetch`` and one host read a chunk (after the first); the launches of
+    a run without checkpointing, no failure."""
+    import tempfile
+
+    from repro_torch.checkpoint import (CheckpointPolicy, list_checkpoints,
+                                        load_checkpoint)
+    from repro_torch.core import engine, make_round_fn, run_rounds
+    from repro_torch.core.engine import _map_state
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MemorySink
+
+    kw = ckpt_config(prob, cohort=False)
+    robust = dict(faults=kw["faults"], async_cfg=kw["async_cfg"])
+    round_fn = make_round_fn("fedosaa_svrg", prob, kw["hp"], "int8",
+                             device=device, **robust)
+    st = start_state(prob, "fedosaa_svrg", kw["hp"], "int8", device, robust)
+    want = {}
+    for r in range(1, CKPT_ROUNDS + 1):
+        st, _ = round_fn(st)
+        if r % CKPT_CHUNK == 0:
+            want[r] = _map_state(torch.clone, st)
+    d = tempfile.mkdtemp(prefix="ckpt_snap_")
+    mgr = strict_saves(CheckpointPolicy(directory=d, every=CKPT_CHUNK, keep=0,
+                                        mode="async"))
+    fetch, fetches = engine._fetch, []
+    engine._fetch = lambda r: (fetches.append(1), fetch(r))[1]
+    s0 = start_state(prob, "fedosaa_svrg", kw["hp"], "int8", device, robust)
+    sink = MemorySink()
+    _build.reset_launches()
+    try:
+        with sync_warnings() as caught:
+            reads = ChunkReads(caught)
+            _, trace = run_rounds(round_fn, s0, CKPT_ROUNDS, chunk=CKPT_CHUNK,
+                                  w_star=w_star, sinks=[sink, reads],
+                                  checkpoint=mgr)
+    finally:
+        engine._fetch = fetch
+    counted = engine_launches("checkpointed engine run", trace.num_rounds,
+                              CKPT_CHUNK, int8=True)
+    chunks = CKPT_ROUNDS // CKPT_CHUNK
+    if len(fetches) != chunks or any(n != 1 for n in reads.per_chunk[1:]):
+        raise AssertionError(f"checkpointed engine run: {len(fetches)} "
+                             f"_fetch over {chunks} chunks, host reads per "
+                             f"chunk {reads.per_chunk}")
+    committed = [r for r, _ in list_checkpoints(d)]
+    if (sorted(committed) != sorted(want) or mgr.dispatched != chunks
+            or mgr.saves_completed != chunks
+            or sink.footer["checkpoint_failures"]):
+        raise AssertionError(f"checkpointed engine run: committed {committed}"
+                             f", dispatched {mgr.dispatched}, completed "
+                             f"{mgr.saves_completed}, footer {sink.footer}")
+    for r, path in list_checkpoints(d):
+        got, _ = load_checkpoint(path, s0)
+        same_state(f"checkpoint of round {r}", want[r], got)
+        if got.t != r:
+            raise AssertionError(f"checkpoint of round {r} holds t={got.t}")
+    shutil.rmtree(d, ignore_errors=True)
+    stalls = sum(a["rule"] == "checkpoint_stalled"
+                 for a in sink.footer["alarms"])
+    print(f"  snapshots: {len(committed)} checkpoints (async, a save every "
+          f"chunk of {CKPT_CHUNK}) equal the loop's states after rounds "
+          f"{sorted(committed)} bit for bit; maybe_save ran {mgr.dispatched} "
+          f"saves under set_sync_debug_mode('error'); _fetch {len(fetches)} "
+          f"times over {chunks} chunks, host reads per chunk "
+          f"{reads.per_chunk}; launches "
+          f"{ {k: v for k, v in counted['launches'].items() if v} } over "
+          f"{counted['slots']} slots (a run without checkpointing's); "
+          f"{stalls} stalls; footer "
+          f"{ {k: v for k, v in sink.footer.items() if k.startswith('checkpoint')} }",
+          flush=True)
+    return dict(committed=committed, fetches=len(fetches),
+                reads_per_chunk=reads.per_chunk, stalls=stalls, **counted)
+
+
+def save_breakdown(state) -> dict:
+    """Host ms of one save's parts, alone (no chunk beside it), on one
+    snapshot of ``state`` with its pinned buffers already allocated: the
+    snapshot (copies enqueued), its wait, the npz serialization, the sha256
+    digests, one fsync'd file write of the payload, one directory fsync,
+    and the whole ``write_checkpoint`` (both of those parts, two fsync'd
+    files, three directory fsyncs, two renames)."""
+    import hashlib
+    import io
+    import tempfile
+
+    from repro_torch.checkpoint import LOCAL_FS, snapshot_shards, write_checkpoint
+
+    pool = {}
+    snapshot_shards(state, pool).wait()
+    d = tempfile.mkdtemp(prefix="ckpt_parts_")
+    t = [time.perf_counter()]
+    snap = snapshot_shards(state, pool)
+    t.append(time.perf_counter())
+    snap.wait()
+    t.append(time.perf_counter())
+    arrays = {f"{k}::0": rec["shards"][0][1] for k, rec in snap.items()}
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    payload = buf.getvalue()
+    t.append(time.perf_counter())
+    for arr in arrays.values():
+        hashlib.sha256(arr.tobytes()).hexdigest()
+    t.append(time.perf_counter())
+    LOCAL_FS.write_bytes(os.path.join(d, "payload.npz"), payload)
+    t.append(time.perf_counter())
+    LOCAL_FS.fsync_dir(d)
+    t.append(time.perf_counter())
+    write_checkpoint(d, snap, 1)
+    t.append(time.perf_counter())
+    shutil.rmtree(d, ignore_errors=True)
+    ms = np.diff(t) * 1e3
+    return dict(zip(("snapshot", "wait", "serialize", "sha256", "file_fsync",
+                     "dir_fsync", "write_checkpoint"), (float(v) for v in ms)),
+                payload_bytes=len(payload))
+
+
+def ext_checkpoint(device) -> dict:
+    """Phase 4f (e): the reference's ext_checkpoint quick setup (without
+    w*: no rel-error is read) by the engine, each mode (no checkpointing,
+    ``async``, ``sync``, ``sync_gather``) best of EXT_CKPT_REPS by its
+    median chunk wall without the first chunk. Two walls: the History's
+    (the reference's measure: the runner's call to its read, which leaves
+    the boundary's save out) and the boundary-to-boundary one (EmitClock:
+    the chunk and the save before it). Gates: the loss curves identical
+    across the modes, 7 commits in ``async`` and ``sync``, no failure. The
+    async overhead (boundary to boundary, over no checkpointing) is printed
+    beside OVERHEAD_BUDGET, not held; then one save's parts."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointPolicy, list_checkpoints
+    from repro_torch.core import (AAConfig, AlgoHParams, init_state,
+                                  run_federated)
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
+
+    X, y = make_binary_classification("covtype", n=EXT_CKPT_N, seed=0)
+    clients = partition(X, y, EXT_CKPT_K, "iid", seed=0, device=device)
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float32,
+                               device=device)
+    hp = AlgoHParams(eta=1.0, local_epochs=10, carry_history=2,
+                     aa=AAConfig(tikhonov=1e-6, damping=0.7))
+    c = EXT_CKPT_CHUNK
+
+    def one(mode):
+        sink, clock = MemorySink(), EmitClock()
+        d = tempfile.mkdtemp(prefix="ext_ckpt_") if mode else None
+        pol = (CheckpointPolicy(directory=d, every=c, keep=0, mode=mode)
+               if mode else None)
+        h = run_federated(prob, "fedosaa_svrg", hp, EXT_CKPT_ROUNDS,
+                          device=device, channel="int8", chunk=c,
+                          sinks=[sink, clock], checkpoint=pol)
+        bounds = np.asarray(h.wall_time)[c - 1::c]
+        hist_walls = np.diff(np.concatenate([[0.0], bounds]))[1:]
+        walls = np.diff(clock.stamps)
+        committed = (len(list_checkpoints(d))
+                     if mode in ("async", "sync") else None)
+        if d:
+            shutil.rmtree(d, ignore_errors=True)
+        return dict(mode=mode or "none",
+                    chunk_wall_ms=float(np.median(walls)) * 1e3,
+                    chunk_walls_ms=[float(w) * 1e3 for w in walls],
+                    history_chunk_wall_ms=float(np.median(hist_walls)) * 1e3,
+                    loss=[float(v) for v in h.loss], committed=committed,
+                    stalls=sum(a["rule"] == "checkpoint_stalled"
+                               for a in sink.footer["alarms"]),
+                    **{k: v for k, v in sink.footer.items()
+                       if k.startswith("checkpoint")})
+
+    by = {}
+    for mode in EXT_CKPT_MODES:
+        runs = [one(mode) for _ in range(EXT_CKPT_REPS)]
+        by[mode or "none"] = min(runs, key=lambda r: r["chunk_wall_ms"])
+    base = by["none"]
+    for r in by.values():
+        r["overhead"] = (r["chunk_wall_ms"] - base["chunk_wall_ms"]) \
+            / base["chunk_wall_ms"]
+        r["history_overhead"] = ((r["history_chunk_wall_ms"]
+                                  - base["history_chunk_wall_ms"])
+                                 / base["history_chunk_wall_ms"])
+        print(f"  ext_checkpoint {r['mode']:11s}: chunk wall (median of "
+              f"chunks 2..{EXT_CKPT_ROUNDS // c}) {r['chunk_wall_ms']:.3f} ms "
+              f"boundary to boundary, {r['history_chunk_wall_ms']:.3f} ms by "
+              f"the History (its save left out); overhead "
+              f"{100 * r['overhead']:+.1f}% ({100 * r['history_overhead']:+.1f}"
+              f"%); checkpoint_save_ms {r['checkpoint_save_ms']}, bytes "
+              f"{r['checkpoint_bytes']}, failures "
+              f"{r['checkpoint_failures']}, stalls {r['stalls']}, committed "
+              f"{r['committed']}", flush=True)
+    bad = [m for m, r in by.items() if r["loss"] != base["loss"]]
+    if bad or any(by[m]["committed"] != EXT_CKPT_ROUNDS // c
+                  for m in ("async", "sync")) or any(
+                      r["checkpoint_failures"] for r in by.values()):
+        raise AssertionError(f"ext_checkpoint: loss curves differ in {bad}, "
+                             f"commits {[by[m]['committed'] for m in by]}, "
+                             f"failures "
+                             f"{[r['checkpoint_failures'] for r in by.values()]}")
+    state = init_state(prob, device=device, channel="int8",
+                       algo="fedosaa_svrg", hp=hp)
+    parts = min((save_breakdown(state) for _ in range(5)),
+                key=lambda p: p["write_checkpoint"])
+    print(f"  async overhead {100 * by['async']['overhead']:+.1f}% against the "
+          f"reference's budget {100 * OVERHEAD_BUDGET:.0f}% (recorded, not "
+          f"held); loss curves identical across the four modes; one save's "
+          f"parts (host ms, best of 5): "
+          f"{ {k: round(v, 4) for k, v in parts.items()} }", flush=True)
+    return dict(modes={m: {k: v for k, v in r.items() if k != "loss"}
+                       for m, r in by.items()}, save_parts=parts)
+
+
+def checkpoint_resume(clients, w_star, device) -> dict:
+    """Phase 4f: checkpoint and resume (see the module docstring): (a) kill
+    and resume at paper scale, saved by the engine and by the loop; (b) the
+    same in a C=10-of-100 cohort, its never-drawn rows frozen; (c) a real
+    process death; (d) the snapshot's safety, its sync-freedom, one read a
+    chunk and the launches; (e) ext_checkpoint's overhead."""
+    from repro_torch.models.logreg import make_logreg_problem
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64,
+                               device=device)
+    out = {}
+    dense = straight_run(ckpt_config(prob, cohort=False), w_star, device)
+    kw = ckpt_config(prob, cohort=False)
+    out["ckpt_engine"] = kill_and_resume("ckpt_engine", kw, dense, w_star,
+                                         device, CKPT_CHUNK, "async")
+    out["ckpt_loop_engine"] = kill_and_resume("ckpt_loop_engine", kw, dense,
+                                              w_star, device, None, "sync")
+    cohort = straight_run(ckpt_config(prob, cohort=True), w_star, device)
+    out["ckpt_cohort"] = kill_and_resume(
+        "ckpt_cohort", ckpt_config(prob, cohort=True), cohort, w_star, device,
+        CKPT_CHUNK, "async", state_gate=frozen_rows)
+    del cohort
+    free_memory()
+    out["death"] = real_death(dense, w_star, device)
+    out["ckpt_snapshots"] = snapshot_gate(prob, w_star, device)
+    del dense
+    free_memory()
+    out["ext_checkpoint"] = ext_checkpoint(device)
+    return out
+
+
 def compression(device) -> dict:
     """Phase 5: the reference's ext_compression configuration on the fp32,
     bf16 and int8 wires, each by the per-round loop and then by the engine
@@ -3121,6 +3704,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--checkpoint-child"]:
+        return checkpoint_child(sys.argv[2:])
     from repro_torch.core import solve_reference
     from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
@@ -3192,8 +3777,15 @@ def main() -> int:
                                      {**paper, **family, **newton,
                                       **cohort["runs"]}))
     print(f"  phase 4e took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{clock()} phase 4f: checkpoint and resume (kill and resume at paper "
+          "scale, dense and cohort; a real process death; the snapshot; "
+          "ext_checkpoint)", flush=True)
+    t0 = time.perf_counter()
+    ckpt = checkpoint_resume(clients, w_star, device)
+    print(f"  phase 4f took {time.perf_counter() - t0:.1f} s", flush=True)
     fl_runs = {**paper, **family, **newton, **cohort["runs"],
-               **robust["paper"]}
+               **robust["paper"],
+               **{k: v for k, v in ckpt.items() if k.startswith("ckpt_")}}
 
     print(f"{clock()} phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)

@@ -362,6 +362,7 @@ def run_rounds(
     run_info: "dict | None" = None,
     trace_capture=None,
     start_round: int = 0,
+    checkpoint=None,
 ):
     """Run up to ``num_rounds`` rounds in chunks of ``chunk``; one host read
     per chunk. Returns ``(final_state, RoundTrace)`` — the state stays on
@@ -387,6 +388,16 @@ def run_rounds(
                       boundaries to open/close torch.profiler windows.
       start_round   — global index of the first round (resumed runs), offsets
                       the "round" field of emitted rows.
+      checkpoint    — a checkpoint.CheckpointManager: after each chunk's
+                      read, ``maybe_save(state, start_round + executed,
+                      chunk wall)`` snapshots the state when a save is due
+                      (on the card, non-blocking copies out of the runner's
+                      buffers, ordered before the next replay by the
+                      stream) and hands the write to its thread; the
+                      in-flight save is joined in the ``finally``, its
+                      stall and failure events join the footer's alarms and
+                      its telemetry fills the footer's checkpoint fields.
+                      The chunk keeps its one host read.
     """
     from repro_torch.obs.sinks import (ROW_FIELDS, SCHEMA_VERSION,
                                        build_footer, build_round_row)
@@ -445,11 +456,22 @@ def run_rounds(
                 stopped = True
             if trace_capture is not None:
                 trace_capture.on_chunk_end(start_round + executed)
+            if checkpoint is not None:
+                # the state is the runner's own buffers, which the next
+                # replay overwrites: maybe_save copies them out first
+                checkpoint.maybe_save(state, start_round + executed, elapsed)
     finally:
         if trace_capture is not None:
             trace_capture.close()
+        if checkpoint is not None:
+            checkpoint.finalize()
         alarms = [e for s in sinks for e in getattr(s, "events", [])]
-        footer = build_footer(executed, stopped, alarms)
+        if checkpoint is not None:
+            alarms.extend(checkpoint.events)
+        footer = build_footer(
+            executed, stopped, alarms,
+            checkpoint=checkpoint.telemetry() if checkpoint is not None
+            else None)
         for s in sinks:
             s.close(footer)
     trace = RoundTrace(

@@ -8,17 +8,26 @@ chunk). Both feed the same telemetry rows to ``sinks`` (repro_torch/obs).
 ``hp.cohort_size`` or ``hp.participation`` < 1 runs every round on a
 sampled cohort of the clients (core/algorithms.py); ``faults=`` and
 ``async_cfg=`` inject a FaultPlan and gate the rounds at a deadline
-(repro_torch/robust). Checkpointing comes with a later slice.
+(repro_torch/robust). ``checkpoint=`` (a checkpoint.CheckpointPolicy) saves
+the whole round state on its cadence, ``resume=`` ("auto" or a checkpoint
+path) continues a run from a saved state bit for bit, and
+``checkpoint_fs=`` swaps the filesystem (robust/fs_faults.FaultyFs injects
+storage faults); ``checkpoint_config_fingerprint`` is the run identity a
+checkpoint carries and a resume demands back.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.checkpoint import (LOCAL_FS, CheckpointManager,
+                                    CheckpointPolicy, load_checkpoint,
+                                    load_latest)
 from repro_torch.comm import CommChannel, make_channel
 from repro_torch.comm.schema import uplink_byte_breakdown
 from repro_torch.core import engine
@@ -66,6 +75,29 @@ class History:
             f"wall={self.wall_time[-1]:.2f}s")
 
 
+def checkpoint_config_fingerprint(algo: str, runtime: str, channel_name: str,
+                                  num_clients: int, cohort_size: int,
+                                  faults=None, async_cfg=None) -> dict:
+    """The run-identity dict embedded in every checkpoint manifest and
+    demanded back at resume (the reference's, key for key): a checkpoint
+    written under one algorithm / runtime / channel / cohort / fault
+    schedule / async gate must not be silently continued under another (the
+    carried AA history, EF residuals and buffers would be statistically
+    meaningless). JSON-normalized so the comparison survives the manifest's
+    serialization round-trip."""
+    fp = {
+        "algo": algo,
+        "runtime": runtime,
+        "channel": channel_name,
+        "num_clients": int(num_clients),
+        "cohort_size": int(cohort_size) if cohort_size is not None else None,
+        "faults": dataclasses.asdict(faults) if faults is not None else None,
+        "async": dataclasses.asdict(async_cfg)
+        if async_cfg is not None else None,
+    }
+    return json.loads(json.dumps(fp))
+
+
 def run_federated(
     problem: FLProblem,
     algo: str,
@@ -84,6 +116,9 @@ def run_federated(
     trace_capture=None,
     faults: FaultPlan | None = None,
     async_cfg: AsyncConfig | None = None,
+    checkpoint: CheckpointPolicy | None = None,
+    resume: "str | None" = None,
+    checkpoint_fs=None,
 ) -> History:
     """Iterate ``num_rounds`` of ``algo`` and collect the metric history.
 
@@ -118,6 +153,28 @@ def run_federated(
     ``History.arrivals`` and ``staleness_*`` hold the gate's per-round
     activity; the run header carries both configs (``dataclasses.asdict``,
     None when absent).
+
+    ``checkpoint`` (checkpoint.CheckpointPolicy) saves the whole state — the
+    params, ``t``, the comm buffers with the anchor and buffer rows and
+    ages, SCAFFOLD's control variates, the carried AA columns — every
+    ``checkpoint.every`` rounds (at the engine's chunk boundaries; after a
+    round of the loop) into its directory, in its mode (``async``: the
+    write overlaps the next chunk; ``sync``; ``sync_gather``, the blocking
+    baseline). ``resume="auto"`` (which needs ``checkpoint`` to name the
+    directory) restores the newest complete checkpoint there, or starts
+    fresh when there is none; a path restores that checkpoint; None or
+    ``"none"`` starts fresh. The freshly initialized state (with its anchor
+    and buffer rows) is the template, and a checkpoint whose fingerprint
+    (``checkpoint_config_fingerprint``) differs from this run's raises
+    ``CheckpointConfigMismatch``. ``num_rounds`` is the run's total budget:
+    a resumed run starts at the manifest's round, its History rows and the
+    sinks' rows (and the header's ``start_round``) count from there, and a
+    resume at or past the budget returns an empty History. Every draw of a
+    round is keyed by (seed, ``t``), so the resumed rows and state equal
+    the uninterrupted run's bit for bit. ``checkpoint_fs`` replaces the
+    filesystem (checkpoint.LocalFs; robust.FaultyFs injects storage
+    faults). A failed save is counted and alarmed in the footer and the run
+    goes on.
     """
     if chunk is not None and chunk < 1:
         # the per-round loop is chunk=None; a chunk of 0 names neither path
@@ -154,14 +211,20 @@ def run_federated(
         "async": (dataclasses.asdict(async_cfg) if async_cfg is not None
                   else None),
     }
+    state, start_round, ckpt_mgr = _checkpointing(
+        state, run_info, checkpoint, resume, checkpoint_fs, faults, async_cfg)
 
     if chunk is not None:
         state, trace = engine.run_rounds(
-            round_fn, state, num_rounds, chunk=chunk, w_star=w_star,
-            stop_rel_error=stop_rel_error, stop_grad_norm=stop_grad_norm,
-            sinks=sinks, run_info=run_info, trace_capture=trace_capture)
+            round_fn, state, max(0, num_rounds - start_round), chunk=chunk,
+            w_star=w_star, stop_rel_error=stop_rel_error,
+            stop_grad_norm=stop_grad_norm, sinks=sinks, run_info=run_info,
+            trace_capture=trace_capture, start_round=start_round,
+            checkpoint=ckpt_mgr)
         return History(
-            algo=algo, rounds=np.arange(trace.num_rounds, dtype=np.float64),
+            algo=algo, rounds=np.arange(start_round,
+                                        start_round + trace.num_rounds,
+                                        dtype=np.float64),
             loss=trace.loss, grad_norm=trace.grad_norm,
             rel_error=trace.rel_error, theta_mean=trace.theta_mean,
             comm_bytes=np.cumsum(trace.comm_bytes), wall_time=trace.wall_time,
@@ -174,8 +237,8 @@ def run_federated(
     for s in sinks:
         s.open({
             "v": SCHEMA_VERSION, "kind": "header", "fields": list(ROW_FIELDS),
-            "num_rounds": num_rounds, "chunk": None, "start_round": 0,
-            **run_info,
+            "num_rounds": num_rounds, "chunk": None,
+            "start_round": start_round, **run_info,
         })
     cols = {f: [] for f in engine.METRIC_FIELDS}
     rows = []
@@ -183,7 +246,7 @@ def run_federated(
     t_total = 0.0
     stopped = False
     try:
-        for t in range(num_rounds):
+        for t in range(start_round, num_rounds):
             if trace_capture is not None:
                 trace_capture.on_chunk_start(t, 1)
             t0 = time.perf_counter()
@@ -206,6 +269,8 @@ def run_federated(
                 s.emit([build_round_row(t, mrow, rel, comm_total, dt, t_total)])
             if trace_capture is not None:
                 trace_capture.on_chunk_end(t + 1)
+            if ckpt_mgr is not None:
+                ckpt_mgr.maybe_save(state, t + 1, dt)
             if (not np.isfinite(mrow["loss"])
                     or (stop_rel_error is not None and rel < stop_rel_error)
                     or (stop_grad_norm is not None
@@ -216,8 +281,15 @@ def run_federated(
     finally:
         if trace_capture is not None:
             trace_capture.close()
+        if ckpt_mgr is not None:
+            ckpt_mgr.finalize()
         alarms = [e for s in sinks for e in getattr(s, "events", [])]
-        footer = build_footer(len(rows), stopped, alarms)
+        if ckpt_mgr is not None:
+            alarms.extend(ckpt_mgr.events)
+        footer = build_footer(
+            len(rows), stopped, alarms,
+            checkpoint=ckpt_mgr.telemetry() if ckpt_mgr is not None
+            else None)
         for s in sinks:
             s.close(footer)
 
@@ -231,6 +303,36 @@ def run_federated(
         gram_cond_max=col["gram_cond_max"], arrivals=col["arrivals"],
         staleness_mean=col["staleness_mean"],
         staleness_max=col["staleness_max"])
+
+
+def _checkpointing(state, run_info: dict, checkpoint, resume, fs, faults,
+                   async_cfg):
+    """The resumed state (or ``state``), the round it starts at, and the
+    run's CheckpointManager (None without a policy)."""
+    if checkpoint is None and resume in (None, "none"):
+        return state, 0, None
+    fs = fs if fs is not None else LOCAL_FS
+    fingerprint = checkpoint_config_fingerprint(
+        run_info["algo"], run_info["runtime"], run_info["channel"],
+        run_info["num_clients"], run_info["cohort_size"], faults, async_cfg)
+    start_round = 0
+    if resume not in (None, "none"):
+        if resume == "auto":
+            if checkpoint is None:
+                raise ValueError('resume="auto" needs a checkpoint policy (it '
+                                 "names the directory to scan)")
+            found = load_latest(checkpoint.directory, state, fs=fs,
+                                expect_config=fingerprint)
+        else:
+            found = load_checkpoint(resume, state, fs=fs,
+                                    expect_config=fingerprint)
+        if found is not None:
+            state, manifest = found
+            start_round = int(manifest["round"])
+    mgr = (CheckpointManager(checkpoint, config=fingerprint, fs=fs,
+                             last_saved=start_round)
+           if checkpoint is not None else None)
+    return state, start_round, mgr
 
 
 def solve_reference(problem: FLProblem, iters: int = 2000,

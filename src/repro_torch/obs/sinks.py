@@ -12,9 +12,9 @@ chunk, which a CUDA graph's replay cannot do.
 Row schema (versioned — bump SCHEMA_VERSION on any incompatible change;
 v2 added aa_clipped_max, the robustness layer's clip-screen activity; v3
 added arrivals/staleness_mean/staleness_max, the deadline gate's per-round
-activity — null whenever the deadline gate is off, as it always is in the
-port so far; v4 added the checkpoint telemetry triple to the footer —
-always present, zeros when checkpointing is off):
+activity — null whenever the deadline gate is off; v4 added the
+checkpoint telemetry triple to the footer — always present, zeros when
+checkpointing is off):
 
   header row  {"v": 4, "kind": "header", "fields": [...], ...run metadata:
                algo / runtime / channel / num_clients / cohort_size / chunk /
@@ -23,7 +23,8 @@ always present, zeros when checkpointing is off):
   round row   {"v": 4, "kind": "round", "round": t, <ROW_FIELDS>}
   footer row  {"v": 4, "kind": "footer", "rounds": T, "stopped": bool,
                "alarms": [...], "checkpoint_save_ms", "checkpoint_bytes",
-               "checkpoint_failures" (zeros: checkpointing is not ported)}
+               "checkpoint_failures" (the CheckpointManager's telemetry;
+               zeros without checkpointing)}
 
 Round-row fields (ROW_FIELDS):
 
@@ -117,9 +118,9 @@ def build_round_row(round_idx: int, metrics: "dict[str, float]", rel: float,
 def build_footer(rounds: int, stopped: bool, alarms: "list[dict]",
                  checkpoint: dict | None = None) -> dict:
     """The versioned run footer. ``checkpoint`` is a checkpoint manager's
-    telemetry dict (the reference's ``CheckpointManager.telemetry()``; none
-    in the port yet); the three fields are always emitted (zeros when no
-    checkpointing ran) so v4 consumers never branch on presence."""
+    telemetry dict (``checkpoint.CheckpointManager.telemetry()``); the three
+    fields are always emitted (zeros when no checkpointing ran) so v4
+    consumers never branch on presence."""
     ckpt = checkpoint or {}
     return {
         "v": SCHEMA_VERSION,

@@ -1,6 +1,7 @@
 """Robustness layer (counterpart of repro/robust): fault injection
-(faults.py), the deadline-gated buffered aggregation (async_agg.py); the
-clip_rtol defense lives in core/anderson.py."""
+(faults.py), the deadline-gated buffered aggregation (async_agg.py), storage
+faults for the checkpoint save path (fs_faults.py); the clip_rtol defense
+lives in core/anderson.py."""
 from repro_torch.robust.async_agg import (  # noqa: F401
     ASYNC_AGE_KEY,
     ASYNC_BUF_KEY,
@@ -29,4 +30,10 @@ from repro_torch.robust.faults import (  # noqa: F401
     init_fault_comm,
     poison_last_column,
     realize,
+)
+from repro_torch.robust.fs_faults import (  # noqa: F401
+    KILL_EXIT_CODE,
+    FaultyFs,
+    FSFaultPlan,
+    SimulatedKill,
 )

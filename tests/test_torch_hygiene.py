@@ -61,6 +61,19 @@ def test_scans_cover_the_engine_and_obs():
             PORT / "robust" / "async_agg.py"} <= set(PORT_FILES)
 
 
+def test_scans_cover_checkpoint_and_fs_faults():
+    """The checkpoint package and the storage fault harness are in the
+    import and source scans."""
+    new = {"repro_torch.checkpoint", "repro_torch.checkpoint.atomic",
+           "repro_torch.checkpoint.sharded_ckpt",
+           "repro_torch.checkpoint.checkpoint",
+           "repro_torch.checkpoint.policy", "repro_torch.robust.fs_faults"}
+    assert new <= set(MODULES)
+    assert {PORT / "checkpoint" / f for f in (
+        "__init__.py", "atomic.py", "sharded_ckpt.py", "checkpoint.py",
+        "policy.py")} | {PORT / "robust" / "fs_faults.py"} <= set(PORT_FILES)
+
+
 def test_sources_name_no_jax_and_no_reference_package():
     assert (ROOT / "chip_smoke.py") in PORT_FILES
     for p in PORT_FILES:
