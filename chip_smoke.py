@@ -1437,8 +1437,8 @@ def acceptance(device) -> dict:
     same_as_loop("acceptance", runs["loop"]["sink"], runs["engine"]["sink"],
                  runs["loop"]["h"].final_params, runs["engine"]["h"].final_params)
     print("  engine = loop: the same rounds, rows and final params", flush=True)
-    return {path: {k: v for k, v in r.items() if k not in ("h", "sink")}
-            for path, r in runs.items()}
+    return {**{path: {k: v for k, v in r.items() if k not in ("h", "sink")}
+               for path, r in runs.items()}, "w_star": w_star}
 
 
 def paper_scale(clients, w_star, device) -> dict:
@@ -1452,6 +1452,7 @@ def paper_scale(clients, w_star, device) -> dict:
     more times for its ms per round."""
     from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
                                   make_round_fn, run_federated, run_rounds)
+    from repro_torch.core.engine import _map_state
     from repro_torch.kernels import _build
     from repro_torch.models.logreg import make_logreg_problem
     from repro_torch.obs import MemorySink
@@ -1518,6 +1519,11 @@ def paper_scale(clients, w_star, device) -> dict:
                                  f"the first")
         same_as_loop(f"paper-scale {name}", s_loop, s_eng, h.final_params,
                      state.params)
+        if name != "float32":
+            # phase 4g's reference: the loop's rows and params, the
+            # engine's whole state before the replays below overwrite it
+            out[name]["vmap"] = dict(sink=s_loop, params=h.final_params,
+                                     state=_map_state(torch.clone, state))
         # the gated run's second chunk, then more replays, each ending in
         # its one read
         walls = [float(trace.round_wall[PAPER_CHUNK:].sum())]
@@ -2935,6 +2941,373 @@ def checkpoint_resume(clients, w_star, device) -> dict:
     return out
 
 
+#: phase 4g, the distributed runtime (core/sharded.py) on the one card: (a)
+#: an NCCL world of one in this process at paper scale; (b) a gloo world of
+#: SHARD_WORLD child processes, whose acceptance run saves every
+#: SHARD_CKPT_EVERY rounds (sync) and is resumed from its second save
+SHARD_WORLD, SHARD_CKPT_EVERY = 2, 4
+SHARD_RESUME_ROUND = 2 * SHARD_CKPT_EVERY
+SHARD_CHILD_TIMEOUT = 240.0
+#: the metrics the sharded round reduces in another order than the vmap
+#: round (its nanmean: an all-reduced sum and count), held to rel 1e-12
+SHARD_NANMEAN_FIELDS = ("theta_mean", "gram_cond_mean")
+
+
+def same_rows_sharded(what: str, want, got, w_want, w_got) -> None:
+    """Raise unless a sharded run's telemetry rows are a vmap run's: every
+    field but the wall times equal (nan where nan), the nanmean metrics
+    within rel 1e-12, and the final params bit for bit."""
+    from repro_torch.obs import ROW_FIELDS
+
+    fields = ("round",) + tuple(f for f in ROW_FIELDS
+                                if f not in ("round_wall_s", "wall_time_s"))
+    a, b = (np.array([[r[f] for f in fields] for r in sink.rows],
+                     dtype=np.float64) for sink in (want, got))
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: {len(b)} rounds, expected {len(a)}")
+    bad = []
+    for j, f in enumerate(fields):
+        if f in SHARD_NANMEAN_FIELDS:
+            ok = np.allclose(b[:, j], a[:, j], rtol=1e-12, atol=0.0,
+                             equal_nan=True)
+        else:
+            ok = np.array_equal(a[:, j], b[:, j], equal_nan=True)
+        if not ok:
+            bad.append(f)
+    if bad or not torch.equal(w_want, w_got):
+        raise AssertionError(f"{what}: rows differ in {bad}; final params "
+                             f"equal: {torch.equal(w_want, w_got)}")
+
+
+def rank_rows(state, sl):
+    """A rank's state: its rows ``sl`` of every per-client tensor."""
+    def cut(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: cut(x) for k, x in v.items()}
+        return v[sl].contiguous()
+    return state._replace(c_k=cut(state.c_k), hist_s=cut(state.hist_s),
+                          hist_y=cut(state.hist_y), comm=cut(state.comm))
+
+
+def sharded_world_of_one(clients, w_star, device, paper: dict) -> dict:
+    """Phase 4g (a): an NCCL group of one process (this one, on a
+    HashStore), FedOSAA-SVRG at paper scale (f64, 10 rounds) on the
+    identity and int8 wires. The loop through run_federated(runtime=
+    "sharded") gives phase 4's vmap loop rows (the nanmean metrics within
+    rel 1e-12) and final params bit for bit, with its launches; the engine
+    (chunks of PAPER_CHUNK, its all-reduces captured in the graph) leaves
+    every state tensor equal to phase 4's vmap engine run, makes one host
+    read a chunk after the first and launches each kernel once a slot;
+    then PAPER_REPLAYS more replays for its ms a round; a warmed-up round
+    under set_sync_debug_mode("error") reads nothing back."""
+    import torch.distributed as dist
+
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  run_federated, run_rounds)
+    from repro_torch.core.sharded import make_sharded_round_fn
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
+
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64,
+                               device=device)
+    out = {}
+    try:
+        for name, channel in (("float64", None), ("float64_int8", "int8")):
+            vmap = paper[name]
+            int8 = channel == "int8"
+            s_loop = MemorySink()
+            _build.reset_launches()
+            h = run_federated(prob, "fedosaa_svrg", hp, 10, w_star=w_star,
+                              device=device, channel=channel, sinks=[s_loop],
+                              runtime="sharded")
+            launches = dict(_build.LAUNCHES)
+            rounds = len(h.rounds)
+            designs = check_resident(f"sharded {name} loop", rounds)
+            want = expected_launches(rounds, int8=int8)
+            if launches != want:
+                raise AssertionError(f"sharded {name} loop: launches "
+                                     f"{launches}, expected {want}")
+            same_rows_sharded(f"sharded W=1 {name} loop", vmap["vmap"]["sink"],
+                              s_loop, vmap["vmap"]["params"], h.final_params)
+            loop_ms = float(np.median(np.diff(h.wall_time) * 1e3))
+
+            rf = make_sharded_round_fn("fedosaa_svrg", prob, hp,
+                                       channel=channel, device=device)
+            state = init_state(rf.rank_problem, device=device,
+                               channel=channel, algo="fedosaa_svrg")
+            runner = make_chunk_runner(rf, PAPER_CHUNK, w_star=w_star)
+            s_eng = MemorySink()
+            _build.reset_launches()
+            with sync_warnings() as caught:
+                reads = ChunkReads(caught)
+                state, trace = run_rounds(rf, state, 10, chunk=PAPER_CHUNK,
+                                          w_star=w_star, runner=runner,
+                                          sinks=[s_eng, reads])
+            counted = engine_launches(f"sharded {name} engine",
+                                      trace.num_rounds, PAPER_CHUNK, int8)
+            if any(n != 1 for n in reads.per_chunk[1:]):
+                raise AssertionError(f"sharded {name} engine: host reads per "
+                                     f"chunk {reads.per_chunk}")
+            same_state(f"sharded W=1 {name} engine against phase 4's vmap "
+                       "engine", vmap["vmap"]["state"], state)
+            same_rows_sharded(f"sharded W=1 {name} engine",
+                              vmap["vmap"]["sink"], s_eng,
+                              vmap["vmap"]["params"], state.params)
+            walls = [float(trace.round_wall[PAPER_CHUNK:].sum())]
+            for _ in range(PAPER_REPLAYS):
+                t0 = time.perf_counter()
+                state, *_ = runner(state, PAPER_CHUNK)
+                walls.append(time.perf_counter() - t0)
+            eng_ms = float(np.median(walls)) / PAPER_CHUNK * 1e3
+
+            rf1 = make_sharded_round_fn("fedosaa_svrg", prob, hp,
+                                        channel=channel, device=device)
+            st = init_state(rf1.rank_problem, device=device, channel=channel,
+                            algo="fedosaa_svrg")
+            for _ in range(2):
+                st, _ = rf1(st)
+            torch.cuda.synchronize(device)
+            _build.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, m = rf1(st)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            one = dict(_build.LAUNCHES)
+            if one != expected_launches(1, int8=int8) or \
+                    not np.isfinite(float(m.loss)):
+                raise AssertionError(f"sharded {name} no-host-read round: "
+                                     f"launches {one}, loss {float(m.loss)}")
+            out[f"sharded_w1_{name}"] = dict(
+                launches=launches, designs=designs, ms_per_round=loop_ms,
+                vmap_ms_per_round=vmap["ms_per_round"],
+                engine=dict(ms_per_round=eng_ms,
+                            chunk_ms=[w * 1e3 for w in walls],
+                            warmup_ms=runner.warmup_ms,
+                            capture_ms=runner.capture_ms,
+                            reads_per_chunk=reads.per_chunk,
+                            vmap_ms_per_round=vmap["engine"]["ms_per_round"],
+                            **counted))
+            print(f"  (a) NCCL W=1 {name} [{h.channel}]: loop {rounds} rounds "
+                  f"= phase 4's vmap loop (rows, final params), "
+                  f"{loop_ms:.3f} ms/round (vmap {vmap['ms_per_round']:.3f}), "
+                  f"launches {launches}; engine (chunk={PAPER_CHUNK}, "
+                  f"captured) every state tensor = phase 4's vmap engine, "
+                  f"{eng_ms:.3f} ms/round (vmap "
+                  f"{vmap['engine']['ms_per_round']:.3f}; chunk ms "
+                  f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}), warm-up "
+                  f"{runner.warmup_ms:.1f} ms, capture {runner.capture_ms:.1f}"
+                  f" ms, host reads per chunk {reads.per_chunk}, launches "
+                  f"{counted['launches']} over {counted['slots']} slots; a "
+                  f"warmed-up round under set_sync_debug_mode('error'): "
+                  f"launches { {k: v for k, v in one.items() if v} }",
+                  flush=True)
+            del runner, state, rf, rf1, st, h
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def sharded_gloo_world(w_star_acc, clients, device) -> dict:
+    """Phase 4g (b): a gloo group of SHARD_WORLD child processes of this
+    script on the one card (``--sharded-child <dir>``, spawn_world on a
+    FileStore), five clients of the acceptance configuration's ten each,
+    K=100's paper rows split 50/50. Gates: the acceptance run to rel-error
+    1e-6 within 18 rounds with its final loss within rel 1e-12 of the
+    reference's, saved every SHARD_CKPT_EVERY rounds (sync) with both
+    ranks' shard files in each manifest, and a run resumed from the second
+    save that ends on the straight run's rows and params bit for bit; one
+    paper-scale int8 round from the vmap runtime's round-5 state (phase
+    4's configuration) within 1e-7 of the vmap round on every state
+    tensor; the ranks' params bit-equal; each rank's launches those of the
+    vmap runtime's rounds (at K/W clients)."""
+    import tempfile
+
+    from repro_torch.core import AlgoHParams, init_state, make_round_fn
+    from repro_torch.core.engine import _map_state
+    from repro_torch.core.sharded import spawn_world
+    from repro_torch.models.logreg import make_logreg_problem
+
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64,
+                               device=device)
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+    rf = make_round_fn("fedosaa_svrg", prob, hp, "int8", device=device)
+    state = init_state(prob, device=device, channel="int8",
+                       algo="fedosaa_svrg")
+    for _ in range(5):
+        state, _ = rf(state)
+    want, _ = rf(state)
+    torch.save(dict(start=_map_state(lambda t: t.cpu(), state),
+                    w_star=w_star_acc.cpu()), os.path.join(tmp, "inputs.pt"))
+    del rf, prob
+    t0 = time.perf_counter()
+    results = spawn_world([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--sharded-child", tmp], SHARD_WORLD,
+                          os.path.join(tmp, "store"),
+                          timeout_s=SHARD_CHILD_TIMEOUT, cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    for r, res in enumerate(results):
+        tail = res.stdout.strip().splitlines()[-3:]
+        print(f"  (b) gloo rank {r}: exit {res.returncode} in {secs:.1f} s; "
+              f"its output's last lines: {tail}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {res.returncode}: "
+                                 f"{res.stdout[-3000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(SHARD_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {}
+    for r, got in enumerate(ranks):
+        acc = got["straight"]
+        to_target = rounds_to(acc["rel_error"], 1e-6)
+        loss_rel = abs(acc["loss"][-1] - REFERENCE_LOSS) / REFERENCE_LOSS
+        if to_target is None or to_target > 18 or not loss_rel <= 1e-12:
+            raise AssertionError(f"gloo rank {r}: rounds to 1e-6 {to_target}, "
+                                 f"final loss rel {loss_rel:.2e}")
+        want_l = expected_launches(len(acc["loss"]), int8=False)
+        if got["launches"] != want_l:
+            raise AssertionError(f"gloo rank {r} acceptance: launches "
+                                 f"{got['launches']}, expected {want_l}")
+        if got["int8_launches"] != expected_launches(1, int8=True):
+            raise AssertionError(f"gloo rank {r} int8 round: launches "
+                                 f"{got['int8_launches']}")
+        if got["files"] != [f"shards_p{i:04d}.npz"
+                            for i in range(SHARD_WORLD)]:
+            raise AssertionError(f"gloo rank {r}: manifest files "
+                                 f"{got['files']}")
+        if not (got["resume_equal"] and got["params_equal"]
+                and got["int8_params_equal"]):
+            raise AssertionError(f"gloo rank {r}: resume bit for bit "
+                                 f"{got['resume_equal']}, ranks' params "
+                                 f"equal {got['params_equal']} / "
+                                 f"{got['int8_params_equal']}")
+        out[f"sharded_w2_acceptance_rank{r}"] = dict(
+            launches=got["launches"], designs=got["designs"],
+            to_target=to_target, loss=float(acc["loss"][-1]),
+            ms_per_round=float(np.median(np.diff(acc["wall_time"]) * 1e3)))
+    sl = [slice(r * K_MAIN // SHARD_WORLD, (r + 1) * K_MAIN // SHARD_WORLD)
+          for r in range(SHARD_WORLD)]
+    got = ranks[0]["int8_state"]
+    w_norm = float(torch.linalg.vector_norm(want.params))
+    errs = {"params": float(torch.linalg.vector_norm(
+        got.params - want.params.cpu())) / w_norm}
+    for tag, bufs in want.comm.items():
+        for n, buf in bufs.items():
+            joined = torch.cat([ranks[r]["int8_state"].comm[tag][n]
+                                for r in range(SHARD_WORLD)])
+            want_rows = torch.cat([buf[s].cpu() for s in sl])
+            scale = max(w_norm, float(want_rows.abs().max()))
+            errs[f"{tag}/{n}"] = float((joined - want_rows).abs().max()) / scale
+    if max(errs.values()) > 1e-7 or got.t != want.t:
+        raise AssertionError(f"gloo int8 round against the vmap round: {errs}")
+    acc0 = ranks[0]["straight"]
+    print(f"  (b) gloo W={SHARD_WORLD} on the card: the acceptance run "
+          f"reaches 1e-6 in {out['sharded_w2_acceptance_rank0']['to_target']}"
+          f" rounds, final loss {acc0['loss'][-1]!r}, "
+          f"{out['sharded_w2_acceptance_rank0']['ms_per_round']:.3f} ms/round "
+          f"(rank 0's loop), launches per rank {ranks[0]['launches']}; "
+          f"saved every {SHARD_CKPT_EVERY} rounds, manifests name "
+          f"{ranks[0]['files']}, the run resumed from round "
+          f"{SHARD_RESUME_ROUND} = the straight run bit for bit; the "
+          f"paper-scale int8 round from round 5 against the vmap round: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} }, launches per rank "
+          f"{ {k: v for k, v in ranks[0]['int8_launches'].items() if v} }; "
+          f"ranks' params bit-equal", flush=True)
+    out["int8_round_errors"] = errs
+    out["child_seconds"] = secs
+    return out
+
+
+def sharded_child(argv: list) -> int:
+    """Phase 4g (b)'s child: ``--sharded-child <dir>``, one rank of a gloo
+    world (spawn_world's environment: RANK, WORLD_SIZE, the FileStore) on
+    the card. Runs the acceptance configuration by the sharded loop, saving
+    into <dir>/ckpt, and again resumed from the second save; then one
+    paper-scale int8 round from <dir>/inputs.pt's state. Writes what it saw
+    to <dir>/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointPolicy, ckpt_name
+    from repro_torch.core import AlgoHParams, run_federated
+    from repro_torch.core.engine import _map_state
+    from repro_torch.core.sharded import (client_shard, init_file_world,
+                                          make_sharded_round_fn)
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+
+    (d,) = argv
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    init_file_world(backend="gloo", timeout_s=60.0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    _build.library()
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS)
+
+    def same_everywhere(t: torch.Tensor) -> bool:
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return all(torch.equal(p, t) for p in parts)
+
+    def history(h) -> dict:
+        return {f: np.asarray(getattr(h, f)) for f in
+                ("rounds", "loss", "rel_error", "grad_norm", "theta_mean",
+                 "wall_time")}
+
+    prob = acceptance_problem(device)
+    ck = os.path.join(d, "ckpt")
+    kw = dict(w_star=inp["w_star"].to(device), stop_rel_error=1e-8,
+              device=device, runtime="sharded")
+    _build.reset_launches()
+    h = run_federated(prob, "fedosaa_svrg", hp, 20,
+                      checkpoint=CheckpointPolicy(directory=ck,
+                                                  every=SHARD_CKPT_EVERY,
+                                                  keep=0, mode="sync"), **kw)
+    out = dict(launches=dict(_build.LAUNCHES),
+               designs=dict(_build.DESIGN_LAUNCHES["trajectory"]),
+               straight=history(h), params_equal=same_everywhere(h.final_params))
+    resumed = run_federated(prob, "fedosaa_svrg", hp, 20,
+                            resume=os.path.join(ck, ckpt_name(SHARD_RESUME_ROUND)),
+                            **kw)
+    r, s = history(resumed), out["straight"]
+    out["resume_equal"] = bool(
+        torch.equal(resumed.final_params, h.final_params)
+        and all(np.array_equal(r[f], s[f][SHARD_RESUME_ROUND:], equal_nan=True)
+                for f in ("rounds", "loss", "rel_error", "grad_norm",
+                          "theta_mean")))
+    with open(os.path.join(ck, ckpt_name(SHARD_RESUME_ROUND),
+                           "manifest.json")) as f:
+        out["files"] = json.load(f)["files"]
+    X, y = make_binary_classification("covtype", n=N_PAPER, seed=0)
+    clients = partition(X, y, K_MAIN, "iid", seed=0, device=device)
+    pp = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
+    rf = make_sharded_round_fn("fedosaa_svrg", pp, hp, channel="int8",
+                               device=device)
+    start = _map_state(lambda t: t.to(device), inp["start"])
+    start = rank_rows(start, client_shard(K_MAIN).rows)
+    _build.reset_launches()
+    new, _ = rf(start)
+    torch.cuda.synchronize(device)
+    out["int8_launches"] = dict(_build.LAUNCHES)
+    out["int8_params_equal"] = same_everywhere(new.params)
+    out["int8_state"] = _map_state(lambda t: t.cpu(), new)
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    print(f"rank {rank}: acceptance {len(h.rounds)} rounds, resumed "
+          f"{len(resumed.rounds)}, int8 round done", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
 def compression(device) -> dict:
     """Phase 5: the reference's ext_compression configuration on the fp32,
     bf16 and int8 wires, each by the per-round loop and then by the engine
@@ -3706,6 +4079,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--checkpoint-child"]:
         return checkpoint_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--sharded-child"]:
+        return sharded_child(sys.argv[2:])
     from repro_torch.core import solve_reference
     from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
@@ -3745,7 +4120,7 @@ def main() -> int:
 
     print(f"{clock()} phase 3: acceptance configuration (n=10,000, K=10, float64)",
           flush=True)
-    acceptance(device)
+    accept = acceptance(device)
 
     print(f"{clock()} phase 4: paper scale (N=581,012, K=100)", flush=True)
     t0 = time.perf_counter()
@@ -3783,9 +4158,18 @@ def main() -> int:
     t0 = time.perf_counter()
     ckpt = checkpoint_resume(clients, w_star, device)
     print(f"  phase 4f took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{clock()} phase 4g: the distributed runtime (an NCCL world of one "
+          f"at paper scale; a gloo world of {SHARD_WORLD} on the card)",
+          flush=True)
+    t0 = time.perf_counter()
+    sharded = {**sharded_world_of_one(clients, w_star, device, paper),
+               **sharded_gloo_world(accept["w_star"], clients, device)}
+    print(f"  phase 4g took {time.perf_counter() - t0:.1f} s", flush=True)
     fl_runs = {**paper, **family, **newton, **cohort["runs"],
                **robust["paper"],
-               **{k: v for k, v in ckpt.items() if k.startswith("ckpt_")}}
+               **{k: v for k, v in ckpt.items() if k.startswith("ckpt_")},
+               **{k: v for k, v in sharded.items()
+                  if k.startswith("sharded_")}}
 
     print(f"{clock()} phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)

@@ -34,6 +34,13 @@ mode); ``CheckpointManager`` is the engine-side driver:
     compares against: a blocking ``.cpu()`` of the whole state and an
     inline legacy npz save — the stall the async path exists to remove.
 
+Under the sharded runtime (``shard=``, a core/sharded.py ClientShard) every
+rank runs a manager: each snapshots its own boxes and the commit is
+collective (sharded_ckpt.write_checkpoint's ``group``), on a gloo group of
+the manager's own, so the writer thread's collectives never interleave with
+the round's on the main group. The ranks' cadences agree (the same rounds),
+so they call the commit in the same order; rank 0 alone prunes.
+
 Telemetry: ``telemetry()`` returns the SCHEMA_VERSION-4 footer fields
 (checkpoint_save_ms / checkpoint_bytes / checkpoint_failures); ``events``
 holds the structured alarm records; ``saves_completed`` counts commits.
@@ -93,8 +100,20 @@ class CheckpointManager:
 
     def __init__(self, policy: CheckpointPolicy, *,
                  config: dict | None = None, fs: LocalFs = LOCAL_FS,
-                 last_saved: int = 0):
+                 last_saved: int = 0, shard=None):
         self.policy = policy
+        self.shard = shard
+        self._group = None
+        if shard is not None:
+            if policy.mode == "sync_gather":
+                raise ValueError(
+                    "mode 'sync_gather' writes one process's whole state; "
+                    "the sharded runtime saves each rank's rows: use "
+                    "'async' or 'sync'")
+            from repro_torch.core.sharded import gloo_twin
+
+            # every rank builds its manager, so every rank makes the group
+            self._group = gloo_twin(shard.group)
         self.config = config or {}
         self.fs = fs
         self.events: "list[dict]" = []
@@ -126,7 +145,8 @@ class CheckpointManager:
             # the copies go into the set the in-flight writer (if any) does
             # not read, so they may be enqueued before the wait below
             t0 = time.perf_counter()
-            snapshot = snapshot_shards(state, self._pinned[self._turn])
+            snapshot = snapshot_shards(state, self._pinned[self._turn],
+                                       self.shard)
             self._turn ^= 1
             snap_ms = 1e3 * (time.perf_counter() - t0)
         self._wait_for_inflight(round_idx, chunk_wall)
@@ -202,10 +222,12 @@ class CheckpointManager:
             path, nbytes = write_checkpoint(
                 self.policy.directory, snapshot, round_idx,
                 config=self.config, fs=self.fs,
-                retries=self.policy.retries,
+                process_index=0 if self.shard is None else self.shard.rank,
+                group=self._group, retries=self.policy.retries,
                 backoff_s=self.policy.backoff_s)
-            prune_checkpoints(self.policy.directory, self.policy.keep,
-                              fs=self.fs)
+            if self.shard is None or self.shard.rank == 0:
+                prune_checkpoints(self.policy.directory, self.policy.keep,
+                                  fs=self.fs)
         except SimulatedKill:
             # the process "died" between save-start and commit: stop doing
             # anything at all (the torn .tmp-* stays on disk for recovery

@@ -34,11 +34,20 @@ uplink's uniforms, the cohort, the minibatches, the faults — so restoring
 ``t`` is what makes a resume bit-exact. The port has no PRNG key, so no
 ``rng`` leaf, and the inventory says ``"rng": false``.
 
-One device holds every leaf whole, so each leaf is one shard with the full
-box; the box list stays so a multi-process writer can add its own boxes.
-A checkpoint written by the reference restores into a port template: leaves
-the template lacks (its ``.rng``, SCAFFOLD's ``.c``/``.c_k`` outside the
-SCAFFOLD family) are ignored, as the reference's own restore ignores them.
+The vmap runtime's one device holds every leaf whole, so each leaf is one
+shard with the full box, in ``shards_p0000.npz``. Under the sharded runtime
+(core/sharded.py, a ``ClientShard`` passed as ``shard=``) rank r writes
+``shards_p{r:04d}.npz`` with its rows of every per-client leaf (box
+``((k0, k1), (0, d), ...)`` of the global [K, ...] leaf), and rank 0 adds
+the replicated ones (params, c, t) whole; every rank stages into one
+directory that rank 0 names, and rank 0 writes the manifest of all the
+ranks' entries and commits once every rank has staged
+(``write_checkpoint(group=)``). A restore assembles each global leaf and a
+rank takes its rows, so a checkpoint restores at any world size that
+divides K. A checkpoint written by the reference restores into a port
+template: leaves the template lacks (its ``.rng``, SCAFFOLD's
+``.c``/``.c_k`` outside the SCAFFOLD family) are ignored, as the
+reference's own restore ignores them.
 
 Completeness is verified on load, never assumed: every referenced shard file
 must exist, every entry's sha256 must match, and the shard boxes of every
@@ -212,8 +221,11 @@ def _pinned(pool: "dict | None", key: str, like: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def snapshot_shards(state: Pytree, pinned: "dict | None" = None) -> Snapshot:
-    """Host-side snapshot of every leaf as one shard with the full box.
+def snapshot_shards(state: Pytree, pinned: "dict | None" = None,
+                    shard=None) -> Snapshot:
+    """Host-side snapshot of every leaf as one shard with the full box; with
+    ``shard`` (a core/sharded.py ClientShard), of this rank's boxes: its
+    rows of each per-client leaf, and on rank 0 the replicated leaves.
 
     A leaf on the CPU is copied. A leaf on the card is copied into a pinned
     host buffer (from ``pinned``, a ``{key: tensor}`` pool reused across
@@ -227,6 +239,12 @@ def snapshot_shards(state: Pytree, pinned: "dict | None" = None) -> Snapshot:
     snap = Snapshot()
     on_card = False
     for key, leaf in _leaf_keys(state):
+        shape = _shape(leaf)
+        boxes = [tuple((0, n) for n in shape)]
+        if shard is not None:
+            shape, boxes = shard.leaf_boxes(key, shape)
+            if not boxes:
+                continue
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
             src = leaf.detach()
             if src.dtype in _WIDENED:
@@ -237,8 +255,8 @@ def snapshot_shards(state: Pytree, pinned: "dict | None" = None) -> Snapshot:
             on_card = True
         else:
             arr = _host_array(leaf)
-        snap[key] = {"shape": _shape(leaf), "dtype": _dtype_name(leaf),
-                     "shards": [(tuple((0, n) for n in _shape(leaf)), arr)]}
+        snap[key] = {"shape": shape, "dtype": _dtype_name(leaf),
+                     "shards": [(boxes[0], arr)]}
     if on_card:
         snap.ready = torch.cuda.Event()
         snap.ready.record()
@@ -264,82 +282,115 @@ def inventory_of(snapshot: "dict[str, dict]") -> dict:
     }
 
 
+def _stage(tmp: str, fname: str, snapshot: "dict[str, dict]", fs: LocalFs,
+           retries: int, backoff_s: float, sleep) -> "tuple[dict, int]":
+    """Write this process's shard file into ``tmp``. Returns (its manifest
+    leaf records, the file's bytes)."""
+    entries: "dict[str, np.ndarray]" = {}
+    leaves = {}
+    for key, rec in snapshot.items():
+        shard_meta = []
+        for i, (box, arr) in enumerate(rec["shards"]):
+            entry = f"{key}::{i}"
+            entries[entry] = arr
+            shard_meta.append({
+                "file": fname,
+                "entry": entry,
+                "box": [[int(a), int(b)] for a, b in box],
+                "sha256": sha256_hex(arr.tobytes()),
+                "bytes": int(arr.nbytes),
+            })
+        leaves[key] = {
+            "shape": list(rec["shape"]),
+            "dtype": rec["dtype"],
+            "stored_dtype": str(rec["shards"][0][1].dtype),
+            "shards": shard_meta,
+        }
+    buf = io.BytesIO()
+    # npz keys with '/' are legal (zip member names); savez handles them
+    np.savez(buf, **entries)
+    payload = buf.getvalue()
+    write_bytes_atomic(os.path.join(tmp, fname), payload, fs=fs,
+                       retries=retries, backoff_s=backoff_s, sleep=sleep)
+    return leaves, len(payload)
+
+
+def _commit(tmp: str, final: str, round_idx: int, leaves: dict,
+            files: "list[str]", config: dict | None, fs: LocalFs,
+            retries: int, backoff_s: float, sleep) -> int:
+    """Write the manifest of ``leaves`` (every process's entries) into
+    ``tmp`` and rename it to ``final``. Returns the manifest's bytes."""
+    manifest = {
+        "format": CKPT_FORMAT,
+        "round": int(round_idx),
+        "processes": len(files),
+        "files": files,
+        "leaves": leaves,
+        "inventory": inventory_of(leaves),
+        "config": config or {},
+    }
+    mbytes = json.dumps(manifest, indent=1, sort_keys=True).encode()
+    # manifest LAST: its presence inside a committed dir is the marker
+    write_bytes_atomic(os.path.join(tmp, MANIFEST), mbytes, fs=fs,
+                       retries=retries, backoff_s=backoff_s, sleep=sleep)
+    if fs.exists(final):
+        # a prior run already committed this round (e.g. rerun into the
+        # same directory without resume): the new save supersedes it.
+        # os.replace cannot overwrite a non-empty directory, so drop the
+        # stale one first — the only window without a ckpt for this
+        # round is here, and the previous-newest checkpoint still covers
+        # recovery.
+        logger.warning("checkpoint %s already exists; overwriting", final)
+        fs.rmtree(final)
+    commit_dir(tmp, final, fs=fs, retries=retries, backoff_s=backoff_s,
+               sleep=sleep)
+    return len(mbytes)
+
+
+def _drop_tmp(tmp: str, fs: LocalFs) -> None:
+    try:
+        fs.rmtree(tmp)
+    except OSError:
+        pass
+
+
 def write_checkpoint(directory: str, snapshot: "dict[str, dict]",
                      round_idx: int, *, config: dict | None = None,
                      fs: LocalFs = LOCAL_FS, process_index: int = 0,
-                     retries: int = 3, backoff_s: float = 0.05,
+                     group=None, retries: int = 3, backoff_s: float = 0.05,
                      sleep=None) -> "tuple[str, int]":
     """Stage this process's shards + the manifest and commit atomically.
 
     Waits for a :class:`Snapshot`'s device→host copies first. Returns
-    ``(committed_path, bytes_written)``. Single-process commit: the writing
-    process also writes the manifest and renames; several writing processes
-    would barrier before the manifest (levanter's commit-marker idiom) — the
-    on-disk format already carries per-process files, so only that barrier
-    is missing.
+    ``(committed_path, bytes_written)``, the bytes this process wrote.
+
+    Without ``group`` this process is the only writer: it stages its shard
+    file and the manifest and renames. With ``group`` (a gloo process
+    group of every writing process, core/sharded.py::gloo_twin;
+    ``process_index`` is this process's rank in it) the commit is
+    collective, and every process calls it in the same
+    order: rank 0 names the staging directory and broadcasts it; each
+    process stages ``shards_p{rank:04d}.npz`` there; rank 0 gathers every
+    process's entries (the gather is the barrier: it returns once all have
+    staged or failed), writes and fsyncs the manifest of all of them and
+    renames; a broadcast of the outcome ends the save on every process, so
+    a failure anywhere fails the save everywhere and nothing is committed.
     """
     sleep = sleep or time.sleep
     if isinstance(snapshot, Snapshot):
         snapshot.wait()
     final = os.path.join(directory, ckpt_name(round_idx))
     tmp = os.path.join(directory, f".tmp-{ckpt_name(round_idx)}-{os.getpid()}")
+    fname = f"shards_p{process_index:04d}.npz"
+    io_kw = dict(retries=retries, backoff_s=backoff_s, sleep=sleep)
+    if group is not None:
+        return _write_collective(final, tmp, fname, snapshot, round_idx,
+                                 config, fs, process_index, group, io_kw)
     fs.makedirs(tmp)
-    total_bytes = 0
     try:
-        fname = f"shards_p{process_index:04d}.npz"
-        entries: "dict[str, np.ndarray]" = {}
-        leaves = {}
-        for key, rec in snapshot.items():
-            shard_meta = []
-            for i, (box, arr) in enumerate(rec["shards"]):
-                entry = f"{key}::{i}"
-                entries[entry] = arr
-                shard_meta.append({
-                    "file": fname,
-                    "entry": entry,
-                    "box": [[int(a), int(b)] for a, b in box],
-                    "sha256": sha256_hex(arr.tobytes()),
-                    "bytes": int(arr.nbytes),
-                })
-            leaves[key] = {
-                "shape": list(rec["shape"]),
-                "dtype": rec["dtype"],
-                "stored_dtype": str(rec["shards"][0][1].dtype),
-                "shards": shard_meta,
-            }
-        buf = io.BytesIO()
-        # npz keys with '/' are legal (zip member names); savez handles them
-        np.savez(buf, **entries)
-        payload = buf.getvalue()
-        write_bytes_atomic(os.path.join(tmp, fname), payload, fs=fs,
-                           retries=retries, backoff_s=backoff_s, sleep=sleep)
-        total_bytes += len(payload)
-
-        manifest = {
-            "format": CKPT_FORMAT,
-            "round": int(round_idx),
-            "processes": 1,
-            "files": [fname],
-            "leaves": leaves,
-            "inventory": inventory_of(snapshot),
-            "config": config or {},
-        }
-        mbytes = json.dumps(manifest, indent=1, sort_keys=True).encode()
-        # manifest LAST: its presence inside a committed dir is the marker
-        write_bytes_atomic(os.path.join(tmp, MANIFEST), mbytes, fs=fs,
-                           retries=retries, backoff_s=backoff_s, sleep=sleep)
-        total_bytes += len(mbytes)
-        if fs.exists(final):
-            # a prior run already committed this round (e.g. rerun into the
-            # same directory without resume): the new save supersedes it.
-            # os.replace cannot overwrite a non-empty directory, so drop the
-            # stale one first — the only window without a ckpt for this
-            # round is here, and the previous-newest checkpoint still covers
-            # recovery.
-            logger.warning("checkpoint %s already exists; overwriting", final)
-            fs.rmtree(final)
-        commit_dir(tmp, final, fs=fs, retries=retries, backoff_s=backoff_s,
-                   sleep=sleep)
+        leaves, nbytes = _stage(tmp, fname, snapshot, fs, **io_kw)
+        nbytes += _commit(tmp, final, round_idx, leaves, [fname], config, fs,
+                          **io_kw)
     except BaseException as e:
         # a failed (not killed) save must not leave its temp dir to confuse
         # the NEXT save's staging; SimulatedKill skips even this cleanup,
@@ -347,12 +398,51 @@ def write_checkpoint(directory: str, snapshot: "dict[str, dict]",
         from repro_torch.robust.fs_faults import SimulatedKill
 
         if not isinstance(e, SimulatedKill):
-            try:
-                fs.rmtree(tmp)
-            except OSError:
-                pass
+            _drop_tmp(tmp, fs)
         raise
-    return final, total_bytes
+    return final, nbytes
+
+
+def _write_collective(final, tmp, fname, snapshot, round_idx, config, fs,
+                      rank: int, group, io_kw) -> "tuple[str, int]":
+    """write_checkpoint's collective commit (see there)."""
+    import torch.distributed as dist
+
+    root = dist.get_global_rank(group, 0)
+    name = [tmp if rank == 0 else None]
+    dist.broadcast_object_list(name, src=root, group=group)
+    tmp = name[0]
+    staged, nbytes = None, 0
+    try:
+        fs.makedirs(tmp)
+        leaves, nbytes = _stage(tmp, fname, snapshot, fs, **io_kw)
+        staged = (fname, leaves)
+    except Exception as e:   # a SimulatedKill ends this process's part
+        staged = f"rank {rank}: {e!r}"
+    gathered = [None] * dist.get_world_size(group) if rank == 0 else None
+    dist.gather_object(staged, gathered, dst=root, group=group)
+    outcome = [None]
+    if rank == 0:
+        failed = [g for g in gathered if isinstance(g, str)]
+        try:
+            if failed:
+                raise OSError("; ".join(failed))
+            merged: dict = {}
+            for _, leaves in gathered:
+                for key, rec in leaves.items():
+                    if key in merged:
+                        merged[key]["shards"].extend(rec["shards"])
+                    else:
+                        merged[key] = {**rec, "shards": list(rec["shards"])}
+            nbytes += _commit(tmp, final, round_idx, merged,
+                              [f for f, _ in gathered], config, fs, **io_kw)
+        except Exception as e:
+            _drop_tmp(tmp, fs)
+            outcome = [f"checkpoint {final} not committed: {e!r}"]
+    dist.broadcast_object_list(outcome, src=root, group=group)
+    if outcome[0] is not None:
+        raise OSError(outcome[0])
+    return final, nbytes
 
 
 def list_checkpoints(directory: str, fs: LocalFs = LOCAL_FS) \
@@ -439,22 +529,30 @@ def verify_checkpoint(path: str, fs: LocalFs = LOCAL_FS) \
     return manifest, data
 
 
-def _assemble(like: Pytree, manifest: dict, data: "dict[str, list]") -> Pytree:
+def _assemble(like: Pytree, manifest: dict, data: "dict[str, list]",
+              shard=None) -> Pytree:
     """Reassemble the tree of ``like`` from verified shard data, each leaf
     on the template leaf's device and in its dtype. Leaves the checkpoint
-    holds and the template lacks are ignored."""
+    holds and the template lacks are ignored. With ``shard`` (a
+    ClientShard) ``like`` is the rank's state: each per-client leaf is
+    assembled whole and the rank keeps its rows."""
     def leaf(key, tmpl):
         if key not in data:
             raise KeyError(f"checkpoint has no leaf {key!r} for the given "
                            "template (structure mismatch)")
         shape = tuple(manifest["leaves"][key]["shape"])
-        if shape != _shape(tmpl):
+        want = _shape(tmpl)
+        if shard is not None:
+            want = shard.leaf_boxes(key, want)[0]
+        if shape != want:
             raise ValueError(f"leaf {key}: checkpoint shape {shape} != "
-                             f"template {_shape(tmpl)}")
+                             f"template {want}")
         full = np.empty(shape, dtype=data[key][0][1].dtype)
         for box, arr in data[key]:
             idx = tuple(slice(a, b) for a, b in box)
             full[idx] = arr.reshape(full[idx].shape)
+        if shard is not None and shard.per_client(key):
+            full = full[shard.rows]
         return _to_like(full, tmpl)
 
     return _rebuild(like, leaf)
@@ -479,21 +577,22 @@ def _check_config(manifest: dict, expect_config: dict | None,
 
 
 def load_checkpoint(path: str, like: Pytree, fs: LocalFs = LOCAL_FS,
-                    expect_config: dict | None = None
+                    expect_config: dict | None = None, shard=None
                     ) -> "tuple[Pytree, dict]":
     """Verify + restore ONE committed checkpoint directory (explicit-path
     resume). Raises on any defect — an explicitly named checkpoint that
-    fails verification is an error, not something to silently skip."""
+    fails verification is an error, not something to silently skip. With
+    ``shard``, ``like`` is a rank's state and the rank's rows restore."""
     found = verify_checkpoint(path, fs=fs)
     if found is None:
         raise ValueError(f"checkpoint {path} is incomplete or corrupt")
     manifest, data = found
     _check_config(manifest, expect_config, path)
-    return _assemble(like, manifest, data), manifest
+    return _assemble(like, manifest, data, shard), manifest
 
 
 def load_latest(directory: str, like: Pytree, fs: LocalFs = LOCAL_FS,
-                expect_config: dict | None = None
+                expect_config: dict | None = None, shard=None
                 ) -> "tuple[Pytree, dict] | None":
     """Restore from the newest COMPLETE checkpoint under ``directory``.
 
@@ -509,7 +608,7 @@ def load_latest(directory: str, like: Pytree, fs: LocalFs = LOCAL_FS,
             continue
         manifest, data = found
         _check_config(manifest, expect_config, path)
-        return _assemble(like, manifest, data), manifest
+        return _assemble(like, manifest, data, shard), manifest
     return None
 
 

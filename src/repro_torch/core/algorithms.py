@@ -614,7 +614,9 @@ def _nan_extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:
 
 
 class CrossClientReduce:
-    """Cross-client reductions and the wire of the one-device runtime."""
+    """Cross-client reductions and the wire of the one-device runtime (the
+    sharded runtime's core/sharded.py::ShardReduce ends each reduction in a
+    collective)."""
 
     def __init__(self, channel: CommChannel | None = None):
         self.channel = make_channel(channel)
@@ -633,6 +635,11 @@ class CrossClientReduce:
 
     def ess(self, weights):
         return 1.0 / torch.clamp((weights * weights).sum(), min=1e-30)
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every client's rows of a per-client tensor: here, all of them
+        already (the sharded reduce all-gathers the ranks' blocks)."""
+        return x
 
     def uplink(self, stacked: torch.Tensor, spec: UplinkSpec,
                anchor: torch.Tensor | None = None, state: "dict | None" = None,
@@ -992,6 +999,13 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     ``algo`` on ``problem`` (whose data must already be on ``device``),
     every wire crossing through ``channel`` (None: the lossless identity).
 
+    This is the one-device runtime: the K clients stacked on ``device``.
+    Its distributed twin, core/sharded.py::make_sharded_round_fn, runs the
+    same round body on each rank's block of clients of a
+    ``torch.distributed`` group and ends every cross-client reduction with
+    a collective (the reference's ``make_sharded_round_fn`` over the
+    ("pod", "data") mesh axes).
+
     A round's draws: a stochastic codec's uniforms, one [K, nc, C] f32
     tensor per uplink (named by its tag), and in minibatch mode the rows of
     every local step, one [K, L+1, batch_size] int64 tensor (named
@@ -1052,6 +1066,30 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     ignore it, as the reference's do. The Newton family takes no minibatch
     and no carried history (``batch_size``, ``carry_history``): the
     reference ignores them there, the port refuses them."""
+    return _build_round(algo, problem, hp, channel, seed, device, faults,
+                        async_cfg)
+
+
+def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
+                 make_reduce=None, shard=None, weight=None):
+    """The round function of make_round_fn and of its sharded twin
+    (core/sharded.py::make_sharded_round_fn): one body for both.
+
+    ``problem`` holds the clients the round computes on: all K, or with
+    ``shard`` (a sharded.ClientShard) this rank's block of them, whose
+    weights are their global ones; ``weight`` [K] is then all K clients'
+    weights. ``make_reduce(channel)`` gives the cross-client reduce
+    (CrossClientReduce by default; the sharded ShardReduce ends each sum in
+    a collective).
+
+    Under a shard the round's [K]-sized plan is global and the same on
+    every rank: every draw is the dense round's full tensor, of which the
+    rank takes its rows, except the fault plan's per-client scalars
+    (dropout, staleness, latency), which stay [K]; the fault realization,
+    the weights the dropout and the deadline gate derive from it and the
+    gate's partition are computed on the [K] vectors (the buffer ages, the
+    one per-client state they need, by one all-gather), and the rank takes
+    its rows of them for the round core and the epilogues."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
     if algo in NEWTON_ALGOS and (hp.batch_size is not None
@@ -1080,14 +1118,18 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     channel = make_channel(channel)
     params0 = problem.init(None)
     comm_bytes = comm_bytes_per_round(algo, params0, channel, hp.line_search)
-    R = CrossClientReduce(channel)
+    R = (make_reduce or CrossClientReduce)(channel)
     C = problem.clients
-    K = C.num_clients
+    # all K clients' count and weights, and this rank's rows of them (None:
+    # the round computes on every client)
+    rows = None if shard is None else shard.rows
+    K = C.num_clients if shard is None else shard.num_clients
+    weight = C.weight if shard is None else weight
     d = params0.shape[-1]
     csize = resolve_cohort_size(hp, K)
     # the clients a round computes on, and whether their draws are rows of
     # the dense round's (C < K) or the dense round's own (dense, C = K)
-    n_round = K if csize is None else csize
+    n_round = C.num_clients if csize is None else csize
     gathers = csize is not None and csize < K
     family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
               "scaffold" if algo in SCAFFOLD_ALGOS else
@@ -1119,8 +1161,12 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                 specs[name] = _Draw((K,), torch.float32, fold, kind,
                                     faults.seed)
             fault_names += (name,)
-    # the shapes a round takes: [C, ...] in a cohort round
-    draw_specs = {name: ((n_round, *sp.shape[1:]), sp.dtype)
+    # the draws a sharded round takes whole: the fault plan's [K] scalars
+    whole = () if shard is None else tuple(
+        n for n in fault_names if len(specs[n].shape) == 1)
+    # the shapes a round takes: [C, ...] in a cohort round, a rank's rows
+    draw_specs = {name: (sp.shape if name in whole
+                         else (n_round, *sp.shape[1:]), sp.dtype)
                   for name, sp in specs.items()}
     # reseeded for each draw
     gen = torch.Generator(device=dev)
@@ -1147,6 +1193,8 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                 v = _cohort_indices(C.weight, csize, v)
             elif idx is not None:
                 v = v.index_select(0, idx)
+            elif rows is not None and name not in whole:
+                v = v[rows]
             if sp.kind == "minibatch":
                 mask = C.mask if idx is None else C.mask.index_select(0, idx)
                 v = sample_minibatch_indices(mask, v)
@@ -1172,6 +1220,23 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     all_ids = torch.arange(K, device=dev) if faults is not None else None
     client_fn = _client_giant if algo == "giant" else _client_newton_gmres
 
+    def local(v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a vector over the round's clients."""
+        return v if rows is None else v[rows]
+
+    def local_fr(fr):
+        """This rank's rows of a realization (its noise draws already are)."""
+        if rows is None or fr is None:
+            return fr
+        return fr._replace(drop=local(fr.drop), stale=local(fr.stale),
+                           byz=local(fr.byz), latency=local(fr.latency))
+
+    def local_ar(ar):
+        """This rank's rows of the gate's partition (the deadline is one)."""
+        if rows is None:
+            return ar
+        return type(ar)(*(local(v) if v.dim() else v for v in ar))
+
     def reserved(plan: CohortPlan, key: str, init: str) -> torch.Tensor:
         """The cohort's rows of a reserved comm key, or a clear refusal."""
         comm = plan.cohort.comm
@@ -1180,15 +1245,16 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                              f"with robust.{init} (run_federated does)")
         return comm[key]
 
-    def fault_ctx(plan: CohortPlan, take, rows):
+    def fault_ctx(plan: CohortPlan, take, rows_of):
         """(reduce, dweight, pweight, realization) of the round: the
         realization from its draws, the dropped clients' weights zeroed
         (SCAFFOLD's dweight too: its control variates ride the lost
         uplink; the other families' gradients landed before the drop), and
-        the reduce wrapped with the uplink faults."""
+        the reduce wrapped with the uplink faults. The weights and the
+        realization cover the round's clients (all K under a shard)."""
         if faults is None:
             return R, plan.dweight, plan.pweight, None
-        fr = flt.realize(faults, {n: take(n, rows) for n in fault_names},
+        fr = flt.realize(faults, {n: take(n, rows_of) for n in fault_names},
                          all_ids if plan.idx is None else plan.idx)
         dw, pw = plan.dweight, plan.pweight
         if faults.drop_rate > 0.0:
@@ -1198,11 +1264,12 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         anchors = None
         if faults.stale_rate > 0.0:
             anchors = reserved(plan, flt.FAULT_ANCHOR_KEY, "init_fault_comm")
-        return flt.FaultyReduce(R, faults, fr, anchors), dw, pw, fr
+        return flt.FaultyReduce(R, faults, local_fr(fr), anchors), dw, pw, fr
 
     def fault_epilogue(plan: CohortPlan, fr, w_t, upd: dict) -> dict:
         """The stale anchors refreshed, then the dropped rows frozen (a
-        dropped client's refreshed anchor freezes back too)."""
+        dropped client's refreshed anchor freezes back too); ``fr`` is
+        this rank's rows of the realization."""
         if faults is None:
             return upd
         if faults.stale_rate > 0.0 and upd.get("comm") is not None:
@@ -1221,10 +1288,9 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         latency = fr.latency if fr is not None else torch.zeros_like(pw)
         drop = fr.drop if (faults is not None and faults.drop_rate > 0.0) \
             else None
-        ar = async_agg.plan_async(
-            async_cfg, latency,
-            reserved(plan, async_agg.ASYNC_AGE_KEY, "init_async_comm"), pw,
-            drop=drop)
+        age = R.all_rows(reserved(plan, async_agg.ASYNC_AGE_KEY,
+                                  "init_async_comm"))
+        ar = async_agg.plan_async(async_cfg, latency, age, pw, drop=drop)
         if family == "scaffold":
             # the control variates ride the model uplink: only fresh
             # arrivals enter c (a fold's c_up is lost)
@@ -1239,9 +1305,12 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         rows are guarded. Returns (params, updates, the async stats)."""
         if async_cfg is None:
             return new_params, upd, None
+        stats = async_agg.async_round_stats(ar)
+        ar = local_ar(ar)
         comm_in = plan.cohort.comm
         buf = comm_in[async_agg.ASYNC_BUF_KEY]
-        new_params = async_agg.fold_buffered(new_params, ar.fold_weights, buf)
+        new_params = async_agg.fold_buffered(new_params, ar.fold_weights, buf,
+                                             R)
         # encode at send: the deferred client's row is its post-codec delta
         # against this round's anchor, captured off the model uplink
         new_buf, new_age = async_agg.advance_buffer(
@@ -1255,7 +1324,7 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
         if async_cfg.guard_history:
             upd = async_agg.guard_history_rows(ar.fold | ar.retain,
                                                plan.cohort, upd)
-        return new_params, upd, async_agg.async_round_stats(ar)
+        return new_params, upd, stats
 
     def round_fn(state: ServerState, draws: "dict | None" = None):
         def take(name: str, rows: torch.Tensor | None = None) -> torch.Tensor:
@@ -1275,24 +1344,28 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
             with record_function("fl.cohort_plan"):
                 idx = take(COHORT)
         # a cohort's draws are rows idx of the dense round's
-        rows = idx if gathers else None
+        rows_of = idx if gathers else None
 
         def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
-            return take(spec.tag, rows)
+            return take(spec.tag, rows_of)
 
         plan = _plan_round(C, csize, state, idx)
-        mb = take(MINIBATCH, rows) if hp.batch_size is not None else None
+        if shard is not None:
+            # the plan's weights are all K clients'
+            plan = plan._replace(dweight=weight, pweight=weight)
+        mb = take(MINIBATCH, rows_of) if hp.batch_size is not None else None
         with record_function("fl.faults"):
-            Rr, dw, pw, fr = fault_ctx(plan, take, rows)
+            Rr, dw, pw, fr = fault_ctx(plan, take, rows_of)
             Rr, dw, pw, ar = async_ctx(plan, Rr, fr, dw, pw)
+        fr_rows = local_fr(fr)
         cohort = plan.cohort
-        args = (plan.x, plan.y, plan.mask, dw, pw, comm_bytes, cohort.comm,
-                draw, mb)
+        args = (plan.x, plan.y, plan.mask, local(dw), local(pw), comm_bytes,
+                cohort.comm, draw, mb)
         upd = {}
         c_old = state.c
         if family == "svrg":
             carry = hp.carry_history > 0 and state.hist_s is not None
-            poison = ((fr.byz, fr.noise[flt.POISON], faults.byz_scale)
+            poison = ((fr_rows.byz, fr_rows.noise[flt.POISON], faults.byz_scale)
                       if poisons else None)
             new_params, metrics, comm, hist_s, hist_y = _svrg_round_core(
                 problem, hp, use_aa, Rr, state.params, *args,
@@ -1324,7 +1397,7 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
                 problem, hp, Rr, state.params, *args)
         upd = dict(comm=comm, **upd)
         with record_function("fl.faults"):
-            upd = fault_epilogue(plan, fr, state.params, upd)
+            upd = fault_epilogue(plan, fr_rows, state.params, upd)
             new_params, upd, astats = async_epilogue(
                 plan, ar, Rr, state.params, new_params, upd)
         if astats is not None:

@@ -63,8 +63,13 @@ state, on the capture stream, as torch's graph docs require) is counted
 apart, in ``runner.warmup_launches``.
 
 ``run_rounds`` works with any ``round(state, draws) -> (state,
-RoundMetrics)`` from ``make_round_fn``; pass a prebuilt ``runner`` to keep
-its graph across calls (a later call overwrites the state it returned).
+RoundMetrics)`` from ``make_round_fn`` or core/sharded.py's
+``make_sharded_round_fn``; pass a prebuilt ``runner`` to keep its graph
+across calls (a later call overwrites the state it returned). A sharded
+round on an NCCL group is captured with its all-reduces in the graph (the
+warm-up round's collectives, on the capture stream, set up the
+communicator first); on a gloo group on the card the capture raises the
+round's ``capture_refusal``, and the per-round loop is its path.
 """
 from __future__ import annotations
 
@@ -263,7 +268,13 @@ class ChunkRunner:
 
     def _capture(self, state: ServerState) -> None:
         """Own static copies of ``state``, warm up one round on a scratch
-        copy on the capture stream, then capture the chunk body."""
+        copy on the capture stream, then capture the chunk body. A round
+        that names a ``capture_refusal`` (the sharded round on a gloo
+        group) raises it; a round's ``capture_error_mode`` (the sharded
+        round on NCCL: "thread_local") is the capture's."""
+        refusal = getattr(self.round_fn, "capture_refusal", None)
+        if refusal:
+            raise ValueError(f"engine: {refusal}")
         dev = state.params.device
         self.static = _map_state(torch.clone, state)
         self.n_live = torch.zeros((), dtype=torch.int64, device=dev)
@@ -285,7 +296,10 @@ class ChunkRunner:
         graph = torch.cuda.CUDAGraph()
         try:
             with (_build.recording() as record,
-                  torch.cuda.graph(graph, stream=stream)):
+                  torch.cuda.graph(graph, stream=stream,
+                                   capture_error_mode=getattr(
+                                       self.round_fn, "capture_error_mode",
+                                       "global"))):
                 out, self.readout, self.host = self._body(
                     self.static, self.n_live, self.draws)
                 # the chunk's final state back into the buffers the next

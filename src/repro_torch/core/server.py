@@ -13,7 +13,9 @@ the whole round state on its cadence, ``resume=`` ("auto" or a checkpoint
 path) continues a run from a saved state bit for bit, and
 ``checkpoint_fs=`` swaps the filesystem (robust/fs_faults.FaultyFs injects
 storage faults); ``checkpoint_config_fingerprint`` is the run identity a
-checkpoint carries and a resume demands back.
+checkpoint carries and a resume demands back. ``runtime="sharded"`` splits
+the clients over the ranks of a ``torch.distributed`` group
+(core/sharded.py); ``"vmap"`` stacks them on one device.
 """
 from __future__ import annotations
 
@@ -119,8 +121,22 @@ def run_federated(
     checkpoint: CheckpointPolicy | None = None,
     resume: "str | None" = None,
     checkpoint_fs=None,
+    runtime: str = "vmap",
+    group=None,
 ) -> History:
     """Iterate ``num_rounds`` of ``algo`` and collect the metric history.
+
+    ``runtime="vmap"`` (the default) stacks the K clients on one device
+    (core/algorithms.py::make_round_fn). ``runtime="sharded"`` is its
+    distributed twin (core/sharded.py::make_sharded_round_fn): every rank
+    of ``group`` (None: the default group, which the caller initialises)
+    calls run_federated with the same arguments and the global
+    ``problem``, keeps its block of the clients' rows on ``device`` and
+    computes the replicated params, so ``w_star``, the rel-error, the
+    History and ``final_params`` are the same on every rank; the sinks and
+    ``trace_capture`` run on rank 0 only (a sink's stop request reaches
+    every rank by a broadcast), the header says ``"runtime": "sharded"``,
+    and a checkpoint holds one shard file per rank.
 
     Every wire crossing goes through ``channel`` (a ``--comm-codec`` spec
     such as ``"int8"``, or None for the lossless identity); ``seed`` seeds a
@@ -183,24 +199,42 @@ def run_federated(
     from repro_torch.obs.sinks import (ROW_FIELDS, SCHEMA_VERSION,
                                        build_footer, build_round_row)
 
+    if runtime not in ("vmap", "sharded"):
+        raise ValueError(f"unknown runtime {runtime!r}; choose 'vmap' or "
+                         "'sharded'")
     channel = make_channel(channel)
-    state = init_state(problem, generator, device, channel, algo, hp)
+    sinks = list(sinks)
+    shard = None
+    if runtime == "sharded":
+        from repro_torch.core.sharded import (RankZeroStop,
+                                              make_sharded_round_fn)
+
+        round_fn = make_sharded_round_fn(algo, problem, hp, group, channel,
+                                         seed, device, faults=faults,
+                                         async_cfg=async_cfg)
+        shard = round_fn.shard
+        rows = round_fn.rank_problem
+        if shard.rank != 0:
+            sinks, trace_capture = [], None
+        sinks = [RankZeroStop(sinks, group)] + sinks
+    else:
+        round_fn = make_round_fn(algo, problem, hp, channel, seed, device,
+                                 faults=faults, async_cfg=async_cfg)
+        rows = problem
+    state = init_state(rows, generator, device, channel, algo, hp)
     if w0 is not None:
         state = state._replace(params=w0)
-    K = problem.clients.num_clients
+    K = rows.clients.num_clients
     if faults is not None and faults.active and faults.stale_rate > 0.0:
         # every client's anchor starts at the starting point
         state = state._replace(comm=init_fault_comm(state.comm, state.params, K))
     if async_cfg is not None and async_cfg.active:
         # every client starts with an empty buffer (age 0)
         state = state._replace(comm=init_async_comm(state.comm, state.params, K))
-    round_fn = make_round_fn(algo, problem, hp, channel, seed, device,
-                             faults=faults, async_cfg=async_cfg)
     device_fields, host_fields = engine.metric_fields(round_fn)
-    sinks = list(sinks)
     run_info = {
         "algo": algo,
-        "runtime": "vmap",          # the K clients stacked on one device
+        "runtime": runtime,
         "channel": channel.name,
         "backend": state.params.device.type,
         "num_clients": problem.clients.num_clients,
@@ -212,7 +246,8 @@ def run_federated(
                   else None),
     }
     state, start_round, ckpt_mgr = _checkpointing(
-        state, run_info, checkpoint, resume, checkpoint_fs, faults, async_cfg)
+        state, run_info, checkpoint, resume, checkpoint_fs, faults, async_cfg,
+        shard)
 
     if chunk is not None:
         state, trace = engine.run_rounds(
@@ -306,9 +341,10 @@ def run_federated(
 
 
 def _checkpointing(state, run_info: dict, checkpoint, resume, fs, faults,
-                   async_cfg):
+                   async_cfg, shard=None):
     """The resumed state (or ``state``), the round it starts at, and the
-    run's CheckpointManager (None without a policy)."""
+    run's CheckpointManager (None without a policy); under a ``shard``
+    the rank's rows restore and the rank writes its own shard file."""
     if checkpoint is None and resume in (None, "none"):
         return state, 0, None
     fs = fs if fs is not None else LOCAL_FS
@@ -322,15 +358,15 @@ def _checkpointing(state, run_info: dict, checkpoint, resume, fs, faults,
                 raise ValueError('resume="auto" needs a checkpoint policy (it '
                                  "names the directory to scan)")
             found = load_latest(checkpoint.directory, state, fs=fs,
-                                expect_config=fingerprint)
+                                expect_config=fingerprint, shard=shard)
         else:
             found = load_checkpoint(resume, state, fs=fs,
-                                    expect_config=fingerprint)
+                                    expect_config=fingerprint, shard=shard)
         if found is not None:
             state, manifest = found
             start_round = int(manifest["round"])
     mgr = (CheckpointManager(checkpoint, config=fingerprint, fs=fs,
-                             last_saved=start_round)
+                             last_saved=start_round, shard=shard)
            if checkpoint is not None else None)
     return state, start_round, mgr
 

@@ -150,10 +150,16 @@ def init_async_comm(comm: "dict | None", params: torch.Tensor,
 
 
 def fold_buffered(params: torch.Tensor, fold_weights: torch.Tensor,
-                  buf: torch.Tensor) -> torch.Tensor:
-    """``params + Σ_k w_k · buf_k``: all-zero weights add exactly 0.0."""
-    return params + torch.tensordot(fold_weights.to(buf.dtype), buf,
-                                    dims=1).to(params.dtype)
+                  buf: torch.Tensor, reduce=None) -> torch.Tensor:
+    """``params + Σ_k w_k · buf_k``: all-zero weights add exactly 0.0. The
+    sum is a cross-client one: with ``reduce`` (a CrossClientReduce) it is
+    ``reduce.wsum``, which under the sharded runtime ends in a collective
+    over the ranks' rows."""
+    if reduce is None:
+        total = torch.tensordot(fold_weights.to(buf.dtype), buf, dims=1)
+    else:
+        total = reduce.wsum(fold_weights, buf)
+    return params + total.to(params.dtype)
 
 
 def advance_buffer(ar: AsyncRealization, delta: torch.Tensor,

@@ -26,6 +26,8 @@ from repro_torch.kernels.anderson.ref import (MAX_SWEEPS, clip_keep_ref,
 from test_torch_anderson import (assert_close, f32_case, random_histories,  # noqa: F401
                                  ref_f64, x64)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 def spd_batch(rng, K, m, cond, dtype):
     """K random symmetric positive definite [m, m] matrices with eigenvalues

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from test_torch_aa_step import JACOBI_SIZES, check_jacobi
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype", [np.float64])

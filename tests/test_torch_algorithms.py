@@ -39,6 +39,8 @@ from repro_torch.core import (ALGORITHMS, COMM_TABLE, TRAJECTORY_ALGOS,
 from repro_torch.core.algorithms import MINIBATCH
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 N, K, D, L = 2000, 4, 54, 3
 NEW_ALGOS = ("scaffold", "fedosaa_scaffold", "fedavg", "fedosaa_avg", "lbfgs")

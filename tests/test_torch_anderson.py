@@ -23,6 +23,8 @@ from repro.core import anderson as jax_aa
 from repro_torch.core import anderson as aa
 from repro_torch.core.anderson import AAConfig, multisecant_update
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 IMPLS = ["tree", "kernel"]
 
 

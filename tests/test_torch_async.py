@@ -40,6 +40,7 @@ from repro_torch.robust import (ASYNC_AGE_KEY, ASYNC_BUF_KEY, AsyncConfig,
                                 plan_async)
 
 from test_torch_cohort import ETA, K, L, port_problem, ref64  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: every latency about 5 (sigma 0.01): a deadline of 0.5 makes every client
 #: late, one of 50 every client on time

@@ -19,6 +19,8 @@ import threading
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:

@@ -40,6 +40,8 @@ from repro_torch.robust import (AsyncConfig, FaultPlan, FaultyFs,
                                 FSFaultPlan, init_async_comm,
                                 init_fault_comm)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 K = 8
 #: the reference test's adversarial case: int8 EF residuals and refs, two
 #: carried AA columns, heavy-tailed latencies behind the deadline gate

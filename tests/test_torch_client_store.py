@@ -14,6 +14,8 @@ from repro.core import client_store as jax_store
 from repro_torch.core import ClientStateStore
 from repro_torch.core.client_store import gather_rows, scatter_rows
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def x64():

@@ -51,6 +51,8 @@ from repro_torch.core.algorithms import COHORT, CrossClientReduce
 from repro_torch.data import make_binary_classification, partition
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 K, C, L = 8, 4, 3
 ETA = 0.5
 #: DANE at 2 Newton steps of 5 CG iterations (the reference's own tests')

@@ -32,6 +32,7 @@ from repro_torch.models.logreg import make_logreg_problem
 from repro_torch.obs import MemorySink
 
 from test_torch_engine import assert_same_state, loop_and_engine
+from torch_threads import one_torch_thread  # noqa: F401
 
 K, C, L = 8, 4, 3
 HP = AlgoHParams(eta=0.5, local_epochs=L, cohort_size=C)

@@ -40,6 +40,8 @@ from repro_torch.data import make_binary_classification, partition
 from repro_torch.kernels.quant import int8_sr_uplink, int8_sr_uplink_ref
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 SPECS = ["identity", "fp32", "bf16", "int8", "int8:64", "int8+noef",
          "fp32+ef", "bf16+ef", "topk:0.05", "topk", "topk:0.05+noef",
          "bf16/bf16", "int8/fp32", "int8+ef/bf16", "identity/fp32"]

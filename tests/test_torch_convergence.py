@@ -14,6 +14,8 @@ import torch
 from repro_torch.core import (AlgoHParams, FLProblem, StackedClients,
                               run_federated, solve_reference)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 K, N_PER, D = 4, 256, 8
 GAMMA = 1e-2
 ETA = 0.2

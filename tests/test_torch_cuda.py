@@ -39,6 +39,8 @@ from repro_torch.kernels.quant import (chunk_rows, dequantize, dequantize_ref,
                                        quantize, quantize_ref)
 from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 

@@ -38,6 +38,8 @@ from repro_torch.kernels import _build
 from repro_torch.models.logreg import make_logreg_problem
 from repro_torch.obs import ROW_FIELDS, AlarmMonitor, MemorySink
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 HP = AlgoHParams(eta=0.5, local_epochs=3)
 
 

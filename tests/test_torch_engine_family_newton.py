@@ -8,6 +8,8 @@ import pytest
 from test_torch_engine import (NEWTON_CASES, check_chunked_run,  # noqa: F401
                                setup)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("algo,channel,chunk", NEWTON_CASES)
 def test_chunked_run_equals_the_loop(setup, algo, channel, chunk):  # noqa: F811

@@ -7,6 +7,8 @@ import pytest
 from test_torch_engine import (SVRG_CASES, check_chunked_run,  # noqa: F401
                                setup)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("algo,channel,chunk", SVRG_CASES)
 def test_chunked_run_equals_the_loop(setup, algo, channel, chunk):  # noqa: F811

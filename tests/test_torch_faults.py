@@ -67,6 +67,8 @@ from repro_torch.robust import faults as flt
 from test_torch_cohort import (ETA, KNOBS, SCAFFOLD, K, L, port_problem,  # noqa: F401
                                problems, ref64, start_state)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 C = 4
 CLIP = 1e-3
 #: one plan per fault kind (the reference's FAULT_KINDS,

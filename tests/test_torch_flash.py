@@ -25,6 +25,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 
 

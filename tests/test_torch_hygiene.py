@@ -17,6 +17,8 @@ from repro_torch.core import convert
 from repro_torch.data import make_binary_classification, partition
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 #: the port's own files: its package and its smoke script
@@ -72,6 +74,12 @@ def test_scans_cover_checkpoint_and_fs_faults():
     assert {PORT / "checkpoint" / f for f in (
         "__init__.py", "atomic.py", "sharded_ckpt.py", "checkpoint.py",
         "policy.py")} | {PORT / "robust" / "fs_faults.py"} <= set(PORT_FILES)
+
+
+def test_scans_cover_the_sharded_runtime():
+    """The distributed runtime is in the import and source scans."""
+    assert "repro_torch.core.sharded" in MODULES
+    assert PORT / "core" / "sharded.py" in PORT_FILES
 
 
 def test_sources_name_no_jax_and_no_reference_package():

@@ -30,6 +30,7 @@ from repro_torch.kernels.local_update.ops import (MAX_CLUSTER, inverse_count,
 from repro_torch.kernels.local_update.ref import trajectory_ref
 
 from test_torch_cuda import TOL, _aa_case, _traj_case, assert_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

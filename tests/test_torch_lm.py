@@ -35,6 +35,8 @@ from repro_torch.launch.serve import Request, SlotServer
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.decoder import build_model
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-4
 B, S, N_DECODE = 2, 128, 4
 CONFIGS = {"smollm-135m": ("smollm-135m", None),

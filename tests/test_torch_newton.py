@@ -39,6 +39,8 @@ from repro_torch.core.krylov import _gmres_incremental, gmres
 from repro_torch.models.logreg import make_logreg_problem
 from repro_torch.utils import tree_math as tm
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 N, K, D, L = 2000, 4, 54, 3
 DANE = dict(dane_newton_iters=3, dane_cg_iters=10)
 #: (algorithm, AlgoHParams knobs) of the one-round parity cases

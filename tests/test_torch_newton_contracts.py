@@ -21,6 +21,8 @@ from repro_torch.core import (ALGORITHMS, COMM_TABLE, TRAJECTORY_ALGOS,
 from repro_torch.data import make_binary_classification, partition
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 D = 54
 

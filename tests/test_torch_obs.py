@@ -27,6 +27,8 @@ from repro_torch.core import (AlgoHParams, init_state, make_round_fn,
 from repro_torch.data import make_binary_classification, partition
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 HP = AlgoHParams(eta=0.5, local_epochs=3)
 

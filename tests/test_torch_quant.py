@@ -35,6 +35,8 @@ from repro_torch.kernels.quant import (chunk_rows, dequantize, dequantize_ref,
                                        int8_sr_roundtrip, quantize,
                                        quantize_ref)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 def _chunks(rng, K, nc, C):
     """x [K, nc, C] with the corner cases: an all-zero chunk, a chunk whose

@@ -32,6 +32,7 @@ from repro_torch.robust import (ASYNC_AGE_KEY, ASYNC_BUF_KEY,
                                 init_async_comm, init_fault_comm)
 
 from test_torch_engine import assert_same_history, assert_same_rows
+from torch_threads import one_torch_thread  # noqa: F401
 
 K, L, ROUNDS = 8, 3, 5
 HP = AlgoHParams(eta=0.5, local_epochs=L, aa=AAConfig(clip_rtol=1e-3))

@@ -34,6 +34,8 @@ from repro_torch.data import make_binary_classification, partition
 from repro_torch.models.linreg import linreg_exact_solution, make_linreg_problem
 from repro_torch.models.logreg import make_logreg_problem
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 #: the JAX reference's converged loss on the acceptance configuration
 #: (benchmarks/results/ext_robustness.json, identity/clean/off)
 REFERENCE_LOSS = 0.3031490665062957

@@ -25,6 +25,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
 from repro_torch.models import layers
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 
 
