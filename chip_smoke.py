@@ -275,6 +275,29 @@ port beside it. Every phase raises on failure; none is caught.
    decode step, peak memory; then the slot server (8 requests, 4 slots,
    16-token prompts, 12 new tokens): every request finishes with 12
    tokens; tokens/s.
+6b. Federated training (core/lm.py, models/mlp.py, launch/), its start
+   second printed like every phase's, at most ~150 s: (a) FedOSAA-SVRG and
+   FedSVRG over smollm-135m at full width in f32 (d = 162,826,560; 4
+   clients of 4 documents of 128 tokens, L=3, 3 rounds by the loop) at
+   fl_train's step 0.3 (printed: FedSVRG diverges there) and at 0.05
+   (gated: the loss finite and falling); every round launches the Gram
+   pass (its split design) and the fused AA step once in FedOSAA-SVRG,
+   nothing in FedSVRG, never ``trajectory``, ``flash_attention`` or
+   ``ssd``; ms a round, tokens/s, peak memory, the AA step's used/clipped
+   columns and Gram conditioning, and one warm FedOSAA-SVRG round under
+   torch.profiler (its kernels, their device time, the top ones); (b) the Gram pass and the fused AA step
+   at that shape against their plain versions (Gram within 1e-5 of the
+   sum of its terms' magnitudes, reruns bit-identical), timed beside their
+   bounds, and the one-block-per-client Gram design at d=2^24 beside the
+   split one; (c) the engine on the reduced smollm (4 rounds in chunks of
+   2, identity and int8): the loop's rows and params bit for bit, one
+   read a chunk, the loop's launches a slot; (d) one round each of the
+   reduced mamba2 and a 5-layer zamba2: finite, no ``ssd`` launch; (e)
+   ``fl_train.main`` (reduced, FedSVRG baseline) writes the reference's
+   keys, ``train.main`` trains smollm-135m at full width in f32 (AdamW +
+   WSD, 4 x 256, 10 steps) with a falling loss; (f) Fig. 8 quick (MLP1,
+   MLP3 x FedSVRG, FedOSAA-SVRG from a numpy He init): MLP1 against the
+   reference's pinned numbers (scripts/reference_fig8_mlp.py).
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
    Every row carries ``launch_floor_ms``. The rows of ``update``,
    ``quantize`` and ``dequantize`` report what computes them on the main
@@ -294,7 +317,7 @@ port beside it. Every phase raises on failure; none is caught.
    ``launches_by_design`` (each run's resident and streaming launches),
    ``rerun_equal``, ``per_step_shape`` (the streaming design's check) and
    ``anchor_scale_0``; ``gram``'s and ``update``'s carry ``variants`` (g
-   [K, d] and m=15);
+   [K, d] and m=15), ``gram``'s also ``lm_width`` (phase 6b (b));
    ``ssd``'s carries ``blocks_per_sm``, ``rerun_equal``, ``bound_split``
    and ``bound_ms_f32_count`` (the bound with every operation at the f32
    rate).
@@ -3985,7 +4008,9 @@ def profile_rounds(clients, device, channel=None, rounds: int = 3) -> None:
     for _ in range(2):
         state, m = round_fn(state)
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card's activity only: the host's ~100k op events would take the
+    # profiler tens of seconds to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             state, m = round_fn(state)
@@ -4051,7 +4076,9 @@ def profile_engine(clients, device, channel=None, chunks: int = 3) -> None:
     runner = make_chunk_runner(round_fn, PAPER_CHUNK)
     for _ in range(2):
         state, *_ = runner(state, PAPER_CHUNK)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card's activity only: the host's ~100k op events would take the
+    # profiler tens of seconds to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(chunks):
             state, *_ = runner(state, PAPER_CHUNK)
@@ -4071,6 +4098,516 @@ def profile_engine(clients, device, channel=None, chunks: int = 3) -> None:
           f"device busy {busy_us / 1e3 / rounds:.3f} ms/round "
           f"({100 * busy_us / 1e6 / wall:.1f}% of the wall), "
           f"{launched / rounds:.1f} device kernels/round", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: federated training (core/lm.py, models/mlp.py, launch/)
+# ---------------------------------------------------------------------------
+
+#: (a) FL at full width: smollm-135m in float32 (its config is bf16, which
+#: the AA kernels do not read yet), 4 clients of 4 documents of 128 tokens
+#: (make_lm_tokens, seed 0), L=3, 3 rounds by the loop
+FL_LM_ARCH, FL_LM_CLIENTS, FL_LM_DOCS, FL_LM_SEQ = "smollm-135m", 4, 4, 128
+FL_LM_L, FL_LM_ROUNDS, FL_LM_D = 3, 3, 162_826_560
+#: fl_train's step; it is the reduced config's, and at full width FedSVRG's
+#: local steps diverge on it (the loss rises in round 2): those runs are
+#: printed, and the gated runs take FL_LM_ETA_GATED
+FL_LM_ETA, FL_LM_ETA_GATED = 0.3, 0.05
+#: (b) the old one-block-per-client Gram design beside the split one here
+GRAM_BLOCK_D = 1 << 24
+#: (c) the engine on the reduced config: rounds, chunk
+FL_ENGINE_ROUNDS, FL_ENGINE_CHUNK = 4, 2
+#: (e) launch/train.py at full width: steps, batch, sequence length
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 4, 256
+#: the keys of each algorithm's entry in the reference fl_train's --out
+FL_TRAIN_KEYS = {"loss_curve", "grad_norm_curve", "gram_cond_curve",
+                 "comm_bytes", "channel", "wall_s", "faults", "async"}
+#: (f) Fig. 8's quick configuration (benchmarks/fig8_nn.py), from the numpy
+#: He init of ``fig8_init``, and the JAX reference's final loss and
+#: training accuracy from the same init on the CPU
+#: (scripts/reference_fig8_mlp.py)
+FIG8_N, FIG8_K, FIG8_ETA, FIG8_L, FIG8_ROUNDS = 4_000, 10, 0.1, 10, 15
+FIG8_REFERENCE = {
+    ("mlp1", "fedsvrg"): (0.0039002588018774986, 1.0),
+    ("mlp1", "fedosaa_svrg"): (5.769904964836314e-05, 1.0),
+    ("mlp3", "fedsvrg"): (0.0013435884611681104, 1.0),
+    ("mlp3", "fedosaa_svrg"): (3.457676211837679e-05, 1.0)}
+#: MLP1's gates: FedSVRG's final loss within this relative distance of the
+#: reference's, FedOSAA-SVRG's within this factor of it either way (its
+#: f32 AA solve at Gram conditioning 1e3-1e5 makes the curve chaotic past
+#: round 3: on the CPU the port's own tree and kernel paths end 13% apart),
+#: both accuracies within this share of the reference's
+FIG8_SVRG_RTOL, FIG8_OSAA_FACTOR, FIG8_ACC_TOL = 1e-2, 2.0, 0.01
+
+
+class LaunchRows:
+    """A MetricsSink that notes the launch counters at the run's open and at
+    each emit, and keeps the rows: ``per_round`` is each round's launches
+    in the per-round loop (each emit is one round there)."""
+
+    def __init__(self):
+        self.marks, self.rows = [], []
+
+    def _mark(self):
+        from repro_torch.kernels import _build
+
+        self.marks.append(dict(_build.LAUNCHES))
+
+    def open(self, header):
+        self._mark()
+
+    def emit(self, rows):
+        self.rows.extend(rows)
+        self._mark()
+
+    def close(self, footer):
+        pass
+
+    @property
+    def per_round(self) -> list[dict]:
+        return [{k: b[k] - a[k] for k in a if b[k] - a[k]}
+                for a, b in zip(self.marks, self.marks[1:])]
+
+
+def lm_round_launches(algo: str, int8: bool) -> dict:
+    """One LM round's launches: the Gram pass and the fused AA step once in
+    a FedOSAA round; two fused uplinks on the int8 wire; never the
+    trajectory (the LM has no linear design: autodiff) nor the serving
+    kernels (training runs the reference's jnp attention and SSD paths)."""
+    want = {k: v for k, v in expected_launches(1, int8, algo).items() if v}
+    want.pop("trajectory", None)
+    return want
+
+
+def profile_lm_round(prob, hp, device) -> dict:
+    """Phase 6b (a): one warm FedOSAA-SVRG round at full width under
+    torch.profiler: its kernels, their own device time (the ``fl.*``
+    scopes' ranges left out) and the top kernels by it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import init_state, make_round_fn
+
+    rf = make_round_fn("fedosaa_svrg", prob, hp, device=device)
+    state, m = rf(init_state(prob, device=device, algo="fedosaa_svrg"))
+    float(m.loss)
+    # the card's activity only: the host's ~100k op events would take the
+    # profiler tens of seconds to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = rf(state)
+        float(m.loss)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("fl.")]
+    key = ("self_device_time_total" if events and
+           hasattr(events[0], "self_device_time_total") else "self_cuda_time_total")
+    top = sorted(events, key=lambda e: -getattr(e, key))[:8]
+    out = dict(profiled_wall_ms=wall * 1e3,
+               kernel_ms=sum(getattr(e, key) for e in events) / 1e3,
+               kernels=sum(e.count for e in events),
+               top=[(e.key[:70], getattr(e, key) / 1e3, e.count) for e in top])
+    print(f"  profiled warm FedOSAA-SVRG round: {out['kernels']} kernels, "
+          f"{out['kernel_ms']:.1f} ms of kernel time in {out['profiled_wall_ms']:.1f} ms "
+          f"of profiled wall; top: "
+          + "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in out["top"]), flush=True)
+    del state, rf
+    return out
+
+
+def lm_full_width(device) -> dict:
+    """Phase 6b (a): FedOSAA-SVRG and FedSVRG over smollm-135m at full width
+    in f32, by the loop, at fl_train's step and at FL_LM_ETA_GATED: per
+    round its launches, ms, the AA step's used/clipped columns and Gram
+    conditioning; tokens a second and peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import AAConfig, AlgoHParams, run_federated
+    from repro_torch.core.lm import make_lm_clients, make_lm_problem
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.models.decoder import build_model
+
+    cfg = dataclasses.replace(get_arch(FL_LM_ARCH), dtype="float32")
+    model = build_model(cfg, device=device, seed=0)
+    toks = make_lm_tokens(FL_LM_CLIENTS * FL_LM_DOCS, FL_LM_SEQ, cfg.vocab_size, seed=0)
+    prob = make_lm_problem(model, make_lm_clients(toks, FL_LM_CLIENTS, device=device))
+    d = sum(p.numel() for p in model.parameters())
+    if d != FL_LM_D:
+        raise AssertionError(f"smollm-135m has {d} parameters, expected {FL_LM_D}")
+    tokens_per_round = FL_LM_CLIENTS * FL_LM_DOCS * FL_LM_SEQ * (FL_LM_L + 1)
+    out = {}
+    for eta in (FL_LM_ETA_GATED, FL_LM_ETA):
+        hp = AlgoHParams(eta=eta, local_epochs=FL_LM_L,
+                         aa=AAConfig(tikhonov=1e-8, damping=1.0))
+        for algo in ("fedosaa_svrg", "fedsvrg"):
+            gated = eta == FL_LM_ETA_GATED
+            name = f"lm_{algo}" + ("" if gated else f"_eta{eta}")
+            sink = LaunchRows()
+            free_memory()
+            mark = memory_mark(device)
+            _build.reset_launches()
+            h = run_federated(prob, algo, hp, FL_LM_ROUNDS, device=device, sinks=[sink])
+            launches = dict(_build.LAUNCHES)
+            designs = {k: dict(v) for k, v in _build.DESIGN_LAUNCHES.items()}
+            peak = torch.cuda.max_memory_allocated(device) - mark
+            ms = per_round_ms(h.wall_time)
+            steady = float(np.median(ms[1:]))
+            out[name] = dict(
+                eta=eta, loss=h.loss.tolist(), ms_per_round=ms.tolist(),
+                steady_ms=steady, tokens_per_s=tokens_per_round / steady * 1e3,
+                peak_gib=peak / 2 ** 30, launches=launches,
+                designs=designs["trajectory"], gram_designs=designs["gram"],
+                per_round=sink.per_round,
+                aa_used=[r["aa_used_min"] for r in sink.rows],
+                aa_clipped=[r["aa_clipped_max"] for r in sink.rows],
+                gram_cond=[r["gram_cond_max"] for r in sink.rows])
+            r = out[name]
+            print(f"  {name} (eta {eta}, d={d}): loss {[f'{v:.4f}' for v in r['loss']]}; ms a "
+                  f"round {[f'{v:.1f}' for v in ms]} (the first warms the card up), "
+                  f"{r['tokens_per_s']:.0f} tokens/s at the median of the others "
+                  f"({tokens_per_round} tokens a round through forward and backward); "
+                  f"peak {r['peak_gib']:.2f} GiB above the model and data; launches a "
+                  f"round {r['per_round']}, Gram by design {r['gram_designs']}; AA "
+                  f"used {r['aa_used']} clipped {r['aa_clipped']} Gram cond "
+                  f"{[f'{v:.3e}' for v in r['gram_cond']]}", flush=True)
+            want = lm_round_launches(algo, int8=False)
+            if any(pr != want for pr in r["per_round"]) or len(r["per_round"]) != FL_LM_ROUNDS:
+                raise AssertionError(f"{name}: launches a round {r['per_round']}, "
+                                     f"expected {want} in each of {FL_LM_ROUNDS}")
+            if algo.startswith("fedosaa") and r["gram_designs"]["split"] != FL_LM_ROUNDS:
+                raise AssertionError(f"{name}: the Gram pass ran {r['gram_designs']}; "
+                                     "the split design every round at this width")
+            if not np.all(np.isfinite(h.loss)):
+                raise AssertionError(f"{name}: non-finite loss {h.loss.tolist()}")
+            if gated and not h.loss[-1] < h.loss[0]:
+                raise AssertionError(f"{name}: the loss did not fall: {h.loss.tolist()}")
+            del h
+            if gated and algo == "fedosaa_svrg":
+                free_memory()
+                prof = profile_lm_round(prob, hp, device)
+                prof["busy_share"] = prof["kernel_ms"] / r["steady_ms"]
+                r["profile"] = prof
+                print(f"  kernel time over the unprofiled warm round's "
+                      f"{r['steady_ms']:.1f} ms: {prof['busy_share']:.1%}", flush=True)
+    del prob, model
+    free_memory()
+    return out
+
+
+def check_gram_wide(device, floor: float) -> dict:
+    """Phase 6b (b): the Gram pass at (a)'s shape (K=4, m=3, d=162,826,560,
+    f32; random Y and g, seeded) in the split design against ``gram_ref``
+    (each output over the sum of its terms' magnitudes), a rerun
+    bit-identical, the Gram matrix exactly symmetric; timed beside its
+    bound (Y and g read once), the plain version and one torch.bmm; the
+    one-block-per-client design at d=2^24 timed beside the split one
+    there, the two within the tolerance of each other."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.anderson import flat_gram
+    from repro_torch.kernels.anderson.ops import gram_parts
+    from repro_torch.kernels.anderson.ref import gram_ref
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    K, m = FL_LM_CLIENTS, FL_LM_L
+    out = {}
+    for label, d in (("lm", FL_LM_D), ("block_vs_split", GRAM_BLOCK_D)):
+        y = torch.randn((K, m, d), generator=gen, device=device)
+        g = torch.randn((d,), generator=gen, device=device)
+        _build.reset_launches()
+        gk, ygk = flat_gram(y, g)
+        designs = dict(_build.DESIGN_LAUNCHES["gram"])
+        gp, ygp = gram_ref(y, g)
+        ya = y.abs()
+        errs = [rel_diff(gk, gp, ya @ ya.transpose(1, 2)),
+                rel_diff(ygk, ygp, (ya @ g.abs().unsqueeze(-1)).squeeze(-1))]
+        del ya
+        r = dict(shape=f"K={K} m={m} d={d} float32",
+                 parts=gram_parts(K, m, d, torch.cuda.get_device_properties(device)
+                                  .multi_processor_count),
+                 rel=max(e[0] for e in errs), abs=max(e[1] for e in errs),
+                 designs=designs,
+                 rerun_equal=all(map(torch.equal, flat_gram(y, g), (gk, ygk))),
+                 symmetric=torch.equal(gk, gk.transpose(1, 2)),
+                 ms=device_ms(lambda: flat_gram(y, g), device),
+                 bound=bound_ms(nbytes(y, g, gk, ygk),
+                                {torch.float32: K * d * 2 * (m * (m + 1) // 2 + m)}),
+                 launch_floor_ms=floor)
+        if label == "lm":
+            r["plain_ms"] = device_ms(lambda: gram_ref(y, g), device, n=1, repeats=3)
+            rhs = torch.cat([y, g.expand(K, 1, d)], 1).transpose(1, 2).contiguous()
+            # ~5 s a call at this shape: one timed call
+            r["library_ms"] = device_ms(lambda: torch.bmm(y, rhs), device, n=1, repeats=1)
+            del rhs
+        else:
+            gb, ygb = flat_gram(y, g, design="block")
+            r["block"] = dict(
+                ms=device_ms(lambda: flat_gram(y, g, design="block"), device, n=2,
+                             repeats=3),
+                rel_to_split=max(rel_diff(gb, gk, gk.abs().max())[0],
+                                 rel_diff(ygb, ygk, ygk.abs().max())[0]),
+                rerun_equal=all(map(torch.equal, flat_gram(y, g, design="block"),
+                                    (gb, ygb))))
+        out[label] = r
+        print(f"  gram {label} [{r['shape']}, {r['parts']} parts a client]: rel "
+              f"{r['rel']:.3e} (limit {TOLERANCE[torch.float32]:.0e}), designs "
+              f"{designs}, rerun bit-identical {r['rerun_equal']}, exactly symmetric "
+              f"{r['symmetric']}; {r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}), plain {r.get('plain_ms')}, torch.bmm "
+              f"{r.get('library_ms')}, one block a client {r.get('block')}, launch "
+              f"floor {floor:.4f} ms", flush=True)
+        if not (r["rel"] <= TOLERANCE[torch.float32] and r["rerun_equal"]
+                and r["symmetric"] and designs == {"block": 0, "split": 1}):
+            raise AssertionError(f"gram {label}: {r}")
+        if "block" in r and not (r["block"]["rerun_equal"]
+                                 and r["block"]["rel_to_split"] <= TOLERANCE[torch.float32]):
+            raise AssertionError(f"gram {label}: the block design {r['block']}")
+        del y, g, gk, gp
+        free_memory()
+    return out
+
+
+def check_aa_step_lm(device, floor: float) -> dict:
+    """Phase 6b (b): the fused AA step at (a)'s shape (K=4, m=3,
+    d=162,826,560, f32; random histories, seeded), as phase 2 holds it."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    K, m, d = FL_LM_CLIENTS, FL_LM_L, FL_LM_D
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+    s, y = 0.01 * randn(K, m, d), 0.01 * randn(K, m, d)
+    w, g = randn(d), 0.01 * randn(d)
+    out = check_aa_step("lm", w, g, s, y, device, floor)
+    if not out["rel"] <= TOLERANCE[torch.float32]:
+        raise AssertionError(f"aa_step (lm) disagrees with its plain version: "
+                             f"{out['rel']:.3e} > {TOLERANCE[torch.float32]:.0e}")
+    del s, y, w, g
+    free_memory()
+    return out
+
+
+def lm_engine(device) -> dict:
+    """Phase 6b (c): the reduced smollm (K=4), FedOSAA-SVRG, 4 rounds by
+    the loop and by the engine in chunks of 2, on the identity and the int8
+    wire: the engine's rows and final params equal the loop's bit for bit,
+    one host read a chunk after the first, the loop's launches a round once
+    per slot replayed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import AAConfig, AlgoHParams, run_federated
+    from repro_torch.core.lm import make_lm_clients, make_lm_problem
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.models.decoder import build_model
+    from repro_torch.obs import MemorySink
+
+    cfg = get_arch(FL_LM_ARCH).reduced()
+    toks = make_lm_tokens(FL_LM_CLIENTS * FL_LM_DOCS, FL_LM_SEQ, cfg.vocab_size, seed=0)
+    prob = make_lm_problem(build_model(cfg, device=device, seed=0),
+                           make_lm_clients(toks, FL_LM_CLIENTS, device=device))
+    hp = AlgoHParams(eta=FL_LM_ETA, local_epochs=FL_LM_L,
+                     aa=AAConfig(tikhonov=1e-8, damping=1.0))
+    out = {}
+    for channel in (None, "int8"):
+        name = "lm_reduced_engine" + ("_int8" if channel else "")
+        s_loop = MemorySink()
+        _build.reset_launches()
+        h = run_federated(prob, "fedosaa_svrg", hp, FL_ENGINE_ROUNDS, device=device,
+                          channel=channel, sinks=[s_loop])
+        loop_launches = dict(_build.LAUNCHES)
+        s_eng = MemorySink()
+        _build.reset_launches()
+        with sync_warnings() as caught:
+            reads = ChunkReads(caught)
+            he = run_federated(prob, "fedosaa_svrg", hp, FL_ENGINE_ROUNDS,
+                               device=device, channel=channel, chunk=FL_ENGINE_CHUNK,
+                               sinks=[s_eng, reads])
+        launches = dict(_build.LAUNCHES)
+        same_as_loop(name, s_loop, s_eng, h.final_params, he.final_params)
+        per_round = lm_round_launches("fedosaa_svrg", int8=channel == "int8")
+        slots = slots_replayed(len(he.rounds), FL_ENGINE_CHUNK)
+        want = {k: v * slots for k, v in per_round.items()}
+        out[name] = dict(loss=h.loss.tolist(), loop_launches=loop_launches,
+                         launches=launches, reads_per_chunk=reads.per_chunk,
+                         loop_ms=per_round_ms(h.wall_time).tolist(),
+                         engine_ms=per_round_ms(he.wall_time).tolist(),
+                         designs=dict(_build.DESIGN_LAUNCHES["trajectory"]))
+        print(f"  {name}: loss {[f'{v:.4f}' for v in h.loss]}; engine = loop in "
+              f"every row and the final params; host reads per chunk "
+              f"{reads.per_chunk}; launches loop {loop_launches}, engine "
+              f"{launches} over {slots} slots", flush=True)
+        if {k: v for k, v in launches.items() if v} != want or \
+                {k: v for k, v in loop_launches.items() if v} != \
+                {k: v * FL_ENGINE_ROUNDS for k, v in per_round.items()}:
+            raise AssertionError(f"{name}: launches loop {loop_launches}, engine "
+                                 f"{launches}; expected {per_round} a round")
+        if any(n != 1 for n in reads.per_chunk[1:]):
+            raise AssertionError(f"{name}: host reads per chunk {reads.per_chunk}")
+    return out
+
+
+def lm_families(device) -> dict:
+    """Phase 6b (d): one loop round of FedOSAA-SVRG on the reduced mamba2
+    (ssm) and on a 5-layer zamba2 (hybrid: two groups, a trailing Mamba-2
+    layer): finite, the Gram pass and the AA step once, the SSD and
+    flash-attention kernels never."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import AlgoHParams, run_federated
+    from repro_torch.core.lm import make_lm_clients, make_lm_problem
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.models.decoder import build_model
+
+    out = {}
+    for name, arch, layers in (("lm_ssm", "mamba2-2.7b", None),
+                               ("lm_hybrid", "zamba2-7b", 5)):
+        cfg = get_arch(arch).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        toks = make_lm_tokens(FL_LM_CLIENTS * FL_LM_DOCS, FL_LM_SEQ, cfg.vocab_size,
+                              seed=0)
+        prob = make_lm_problem(build_model(cfg, device=device, seed=0),
+                               make_lm_clients(toks, FL_LM_CLIENTS, device=device))
+        _build.reset_launches()
+        h = run_federated(prob, "fedosaa_svrg",
+                          AlgoHParams(eta=FL_LM_ETA, local_epochs=FL_LM_L), 1,
+                          device=device)
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        out[name] = dict(loss=h.loss.tolist(), launches=dict(_build.LAUNCHES),
+                         designs=dict(_build.DESIGN_LAUNCHES["trajectory"]),
+                         ms=per_round_ms(h.wall_time).tolist(),
+                         finite=bool(torch.isfinite(h.final_params).all()))
+        print(f"  {name} ({cfg.name}, {cfg.num_layers} layers): loss "
+              f"{h.loss.tolist()}, params finite {out[name]['finite']}, launches "
+              f"{launches}", flush=True)
+        if not (out[name]["finite"] and np.isfinite(h.loss).all()) or \
+                launches != lm_round_launches("fedosaa_svrg", int8=False):
+            raise AssertionError(f"{name}: {out[name]}")
+    return out
+
+
+def launchers(device) -> dict:
+    """Phase 6b (e): ``fl_train.main`` on the reduced smollm (3 rounds,
+    FedSVRG as the baseline) writes the reference's keys; ``train.main``
+    on smollm-135m at full width in f32 (AdamW, WSD, batch 4 x 256, 10
+    steps): the loss falls; ms a step."""
+    import tempfile
+
+    from repro_torch.launch import fl_train, train
+
+    tmp = tempfile.mkdtemp(prefix="fl_train_")
+    try:
+        path = os.path.join(tmp, "out.json")
+        res = fl_train.main(["--arch", FL_LM_ARCH, "--reduced", "--rounds", "3",
+                             "--baseline", "fedsvrg", "--out", path])
+        with open(path) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys_ok = set(written) == {"fedosaa_svrg", "fedsvrg"} and all(
+        set(v) == FL_TRAIN_KEYS for v in written.values())
+    print(f"  fl_train --reduced: the reference's keys {keys_ok}; "
+          + "; ".join(f"{a} loss {[f'{x:.4f}' for x in v['loss_curve']]} in "
+                      f"{v['wall_s']:.1f} s" for a, v in res.items()), flush=True)
+    if not keys_ok or not all(np.isfinite(v["loss_curve"]).all() for v in res.values()):
+        raise AssertionError(f"fl_train: keys {written.keys()}, results {res}")
+    free_memory()
+    mark = memory_mark(device)
+    tr = train.main(["--arch", FL_LM_ARCH, "--dtype", "float32", "--steps",
+                     str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq-len",
+                     str(TRAIN_SEQ), "--schedule", "wsd", "--log-every", "5"])
+    peak = torch.cuda.max_memory_allocated(device) - mark
+    out = dict(fl_train={a: v["loss_curve"] for a, v in res.items()},
+               train=dict(loss=tr["loss"], ms_per_step=tr["ms_per_step"],
+                          first_step_ms=tr["first_step_ms"], peak_gib=peak / 2 ** 30,
+                          tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / tr["ms_per_step"] * 1e3))
+    print(f"  train smollm-135m f32 (AdamW + WSD, {TRAIN_BATCH}x{TRAIN_SEQ}): loss "
+          f"{[f'{v:.4f}' for v in tr['loss']]}; {tr['ms_per_step']:.1f} ms a step "
+          f"after the first ({tr['first_step_ms']:.0f} ms), "
+          f"{out['train']['tokens_per_s']:.0f} tokens/s, peak {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    if not (np.isfinite(tr["loss"]).all() and tr["loss"][-1] < tr["loss"][0]):
+        raise AssertionError(f"train: the loss did not fall: {tr['loss']}")
+    del tr
+    free_memory()
+    return out
+
+
+def fig8_init(depth: int, seed: int = 0) -> np.ndarray:
+    """The flat He init of scripts/reference_fig8_mlp.py::he_init: for each
+    layer normal(din, dout) * sqrt(2/din) in f32 (numpy, ``seed``), then a
+    zero bias."""
+    rng = np.random.default_rng(seed)
+    dims = [784] + [256] * depth + [10]
+    out = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        out += [(rng.standard_normal((din, dout), dtype=np.float32)
+                 * np.float32(np.sqrt(2.0 / din))).reshape(-1),
+                np.zeros(dout, np.float32)]
+    return np.concatenate(out)
+
+
+def fig8(device) -> dict:
+    """Phase 6b (f): Fig. 8 quick (make_mnist_like(4000), K=10 iid, eta
+    0.1, L=10, 15 rounds), MLP1 and MLP3 by FedSVRG and FedOSAA-SVRG from
+    the numpy He init: MLP1 gated on the reference's pinned final loss and
+    accuracy (FIG8_REFERENCE), MLP3 recorded."""
+    from repro_torch.core import AlgoHParams, run_federated
+    from repro_torch.data import make_mnist_like, partition
+    from repro_torch.kernels import _build
+    from repro_torch.models.mlp import make_mlp_problem, mlp_accuracy
+
+    X, y = make_mnist_like(FIG8_N, seed=0)
+    clients = partition(X, y.astype(np.float32), FIG8_K, "iid", device=device)
+    out = {}
+    for depth in (1, 3):
+        prob = make_mlp_problem(clients, hidden_layers=depth, device=device)
+        w0 = torch.from_numpy(fig8_init(depth)).to(device)
+        for algo in ("fedsvrg", "fedosaa_svrg"):
+            tag = f"mlp{depth}"
+            _build.reset_launches()
+            h = run_federated(prob, algo, AlgoHParams(eta=FIG8_ETA, local_epochs=FIG8_L),
+                              FIG8_ROUNDS, w0=w0, device=device)
+            launches = dict(_build.LAUNCHES)
+            acc = mlp_accuracy(prob, h.final_params, X, y)
+            ref_loss, ref_acc = FIG8_REFERENCE[(tag, algo)]
+            loss = float(h.loss[-1])
+            out[f"{tag}_{algo}"] = r = dict(
+                loss=loss, accuracy=acc, reference=(ref_loss, ref_acc),
+                rel_to_reference=abs(loss - ref_loss) / ref_loss,
+                loss_curve=h.loss.tolist(), launches=launches,
+                designs=dict(_build.DESIGN_LAUNCHES["trajectory"]),
+                ms_per_round=float(np.median(per_round_ms(h.wall_time)[1:])))
+            print(f"  fig8 {tag} {algo}: final loss {loss!r} (the reference "
+                  f"{ref_loss!r}, rel {r['rel_to_reference']:.3e}), accuracy {acc} "
+                  f"(the reference {ref_acc}), {r['ms_per_round']:.2f} ms a round, "
+                  f"launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}",
+                  flush=True)
+            want = {k: v for k, v in lm_round_launches(algo, False).items()}
+            got = {k: v // FIG8_ROUNDS for k, v in launches.items() if v}
+            if got != want or any(v % FIG8_ROUNDS for v in launches.values()):
+                raise AssertionError(f"fig8 {tag} {algo}: launches {launches}")
+            if tag == "mlp1":
+                ok = (r["rel_to_reference"] <= FIG8_SVRG_RTOL if algo == "fedsvrg"
+                      else 1 / FIG8_OSAA_FACTOR <= loss / ref_loss <= FIG8_OSAA_FACTOR)
+                if not (ok and abs(acc - ref_acc) <= FIG8_ACC_TOL):
+                    raise AssertionError(f"fig8 {tag} {algo}: loss {loss} accuracy "
+                                         f"{acc} against the reference's {ref_loss}, "
+                                         f"{ref_acc}")
+    return out
+
+
+def federated_training(device, floor: float) -> dict:
+    """Phase 6b: (a)-(f) above."""
+    t0 = time.perf_counter()
+    out = dict(full_width=lm_full_width(device))
+    out["gram"] = check_gram_wide(device, floor)
+    out["aa_step"] = check_aa_step_lm(device, floor)
+    out["engine"] = lm_engine(device)
+    out["families"] = lm_families(device)
+    out["launchers"] = launchers(device)
+    out["fig8"] = fig8(device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6b took {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -4184,6 +4721,16 @@ def main() -> int:
     print(f"{clock()} phase 6: serving {LM_ARCH} at full width (prefill {LM_BATCH}x"
           f"{LM_PROMPT}, {LM_DECODE} decode steps, the slot server)", flush=True)
     served = serving(device)
+    free_memory()
+
+    print(f"{clock()} phase 6b: federated training ({FL_LM_ARCH} at full width, "
+          "the Gram pass and the AA step at its width, the engine, the ssm and "
+          "hybrid families, the launchers, Fig. 8)", flush=True)
+    trained = federated_training(device, floor)
+    fl_runs.update({k: v for k, v in trained["full_width"].items()})
+    fl_runs.update(trained["engine"])
+    fl_runs.update(trained["families"])
+    fl_runs.update({f"fig8_{k}": v for k, v in trained["fig8"].items()})
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -4195,7 +4742,11 @@ def main() -> int:
                 launches_by_run={"prefill": served["launches"][name],
                                  f"decode ({LM_DECODE} steps)":
                                      served["decode_launches"][name],
-                                 "slot server": served["server_launches"][name]},
+                                 "slot server": served["server_launches"][name],
+                                 # phase 6b's training runs launch neither
+                                 **{run: r_["launches"][name]
+                                    for run, r_ in fl_runs.items()
+                                    if run.startswith("lm_")}},
                 max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
                 library_ms=r["library_ms"], launch_floor_ms=floor,
@@ -4249,6 +4800,14 @@ def main() -> int:
                            max_abs_err=ps["abs"], ms=ps["ms"],
                            plain_ms=ps["plain_ms"], bound_ms=ps["bound"][0],
                            bound_by=ps["bound"][1], rerun_equal=ps["rerun_equal"]))
+        if name == "gram":
+            row["lm_width"] = {label: dict(
+                shape=g_["shape"], parts=g_["parts"], max_abs_err=g_["abs"],
+                rel=g_["rel"], ms=g_["ms"], plain_ms=g_.get("plain_ms"),
+                library_ms=g_.get("library_ms"), bound_ms=g_["bound"][0],
+                bound_by=g_["bound"][1], rerun_equal=g_["rerun_equal"],
+                block_design=g_.get("block"))
+                for label, g_ in trained["gram"].items()}
         if name in ("gram", "update"):
             kind = "gram" if name == "gram" else "aa_step"
             row["variants"] = {f"{label}/{str(dt)[6:]}": dict(
@@ -4276,7 +4835,8 @@ def main() -> int:
                 rerun_equal=a["rerun_equal"])
                 for key, a in (("main/float64", r),
                                ("main/float32", checks[torch.float32]["aa_step"]),
-                               ("wide/float32", aa_wide))}
+                               ("wide/float32", aa_wide),
+                               ("lm/float32", trained["aa_step"]))}
             row["standalone"] = dict(
                 max_abs_err=upd["abs"], ms=upd["ms"], plain_ms=upd["plain_ms"],
                 bound_ms=upd["bound"][0], bound_by=upd["bound"][1],
@@ -4304,6 +4864,8 @@ def main() -> int:
            for name, r in checks[torch.float32].items()}
     print("float32 kernels " + json.dumps(f32), flush=True)
     print("serving " + json.dumps(served), flush=True)
+    print("federated training " + json.dumps(
+        {k: v for k, v in trained.items() if k not in ("gram", "aa_step")}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ def resolve_device(device: "str | torch.device" = DEFAULT_DEVICE) -> torch.devic
 
     Raises when a CUDA device is asked for and none is available: the port
     never moves to the CPU on its own (pass ``device="cpu"`` for that).
+    ``"cuda"`` names the current card with its index (``cuda:0``), the
+    device its tensors report, so that it compares equal to theirs.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -41,6 +43,8 @@ def resolve_device(device: "str | torch.device" = DEFAULT_DEVICE) -> torch.devic
             raise RuntimeError(
                 "repro_torch: no CUDA device is available; pass device='cpu' "
                 "to run the plain PyTorch versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev!s}; use 'cuda' or 'cpu'")
     return dev

@@ -351,15 +351,21 @@ def _local_trajectory(hp: AlgoHParams, w0: torch.Tensor,
     """Run L corrected-GD steps from w0 [K, d] and return the full
     trajectory: (w_traj, r_traj), each [K, L+1, d] — FedOSAA evaluates L+1
     residuals (Alg. 1 needs r_L for the last Y column). ``residual_fn(w,
-    step)`` gives step ``step``'s residual."""
+    step)`` gives step ``step``'s residual. Each step is written into the
+    preallocated trajectories, so no list of L+1 [K, d] iterates is held
+    beside them (at an LM's width a [K, L+1, d] stack is tens of GiB)."""
+    steps = hp.local_epochs + 1
     w = w0
-    ws, rs = [], []
-    for step in range(hp.local_epochs + 1):
+    w_traj = w0.new_empty((w0.shape[0], steps, *w0.shape[1:]))
+    r_traj = None
+    for step in range(steps):
         r = residual_fn(w, step)
-        ws.append(w)
-        rs.append(r)
+        if r_traj is None:
+            r_traj = r.new_empty((r.shape[0], steps, *r.shape[1:]))
+        w_traj[:, step] = w
+        r_traj[:, step] = r
         w = tm.tree_axpy(-hp.eta, r, w)
-    return torch.stack(ws, 1), torch.stack(rs, 1)
+    return w_traj, r_traj
 
 
 def _make_residual_fn(problem: FLProblem, w_t: torch.Tensor, batch: ClientBatch,

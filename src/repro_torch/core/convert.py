@@ -2,8 +2,10 @@
 
 Takes the reference's parameters, ``ServerState`` fields (params, t, the
 comm buffers, the control variates and the carried AA columns),
-``StackedClients`` fields, and an LM's parameters and decode caches
-(``lm_params``, ``lm_caches``) as numpy arrays
+``StackedClients`` fields, an LM's parameters and decode caches
+(``lm_params``, ``lm_caches``; as the flat [d] vector the federated
+problem trains, ``lm_flat_params``) and the MLP's parameters
+(``mlp_params``) as numpy arrays
 (``np.asarray`` of the JAX arrays) — this module imports nothing of JAX —
 and returns the port's counterparts on ``device`` with the same dtypes and
 values, so both packages can start from one state.
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.algorithms import ServerState
+from repro_torch.core.lm import param_layout
 from repro_torch.core.problem import StackedClients
 from repro_torch.models.decoder import LMCaches
 
@@ -145,3 +148,53 @@ def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):
                 for k, v in node.items()}
 
     return LMCaches(conv(caches_np))
+
+
+def lm_flat_params(params_np, model,
+                   device: "str | torch.device" = DEFAULT_DEVICE) -> torch.Tensor:
+    """The reference LM's parameters (or any tree of its shape, such as a
+    gradient) as the flat [d] vector of ``make_lm_problem(model, ...)``:
+    ``lm_params``'s tensors in the order of ``core/lm.py::param_layout``."""
+    sd = lm_params(params_np, model.cfg, "cpu")
+    return torch.cat([sd[name].reshape(-1) for name, _ in param_layout(model)]
+                     ).to(resolve_device(device))
+
+
+def lm_unflat_params(w: torch.Tensor, model) -> dict:
+    """The inverse of ``lm_flat_params``: the flat [d] vector as the
+    reference's nested dict of numpy arrays, each stacked group [n, ...]
+    again (for comparisons with the reference)."""
+    layout = param_layout(model)
+    layers: dict = {}
+    out: dict = {}
+    for (name, shape), part in zip(
+            layout, torch.split(w.detach().cpu(), [s.numel() for _, s in layout])):
+        a = part.reshape(shape).numpy()
+        head, _, rest = name.partition(".")
+        if head in _STACKED:
+            i, _, path = rest.partition(".")
+            layers.setdefault((head, path), {})[int(i)] = a
+        else:
+            _put(out, name, a)
+    for (head, path), by_layer in layers.items():
+        _put(out, f"{head}.{path}", np.stack([by_layer[i] for i in sorted(by_layer)]))
+    return out
+
+
+def _put(tree: dict, dotted: str, a) -> None:
+    *parents, leaf = dotted.split(".")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = a
+
+
+def mlp_params(params_np, hidden_layers: int,
+               device: "str | torch.device" = DEFAULT_DEVICE) -> torch.Tensor:
+    """The reference MLP's {"w0", "b0", ...} (numpy) as the port's flat [d]
+    vector (models/mlp.py): w0, b0, w1, b1, ... each flattened row-major."""
+    keys = [f"{kind}{i}" for i in range(hidden_layers + 1) for kind in ("w", "b")]
+    if set(params_np) != set(keys):
+        raise ValueError(f"MLP parameters {sorted(params_np)} do not fit "
+                         f"{hidden_layers} hidden layers: expected {sorted(keys)}")
+    return tensor(np.concatenate([np.asarray(params_np[k]).reshape(-1)
+                                  for k in keys]), device)

@@ -67,12 +67,14 @@ class StackedClients:
 
     def to(self, device: "str | torch.device",
            dtype: torch.dtype | None = None) -> "StackedClients":
-        """Move to ``device``; cast x, y and mask to ``dtype`` when given.
+        """Move to ``device``; cast y and mask to ``dtype`` when given, and
+        x too unless it holds integers (an LM's token ids stay ids).
 
         The weights keep their f32 values (an f64 run promotes them where it
         uses them, as the reference does)."""
         cast = {} if dtype is None else {"dtype": dtype}
-        return StackedClients(self.x.to(device, **cast),
+        x_cast = cast if self.x.is_floating_point() else {}
+        return StackedClients(self.x.to(device, **x_cast),
                               self.y.to(device, **cast),
                               self.mask.to(device, **cast),
                               self.weight.to(device))

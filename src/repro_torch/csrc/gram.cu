@@ -9,7 +9,10 @@
 // d=54: 4.3 KB of Y a client) it is all fixed cost, so the design keeps the
 // chain from launch to store short.
 //
-// Design: grid = K, one block of 512 threads per client.
+// Two designs; kernels/anderson/ops.py::gram_parts picks one from the shape.
+//
+// The block design (many clients, narrow d): grid = K, one block of 512
+// threads per client.
 // - Staging: the block stages Y[:, tile] and g[tile] in shared memory and
 //   passes one barrier. When the tile is all of Y_k (m (d + 1) values fit),
 //   both are contiguous and go in one pass of 16-byte loads; a wider Y is
@@ -32,6 +35,18 @@
 //   profiler put the old design's loss to torch.bmm inside the kernel, not
 //   between launches (PERF.md).
 // - No atomics: the sums run in a fixed order, so reruns are bit-identical.
+//
+// The split design (few clients, wide d: at K = 4 the block design would
+// run on 4 of the 132 SMs): grid = (parts, K), 256 threads a block. Part p
+// of client k sums the columns [p·w, (p+1)·w) of its slice of d into the
+// P = m(m+1)/2 + m outputs, which live in registers (m <= 8, so at most 44
+// of them): each thread walks its columns with 16-byte loads of every row
+// of Y and of g, then a fixed xor-shuffle tree per warp and the warps in
+// order through shared memory give the block's P partial sums, stored in
+// a [K, parts, P] workspace. A second kernel, one block a client, sums each
+// output's parts in part order and writes Y Y^T (both triangles) and Y g.
+// No atomics in either: reruns are bit-identical. Offsets are 64-bit
+// (K m d exceeds 2^31 at smollm-135m's width).
 //
 // Accumulation type: T is float for f32 inputs (as the TPU kernel) and
 // double for f64 inputs (where the TPU kernel downcast to f32); see PERF.md.
@@ -184,6 +199,169 @@ cudaError_t launch(const void* y, const void* g, long long g_stride, void* gram,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the split design
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitThreads = 256;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitMaxHistory = 8;                 // ops.py::SPLIT_MAX_HISTORY
+constexpr int kFinishThreads = 64;                  // >= the P of m = 8 (44)
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int l) {
+  return l == 0 ? v.x : l == 1 ? v.y : l == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ double lane_of(const double2& v, int l) { return l == 0 ? v.x : v.y; }
+
+// acc += the products of one column: the pairs (i <= j) in kPairs' order,
+// then y_i g
+template <typename T, int M>
+__device__ __forceinline__ void add_column(T (&acc)[M * (M + 1) / 2 + M], const T (&yc)[M],
+                                           T gc) {
+  int o = 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+#pragma unroll
+    for (int i = 0; i <= j; ++i) {
+      acc[o] += yc[i] * yc[j];
+      ++o;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) acc[o + i] += yc[i] * gc;
+}
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kSplitThreads)
+gram_split_kernel(const T* __restrict__ y, const T* __restrict__ g, long long g_stride,
+                  T* __restrict__ ws, long long d, long long part_cols, bool vec) {
+  constexpr int P = M * (M + 1) / 2 + M;
+  constexpr int kVec = 16 / sizeof(T);
+  using V = typename Vec16<T>::type;
+  __shared__ T red[kSplitWarps][P];
+  const int part = blockIdx.x, k = blockIdx.y;
+  const long long c0 = min(d, static_cast<long long>(part) * part_cols);
+  const long long c1 = min(d, c0 + part_cols);
+  const T* yk = y + static_cast<size_t>(k) * M * d;
+  const T* gk = g + static_cast<size_t>(k) * g_stride;
+  T acc[P];
+#pragma unroll
+  for (int o = 0; o < P; ++o) acc[o] = T(0);
+
+  if (vec) {   // c0, d, the rows and g are all on 16-byte boundaries
+    for (long long c = c0 + static_cast<long long>(threadIdx.x) * kVec; c < c1;
+         c += static_cast<long long>(kSplitThreads) * kVec) {
+      V yv[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        yv[i] = __ldg(reinterpret_cast<const V*>(yk + static_cast<size_t>(i) * d + c));
+      const V gv = __ldg(reinterpret_cast<const V*>(gk + c));
+#pragma unroll
+      for (int l = 0; l < kVec; ++l) {
+        T yc[M];
+#pragma unroll
+        for (int i = 0; i < M; ++i) yc[i] = lane_of(yv[i], l);
+        add_column<T, M>(acc, yc, lane_of(gv, l));
+      }
+    }
+  } else {
+    for (long long c = c0 + threadIdx.x; c < c1; c += kSplitThreads) {
+      T yc[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i) yc[i] = yk[static_cast<size_t>(i) * d + c];
+      add_column<T, M>(acc, yc, gk[c]);
+    }
+  }
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 0; o < P; ++o) {
+    T v = acc[o];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][o] = v;
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < P; o += kSplitThreads) {
+    T sum = red[0][o];
+#pragma unroll
+    for (int w = 1; w < kSplitWarps; ++w) sum += red[w][o];
+    ws[(static_cast<size_t>(k) * gridDim.x + part) * P + o] = sum;
+  }
+}
+
+// each output of client k: its parts summed in part order
+template <typename T>
+__global__ void __launch_bounds__(kFinishThreads)
+gram_finish_kernel(const T* __restrict__ ws, T* __restrict__ gram, T* __restrict__ yg, int m,
+                   int parts) {
+  const int k = blockIdx.x;
+  const int n_pairs = m * (m + 1) / 2;
+  const int P = n_pairs + m;
+  for (int o = threadIdx.x; o < P; o += kFinishThreads) {
+    const T* wk = ws + static_cast<size_t>(k) * parts * P + o;
+    T sum = T(0);
+    for (int p = 0; p < parts; ++p) sum += wk[static_cast<size_t>(p) * P];
+    int i, j;
+    output_pair(o, n_pairs, i, j);
+    if (j >= 0) {
+      gram[(static_cast<size_t>(k) * m + i) * m + j] = sum;
+      gram[(static_cast<size_t>(k) * m + j) * m + i] = sum;
+    } else {
+      yg[static_cast<size_t>(k) * m + i] = sum;
+    }
+  }
+}
+
+template <typename T, int M>
+cudaError_t launch_split_m(const T* y, const T* g, long long g_stride, T* ws, int K, long long d,
+                           int parts, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  // a part's width is a whole number of 16-byte vectors
+  long long part_cols = (d + parts - 1) / parts;
+  part_cols = (part_cols + 15) / 16 * 16;
+  const bool vec = d % kVec == 0 && g_stride % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  gram_split_kernel<T, M><<<dim3(parts, K), kSplitThreads, 0, stream>>>(y, g, g_stride, ws, d,
+                                                                      part_cols, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_split(const void* y, const void* g, long long g_stride, void* gram, void* yg,
+                         void* ws, int K, int m, long long d, int parts, cudaStream_t stream) {
+  const T* yt = static_cast<const T*>(y);
+  const T* gt = static_cast<const T*>(g);
+  T* wt = static_cast<T*>(ws);
+  cudaError_t e;
+  switch (m) {
+    case 1: e = launch_split_m<T, 1>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    case 2: e = launch_split_m<T, 2>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    case 3: e = launch_split_m<T, 3>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    case 4: e = launch_split_m<T, 4>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    case 5: e = launch_split_m<T, 5>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    case 6: e = launch_split_m<T, 6>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    case 7: e = launch_split_m<T, 7>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+    default: e = launch_split_m<T, 8>(yt, gt, g_stride, wt, K, d, parts, stream); break;
+  }
+  if (e != cudaSuccess) return e;
+  gram_finish_kernel<T><<<K, kFinishThreads, 0, stream>>>(wt, static_cast<T*>(gram),
+                                                         static_cast<T*>(yg), m, parts);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. y [K, m, d] contiguous; g is client k's
@@ -209,5 +387,21 @@ extern "C" int repro_gram_occupancy(int dtype, int m, int d, int* info) {
                                     smem_bytes<float>(m, tile_cols<float>(m, d)), info)
           : repro::kernel_occupancy(gram_kernel<double>, kGramThreads,
                                     smem_bytes<double>(m, tile_cols<double>(m, d)), info);
+  return static_cast<int>(e);
+}
+
+// The split design (header): y, g, g_stride, gram and yg as repro_gram's;
+// ws a [K, parts, m(m+1)/2 + m] workspace of the dtype; m <= 8. Two
+// launches, the parts then their sum. Returns the cudaError_t of the last.
+extern "C" int repro_gram_split(int dtype, const void* y, const void* g, long long g_stride,
+                                void* gram, void* yg, void* ws, int K, int m, long long d,
+                                int parts, void* stream) {
+  if (K <= 0 || K > 65535 || m <= 0 || m > kSplitMaxHistory || d <= 0 || parts <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = dtype == 0
+                      ? launch_split<float>(y, g, g_stride, gram, yg, ws, K, m, d, parts, st)
+                      : launch_split<double>(y, g, g_stride, gram, yg, ws, K, m, d, parts, st);
   return static_cast<int>(e);
 }

@@ -74,11 +74,30 @@ def make_binary_classification(
     return X, y
 
 
+def make_mnist_like(
+    n: int = 10_000, d: int = 784, num_classes: int = 10, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """Synthetic 10-class 'MNIST' for the App. D.5 NN experiment: Gaussian
+    class prototypes in a low-dim manifold embedded in d dims + pixel noise.
+    Returns (X [n, d] float32 in (0, 1), y [n] int32)."""
+    rng = np.random.default_rng(seed)
+    latent_dim = 32
+    protos = rng.standard_normal((num_classes, latent_dim)).astype(np.float32) * 3.0
+    embed = rng.standard_normal((latent_dim, d)).astype(np.float32) / np.sqrt(latent_dim)
+    y = rng.integers(0, num_classes, n)
+    z = protos[y] + rng.standard_normal((n, latent_dim)).astype(np.float32)
+    X = z @ embed + 0.3 * rng.standard_normal((n, d)).astype(np.float32)
+    # squash to [0,1] like pixel intensities
+    X = 1.0 / (1.0 + np.exp(-X))
+    return X.astype(np.float32), y.astype(np.int32)
+
+
 def make_lm_tokens(
     n_docs: int, seq_len: int, vocab: int, seed: int = 0
 ) -> np.ndarray:
     """Synthetic token stream with Zipfian unigram + Markov bigram structure
-    (prompts for the LM serving path). Returns [n_docs, seq_len] int32."""
+    (prompts for the LM serving path, documents for federated LM
+    training). Returns [n_docs, seq_len] int32."""
     rng = np.random.default_rng(seed)
     # zipf over a capped vocab for speed
     v_eff = min(vocab, 32_768)

@@ -14,7 +14,8 @@ if that is not 0.
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its main path went through the kernels (chip_smoke.py resets
 and reads it). ``DESIGN_LAUNCHES`` splits those of a kernel with more than
-one design (``trajectory``: resident or streaming) by the design that ran.
+one design (``trajectory``: resident or streaming; ``gram``: block or
+split) by the design that ran.
 A launch made while a CUDA graph is captured does not run: inside
 ``recording()`` it goes into a ``LaunchRecord``, and each replay of the
 graph adds that record to both counters (``count_replay``); outside one it
@@ -46,7 +47,8 @@ LAUNCHES = {"trajectory": 0, "gram": 0, "update": 0, "aa_step": 0,
             "quantize": 0, "dequantize": 0, "int8_uplink": 0, "ssd": 0,
             "flash_attention": 0}
 #: kernel → design → launches since the last reset (see module docstring)
-DESIGN_LAUNCHES = {"trajectory": {"resident": 0, "streaming": 0}}
+DESIGN_LAUNCHES = {"trajectory": {"resident": 0, "streaming": 0},
+                   "gram": {"block": 0, "split": 0}}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 #: C entry points → argtypes (pointers and the stream as c_void_p)
@@ -57,6 +59,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _D, _D, _P],
     # dtype, y, g, g_stride, gram, yg, K, m, d, stream
     "repro_gram": [_I, _P, _P, _LL, _P, _P, _I, _I, _I, _P],
+    # dtype, y, g, g_stride, gram, yg, ws, K, m, d, parts, stream
+    "repro_gram_split": [_I, _P, _P, _LL, _P, _P, _P, _I, _I, _LL, _I, _P],
     # dtype, w, w_stride, g, g_stride, s, y, gamma, out, K, m, d, eta, beta,
     # stream
     "repro_update": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I,

@@ -10,7 +10,9 @@ then ``aa_step``. ``flat_update`` stands alone.
 
 Dispatch is by the tensors' device only: CPU tensors run the plain version
 (ref.py); CUDA tensors launch csrc/gram.cu / csrc/update.cu or raise. No
-padding: the kernels mask their own edges.
+padding: the kernels mask their own edges. The Gram pass has two designs,
+chosen from the shape (``gram_parts``): one block a client, or, for few
+clients of a wide d, each client's d split over the card.
 """
 from __future__ import annotations
 
@@ -23,6 +25,13 @@ from repro_torch.kernels.anderson.ref import (aa_step_ref, acc_dtype, gram_ref,
 #: history length the Gram kernel's pair table and the AA step's shared
 #: memory hold (csrc/gram.cu, csrc/update.cu)
 MAX_HISTORY = 64
+#: the split Gram design's largest history: its m(m+1)/2 + m sums live in
+#: registers (csrc/gram.cu kSplitMaxHistory)
+SPLIT_MAX_HISTORY = 8
+#: columns from which a client's Gram pass may be split over the card
+SPLIT_MIN_COLUMNS = 1 << 16
+#: columns a part of the split design takes at least
+SPLIT_PART_COLUMNS = 8192
 #: columns an update block of the AA step takes at least (csrc/update.cu
 #: streams them 256 at a time); a client of at most this many columns runs
 #: in one block
@@ -38,16 +47,34 @@ def _client_stride(v: torch.Tensor, K: int, d: int) -> int:
     raise ValueError(f"expected shape ({d},) or ({K}, {d}), got {tuple(v.shape)}")
 
 
-def flat_gram(y: torch.Tensor, g: torch.Tensor):
+def gram_parts(K: int, m: int, d: int, sms: int) -> int:
+    """The Gram pass's design for a shape: 0 for the block design (one
+    block a client: many clients or a narrow d), else the number of parts
+    of d each client is split into (few clients, a wide d, m <= 8): about
+    eight blocks an SM over the card, each part at least
+    SPLIT_PART_COLUMNS wide."""
+    if m > SPLIT_MAX_HISTORY or d < SPLIT_MIN_COLUMNS or K >= sms:
+        return 0
+    return _split_parts(K, d, sms)
+
+
+def _split_parts(K: int, d: int, sms: int) -> int:
+    return max(1, min(-(-d // SPLIT_PART_COLUMNS), -(-8 * sms // K)))
+
+
+def flat_gram(y: torch.Tensor, g: torch.Tensor, design: str | None = None):
     """One pass over Y: y [K, m, d], g [K, d] or [d] → (Y Yᵀ [K, m, m],
-    Y g [K, m]) in the accumulation type (f64 for f64, else f32)."""
+    Y g [K, m]) in the accumulation type (f64 for f64, else f32).
+    ``design`` ("block" or "split") overrides ``gram_parts``' choice on
+    the card."""
     if y.device.type == "cpu":
         return gram_ref(y, g)
-    return _gram_cuda(y, g)
+    return _gram_cuda(y, g, design)
 
 
-def _gram_cuda(y, g):
-    """Launch csrc/gram.cu: one block per client."""
+def _gram_cuda(y, g, design=None):
+    """Launch csrc/gram.cu in the design ``gram_parts`` picks: one block per
+    client, or each client's d split into parts over the card."""
     K, m, d = y.shape
     a = acc_dtype(y.dtype)
     y, g = y.to(a).contiguous(), g.to(a).contiguous()
@@ -57,10 +84,28 @@ def _gram_cuda(y, g):
     dev = _build.check_cuda("gram", y, g)
     gram = torch.empty((K, m, m), dtype=a, device=dev)
     yg = torch.empty((K, m), dtype=a, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = gram_parts(K, m, d, sms)
+    if design == "split":
+        if m > SPLIT_MAX_HISTORY:
+            raise ValueError(f"gram kernel: the split design takes m <= "
+                             f"{SPLIT_MAX_HISTORY}, got {m}")
+        parts = _split_parts(K, d, sms)
+    elif design == "block":
+        parts = 0
+    elif design is not None:
+        raise ValueError(f"gram kernel: unknown design {design!r}")
     with torch.cuda.device(dev):
-        _build.launch("gram", "repro_gram", _build.DTYPE_CODE[a], y.data_ptr(),
-                      g.data_ptr(), g_stride, gram.data_ptr(), yg.data_ptr(),
-                      K, m, d)
+        if parts:
+            ws = torch.empty((K, parts, m * (m + 1) // 2 + m), dtype=a, device=dev)
+            _build.launch("gram", "repro_gram_split", _build.DTYPE_CODE[a],
+                          y.data_ptr(), g.data_ptr(), g_stride, gram.data_ptr(),
+                          yg.data_ptr(), ws.data_ptr(), K, m, d, parts,
+                          design="split")
+        else:
+            _build.launch("gram", "repro_gram", _build.DTYPE_CODE[a], y.data_ptr(),
+                          g.data_ptr(), g_stride, gram.data_ptr(), yg.data_ptr(),
+                          K, m, d, design="block")
     return gram, yg
 
 

@@ -1,14 +1,26 @@
 """The decoder LM for the ``dense``, ``ssm`` and ``hybrid`` families
-(counterpart of repro/models/decoder.py, its serving path).
+(counterpart of repro/models/decoder.py, its serving and training paths).
 
 ``build_model(cfg, device=..., generator=...)`` returns a ``Decoder``
 module that holds its parameters. Its methods mirror the reference's pure
 functions, without the ``params`` argument:
 
   forward(tokens)                       -> (logits [B, S, V], aux)
+  forward_hidden(tokens)                -> (h [B, S, d], aux)   (training)
+  loss(tokens, loss_mask=None)          -> scalar next-token xent (training)
   prefill(tokens, cache_len=None)       -> (logits_last [B, V], caches)
   decode_step(caches, tokens, pos)      -> (logits [B, V], caches)
   init_caches(batch, cache_len)         -> caches
+
+``functional_loss(model)`` is ``loss`` as a function of a dict of
+parameter tensors (``torch.func.functional_call``), which the trainers and
+the federated problem (core/lm.py) differentiate. Serving (``forward``,
+``prefill``) runs the flash-attention and SSD kernels; training
+(``forward_hidden``, ``loss``) runs the reference's jnp paths in plain
+torch (models/layers.py), which ``torch.func.grad`` and ``vmap`` trace.
+Remat is not needed at the sizes the port trains (smollm-135m at 4 × 128
+tokens a client keeps a few GiB of activations); the reference's
+``remat`` switch has no counterpart.
 
 The reference scans stacked [L, ...] layer parameters; here each stack is
 an ``nn.ModuleList`` walked by a Python loop. The hybrid (Zamba2) family
@@ -24,20 +36,26 @@ index)}, an SSM group {"conv": [n, B, W-1, conv_dim], "ssm":
 returns the same object.
 
 Left for later slices: the ``moe`` family, the ``vlm``/``audio`` frontend
-embeddings, ``loss``/``_chunked_xent``, remat and the ``Sharder``.
+embeddings and the ``Sharder``.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as Lyr
 
 SERVED_FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
+#: sequence positions a chunk of the loss's unembed + cross entropy takes
+#: (the reference's XENT_CHUNK): [B, c, V] logits at a time, never [B, S, V]
+XENT_CHUNK = 512
 
 
 class DenseBlock(nn.Module):
@@ -51,10 +69,10 @@ class DenseBlock(nn.Module):
                                      requires_grad=False)
         self.mlp = Lyr.mlp_init(gen, d, cfg.d_ff, dtype, device)
 
-    def forward(self, h, cfg, positions, window, cache=None):
+    def forward(self, h, cfg, positions, window, cache=None, train=False):
         """Returns (h, (k, v)): this block's k/v for prefill's caches."""
         a, k, v = Lyr.attention(self.attn, Lyr.rms_norm(h, self.attn_norm), cfg,
-                                positions, cache=cache, window=window)
+                                positions, cache=cache, window=window, train=train)
         h = h + a
         h = h + Lyr.mlp(self.mlp, Lyr.rms_norm(h, self.mlp_norm))
         return h, (k, v)
@@ -67,11 +85,11 @@ class SSMBlock(nn.Module):
                                  requires_grad=False)
         self.mixer = Lyr.mamba_init(gen, cfg, dtype, device)
 
-    def forward(self, h, cfg, positions=None, window=0, cache=None):
+    def forward(self, h, cfg, positions=None, window=0, cache=None, train=False):
         """Returns (h, {"conv", "ssm"}); ``cache`` is this layer's state
         (decode), updated in place. Positions and window are not read."""
         y, new_state = Lyr.mamba_forward(self.mixer, Lyr.rms_norm(h, self.norm), cfg,
-                                         state=cache)
+                                         state=cache, train=train)
         return h + y, new_state
 
 
@@ -188,16 +206,24 @@ class Decoder(nn.Module):
         h = self._run(tokens, embeds, None)
         return self.unembed(h), torch.zeros((), dtype=torch.float32, device=self.device)
 
-    def _run(self, tokens, embeds, caches: LMCaches | None):
-        """The no-cache pass over every layer; when ``caches`` is given,
-        writes each layer's k/v (positions 0..S-1) or final SSM state into
-        it (prefill)."""
+    def forward_hidden(self, tokens, embeds=None):
+        """The training forward: tokens [B, S] -> (h [B, S, d] before the
+        final norm, aux 0), through the reference's jnp attention and SSD
+        paths (no kernel launch). For the hybrid family: each group of
+        Mamba-2 layers, then the shared block, then the trailing layers."""
+        h = self._run(tokens, embeds, None, train=True)
+        return h, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _run(self, tokens, embeds, caches: LMCaches | None, train: bool = False):
+        """The no-cache pass over every layer (``train``: the training
+        paths); when ``caches`` is given, writes each layer's k/v
+        (positions 0..S-1) or final SSM state into it (prefill)."""
         cfg, window = self.cfg, self.cfg.sliding_window
         B, S = tokens.shape
         positions = self._positions(B, S)
         h = self.embed_tokens(tokens, embeds)
         for block, key, l in self.schedule():
-            h, new = block(h, cfg, positions, window)
+            h, new = block(h, cfg, positions, window, train=train)
             if caches is None:
                 continue
             g = caches.group(key)
@@ -209,6 +235,50 @@ class Decoder(nn.Module):
                 g["conv"][l] = new["conv"]
                 g["ssm"][l] = new["ssm"]
         return h
+
+    # ----------------------------- loss -------------------------------
+    def loss(self, tokens, loss_mask=None, embeds=None):
+        """Next-token cross entropy (decoder.py:303-323): tokens [B, S] int,
+        loss_mask [B, S] (optional; position s weighs the prediction of
+        token s), embeds [B, P, d] (vlm/audio; their P positions carry no
+        loss). The mean over the mask's weight, at least 1."""
+        h, _ = self.forward_hidden(tokens, embeds)
+        h = Lyr.rms_norm(h, self.final_norm)[:, :-1]
+        tgt = tokens[:, 1:]
+        mask = (torch.ones(tgt.shape, dtype=torch.float32, device=h.device)
+                if loss_mask is None else loss_mask[:, 1:].float())
+        if self.cfg.frontend_tokens and embeds is not None:
+            pos_ok = torch.arange(tgt.shape[1], device=h.device) >= embeds.shape[1]
+            mask = mask * pos_ok[None, :]
+        total = self._chunked_xent(h, tgt, mask)
+        return total / torch.clamp(mask.sum(), min=1.0)
+
+    def _chunked_xent(self, h, tgt, mask):
+        """Σ mask · nll over chunks of XENT_CHUNK positions, in order: each
+        chunk's logits in f32 (the padded vocabulary's columns at -1e30),
+        its log-softmax and the targets' entries. h [B, S-1, d], tgt and
+        mask [B, S-1]; S-1 is padded up to a whole chunk."""
+        cfg = self.cfg
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        n = h.shape[1]
+        c = min(XENT_CHUNK, n)
+        pad = -n % c
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            tgt = F.pad(tgt, (0, pad))
+            mask = F.pad(mask, (0, pad))
+        pad_cols = None
+        if cfg.eff_vocab != cfg.vocab_size:
+            pad_cols = torch.arange(cfg.eff_vocab, device=h.device) >= cfg.vocab_size
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, n + pad, c):
+            lg = (h[:, c0:c0 + c] @ head).float()
+            if pad_cols is not None:
+                lg = torch.where(pad_cols, -1e30, lg)
+            logp = torch.log_softmax(lg, dim=-1)
+            nll = -logp.gather(-1, tgt[:, c0:c0 + c, None].long())[..., 0]
+            total = total + (nll * mask[:, c0:c0 + c]).sum()
+        return total
 
     # --------------------------- caches -------------------------------
     def init_caches(self, batch: int, cache_len: int,
@@ -251,6 +321,34 @@ class Decoder(nn.Module):
         for block, key, l in self.schedule():
             h, _ = block(h, cfg, pos, window, cache=_layer(caches.group(key), l))
         return self.unembed(h)[:, -1], caches
+
+
+class _Loss(nn.Module):
+    """``Decoder.loss`` as a module's forward, so that
+    ``torch.func.functional_call`` can run it on substituted parameters."""
+
+    def __init__(self, model: Decoder):
+        super().__init__()
+        self.model = model
+
+    def forward(self, tokens, loss_mask=None, embeds=None):
+        return self.model.loss(tokens, loss_mask, embeds)
+
+
+def functional_loss(model: Decoder) -> Callable[[dict, dict], torch.Tensor]:
+    """``loss(params, batch)``: the model's loss with its parameters
+    replaced by ``params`` (name → tensor, the names of
+    ``model.named_parameters()``), on ``batch`` {"tokens", "loss_mask"
+    (optional), "embeds" (optional)}. The model's own tensors are not
+    read; ``torch.func.grad`` differentiates it in ``params``."""
+    wrapper = _Loss(model)
+
+    def loss(params: dict, batch: dict) -> torch.Tensor:
+        return functional_call(
+            wrapper, {f"model.{name}": t for name, t in params.items()}, (),
+            dict(batch))
+
+    return loss
 
 
 def build_model(cfg: ArchConfig, device: "str | torch.device" = DEFAULT_DEVICE,

@@ -10,12 +10,22 @@ Conventions, as in the reference:
   width), softmax, normalisation and SSM state math in f32. Each function
   rounds where the reference rounds (comments name the place).
 
-No-cache attention (forward and prefill) goes to the flash-attention
-kernel, whatever S is: the reference's materialized softmax (S < 1024) and
-its blocked XLA path (``_attention_blocked``) compute the same function,
-which the reference's Pallas kernel computes on the TPU. The SSD
-intra-chunk step goes to the SSD kernel (the reference's ``ssd_fn`` hook).
-On CPU tensors both wrappers run their plain versions.
+Serving: no-cache attention (forward and prefill) goes to the
+flash-attention kernel, whatever S is: the reference's materialized
+softmax (S < 1024) and its blocked XLA path (``_attention_blocked``)
+compute the same function, which the reference's Pallas kernel computes on
+the TPU. The SSD intra-chunk step goes to the SSD kernel (the reference's
+``ssd_fn`` hook). On CPU tensors both wrappers run their plain versions.
+
+Training (``train=True``, the decoder's ``loss``): the reference trains
+through its jnp paths, and so does the port, in plain torch: the
+materialized softmax for S < 1024, ``_attention_blocked`` (an online
+softmax over key blocks of 512) for S >= 1024 with S % 512 == 0, and the
+jnp intra-chunk SSD step (``ssd_fn=None``). Neither calls a kernel
+wrapper: a hand-written launch has no backward, and ``torch.func.grad``
+and ``vmap`` (one point per client) cannot trace it. Both are
+out-of-place and read nothing back to the host, so the engine captures
+them.
 
 Left for later slices: MoE (``moe``, ``moe_sharded``), the int8 KV cache
 (``kv_quant``), and the ``gather`` GQA mode that only ``padded()``
@@ -136,17 +146,71 @@ def _attn_scores_mask(q_pos, k_pos, window: int):
     return m
 
 
+def _attn_scale(hd: int) -> float:
+    """1/sqrt(hd) in f32, as the reference (a Python float holding that
+    value)."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+
+
+def _attention_blocked(q5, k, v, positions, window: int, block: int = 512):
+    """The reference's flash-style blocked attention in plain torch
+    (layers.py:165-210): an online softmax over key blocks of ``block``, in
+    f32, so the [Sq, Sk] scores are never held whole. q5: [B, Sq, KV, G,
+    hd] (grouped layout); k, v: [B, Sk, KV, hd]. Returns [B, Sq, KV, G, hd]
+    in q5's dtype."""
+    B, Sq, KV, G, hd = q5.shape
+    Sk = k.shape[1]
+    block = min(block, Sk)            # the caller's S % 512 == 0: whole blocks
+    scale = _attn_scale(hd)
+    q32 = q5.float()
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q5.device)
+    m = torch.full((B, KV, G, Sq), -1e30, dtype=torch.float32, device=q5.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q5.device)
+    for b0 in range(0, Sk, block):
+        k_b, v_b = k[:, b0:b0 + block].float(), v[:, b0:b0 + block].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", q32, k_b) * scale
+        mask = _attn_scores_mask(positions, positions[:, b0:b0 + block], window)
+        s = torch.where(mask[:, None, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        pr = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + pr.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", pr, v_b)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)       # [B, KV, G, Sq, hd]
+    return out.permute(0, 3, 1, 2, 4).to(q5.dtype)
+
+
+def _attention_train(q, k, v, positions, window: int, dtype):
+    """The reference's no-cache grouped attention (layers.py:278-289,
+    :294-301): q [B, S, H, hd], k and v [B, S, KV, hd] → [B, S, H·hd]. The
+    materialized softmax (scores rounded to ``dtype``, then an f32
+    softmax, probabilities back in ``dtype``) for S < 1024; the blocked
+    path for S >= 1024 with S % 512 == 0."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    q5 = q.reshape(B, S, KV, H // KV, hd)
+    if S >= 1024 and S % 512 == 0:
+        return _attention_blocked(q5, k, v, positions, window).reshape(B, S, H * hd)
+    mask = _attn_scores_mask(positions, positions, window)          # [B, S, S]
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k).float()
+    logits = torch.where(mask[:, None, None], logits * _attn_scale(hd), -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(B, S, H * hd)
+
+
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
-              cache: dict | None = None, window: int = 0):
+              cache: dict | None = None, window: int = 0, train: bool = False):
     """x: [B, S, d]. Returns (out [B, S, d], k, v): this call's k (after
     rope) and v, [B, S, KV, hd], which prefill writes into its caches.
 
     Without ``cache`` (forward, prefill; positions are 0..S-1): the flash
-    kernel. With ``cache`` (decode, S == 1): one layer's view of the KV
-    ring buffer {"k", "v": [B, C, KV, hd], "pos": [B, C], "idx": 0-d},
-    updated in place: this step's k/v and positions go to slot idx % C,
-    then idx += 1 (the reference returns a new cache; the port writes into
-    the one it was given)."""
+    kernel, or with ``train`` the reference's training attention in plain
+    torch (``_attention_train``). With ``cache`` (decode, S == 1): one
+    layer's view of the KV ring buffer {"k", "v": [B, C, KV, hd], "pos":
+    [B, C], "idx": 0-d}, updated in place: this step's k/v and positions
+    go to slot idx % C, then idx += 1 (the reference returns a new cache;
+    the port writes into the one it was given)."""
     if gqa_mode(cfg) != "grouped":
         raise NotImplementedError("the 'gather' GQA mode (padded configs) "
                                   "belongs to the tensor-parallel slice")
@@ -163,6 +227,8 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        if train:
+            return _attention_train(q, k, v, positions, window, x.dtype) @ p["wo"], k, v
         out = flash_attention(q, k, v, causal=True, window=window)
         return out.reshape(B, S, H * hd) @ p["wo"], k, v
 
@@ -176,8 +242,7 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     cache["idx"].add_(1)
     k_all, v_all, k_pos = cache["k"], cache["v"], cache["pos"]
 
-    # 1/sqrt(hd) in f32, as the reference (a Python float holding that value)
-    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+    scale = _attn_scale(hd)
     mask = _attn_scores_mask(positions, k_pos, window)             # [B, Sq, Sk]
     mask = mask & (k_pos >= 0)[:, None]       # never-written slots: pos = -1
     G = H // KV
@@ -248,14 +313,35 @@ def mamba_init(gen, cfg, dtype, device) -> Params:
     })
 
 
-def _ssd_chunked_scan(xh, dt, A, Bm, Cm, chunk: int):
+def _ssd_intra_chunk(xc, dtc, dA_cumsum, Bc, Cc):
+    """The reference's jnp intra-chunk step (layers.py:582-600, ``ssd_fn``
+    None), which it trains through: the diagonal block's output y_diag [B,
+    nc, Q, nh, hd] and each chunk's final state [B, nc, nh, hd, st]."""
+    Q = xc.shape[2]
+    # L[i, j] = exp(dA_cum[i] - dA_cum[j]) for i >= j; the mask comes before
+    # the exp, so the non-causal entries (seg > 0) cannot overflow into NaN
+    # gradients
+    seg = dA_cumsum[:, :, :, None, :] - dA_cumsum[:, :, None, :, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg, -1e30))
+    cb = torch.einsum("bcqs,bcks->bcqk", Cc, Bc)             # [B, nc, Q, Q]
+    att = cb[..., None] * decay                              # [B, nc, Q, Q, nh]
+    xdt = xc * dtc[..., None]
+    y_diag = torch.einsum("bcqkh,bckhd->bcqhd", att, xdt)
+    decay_last = torch.exp(dA_cumsum[:, :, -1:, :] - dA_cumsum)
+    chunk_state = torch.einsum("bcqs,bcqh,bcqhd->bchds", Bc, dtc * decay_last, xc)
+    return y_diag, chunk_state
+
+
+def _ssd_chunked_scan(xh, dt, A, Bm, Cm, chunk: int, train: bool = False):
     """SSD forward (Mamba2, arXiv:2405.21060 §6), chunked dual form.
 
     xh: [B, S, nh, hd]; dt: [B, S, nh] (softplus'd); A: [nh] (negative);
     Bm/Cm: [B, S, st]; all f32. Returns y [B, S, nh, hd] and the final
-    state [B, nh, hd, st]. The intra-chunk step is the SSD kernel; the
-    recurrence over chunks is a loop of torch ops (the reference's
-    associative scan, taken in order).
+    state [B, nh, hd, st]. The intra-chunk step is the SSD kernel, or with
+    ``train`` the reference's jnp step (``_ssd_intra_chunk``); the
+    recurrence over chunks is a loop of out-of-place torch ops (the
+    reference's associative scan, taken in order).
     """
     B, S, nh, hd = xh.shape
     st = Bm.shape[-1]
@@ -269,28 +355,30 @@ def _ssd_chunked_scan(xh, dt, A, Bm, Cm, chunk: int):
     Cc = Cm.reshape(B, nc, Q, st).contiguous()
 
     dA_cumsum = torch.cumsum(dtc * A, dim=2)            # within-chunk cumsum
-    y_diag, chunk_state = ssd_chunk(xc, dtc, dA_cumsum, Bc, Cc)
+    intra = _ssd_intra_chunk if train else ssd_chunk
+    y_diag, chunk_state = intra(xc, dtc, dA_cumsum, Bc, Cc)
 
     # inter-chunk recurrence: state after chunk c = state(c-1) * decay_c + s_c
     chunk_decay = torch.exp(dA_cumsum[:, :, -1, :])     # [B, nc, nh]
-    states = torch.empty_like(chunk_state)
     run = chunk_state[:, 0]
-    states[:, 0] = run
+    states = [run]
     for c in range(1, nc):
         run = run * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-        states[:, c] = run
+        states.append(run)
     # state entering chunk c = states[c-1]; zero for the first
-    prev_states = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]], dim=1)
+    prev_states = torch.stack([torch.zeros_like(run)] + states[:-1], dim=1)
 
     # contribution of the carried-in state to each position of the chunk
     state_decay = torch.exp(dA_cumsum)                  # [B, nc, Q, nh]
     y_off = torch.einsum("bcqs,bchds,bcqh->bcqhd", Cc, prev_states, state_decay)
     y = (y_diag + y_off).reshape(B, S, nh, hd)
-    return y, states[:, -1]
+    return y, run
 
 
-def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
-    """Mamba2 block. Prefill/forward when ``state`` is None (chunked SSD);
+def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
+                  train: bool = False):
+    """Mamba2 block. Prefill/forward when ``state`` is None (chunked SSD;
+    with ``train`` its intra-chunk step in plain torch, ``_ssd_intra_chunk``);
     a single-token recurrent step when it is one layer's view
     {"conv": [B, W-1, conv_dim], "ssm": [B, nh, hd, st]}, which is updated
     in place. Returns (out [B, S, d], new state {"conv", "ssm"})."""
@@ -330,7 +418,7 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
 
     if state is None:
         y, final_state = _ssd_chunked_scan(xh, dt, A, Bc32, Cc32,
-                                           min(cfg.ssm_chunk, S))
+                                           min(cfg.ssm_chunk, S), train)
     else:
         # recurrent step: h <- exp(dt A) h + dt B (x) x ;  y = C . h
         dA = torch.exp(dt[:, 0] * A[None])                # [B, nh]
