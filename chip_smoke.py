@@ -1750,7 +1750,8 @@ def hp_knobs(knobs: dict) -> dict:
 
 def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
                         w_star, device, chunk: int = PAPER_CHUNK,
-                        sync_wires=None, state_gate=None, robust=None) -> dict:
+                        sync_wires=None, state_gate=None, robust=None,
+                        keep: bool = False) -> dict:
     """One run of phases 4b, 4c and 4d: 10 rounds of ``algo`` (AlgoHParams
     with ``knobs``) on ``channel`` by the per-round loop, then by the
     engine in chunks of ``chunk`` (then PAPER_REPLAYS more replays for its
@@ -1762,10 +1763,12 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     ``sync_wires`` (default: the run's own wire) under the sync debug
     mode. ``robust`` (run_federated's ``faults``/``async_cfg``) runs it
     under a fault plan and the deadline gate. Prints and returns the run's
-    readings."""
+    readings; with ``keep``, also the loop's rows and final params and the
+    engine's final state (``"vmap"``), phase 4g's reference."""
     from repro_torch.core import (TRAJECTORY_ALGOS, AlgoHParams,
                                   make_chunk_runner, make_round_fn,
                                   run_federated, run_rounds)
+    from repro_torch.core.engine import _map_state
     from repro_torch.kernels import _build
     from repro_torch.obs import MemorySink
 
@@ -1814,6 +1817,9 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     same_as_loop(name, s_loop, s_eng, h.final_params, state.params)
     same_state(name, s_ref, state)
     gated = state_gate(round_fn, s0, state) if state_gate else None
+    # before the replays below overwrite the runner's buffers
+    kept = (dict(sink=s_loop, params=h.final_params,
+                 state=_map_state(torch.clone, state)) if keep else None)
     # the gated run's second chunk, then more replays
     walls = [float(trace.round_wall[chunk:2 * chunk].sum())]
     for _ in range(PAPER_REPLAYS):
@@ -1836,6 +1842,8 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
                            capture_ms=runner.capture_ms,
                            peak_above_mib=peak / 2 ** 20, **counted),
                no_host_read_launches=no_read, gated=gated)
+    if kept is not None:
+        out["vmap"] = kept
     print(f"  {name:22s} [{channel or 'identity'}] loop {loop_ms:.3f} ms/round, "
           f"engine (chunk={chunk}) {eng_ms:.3f} ms/round (capture "
           f"{runner.capture_ms:.1f} ms); rel-error {h.rel_error[-1]:.3e}, loss "
@@ -2137,7 +2145,8 @@ def cohorts(clients, w_star, device, floor: float, dense: dict,
                             K_MAIN)
     runs = {name: loop_and_engine_run(
         prob, name, algo, {**knobs, "participation": COHORT_PARTICIPATION},
-        channel, w_star, device, state_gate=frozen_rows)
+        channel, w_star, device, state_gate=frozen_rows,
+        keep=name in SHARD_COHORT_RUNS)
         for name, algo, knobs, channel in COHORT_RUNS}
     for name, r in runs.items():
         d = dense[COHORT_DENSE[name]]
@@ -2974,6 +2983,9 @@ SHARD_CHILD_TIMEOUT = 240.0
 #: the metrics the sharded round reduces in another order than the vmap
 #: round (its nanmean: an all-reduced sum and count), held to rel 1e-12
 SHARD_NANMEAN_FIELDS = ("theta_mean", "gram_cond_mean")
+#: phase 4d's cohort runs (C=10 of K=100) that (a) repeats on the sharded
+#: runtime, bit for bit, and whose int8 round (b) holds at W = 2
+SHARD_COHORT_RUNS = ("cohort_fedosaa_svrg", "cohort_fedosaa_svrg_int8")
 
 
 def same_rows_sharded(what: str, want, got, w_want, w_got) -> None:
@@ -3014,7 +3026,8 @@ def rank_rows(state, sl):
                           hist_y=cut(state.hist_y), comm=cut(state.comm))
 
 
-def sharded_world_of_one(clients, w_star, device, paper: dict) -> dict:
+def sharded_world_of_one(clients, w_star, device, paper: dict,
+                         cohort: dict) -> dict:
     """Phase 4g (a): an NCCL group of one process (this one, on a
     HashStore), FedOSAA-SVRG at paper scale (f64, 10 rounds) on the
     identity and int8 wires. The loop through run_federated(runtime=
@@ -3024,7 +3037,8 @@ def sharded_world_of_one(clients, w_star, device, paper: dict) -> dict:
     every state tensor equal to phase 4's vmap engine run, makes one host
     read a chunk after the first and launches each kernel once a slot;
     then PAPER_REPLAYS more replays for its ms a round; a warmed-up round
-    under set_sync_debug_mode("error") reads nothing back."""
+    under set_sync_debug_mode("error") reads nothing back. Then the same
+    for phase 4d's cohort runs (``sharded_cohorts_of_one``)."""
     import torch.distributed as dist
 
     from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
@@ -3134,12 +3148,183 @@ def sharded_world_of_one(clients, w_star, device, paper: dict) -> dict:
                   flush=True)
             del runner, state, rf, rf1, st, h
             torch.cuda.empty_cache()
+        out.update(sharded_cohorts_of_one(prob, w_star, device, cohort))
     finally:
         dist.destroy_process_group()
     return out
 
 
-def sharded_gloo_world(w_star_acc, clients, device) -> dict:
+def sharded_cohorts_of_one(prob, w_star, device, cohort: dict) -> dict:
+    """Phase 4g (a), cohorts, in the NCCL world of one: each
+    SHARD_COHORT_RUNS run of phase 4d (FedOSAA-SVRG, C=10 of K=100, f64,
+    identity and int8) through run_federated(runtime="sharded") by the
+    loop, and by the engine (chunks of PAPER_CHUNK, its row exchange's
+    all-to-all and all-gather captured in the graph): phase 4d's vmap
+    loop rows (the nanmean metrics within rel 1e-12) and final params bit
+    for bit, its launches, the engine's every state tensor (the whole
+    K-sized store) equal to phase 4d's vmap engine run, one host read a
+    chunk after the first; then PAPER_REPLAYS more replays for its ms a
+    round, and a warmed-up round under set_sync_debug_mode("error") that
+    reads nothing back. Then the ext_cohort point (K=4096, C=16, float32)
+    by the sharded engine: its global loss bit-equal to phase 4d's and
+    below EXT_COHORT_LOSS_SHARE of its initial value."""
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  run_federated, run_rounds)
+    from repro_torch.core.sharded import make_sharded_round_fn
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import MemorySink
+
+    hp = AlgoHParams(eta=ETA, local_epochs=L_EPOCHS,
+                     participation=COHORT_PARTICIPATION)
+    out = {}
+    for name in SHARD_COHORT_RUNS:
+        vmap = cohort["runs"][name]
+        channel = None if vmap["channel"] == "identity" else vmap["channel"]
+        int8 = channel == "int8"
+        s_loop = MemorySink()
+        _build.reset_launches()
+        h = run_federated(prob, "fedosaa_svrg", hp, 10, w_star=w_star,
+                          device=device, channel=channel, sinks=[s_loop],
+                          runtime="sharded")
+        launches = dict(_build.LAUNCHES)
+        designs = check_resident(f"sharded {name} loop", len(h.rounds))
+        if launches != vmap["launches"]:
+            raise AssertionError(f"sharded {name} loop: launches {launches}, "
+                                 f"phase 4d's {vmap['launches']}")
+        same_rows_sharded(f"sharded W=1 {name} loop", vmap["vmap"]["sink"],
+                          s_loop, vmap["vmap"]["params"], h.final_params)
+        loop_ms = float(np.median(np.diff(h.wall_time) * 1e3))
+
+        rf = make_sharded_round_fn("fedosaa_svrg", prob, hp, channel=channel,
+                                   device=device)
+        state = init_state(rf.rank_problem, device=device, channel=channel,
+                           algo="fedosaa_svrg")
+        runner = make_chunk_runner(rf, PAPER_CHUNK, w_star=w_star)
+        s_eng = MemorySink()
+        _build.reset_launches()
+        with sync_warnings() as caught:
+            reads = ChunkReads(caught)
+            state, trace = run_rounds(rf, state, 10, chunk=PAPER_CHUNK,
+                                      w_star=w_star, runner=runner,
+                                      sinks=[s_eng, reads])
+        counted = engine_launches(f"sharded {name} engine", trace.num_rounds,
+                                  PAPER_CHUNK, int8)
+        if counted["launches"] != vmap["engine"]["launches"]:
+            raise AssertionError(f"sharded {name} engine: launches "
+                                 f"{counted['launches']}, phase 4d's "
+                                 f"{vmap['engine']['launches']}")
+        if any(n != 1 for n in reads.per_chunk[1:]):
+            raise AssertionError(f"sharded {name} engine: host reads per "
+                                 f"chunk {reads.per_chunk}")
+        same_state(f"sharded W=1 {name} engine against phase 4d's vmap "
+                   "engine", vmap["vmap"]["state"], state)
+        same_rows_sharded(f"sharded W=1 {name} engine", vmap["vmap"]["sink"],
+                          s_eng, vmap["vmap"]["params"], state.params)
+        walls = [float(trace.round_wall[PAPER_CHUNK:].sum())]
+        for _ in range(PAPER_REPLAYS):
+            t0 = time.perf_counter()
+            state, *_ = runner(state, PAPER_CHUNK)
+            walls.append(time.perf_counter() - t0)
+        eng_ms = float(np.median(walls)) / PAPER_CHUNK * 1e3
+        row_bytes = dict(rf.exchange.row_bytes)
+
+        st = init_state(rf.rank_problem, device=device, channel=channel,
+                        algo="fedosaa_svrg")
+        for _ in range(2):
+            st, _ = rf(st)
+        torch.cuda.synchronize(device)
+        _build.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, m = rf(st)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        one = dict(_build.LAUNCHES)
+        if one != expected_launches(1, int8=int8) or \
+                not np.isfinite(float(m.loss)):
+            raise AssertionError(f"sharded {name} no-host-read round: "
+                                 f"launches {one}, loss {float(m.loss)}")
+        out[f"sharded_w1_{name}"] = dict(
+            launches=launches, designs=designs, ms_per_round=loop_ms,
+            vmap_ms_per_round=vmap["ms_per_round"], row_bytes=row_bytes,
+            engine=dict(ms_per_round=eng_ms,
+                        chunk_ms=[w * 1e3 for w in walls],
+                        warmup_ms=runner.warmup_ms,
+                        capture_ms=runner.capture_ms,
+                        reads_per_chunk=reads.per_chunk,
+                        vmap_ms_per_round=vmap["engine"]["ms_per_round"],
+                        **counted))
+        print(f"  (a) NCCL W=1 {name} [{h.channel}]: loop {len(h.rounds)} "
+              f"rounds = phase 4d's vmap loop (rows, final params), "
+              f"{loop_ms:.3f} ms/round (vmap {vmap['ms_per_round']:.3f}), "
+              f"launches { {k: v for k, v in launches.items() if v} }; "
+              f"engine (chunk={PAPER_CHUNK}, the row exchange captured) "
+              f"every state tensor = phase 4d's vmap engine, {eng_ms:.3f} "
+              f"ms/round (vmap {vmap['engine']['ms_per_round']:.3f}; chunk "
+              f"ms {', '.join(f'{w * 1e3:.2f}' for w in walls)}), warm-up "
+              f"{runner.warmup_ms:.1f} ms, capture {runner.capture_ms:.1f} "
+              f"ms, host reads per chunk {reads.per_chunk}; a warmed-up "
+              f"round under set_sync_debug_mode('error'): launches "
+              f"{ {k: v for k, v in one.items() if v} }; exchange row bytes "
+              f"{row_bytes}", flush=True)
+        del runner, state, rf, st, h
+        torch.cuda.empty_cache()
+
+    # the ext_cohort point by the sharded engine
+    K = EXT_COHORT_KS[-1]
+    X, y = make_binary_classification("synthetic_small", n=8 * K, seed=0)
+    p4k = make_logreg_problem(partition(X, y, K, "iid", seed=0,
+                                        device=device), 1e-3, device=device)
+    rf = make_sharded_round_fn("fedosaa_svrg", p4k,
+                               AlgoHParams(eta=0.5, local_epochs=2,
+                                           cohort_size=EXT_COHORT_C),
+                               device=device)
+    state = init_state(rf.rank_problem, device=device)
+    loss0 = float(p4k.global_loss(state.params))
+    runner = make_chunk_runner(rf, EXT_COHORT_CHUNK)
+    _build.reset_launches()
+    with sync_warnings() as caught:
+        reads = ChunkReads(caught)
+        state, trace = run_rounds(rf, state, EXT_COHORT_ROUNDS,
+                                  chunk=EXT_COHORT_CHUNK, runner=runner,
+                                  sinks=[reads])
+    counted = engine_launches(f"sharded ext_cohort K={K}", trace.num_rounds,
+                              EXT_COHORT_CHUNK, int8=False)
+    loss = float(p4k.global_loss(state.params))
+    walls = []
+    for _ in range(EXT_COHORT_REPLAYS):
+        t0 = time.perf_counter()
+        runner(state, EXT_COHORT_CHUNK)
+        walls.append(time.perf_counter() - t0)
+    ms = float(np.median(walls)) / EXT_COHORT_CHUNK * 1e3
+    want = cohort["ext_cohort"]["rows"][f"K={K}/cohort"]
+    print(f"  (a) NCCL W=1 ext_cohort K={K}, C={EXT_COHORT_C} by the sharded "
+          f"engine: global loss {loss0:.6f} -> {loss!r} after "
+          f"{trace.num_rounds} rounds (phase 4d's vmap run {want['loss']!r}),"
+          f" {ms:.3f} ms/round (vmap {want['ms_per_round']:.3f}; chunk ms "
+          f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}), capture "
+          f"{runner.capture_ms:.1f} ms, host reads per chunk "
+          f"{reads.per_chunk}, launches "
+          f"{ {k: v for k, v in counted['launches'].items() if v} }",
+          flush=True)
+    if not (loss < EXT_COHORT_LOSS_SHARE * loss0 and loss == want["loss"]
+            and all(n == 1 for n in reads.per_chunk[1:])):
+        raise AssertionError(f"sharded ext_cohort K={K}: global loss {loss} "
+                             f"(from {loss0}; phase 4d's {want['loss']}), "
+                             f"reads per chunk {reads.per_chunk}")
+    out["sharded_w1_ext_cohort"] = dict(
+        loss0=loss0, loss=loss, ms_per_round=ms,
+        chunk_ms=[w * 1e3 for w in walls], capture_ms=runner.capture_ms,
+        reads_per_chunk=reads.per_chunk, **counted)
+    del runner, state, rf, p4k
+    free_memory()
+    return out
+
+
+def sharded_gloo_world(w_star_acc, clients, device, floor: float,
+                       cohort: dict) -> dict:
     """Phase 4g (b): a gloo group of SHARD_WORLD child processes of this
     script on the one card (``--sharded-child <dir>``, spawn_world on a
     FileStore), five clients of the acceptance configuration's ten each,
@@ -3151,7 +3336,13 @@ def sharded_gloo_world(w_star_acc, clients, device) -> dict:
     paper-scale int8 round from the vmap runtime's round-5 state (phase
     4's configuration) within 1e-7 of the vmap round on every state
     tensor; the ranks' params bit-equal; each rank's launches those of the
-    vmap runtime's rounds (at K/W clients)."""
+    vmap runtime's rounds (at K/W clients). And one paper-scale int8 cohort
+    round (C=10 of 100, 5 slots a rank) from the vmap cohort run's round-5
+    state within 1e-7 of the vmap cohort round on every state tensor, each
+    rank's launches one of each kernel (phase 4d's a round), its ms, and
+    the row exchange's bytes a rank beside the least the moves need;
+    ``trajectory`` at that shape (5 clients' rows) against its plain
+    version."""
     import tempfile
 
     from repro_torch.core import AlgoHParams, init_state, make_round_fn
@@ -3169,9 +3360,16 @@ def sharded_gloo_world(w_star_acc, clients, device) -> dict:
     for _ in range(5):
         state, _ = rf(state)
     want, _ = rf(state)
+    hpc = dataclasses.replace(hp, participation=COHORT_PARTICIPATION)
+    rfc = make_round_fn("fedosaa_svrg", prob, hpc, "int8", device=device)
+    sc = init_state(prob, device=device, channel="int8", algo="fedosaa_svrg")
+    for _ in range(5):
+        sc, _ = rfc(sc)
+    want_c, _ = rfc(sc)
     torch.save(dict(start=_map_state(lambda t: t.cpu(), state),
+                    cohort_start=_map_state(lambda t: t.cpu(), sc),
                     w_star=w_star_acc.cpu()), os.path.join(tmp, "inputs.pt"))
-    del rf, prob
+    del rf, rfc, prob
     t0 = time.perf_counter()
     results = spawn_world([sys.executable, str(ROOT / "chip_smoke.py"),
                            "--sharded-child", tmp], SHARD_WORLD,
@@ -3232,6 +3430,8 @@ def sharded_gloo_world(w_star_acc, clients, device) -> dict:
             errs[f"{tag}/{n}"] = float((joined - want_rows).abs().max()) / scale
     if max(errs.values()) > 1e-7 or got.t != want.t:
         raise AssertionError(f"gloo int8 round against the vmap round: {errs}")
+    out["cohort_w2"] = gloo_cohort_round(ranks, want_c, clients, device, floor,
+                                         cohort)
     acc0 = ranks[0]["straight"]
     print(f"  (b) gloo W={SHARD_WORLD} on the card: the acceptance run "
           f"reaches 1e-6 in {out['sharded_w2_acceptance_rank0']['to_target']}"
@@ -3248,6 +3448,72 @@ def sharded_gloo_world(w_star_acc, clients, device) -> dict:
     out["int8_round_errors"] = errs
     out["child_seconds"] = secs
     return out
+
+
+def gloo_cohort_round(ranks: list, want, clients, device, floor: float,
+                      cohort: dict) -> dict:
+    """Phase 4g (b), the cohort: the ranks' int8 cohort round against the
+    vmap cohort round ``want`` (every state tensor within 1e-7 of its
+    scale, the params bit-equal across ranks, each rank one launch of
+    each kernel, phase 4d's a round), the exchange's bytes a rank a round
+    from the round's row widths beside the least, and ``trajectory`` at
+    the rank's shape (C/W clients)."""
+    from repro_torch.core import AlgoHParams, resolve_cohort_size
+
+    W = len(ranks)
+    C = resolve_cohort_size(AlgoHParams(participation=COHORT_PARTICIPATION),
+                            K_MAIN)
+    Q = C // W
+    sl = [slice(r * K_MAIN // W, (r + 1) * K_MAIN // W) for r in range(W)]
+    got = ranks[0]["cohort_state"]
+    w_norm = float(torch.linalg.vector_norm(want.params))
+    errs = {"params": float(torch.linalg.vector_norm(
+        got.params - want.params.cpu())) / w_norm}
+    for tag, bufs in want.comm.items():
+        for n, buf in bufs.items():
+            joined = torch.cat([ranks[r]["cohort_state"].comm[tag][n]
+                                for r in range(W)])
+            want_rows = torch.cat([buf[s].cpu() for s in sl])
+            scale = max(w_norm, float(want_rows.abs().max()))
+            errs[f"{tag}/{n}"] = float((joined - want_rows).abs().max()) / scale
+    for r, rk in enumerate(ranks):
+        if rk["cohort_launches"] != expected_launches(1, int8=True):
+            raise AssertionError(f"gloo rank {r} cohort round: launches "
+                                 f"{rk['cohort_launches']}")
+        if not rk["cohort_params_equal"]:
+            raise AssertionError(f"gloo rank {r} cohort round: the ranks' "
+                                 "params differ")
+    if max(errs.values()) > 1e-7 or got.t != want.t:
+        raise AssertionError(f"gloo int8 cohort round against the vmap "
+                             f"cohort round: {errs}")
+    rb = ranks[0]["row_bytes"]
+    wire = dict(
+        in_buffer=C * rb["in"], in_to_others=C * (W - 1) / W * rb["in"],
+        in_least=Q * (W - 1) / W * rb["in"],
+        back_to_others=Q * (W - 1) * rb["back"],
+        back_least=Q * (W - 1) / W * rb["back"])
+    ms = [rk["cohort_ms"] for rk in ranks]
+    idx = torch.arange(Q, device=device) * (K_MAIN // Q)
+    traj = trajectory_at(f"paper scale, C/W={Q} (C={C}, W={W})",
+                         *(t.index_select(0, idx) for t in (
+                             clients.x, clients.y, clients.mask)),
+                         torch.float64, device, floor, steps=L_EPOCHS + 1,
+                         eta=ETA)
+    print(f"  (b) gloo W={W} int8 cohort round (C={C} of {K_MAIN}, {Q} slots "
+          f"a rank) from the vmap cohort run's round 5 against the vmap "
+          f"cohort round: { {k: f'{v:.2e}' for k, v in errs.items()} }, "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms by rank, launches per "
+          f"rank { {k: v for k, v in ranks[0]['cohort_launches'].items() if v} }"
+          f"; the exchange a rank a round: row bytes {rb}, in "
+          f"{wire['in_buffer']:.0f} B through all_to_all_single of which "
+          f"{wire['in_to_others']:.0f} B to other ranks (least "
+          f"{wire['in_least']:.0f} B), back {wire['back_to_others']:.0f} B "
+          f"through the all-gather (least {wire['back_least']:.0f} B); "
+          f"trajectory at {Q} clients {traj['ms']:.4f} ms against "
+          f"{cohort['trajectory']['ms']:.4f} ms at phase 4d's C={C}",
+          flush=True)
+    return dict(errors=errs, ms_by_rank=ms, row_bytes=rb, bytes=wire,
+                trajectory=traj)
 
 
 def sharded_child(argv: list) -> int:
@@ -3324,6 +3590,25 @@ def sharded_child(argv: list) -> int:
     out["int8_launches"] = dict(_build.LAUNCHES)
     out["int8_params_equal"] = same_everywhere(new.params)
     out["int8_state"] = _map_state(lambda t: t.cpu(), new)
+    # the int8 cohort round (C/W slots a rank), warmed up once, then timed
+    rfc = make_sharded_round_fn(
+        "fedosaa_svrg", pp, dataclasses.replace(
+            hp, participation=COHORT_PARTICIPATION),
+        channel="int8", device=device)
+    start = rank_rows(_map_state(lambda t: t.to(device), inp["cohort_start"]),
+                      client_shard(K_MAIN).rows)
+    rfc(start)
+    torch.cuda.synchronize(device)
+    dist.barrier()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    new, _ = rfc(start)
+    torch.cuda.synchronize(device)
+    out["cohort_ms"] = (time.perf_counter() - t0) * 1e3
+    out["cohort_launches"] = dict(_build.LAUNCHES)
+    out["cohort_params_equal"] = same_everywhere(new.params)
+    out["cohort_state"] = _map_state(lambda t: t.cpu(), new)
+    out["row_bytes"] = dict(rfc.exchange.row_bytes)
     torch.save(out, os.path.join(d, f"rank{rank}.pt"))
     print(f"rank {rank}: acceptance {len(h.rounds)} rounds, resumed "
           f"{len(resumed.rounds)}, int8 round done", flush=True)
@@ -4699,8 +4984,9 @@ def main() -> int:
           f"at paper scale; a gloo world of {SHARD_WORLD} on the card)",
           flush=True)
     t0 = time.perf_counter()
-    sharded = {**sharded_world_of_one(clients, w_star, device, paper),
-               **sharded_gloo_world(accept["w_star"], clients, device)}
+    sharded = {**sharded_world_of_one(clients, w_star, device, paper, cohort),
+               **sharded_gloo_world(accept["w_star"], clients, device, floor,
+                                    cohort)}
     print(f"  phase 4g took {time.perf_counter() - t0:.1f} s", flush=True)
     fl_runs = {**paper, **family, **newton, **cohort["runs"],
                **robust["paper"],
@@ -4793,7 +5079,8 @@ def main() -> int:
                 run: r_["designs"] for run, r_ in fl_runs.items()}
             row["cohort"] = {
                 "paper_scale": cohort["trajectory"],
-                "ext_cohort": cohort["ext_cohort"]["trajectory"]}
+                "ext_cohort": cohort["ext_cohort"]["trajectory"],
+                "sharded_w2_slots": sharded["cohort_w2"]["trajectory"]}
             row.update(plan=r["plan"], rerun_equal=r["rerun_equal"],
                        per_step_shape=dict(
                            shape=ps["shape"], design=ps["design"],

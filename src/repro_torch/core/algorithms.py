@@ -73,7 +73,8 @@ from repro_torch.comm.schema import (CTRL_UPLINK, DELTA_UPLINK, DIR_UPLINK,
 from repro_torch.core.anderson import (AAConfig, AAStats, lbfgs_two_loop,
                                        multisecant_update, resolve_aa_impl,
                                        trajectory_to_sy)
-from repro_torch.core.client_store import ClientStateStore
+from repro_torch.core.client_store import (ClientStateStore, RowExchange,
+                                           flat_leaves, unflat_leaves)
 from repro_torch.core.krylov import gmres
 from repro_torch.core.problem import (ClientBatch, FLProblem, sample_minibatch,
                                       sample_minibatch_indices)
@@ -976,6 +977,57 @@ def _commit_plan(plan: CohortPlan, **updates) -> dict:
     return {k: getattr(new, k) for k in updates}
 
 
+def _plan_sharded_round(clients, csize: int | None, state: ServerState,
+                        idx: "torch.Tensor | None", weight: torch.Tensor,
+                        xchg) -> CohortPlan:
+    """_plan_round's counterpart on a rank of the sharded runtime, whose
+    ``clients`` and state hold its P = K/W owned clients; ``weight`` [K] is
+    all K clients' weights. Dense: the rank's own rows, with the global
+    weights. The identity cohort (C = K): the same, since slot j is client
+    j on the rank that owns it, and nothing moves. C < K: the data and
+    store rows of the rank's Q = C/W slots, moved in from their owners by
+    ``xchg`` (a client_store.RowExchange) in one collective, with the
+    cohort's [C] renormalised weights (every rank computes them whole)."""
+    store = ClientStateStore.from_state(state)
+    if csize is None or csize >= weight.shape[0]:
+        return CohortPlan(idx, clients.x, clients.y, clients.mask, weight,
+                          weight, store, store)
+    with record_function("fl.cohort_gather"):
+        cw = _cohort_weights(weight, idx)
+        got = xchg.gather(idx, [clients.x, clients.y, clients.mask]
+                          + flat_leaves(store))
+        return CohortPlan(idx, *got[:3], cw, cw, store,
+                          unflat_leaves(store, got[3:]))
+
+
+def _commit_sharded_plan(plan: CohortPlan, xchg, **updates) -> dict:
+    """_commit_plan's counterpart on a rank of the sharded runtime: the
+    updated rows of its slots go back to their owners (``xchg``, one
+    collective), and each rank writes the rows it owns into its store; the
+    rows outside the cohort keep their bits. The identity cohort writes
+    its own rows in place of the move."""
+    if plan.idx is None:
+        return updates
+    rows = ClientStateStore(**{f: updates.get(f)
+                               for f in ClientStateStore._fields})
+    with record_function("fl.scatter"):
+        if plan.cohort is plan.store:       # the identity cohort
+            mine = xchg.mine
+            new = plan.store.scatter(plan.idx[mine] - mine.start, rows)
+        else:
+            # the fields the round advanced; the store's own for the rest
+            both = [f is not None and u is not None
+                    for f, u in zip(plan.store, rows)]
+            live, upd = (ClientStateStore(*(v if b else None
+                                            for v, b in zip(st, both)))
+                         for st in (plan.store, rows))
+            moved = unflat_leaves(live, xchg.scatter(
+                plan.idx, flat_leaves(live), flat_leaves(upd)))
+            new = ClientStateStore(*(f if m is None else m
+                                     for f, m in zip(plan.store, moved)))
+    return {k: getattr(new, k) for k in updates}
+
+
 def _draw_seed(seed: int, t: int, fold: int) -> int:
     """The seed of one draw of round t (host arithmetic only)."""
     return int(np.random.SeedSequence([seed, t, fold]).generate_state(
@@ -1077,25 +1129,31 @@ def make_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
 
 
 def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
-                 make_reduce=None, shard=None, weight=None):
+                 make_reduce=None, shard=None, weight=None, mask=None):
     """The round function of make_round_fn and of its sharded twin
     (core/sharded.py::make_sharded_round_fn): one body for both.
 
-    ``problem`` holds the clients the round computes on: all K, or with
-    ``shard`` (a sharded.ClientShard) this rank's block of them, whose
-    weights are their global ones; ``weight`` [K] is then all K clients'
-    weights. ``make_reduce(channel)`` gives the cross-client reduce
-    (CrossClientReduce by default; the sharded ShardReduce ends each sum in
-    a collective).
+    ``problem`` holds the clients the rank owns: all K, or with ``shard``
+    (a sharded.ClientShard) this rank's block of them, whose weights are
+    their global ones; ``weight`` [K] is then all K clients' weights and
+    ``mask`` [K, n] all K clients' row masks (a minibatch round draws its
+    rows from them; None without minibatches). ``make_reduce(channel)``
+    gives the cross-client reduce (CrossClientReduce by default; the
+    sharded ShardReduce ends each sum in a collective).
 
-    Under a shard the round's [K]-sized plan is global and the same on
-    every rank: every draw is the dense round's full tensor, of which the
-    rank takes its rows, except the fault plan's per-client scalars
-    (dropout, staleness, latency), which stay [K]; the fault realization,
-    the weights the dropout and the deadline gate derive from it and the
-    gate's partition are computed on the [K] vectors (the buffer ages, the
-    one per-client state they need, by one all-gather), and the rank takes
-    its rows of them for the round core and the epilogues."""
+    Under a shard the round's plan over its clients (all K, or the [C]
+    cohort) is global and the same on every rank, and the rank computes a
+    contiguous block of them: its own K/W clients in a dense round, the
+    slots [r·C/W, (r+1)·C/W) of a cohort, whose rows a
+    client_store.RowExchange moves in from their owners and back. Every
+    draw is the vmap round's tensor, of which the rank takes its rows,
+    except the cohort and the fault plan's per-client scalars (dropout,
+    staleness, latency), which stay whole ([K], or [C] in a cohort); the
+    fault realization, the weights the dropout and the deadline gate derive
+    from it and the gate's partition are computed on the whole vectors
+    (the buffer ages, the one per-client state they need, by one
+    all-gather), and the rank takes its rows of them for the round core
+    and the epilogues."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
     if algo in NEWTON_ALGOS and (hp.batch_size is not None
@@ -1126,17 +1184,24 @@ def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
     comm_bytes = comm_bytes_per_round(algo, params0, channel, hp.line_search)
     R = (make_reduce or CrossClientReduce)(channel)
     C = problem.clients
-    # all K clients' count and weights, and this rank's rows of them (None:
-    # the round computes on every client)
-    rows = None if shard is None else shard.rows
+    # all K clients' count, weights and masks
     K = C.num_clients if shard is None else shard.num_clients
     weight = C.weight if shard is None else weight
+    mask = C.mask if shard is None else mask
     d = params0.shape[-1]
     csize = resolve_cohort_size(hp, K)
     # the clients a round computes on, and whether their draws are rows of
     # the dense round's (C < K) or the dense round's own (dense, C = K)
-    n_round = C.num_clients if csize is None else csize
+    n_round = K if csize is None else csize
     gathers = csize is not None and csize < K
+    # the rank's block of the round's clients (None: it computes them all)
+    # and the moves of a sharded cohort's rows
+    rows = xchg = None
+    if shard is not None:
+        per = n_round // shard.world
+        rows = slice(shard.rank * per, (shard.rank + 1) * per)
+        if csize is not None:
+            xchg = RowExchange(shard.group, shard.rank, shard.world, K, csize)
     family = ("svrg" if algo in ("fedsvrg", "fedosaa_svrg") else
               "scaffold" if algo in SCAFFOLD_ALGOS else
               "avg" if algo in ("fedavg", "fedosaa_avg") else
@@ -1167,12 +1232,15 @@ def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
                 specs[name] = _Draw((K,), torch.float32, fold, kind,
                                     faults.seed)
             fault_names += (name,)
-    # the draws a sharded round takes whole: the fault plan's [K] scalars
-    whole = () if shard is None else tuple(
+    # the draws a sharded round takes whole: the cohort and the fault
+    # plan's per-client scalars
+    whole = (COHORT,) if shard is None else (COHORT,) + tuple(
         n for n in fault_names if len(specs[n].shape) == 1)
-    # the shapes a round takes: [C, ...] in a cohort round, a rank's rows
-    draw_specs = {name: (sp.shape if name in whole
-                         else (n_round, *sp.shape[1:]), sp.dtype)
+    # the shapes a round takes: [C, ...] in a cohort round, [K, ...] in a
+    # dense one; a rank's rows of them, but for the whole draws
+    draw_specs = {name: ((n_round if name in whole or rows is None
+                          else rows.stop - rows.start, *sp.shape[1:]),
+                         sp.dtype)
                   for name, sp in specs.items()}
     # reseeded for each draw
     gen = torch.Generator(device=dev)
@@ -1195,15 +1263,20 @@ def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
                     else torch.float32))
             if sp.kind == "tiny":
                 v = torch.clamp(v, min=tiny)
+            sel = None                  # the clients whose rows it takes
             if sp.kind == "cohort":
-                v = _cohort_indices(C.weight, csize, v)
+                v = _cohort_indices(weight, csize, v)
             elif idx is not None:
-                v = v.index_select(0, idx)
+                sel = idx if rows is None or name in whole else idx[rows]
             elif rows is not None and name not in whole:
-                v = v[rows]
+                sel = rows
+            if sel is not None:
+                v = v[sel] if isinstance(sel, slice) else v.index_select(0, sel)
             if sp.kind == "minibatch":
-                mask = C.mask if idx is None else C.mask.index_select(0, idx)
-                v = sample_minibatch_indices(mask, v)
+                m = mask if sel is None else (
+                    mask[sel] if isinstance(sel, slice)
+                    else mask.index_select(0, sel))
+                v = sample_minibatch_indices(m, v)
         return v if out is None else out.copy_(v)
 
     def fill_draws(bufs: "dict[str, torch.Tensor]", t0: int) -> None:
@@ -1355,10 +1428,10 @@ def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
         def draw(spec: UplinkSpec, shape: tuple) -> torch.Tensor:
             return take(spec.tag, rows_of)
 
-        plan = _plan_round(C, csize, state, idx)
-        if shard is not None:
-            # the plan's weights are all K clients'
-            plan = plan._replace(dweight=weight, pweight=weight)
+        if shard is None:
+            plan = _plan_round(C, csize, state, idx)
+        else:
+            plan = _plan_sharded_round(C, csize, state, idx, weight, xchg)
         mb = take(MINIBATCH, rows_of) if hp.batch_size is not None else None
         with record_function("fl.faults"):
             Rr, dw, pw, fr = fault_ctx(plan, take, rows_of)
@@ -1415,11 +1488,13 @@ def _build_round(algo, problem, hp, channel, seed, device, faults, async_cfg,
             metrics = metrics._replace(arrivals=astats[0],
                                        staleness_mean=astats[1],
                                        staleness_max=astats[2])
-        upd = _commit_plan(plan, **upd)
+        upd = (_commit_plan(plan, **upd) if shard is None
+               else _commit_sharded_plan(plan, xchg, **upd))
         return state._replace(params=new_params, t=state.t + 1, **upd), metrics
 
     round_fn.draw_specs = draw_specs
     round_fn.fill_draws = fill_draws
+    round_fn.exchange = xchg
     round_fn.host_metrics = (("comm_bytes",) if async_cfg is not None
                              else HOST_METRICS)
     return round_fn

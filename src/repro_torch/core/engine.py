@@ -66,9 +66,10 @@ apart, in ``runner.warmup_launches``.
 RoundMetrics)`` from ``make_round_fn`` or core/sharded.py's
 ``make_sharded_round_fn``; pass a prebuilt ``runner`` to keep its graph
 across calls (a later call overwrites the state it returned). A sharded
-round on an NCCL group is captured with its all-reduces in the graph (the
-warm-up round's collectives, on the capture stream, set up the
-communicator first); on a gloo group on the card the capture raises the
+round on an NCCL group is captured with its all-reduces in the graph, and
+a sharded cohort round with its row exchange's all-to-all and all-gather,
+whose byte buffers the warm-up round allocates (the warm-up round's
+collectives, on the capture stream, set up the communicator first); on a gloo group on the card the capture raises the
 round's ``capture_refusal``, and the per-round loop is its path.
 """
 from __future__ import annotations

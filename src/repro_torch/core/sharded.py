@@ -46,10 +46,19 @@ the main thread captures); a gloo group stages CUDA tensors through the
 host, which a graph cannot hold, and the engine refuses it
 (``round.capture_refusal``): run such a round by the loop.
 
-Not yet on this runtime: cohorts. A sampled cohort moves client rows across
-ranks (the reference's GSPMD reshard of the gathered rows), an all-to-all
-of rows that is ROADMAP.md's next item; ``make_sharded_round_fn`` refuses
-one.
+A sampled cohort of C clients (C/W a rank; the reference's ``P(axes)``
+split of the gathered [C] rows, which GSPMD reshards onto the client
+shards): every rank draws the same [C] indices from all K clients'
+weights, keyed by (seed, round) as the vmap round draws them, and computes
+the contiguous block of slots [r·C/W, (r+1)·C/W). Client k's data and store
+rows stay on its owner, rank k // (K/W); a client_store.RowExchange moves
+the rows of a rank's slots in from their owners (one ``all_to_all_single``
+of equal splits) and the updated store rows back (one all-gather, each
+owner writing the rows it owns), in fixed shapes, as raw bytes, in a
+``record_function("fl.cohort_exchange")`` scope, so the engine's graph
+holds them and W = 1 stays the vmap cohort round bit for bit. The identity
+cohort (C = K) moves nothing: slot j is client j on its owner, and the
+round is the dense sharded round bit for bit.
 
 ``init_file_world`` and ``spawn_world`` start a world of processes that
 rendezvous on a ``FileStore`` (no TCP port), as the tests and
@@ -227,25 +236,36 @@ def make_sharded_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
 
     The contract is make_round_fn's (``draw_specs``, ``fill_draws``,
     ``host_metrics``, the same draws and refusals), with each draw of the
-    rank's [K/W, ...] shape, except the fault plan's per-client scalars
-    ("fault.drop", "fault.stale", "fault.latency"), which stay [K]: the
-    weights they set are global. The state is the rank's: the replicated
+    rank's [K/W, ...] shape in a dense round, except the fault plan's
+    per-client scalars ("fault.drop", "fault.stale", "fault.latency"),
+    which stay [K]: the weights they set are global. The state is the rank's: the replicated
     params (and c), its rows of every per-client tensor; build it with
     ``init_state(round.rank_problem, ...)``. ``round.shard`` is the rank's
     ClientShard; ``round.capture_refusal`` says why the engine cannot
     capture the round (a gloo group on the card), or is None.
 
+    A cohort of C (``hp.cohort_size`` or ``participation``): every rank
+    draws the same [C] cohort from all K clients' weights, computes the
+    slots [r·C/W, (r+1)·C/W) of it, and ``round.exchange`` (a
+    client_store.RowExchange; None in a dense round) moves their data and
+    store rows in from their owners and the updated rows back. Its draws
+    are the vmap cohort round's rows of the rank's slots ([C/W, ...]),
+    with the cohort ("cohort" [C]) and the fault plan's scalars ([C])
+    whole; the store in the state stays the rank's K/W rows.
+
     Refuses (ValueError) an unknown algorithm, a process group that is not
-    initialised, a K that does not divide over the ranks, and a cohort."""
+    initialised, a K that does not divide over the ranks, and a cohort
+    whose C does not."""
     if algo not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algo!r}; choose from {ALGORITHMS}")
     K = problem.clients.num_clients
     shard = client_shard(K, group)
-    if resolve_cohort_size(hp, K) is not None:
+    csize = resolve_cohort_size(hp, K)
+    if csize is not None and csize % shard.world != 0:
         raise ValueError(
-            "the sharded runtime does not run cohorts yet: a sampled cohort "
-            "moves client rows across ranks (an all-to-all), the next item "
-            "of ROADMAP.md; run cohorts on the vmap runtime")
+            f"cohort_size={csize} does not divide over {shard.world} client "
+            "shards (the ranks of the process group); pick a cohort that is "
+            "a multiple")
     dev = resolve_device(device)
     local = dataclasses.replace(problem,
                                 clients=shard_clients(problem.clients, group,
@@ -253,7 +273,9 @@ def make_sharded_round_fn(algo: str, problem: FLProblem, hp: AlgoHParams,
     round_fn = _build_round(
         algo, local, hp, channel, seed, dev, faults, async_cfg,
         make_reduce=lambda ch: ShardReduce(group, ch), shard=shard,
-        weight=problem.clients.weight.to(dev))
+        weight=problem.clients.weight.to(dev),
+        mask=(problem.clients.mask.to(dev) if hp.batch_size is not None
+              else None))
     # "nccl", "gloo", or a per-device list such as "cpu:gloo,cuda:nccl"
     backend = str(dist.get_backend(group))
     nccl = "nccl" in backend

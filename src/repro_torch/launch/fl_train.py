@@ -34,7 +34,8 @@ import torch.distributed as dist
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.comm import make_channel
 from repro_torch.configs import get_arch
-from repro_torch.core import AAConfig, AlgoHParams, run_federated
+from repro_torch.core import (AAConfig, AlgoHParams, resolve_cohort_size,
+                              run_federated)
 from repro_torch.core.lm import check_fl_config, make_lm_clients, make_lm_problem
 from repro_torch.data import make_lm_tokens
 from repro_torch.models.decoder import build_model
@@ -243,6 +244,12 @@ def main(argv=None) -> dict:
             ap.error(f"--clients {args.clients} must divide over the {shards} "
                      f"client shards of the process group; use --clients "
                      f"{shards} or a multiple")
+        csize = resolve_cohort_size(hp, args.clients)
+        if csize is not None and csize % shards:
+            ap.error(f"the cohort of {csize} clients (--participation, "
+                     f"--cohort-size) must divide over the {shards} client "
+                     f"shards of the process group; pick a multiple of "
+                     f"{shards}")
         print(f"sharded runtime over {shards} rank(s) "
               f"({dist.get_backend(group)})")
 

@@ -681,3 +681,27 @@ def test_engine_refuses_a_round_with_a_host_read(card):
                        device=card)
     with pytest.raises(RuntimeError, match="cannot be captured"):
         run_rounds(rf, init_state(prob, device=card), 2, chunk=2)
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_current_card(card):
+    """``resolve_device("cuda")`` names the current card with its index, the
+    device a new tensor reports; make_lm_clients, build_model and
+    run_federated run on their default device (no ``device=``) and agree
+    with it."""
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_arch
+    from repro_torch.core import AlgoHParams, run_federated
+    from repro_torch.core.lm import make_lm_clients, make_lm_problem
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models.decoder import build_model
+
+    dev = resolve_device("cuda")
+    assert dev == torch.empty(1, device="cuda").device == resolve_device()
+    cfg = get_arch("smollm-135m").reduced()
+    clients = make_lm_clients(make_lm_tokens(4, 32, cfg.vocab_size), 2)
+    assert clients.x.device == dev
+    h = run_federated(make_lm_problem(build_model(cfg), clients),
+                      "fedosaa_svrg", AlgoHParams(eta=0.05, local_epochs=1), 2)
+    assert h.final_params.device == dev
+    assert len(h.loss) == 2 and np.isfinite(h.loss).all()

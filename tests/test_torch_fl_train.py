@@ -4,7 +4,7 @@ in tests/test_torch_lm_train.py), then its options: the engine
 (--round-chunk 2: the loop's curve bit for bit), telemetry
 (--metrics-out), checkpoints (--checkpoint-dir, --resume auto continues
 the straight run's curve), the distributed runtime at W = 1 (--runtime
-sharded), and the refusals (no card, --multi-pod, a bf16 config);
+sharded, dense and with --participation), and the refusals (no card, --multi-pod, a bf16 config);
 launch/train.py's centralized AdamW + WSD run and its checkpoint.
 """
 import json
@@ -79,6 +79,20 @@ def test_fl_train_checkpoint_resume_and_sharded(tmp_path):
     sharded = _run(tmp_path, "sharded", "--rounds", "3", "--runtime", "sharded")
     np.testing.assert_allclose(sharded["fedosaa_svrg"]["loss_curve"],
                                straight["loss_curve"], rtol=1e-12)
+    assert not torch.distributed.is_initialized()
+
+
+def test_fl_train_sharded_cohort(tmp_path):
+    """--runtime sharded --participation 0.5 (a cohort of 2 of 4 clients,
+    through the sharded plan and its row exchange in a world of one): the
+    vmap run's loss curve within rel 1e-6."""
+    cohort = ["--rounds", "3", "--clients", "4", "--participation", "0.5"]
+    vmap = _run(tmp_path, "vmap_cohort", *cohort)["fedosaa_svrg"]
+    sharded = _run(tmp_path, "sharded_cohort", *cohort, "--runtime",
+                   "sharded")["fedosaa_svrg"]
+    assert len(sharded["loss_curve"]) == 3
+    np.testing.assert_allclose(sharded["loss_curve"], vmap["loss_curve"],
+                               rtol=1e-6)
     assert not torch.distributed.is_initialized()
 
 

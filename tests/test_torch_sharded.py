@@ -11,13 +11,20 @@ gloo group of one process on a HashStore, in this process.
     round bit for bit, in the params and every state tensor, for all ten
     algorithms on the identity and int8 wires and with every fault kind
     behind the deadline gate; its metrics agree within rel 1e-12;
+  * a cohort round (C=4 of K=8) is the vmap cohort round bit for bit, in
+    the params and every state tensor: FedOSAA-SVRG on identity and int8,
+    FedOSAA-SCAFFOLD, GIANT, carried columns with minibatch steps, and
+    every fault kind behind the gate; the identity cohort (C = K) is the
+    dense sharded round bit for bit;
   * run_federated(runtime="sharded") by the loop and the engine gives the
-    vmap run's rows and final params; its header and its checkpoints'
-    fingerprint say "sharded", and a checkpoint of the other runtime
-    refuses to resume;
+    vmap run's rows and final params, dense and on a cohort; its header
+    and its checkpoints' fingerprint say "sharded", and a checkpoint of
+    the other runtime refuses to resume;
   * a sink's stop request stops the run;
-  * an unknown algorithm and a cohort refuse.
+  * an unknown algorithm refuses (a cohort that does not divide over the
+    ranks refuses in tests/test_torch_sharded_ranks.py's W = 4 world).
 """
+import dataclasses
 import json
 import math
 import os
@@ -266,6 +273,97 @@ def test_world_of_one_is_the_vmap_round_bit_for_bit(small, algo, wire):
         assert_metrics_agree(ma, mb)
 
 
+#: the cohort rounds held bit for bit against the vmap cohort round:
+#: (algorithm, channel, knobs, whether every fault kind runs behind the gate)
+COHORT_CASES = [("fedosaa_svrg", None, {}, False),
+                ("fedosaa_svrg", "int8", {}, False),
+                ("fedosaa_scaffold", None, {}, False),
+                ("giant", None, {}, False),
+                ("fedosaa_svrg", "int8", dict(carry_history=2, batch_size=16),
+                 False),
+                ("fedosaa_svrg", "int8", {}, True)]
+
+
+@pytest.mark.parametrize("algo,channel,kw,faulty", COHORT_CASES,
+                         ids=["fedosaa_svrg", "fedosaa_svrg-int8",
+                              "fedosaa_scaffold", "giant",
+                              "fedosaa_svrg-int8-carry-minibatch",
+                              "fedosaa_svrg-int8-faults-gate"])
+def test_world_of_one_cohort_is_the_vmap_cohort_round_bit_for_bit(
+        small, algo, channel, kw, faulty):
+    """synthetic_small, n=400, K=8, a cohort of C=4: three rounds of both
+    runtimes from init on their own draws, every state tensor equal bit for
+    bit after each, the metrics within rel 1e-12; the sharded round's draws
+    have the vmap round's shapes."""
+    plan = FaultPlan(**MIXED) if faulty else None
+    gate = AsyncConfig(**GATE) if faulty else None
+    hp = AlgoHParams(eta=1.0, local_epochs=L, cohort_size=4, **kw)
+    vmap = make_round_fn(algo, small, hp, channel, device="cpu", faults=plan,
+                         async_cfg=gate)
+    sharded = make_sharded_round_fn(algo, small, hp, channel=channel,
+                                    device="cpu", faults=plan, async_cfg=gate)
+    assert sharded.draw_specs == vmap.draw_specs
+    a = b = start_state(small, algo, hp, channel, plan, gate)
+    for _ in range(3):
+        a, ma = vmap(a)
+        b, mb = sharded(b)
+        assert a.t == b.t
+        ta, tb = _tensors(a), _tensors(b)
+        assert len(ta) == len(tb)
+        for x, y in zip(ta, tb):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        assert_metrics_agree(ma, mb)
+
+
+@pytest.mark.parametrize("algo,channel,faulty",
+                         [("fedosaa_svrg", "int8", True),
+                          ("fedosaa_scaffold", "int8", False),
+                          ("dane", None, False)])
+def test_world_of_one_identity_cohort_is_the_dense_sharded_round(
+        small, algo, channel, faulty):
+    """cohort_size = K on the sharded runtime runs the cohort draw, the plan
+    and the scatter, and gives the dense sharded round's state bit for bit
+    over two rounds."""
+    plan = FaultPlan(**MIXED) if faulty else None
+    gate = AsyncConfig(**GATE) if faulty else None
+    hp = AlgoHParams(eta=1.0, local_epochs=L, **(
+        SMALL_DANE if algo == "dane" else {}))
+    dense = make_sharded_round_fn(algo, small, hp, channel=channel,
+                                  device="cpu", faults=plan, async_cfg=gate)
+    ident = make_sharded_round_fn(
+        algo, small, dataclasses.replace(hp, cohort_size=SMALL_K),
+        channel=channel, device="cpu", faults=plan, async_cfg=gate)
+    assert "cohort" in ident.draw_specs and "cohort" not in dense.draw_specs
+    a = b = start_state(small, algo, hp, channel, plan, gate)
+    for _ in range(2):
+        a, _ = dense(a)
+        b, _ = ident(b)
+        for x, y in zip(_tensors(a), _tensors(b)):
+            assert torch.equal(x, y)
+
+
+def test_run_federated_sharded_cohort_by_loop_and_engine(prob):
+    """run_federated(runtime="sharded") at participation 0.5 (C=2 of K=4),
+    by the loop and by the engine (chunks of 2), on int8 with carried
+    columns: the vmap cohort run's loss and bytes exactly and its final
+    params bit for bit; the header carries the cohort size."""
+    from repro_torch.obs import MemorySink
+
+    kw = dict(channel="int8", device="cpu")
+    hp = AlgoHParams(eta=1.0, local_epochs=L, participation=0.5,
+                     carry_history=2)
+    want = run_federated(prob, "fedosaa_svrg", hp, 5, **kw)
+    for chunk in (None, 2):
+        sink = MemorySink()
+        h = run_federated(prob, "fedosaa_svrg", hp, 5, chunk=chunk,
+                          runtime="sharded", sinks=[sink], **kw)
+        assert sink.header["runtime"] == "sharded"
+        assert sink.header["cohort_size"] == 2
+        assert torch.equal(h.final_params, want.final_params)
+        np.testing.assert_array_equal(h.loss, want.loss)
+        np.testing.assert_array_equal(h.comm_bytes, want.comm_bytes)
+
+
 def test_run_federated_sharded_by_loop_and_engine(prob):
     """run_federated(runtime="sharded"), by the loop and by the engine
     (chunks of 2, eager on the CPU), on int8 with faults behind the gate:
@@ -351,9 +449,8 @@ def test_fingerprint_says_sharded_and_the_other_runtime_refuses(prob,
 
 
 def test_refusals(prob):
-    """An unknown algorithm or runtime, a cohort (by participation or by
-    size), and sync_gather checkpoints refuse; K = 4 divides over one
-    rank."""
+    """An unknown algorithm or runtime and sync_gather checkpoints refuse;
+    K = 4 divides over one rank."""
     from repro_torch.checkpoint import CheckpointPolicy
 
     with pytest.raises(ValueError, match="unknown algorithm"):
@@ -361,9 +458,6 @@ def test_refusals(prob):
     with pytest.raises(ValueError, match="unknown runtime"):
         run_federated(prob, "fedosaa_svrg", AlgoHParams(), 1, device="cpu",
                       runtime="pmap")
-    for hp in (AlgoHParams(participation=0.5), AlgoHParams(cohort_size=4)):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            make_sharded_round_fn("fedosaa_svrg", prob, hp, device="cpu")
     with pytest.raises(ValueError, match="sync_gather"):
         run_federated(prob, "fedosaa_svrg", AlgoHParams(), 1, device="cpu",
                       runtime="sharded",

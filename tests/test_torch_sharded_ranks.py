@@ -26,6 +26,27 @@ saves what it saw; the tests below read those results:
   * the reference's sharded-runtime checkpoint restores into W = 2, each
     rank's rows those of convert.server_state of the reference's state;
   * K = 6 does not divide over 4 ranks: the round refuses.
+
+And on a cohort of C=4 of the K=8 clients (each rank computes C/W slots,
+whose rows client_store.RowExchange moves in from their owners and back):
+
+  * one round of each family from the reference's sharded cohort state,
+    fed its cohort indices and uniforms (each rank its slots' rows), within
+    1e-7 of the port's vmap cohort round and of the reference's sharded
+    cohort round (its make_sharded_round_fn on make_host_mesh(), f64
+    helpers); the rows of clients outside the cohort bit-equal to the
+    start's;
+  * every fault kind behind the gate on a cohort, within 1e-7 of the vmap
+    cohort round; each rank's draws are the vmap round's rows of its slots
+    (the cohort and the fault scalars whole);
+  * C = K is the dense sharded round bit for bit;
+  * the engine equals the loop bit for bit;
+  * a cohort run saving every 2 rounds, one shard file per rank, and the
+    run resumed from its first save end bit for bit, at W = 2 and W = 4;
+  * C = 6 of 8 over 4 ranks refuses;
+  * the reference's acceptance point of cohorts (K=4096, C=16, f32,
+    FedOSAA-SVRG, eta 0.5, L=2, by the engine in chunks of 4, 8 rounds) at
+    W = 4 takes the global loss below 0.7 of its initial value.
 """
 import os
 import sys
@@ -40,6 +61,9 @@ from torch_threads import one_torch_thread  # noqa: F401
 ROOT = Path(__file__).resolve().parents[1]
 K, L = 8, 3
 HP = dict(eta=1.0, local_epochs=L)
+#: the cohort the cohort cases draw, of the K clients
+C = 4
+COHORT_KW = {"cohort_size": C}
 DANE = dict(dane_newton_iters=3, dane_cg_iters=10)
 #: (case, algorithm, channel, AlgoHParams knobs) of the rounds from the
 #: reference's state
@@ -63,7 +87,37 @@ OWN = (("mixed_gate", "fedosaa_svrg", "int8", {}, MIXED, GATE),
        ("scaffold_mixed_gate", "fedosaa_scaffold", "int8", {}, MIXED, GATE),
        ("history_poison", "fedosaa_svrg", None, {}, POISON, None),
        ("carry_minibatch", "fedosaa_svrg", "int8",
-        dict(carry_history=2, batch_size=16), None, None))
+        dict(carry_history=2, batch_size=16), None, None),
+       ("cohort_mixed_gate", "fedosaa_svrg", "int8", COHORT_KW, MIXED, GATE),
+       ("cohort_carry_minibatch", "fedosaa_svrg", "int8",
+        dict(carry_history=2, batch_size=16, **COHORT_KW), None, None))
+#: the cohort rounds from the reference's cohort state: FAMILY's cases,
+#: each on a cohort. DANE takes the cohort tests' 2 Newton steps of 5 CG
+#: iterations (tests/test_torch_cohort.py, the reference's own tests'): at
+#: 3 of 10 its CG carries the ranks' summation order to 1.0e-7 of ‖w‖ at
+#: W = 2 (the port's vmap cohort round is at 6.3e-8 of the reference's)
+SMALL_DANE = dict(dane_newton_iters=2, dane_cg_iters=5)
+COHORT_FAMILY = tuple(
+    (f"cohort_{name}", algo, channel,
+     {**(SMALL_DANE if algo == "dane" else kw), **COHORT_KW})
+    for name, algo, channel, kw in FAMILY)
+#: the cohort cases whose round carries per-client rows (SCAFFOLD's c_k, the
+#: int8 wire's buffers): the reference's sharded cohort round cannot write
+#: them back on this JAX (its _commit_plan's scatter into the K-sized store
+#: raises ShardingTypeError under the mesh), so these are held against its
+#: vmap cohort round, which its sharded round equals where it runs
+#: (ROADMAP.md §3)
+REF_VMAP_COHORT = ("cohort_fedosaa_scaffold", "cohort_fedosaa_svrg_int8")
+#: the cohort cases whose identity cohort (C = K) is held against the dense
+#: sharded round: (case, algorithm, channel, fault plan, gate)
+IDENTITY = (("svrg_mixed_gate", "fedosaa_svrg", "int8", MIXED, GATE),
+            ("scaffold_int8", "fedosaa_scaffold", "int8", None, None))
+#: the reference's acceptance point of cohorts (tests/test_cohort.py's
+#: test_k4096_engine_run_converges; benchmarks/ext_cohort.py): K clients of
+#: synthetic_small with 8 rows each, float32, a cohort of BIG_C, by the
+#: engine in chunks of BIG_CHUNK for BIG_ROUNDS rounds; the global loss ends
+#: below BIG_LOSS_SHARE of its initial value
+BIG_K, BIG_C, BIG_CHUNK, BIG_ROUNDS, BIG_LOSS_SHARE = 4096, 16, 4, 8, 0.7
 #: the checkpointed run: int8 buffers, carried columns, stale anchors and
 #: latencies behind the gate
 CKPT_HP = dict(eta=0.5, local_epochs=L, carry_history=2)
@@ -137,6 +191,27 @@ def run_state(prob, algo, hp, channel, plan, gate, rounds):
 # ---------------------------------------------------------------------------
 # the ranks' side: this file run as a script by spawn_world
 # ---------------------------------------------------------------------------
+def big_cohort_run() -> dict:
+    """The acceptance point of cohorts on this rank of the world: the
+    global loss before and after the engine's BIG_ROUNDS rounds."""
+    from repro_torch.core import AlgoHParams, init_state, run_rounds
+    from repro_torch.core.sharded import make_sharded_round_fn
+    from repro_torch.data import make_binary_classification, partition
+    from repro_torch.models.logreg import make_logreg_problem
+
+    X, y = make_binary_classification("synthetic_small", n=8 * BIG_K, seed=0)
+    prob = make_logreg_problem(partition(X, y, BIG_K, "iid", seed=0,
+                                         device="cpu"), 1e-3, device="cpu")
+    rf = make_sharded_round_fn("fedosaa_svrg", prob,
+                               AlgoHParams(eta=0.5, local_epochs=2,
+                                           cohort_size=BIG_C), device="cpu")
+    state = init_state(rf.rank_problem, device="cpu")
+    loss0 = float(prob.global_loss(state.params))
+    state, trace = run_rounds(rf, state, BIG_ROUNDS, chunk=BIG_CHUNK)
+    return dict(loss0=loss0, loss=float(prob.global_loss(state.params)),
+                rounds=trace.num_rounds, params=state.params)
+
+
 def child(workdir: Path) -> None:
     import dataclasses
 
@@ -145,7 +220,9 @@ def child(workdir: Path) -> None:
     from repro_torch.checkpoint import (CheckpointPolicy, load_checkpoint,
                                         load_latest)
     from repro_torch.comm import make_channel
-    from repro_torch.core import AlgoHParams, run_federated
+    from repro_torch.core import AlgoHParams, make_round_fn, run_federated
+    from repro_torch.core.algorithms import COHORT
+    from repro_torch.core.engine import _tensors
     from repro_torch.core.sharded import (client_shard, init_file_world,
                                           make_sharded_round_fn,
                                           shard_clients)
@@ -157,6 +234,8 @@ def child(workdir: Path) -> None:
     inp = torch.load(workdir.parent / "inputs.pt", weights_only=False)
     prob = port_problem()
     sl = client_shard(K).rows
+    # this rank's slots of a cohort
+    slots = slice(rank * C // W, (rank + 1) * C // W)
     out = {"rounds": {}, "runs": {}}
 
     def same_everywhere(t: torch.Tensor) -> bool:
@@ -171,7 +250,9 @@ def child(workdir: Path) -> None:
             algo, prob, AlgoHParams(**HP, **kw), channel=channel,
             device="cpu", faults=FaultPlan(**plan) if plan else None,
             async_cfg=AsyncConfig(**gate) if gate else None)
-        d = None if draws is None else {n: v[sl] for n, v in draws.items()}
+        mine = slots if "cohort_size" in kw else sl
+        d = None if draws is None else {
+            n: v if n == COHORT else v[mine] for n, v in draws.items()}
         new, m = rf(rows_of(start, sl), d)
         out["rounds"][name] = dict(state=new, loss=float(m.loss),
                                    same=same_everywhere(new.params))
@@ -188,9 +269,59 @@ def child(workdir: Path) -> None:
                           **kw)
         out["runs"][name] = dict(h=h, same=same_everywhere(h.final_params))
 
+    # a cohort round's draws: the vmap round's, the rank's slots' rows
+    hp = AlgoHParams(**HP, batch_size=16, **COHORT_KW)
+    plan, gate = FaultPlan(**MIXED), AsyncConfig(**GATE)
+    vm = make_round_fn("fedosaa_svrg", prob, hp, "int8", device="cpu",
+                       faults=plan, async_cfg=gate)
+    rf = make_sharded_round_fn("fedosaa_svrg", prob, hp, channel="int8",
+                               device="cpu", faults=plan, async_cfg=gate)
+    bufs = {}
+    for f in (vm, rf):
+        bufs[f] = {n: torch.empty((2, *sh), dtype=dt)
+                   for n, (sh, dt) in f.draw_specs.items()}
+        f.fill_draws(bufs[f], 3)
+    whole = (COHORT, "fault.drop", "fault.stale", "fault.latency")
+    out["draws"] = {n: torch.equal(b, bufs[vm][n] if n in whole
+                                   else bufs[vm][n][:, slots])
+                    for n, b in bufs[rf].items()}
+
+    # the identity cohort against the dense sharded round
+    out["identity"] = {}
+    for name, algo, channel, plan, gate in IDENTITY:
+        plan = FaultPlan(**plan) if plan else None
+        gate = AsyncConfig(**gate) if gate else None
+        hp = AlgoHParams(**HP)
+        dense = make_sharded_round_fn(algo, prob, hp, channel=channel,
+                                      device="cpu", faults=plan,
+                                      async_cfg=gate)
+        ident = make_sharded_round_fn(
+            algo, prob, dataclasses.replace(hp, cohort_size=K),
+            channel=channel, device="cpu", faults=plan, async_cfg=gate)
+        a = b = rows_of(run_state(prob, algo, hp, channel, plan, gate, 2), sl)
+        equal = True
+        for _ in range(2):
+            a, _ = dense(a)
+            b, _ = ident(b)
+            equal &= all(torch.equal(x, y)
+                         for x, y in zip(_tensors(a), _tensors(b)))
+        out["identity"][name] = equal
+
     ckpt = dict(hp=AlgoHParams(**CKPT_HP), channel="int8",
                 faults=FaultPlan(**CKPT_PLAN), async_cfg=AsyncConfig(**GATE))
     shard = client_shard(K)
+    # a cohort run, saving every 2 rounds, and the run resumed from its
+    # first save
+    d = f"{inp['ckpt_dir']}_cohort_w{W}"
+    kw = {**ckpt, "hp": AlgoHParams(**CKPT_HP, **COHORT_KW)}
+    pol = CheckpointPolicy(directory=d, every=2, keep=0, mode="async")
+    straight = run_federated(prob, "fedosaa_svrg", num_rounds=CKPT_ROUNDS,
+                             device="cpu", runtime="sharded", checkpoint=pol,
+                             **kw)
+    resumed = run_federated(prob, "fedosaa_svrg", num_rounds=CKPT_ROUNDS,
+                            device="cpu", runtime="sharded",
+                            resume=os.path.join(d, "ckpt_00000002"), **kw)
+    out["cohort_ckpt"] = dict(straight=straight, resumed=resumed, dir=d)
     if W == 2:
         d = inp["ckpt_dir"]
         pol = CheckpointPolicy(directory=d, every=2, keep=0, mode="async")
@@ -231,6 +362,13 @@ def child(workdir: Path) -> None:
                                   AlgoHParams(**HP), device="cpu")
         except ValueError as e:
             out["round_refusal"] = str(e)
+        try:
+            make_sharded_round_fn("fedosaa_svrg", prob,
+                                  AlgoHParams(**HP, cohort_size=6),
+                                  device="cpu")
+        except ValueError as e:
+            out["cohort_refusal"] = str(e)
+        out["big"] = big_cohort_run()
     torch.save(out, workdir / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -238,17 +376,41 @@ def child(workdir: Path) -> None:
 # ---------------------------------------------------------------------------
 # the tests' side
 # ---------------------------------------------------------------------------
-def reference_uniforms(rng, fold: int, d: int, chunk: int = 256):
+def reference_uniforms(rng, fold: int, d: int, chunk: int = 256,
+                       rows=None):
     """The reference's int8 uniforms of uplink ``fold`` for every client of
-    the round that starts from key ``rng`` (tests/test_torch_round.py)."""
+    the round that starts from key ``rng`` (tests/test_torch_round.py), or
+    for the clients ``rows``."""
     import jax
     import jax.numpy as jnp
 
     keys = jax.random.split(jax.random.split(rng, 3)[2], K)
     nc = -(-d // chunk)
     return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
-        jax.random.fold_in(jax.random.fold_in(k, fold), 0), (nc, chunk),
-        jnp.float32)) for k in keys]))
+        jax.random.fold_in(jax.random.fold_in(keys[k], fold), 0),
+        (nc, chunk), jnp.float32)) for k in (range(K) if rows is None
+                                             else rows)]))
+
+
+def reference_cohort_draws(jp, rng, algo: str, channel, d: int) -> dict:
+    """The reference's draws of the cohort round keyed by ``rng``: its
+    cohort (``_sample_cohort`` on the round's participation key; its vmap
+    and sharded rounds draw the same) and, on int8, each uplink's uniforms
+    at the cohort's rows (tests/test_torch_cohort.py)."""
+    import jax
+
+    from repro.core import algorithms as ref_algos
+    from repro_torch.core import UPLINK_SCHEMAS
+    from repro_torch.core.algorithms import COHORT
+
+    idx, _ = ref_algos._sample_cohort(jp.clients.weight, C,
+                                      jax.random.split(rng, 3)[1])
+    idx = np.asarray(idx).astype(np.int64)
+    draws = {COHORT: torch.from_numpy(idx)}
+    if channel == "int8":
+        for s in UPLINK_SCHEMAS[algo]:
+            draws[s.tag] = reference_uniforms(rng, s.fold, d, rows=idx)
+    return draws
 
 
 @pytest.fixture(scope="module")
@@ -268,7 +430,9 @@ def inputs(tmp_path_factory):
     from repro.core import init_state as ref_init_state
     from repro.core import make_round_fn as ref_make_round_fn
     from repro.core import run_federated as ref_run
+    from repro.core.sharded import make_sharded_round_fn as ref_sharded
     from repro.data import make_binary_classification as ref_make
+    from repro.launch.mesh import make_host_mesh
     from repro.data import partition as ref_partition
     from repro.models.logreg import make_logreg_problem as ref_problem
     from repro.robust import AsyncConfig as RefGate
@@ -277,6 +441,7 @@ def inputs(tmp_path_factory):
     from repro.robust import init_fault_comm as ref_fault
     from repro_torch.core import (UPLINK_SCHEMAS, AlgoHParams, convert,
                                   make_round_fn, run_federated)
+    from repro_torch.core.algorithms import COHORT
     from repro_torch.robust import AsyncConfig, FaultPlan
 
     base = tmp_path_factory.mktemp("sharded_ranks")
@@ -327,6 +492,29 @@ def inputs(tmp_path_factory):
                 rounds[name] = (algo, channel, kw, None, None, start, draws)
                 want[name] = dict(ref=jax.tree.map(np.asarray, ref_new),
                                   ref_loss=float(ref_m.loss))
+            # the reference's sharded cohort rounds on its host mesh (its
+            # vmap cohort rounds where the sharded one cannot run)
+            mesh = make_host_mesh()
+            for name, algo, channel, kw in COHORT_FAMILY:
+                jhp = RefHP(**HP, aa_impl="tree", local_impl="tree", **kw)
+                st = ref_init_state(jp, jax.random.PRNGKey(0), jhp, channel,
+                                    algo)
+                rf = jax.jit(
+                    ref_make_round_fn(algo, jp, jhp, channel)
+                    if name in REF_VMAP_COHORT else
+                    ref_sharded(algo, jp, jhp, mesh, channel=channel))
+                for _ in range(2):
+                    st, _ = rf(st)
+                ref_new, ref_m = rf(st)
+                scaffold = algo in ("scaffold", "fedosaa_scaffold")
+                start = convert.server_state(
+                    st.params, st.t, st.comm, c=st.c if scaffold else None,
+                    c_k=st.c_k if scaffold else None, device="cpu")
+                draws = reference_cohort_draws(jp, st.rng, algo, channel, d)
+                rounds[name] = (algo, channel, kw, None, None, start, draws)
+                want[name] = dict(ref=jax.tree.map(np.asarray, ref_new),
+                                  ref_loss=float(ref_m.loss), start=start,
+                                  idx=draws[COHORT])
     finally:
         jax.config.update("jax_enable_x64", was)
     for name, algo, channel, kw, plan, gate in OWN:
@@ -346,11 +534,17 @@ def inputs(tmp_path_factory):
                 gate=GATE, num_rounds=6)
     scaffold = dict(algo="fedosaa_scaffold", hp=HP, channel="int8",
                     plan=None, gate=None, num_rounds=6)
+    cohort_svrg = {**svrg, "hp": {**HP, **COHORT_KW}}
+    cohort_scaffold = {**scaffold, "hp": {**HP, **COHORT_KW}}
     target = dict(algo="fedosaa_svrg", hp=HP, channel=None, plan=None,
                   gate=None, num_rounds=TARGET_ROUNDS)
     runs = {"svrg_loop": (svrg, None), "svrg_engine": (svrg, 3),
             "scaffold_loop": (scaffold, None),
-            "scaffold_engine": (scaffold, 3), "target": (target, None)}
+            "scaffold_engine": (scaffold, 3), "target": (target, None),
+            "cohort_svrg_loop": (cohort_svrg, None),
+            "cohort_svrg_engine": (cohort_svrg, 3),
+            "cohort_scaffold_loop": (cohort_scaffold, None),
+            "cohort_scaffold_engine": (cohort_scaffold, 3)}
     want["target"] = run_federated(pp, "fedosaa_svrg", AlgoHParams(**HP),
                                    TARGET_ROUNDS, device="cpu")
     ckpt_dir = str(base / "ckpt_w2")
@@ -442,6 +636,58 @@ def test_family_round_matches_vmap_and_reference(inputs, world, name):
                                    want["ref_loss"], rtol=1e-12)
 
 
+def cohort_rows_frozen(new, start, idx) -> None:
+    """The rows of the clients outside the cohort ``idx``, of every
+    per-client tensor, are the start's bit for bit."""
+    from repro_torch.core.client_store import ClientStateStore, flat_leaves
+
+    off = torch.tensor(sorted(set(range(K)) - set(idx.tolist())))
+    a, b = (flat_leaves(ClientStateStore.from_state(s)) for s in (new, start))
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x.index_select(0, off), y.index_select(0, off))
+
+
+@pytest.mark.parametrize("name", [f[0] for f in COHORT_FAMILY])
+def test_cohort_family_round_matches_vmap_and_reference(inputs, world, name):
+    """One cohort round (C=4 of 8) from the reference's sharded cohort
+    state, fed its cohort and uniforms, each rank its slots' rows: every
+    state tensor within 1e-7 of the port's vmap cohort round and of the
+    reference's sharded cohort round (its vmap cohort round for
+    REF_VMAP_COHORT), the loss within rel 1e-9 of the reference's; the
+    rows of the clients outside the cohort as they were."""
+    from repro_torch.core import convert
+
+    new = joined([r["rounds"][name]["state"] for r in world])
+    assert all(r["rounds"][name]["same"] for r in world)
+    want = inputs["want"][name]
+    assert_states_close(new, want["vmap"])
+    ref = want["ref"]
+    scaffold = "scaffold" in name
+    assert_states_close(new, convert.server_state(
+        ref.params, ref.t, ref.comm, c=ref.c if scaffold else None,
+        c_k=ref.c_k if scaffold else None, device="cpu"))
+    cohort_rows_frozen(new, want["start"], want["idx"])
+    for r in world:
+        np.testing.assert_allclose(r["rounds"][name]["loss"],
+                                   want["ref_loss"], rtol=1e-9)
+
+
+def test_cohort_draws_are_the_vmap_rows_of_the_slots(world):
+    """A cohort round's draws (int8 uniforms, minibatch rows, every fault
+    draw) on each rank: the vmap round's rows of its slots, and the cohort
+    and the fault scalars whole."""
+    for r in world:
+        assert r["draws"] and all(r["draws"].values()), r["draws"]
+
+
+@pytest.mark.parametrize("name", [i[0] for i in IDENTITY])
+def test_identity_cohort_is_the_dense_sharded_round(world, name):
+    """C = K: every slot is the client its rank owns; two rounds are the
+    dense sharded round's bit for bit on every rank."""
+    assert all(r["identity"][name] for r in world)
+
+
 @pytest.mark.parametrize("name", [o[0] for o in OWN])
 def test_own_draw_round_matches_vmap(inputs, world, name):
     """Faults and the gate, the history poison, carried columns with
@@ -458,12 +704,13 @@ HISTORY_FIELDS = ("rounds", "loss", "grad_norm", "rel_error", "theta_mean",
                   "staleness_max")
 
 
-@pytest.mark.parametrize("algo", ["svrg", "scaffold"])
+@pytest.mark.parametrize("algo", ["svrg", "scaffold", "cohort_svrg",
+                                  "cohort_scaffold"])
 def test_engine_equals_loop(world, algo):
     """The engine's chunks of 3 (eager on the CPU) give the loop's History
     and final params bit for bit, on every rank, and every rank the same
     (FedOSAA-SVRG with every fault kind behind the gate; FedOSAA-SCAFFOLD),
-    on int8."""
+    on int8, dense and on a cohort of C=4."""
     for r in world:
         loop, eng = (r["runs"][f"{algo}_{p}"]["h"] for p in ("loop", "engine"))
         assert len(loop.rounds) == 6
@@ -530,6 +777,53 @@ def test_resume_from_per_rank_shards(inputs, world2):
                                             "shards_p0000.npz",
                                             "shards_p0001.npz"]
         assert ref_verify(path) is not None, path
+
+
+def test_cohort_resume_from_per_rank_shards(world):
+    """A cohort run (C=4 of 8) saving every 2 rounds, one shard file per
+    rank, each holding the rank's K/W store rows, and the run resumed from
+    its first save: the straight run's rows from round 2 on and its final
+    params bit for bit."""
+    import json
+
+    W = len(world)
+    for r in world:
+        straight, resumed = (r["cohort_ckpt"][k] for k in ("straight",
+                                                           "resumed"))
+        assert list(resumed.rounds) == list(range(2, CKPT_ROUNDS))
+        for f in HISTORY_FIELDS[1:]:
+            a, b = getattr(resumed, f), getattr(straight, f)[2:]
+            if f == "comm_bytes":
+                a, b = np.diff(a), np.diff(b)
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        assert torch.equal(resumed.final_params, straight.final_params)
+    path = os.path.join(world[0]["cohort_ckpt"]["dir"], "ckpt_00000002")
+    manifest = json.loads(Path(path, "manifest.json").read_text())
+    assert manifest["files"] == [f"shards_p{i:04d}.npz" for i in range(W)]
+    assert manifest["config"]["cohort_size"] == C
+    boxes = [sm["box"][0] for sm in
+             manifest["leaves"][".comm/__async_age__"]["shards"]]
+    assert sorted(boxes) == [[r * K // W, (r + 1) * K // W]
+                             for r in range(W)]
+
+
+def test_cohort_that_does_not_divide_refuses(world4):
+    """C = 6 of K = 8 over 4 ranks: make_sharded_round_fn refuses, in the
+    reference's words."""
+    for r in world4:
+        assert ("cohort_size=6 does not divide over 4 client shards"
+                in r["cohort_refusal"])
+
+
+def test_k4096_cohort_engine_run_converges(world4):
+    """K=4096, C=16 (4 slots a rank), f32, by the engine at W = 4: the
+    global loss ends below 0.7 of its initial value, the params the same on
+    every rank."""
+    for r in world4:
+        big = r["big"]
+        assert big["rounds"] == BIG_ROUNDS
+        assert big["loss"] < BIG_LOSS_SHARE * big["loss0"], big
+        assert torch.equal(big["params"], world4[0]["big"]["params"])
 
 
 def test_w2_checkpoint_restores_at_w4(inputs, world4):
