@@ -79,12 +79,13 @@ port beside it. Every phase raises on failure; none is caught.
    The LM kernels at the served shapes: ``ssd`` at Zamba2-7B's width (B=4,
    S=2048: 32 chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's
    (st=128, nh=80), ``flash_attention`` at B*H=128, S=2048, d=112 in
-   bf16 (the tensor-core kernel), in f32 with a window and a ragged S (the
+   bf16 (the tensor-core kernel), at granite-moe-3b-a800m's B=4, S=2048,
+   H=24 on KV=8, d=64 in bf16, in f32 with a window and a ragged S (the
    CUDA-core kernel), and in bf16 with GQA (H=8 on KV=2), window 256, S=1000
    and d=128; within 1e-5 (f32) and 2^-7 (bf16 output) of the plain
    result's largest magnitude, and bit-identical when run again. Flash is
-   also timed against ``scaled_dot_product_attention(is_causal=True)``,
-   whose backend is named. The Gram kernel's and ``torch.bmm``'s own
+   also timed against ``scaled_dot_product_attention(is_causal=True)``
+   (``enable_gqa`` where KV < H), whose backend is named. The Gram kernel's and ``torch.bmm``'s own
    device durations come from torch.profiler beside their CUDA-event
    times, and its reruns must be bit-identical and its Gram matrix exactly
    symmetric. ``ssd`` reruns must be bit-identical too; its bound counts
@@ -291,13 +292,40 @@ port beside it. Every phase raises on failure; none is caught.
    bounds, and the one-block-per-client Gram design at d=2^24 beside the
    split one; (c) the engine on the reduced smollm (4 rounds in chunks of
    2, identity and int8): the loop's rows and params bit for bit, one
-   read a chunk, the loop's launches a slot; (d) one round each of the
+   read a chunk, the loop's launches a slot, no host read in a warmed-up
+   loop round; (d) one round each of the
    reduced mamba2 and a 5-layer zamba2: finite, no ``ssd`` launch; (e)
    ``fl_train.main`` (reduced, FedSVRG baseline) writes the reference's
    keys, ``train.main`` trains smollm-135m at full width in f32 (AdamW +
    WSD, 4 x 256, 10 steps) with a falling loss; (f) Fig. 8 quick (MLP1,
    MLP3 x FedSVRG, FedOSAA-SVRG from a numpy He init): MLP1 against the
    reference's pinned numbers (scripts/reference_fig8_mlp.py).
+6c. Serving granite-moe-3b-a800m (configs/granite_moe_3b_a800m.py: 32
+   layers, 40 experts, top 8) at full width as phase 6 serves Zamba2-7B,
+   with the same gates: f32 logits within 1e-4 and each f32 block within
+   1e-5 of the plain versions; the bf16 prefill of 4 x 2048 launching 32
+   ``flash_attention`` and nothing else, each bf16 block within 2^-6, 32
+   decode steps (dropless routing) and the slot server launching nothing.
+   Routing is discrete: a last-ulp change of a router's input may move a
+   near-tied token to another expert, which no kernel's bound covers, so
+   a plain run that routes otherwise than its kernel run is rerun with the
+   kernel run's top-k experts replayed (``routing``, ``plain_pinned``),
+   and the token-layers routed differently are printed. The prefill's and
+   a decode step's device time by kind of kernel (flash, products,
+   dispatch, elementwise; torch.profiler), and one layer's expert
+   products alone.
+6d. Training the MoE family: (a) FedOSAA-SVRG and FedSVRG over granite at
+   full width with its depth cut to 1 of 32 layers (d = 251,733,504), f32,
+   2 clients of 4 documents of 128 tokens, L=3, 3 rounds by the loop at
+   eta 0.05, gated as phase 6b (a): the loss finite and falling, the Gram
+   pass (split) and the fused AA step once a FedOSAA-SVRG round, nothing
+   in FedSVRG; ms a round, tokens/s, peak memory; (b) two ``vmap(grad)``
+   evaluations of the clients' gradients at its initial point bit-identical
+   (the dispatch's backward is a sorted ``index_put_``, no atomics); (c)
+   the engine on the reduced granite (phase 6b (c)'s gates, and one
+   warmed-up loop round of each wire under ``set_sync_debug_mode("error")``,
+   as for the reduced smollm there); (d) ``train.main`` on the reduced
+   granite and the reduced llama4-scout-17b-a16e: the loss falls.
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
    Every row carries ``launch_floor_ms``. The rows of ``update``,
    ``quantize`` and ``dequantize`` report what computes them on the main
@@ -310,7 +338,9 @@ port beside it. Every phase raises on failure; none is caught.
    ``standalone``.
    Beyond the contract's keys, every FL row's ``launches_by_run`` holds
    each loop run of phases 4, 4b, 4c, 4d and 4e and phase 4f's resumed
-   engine runs and its snapshot run (launches per slot replayed);
+   engine runs and its snapshot run (launches per slot replayed), and the
+   LM runs of phases 6b and 6d; ``flash_attention``'s also phase 6c's
+   prefill, decode steps and slot server;
    ``trajectory``'s row carries
    ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
    (its checks at phase 4d's two cohort shapes),
@@ -428,6 +458,17 @@ LM_BLOCK_TOLERANCE_BF16 = 2.0 ** -6
 LM_BLOCK_TOLERANCE_F32 = LM_TOLERANCE[torch.float32]
 #: the reference serve.py's defaults
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 16, 12
+#: phase 6c: granite-moe-3b-a800m (configs/granite_moe_3b_a800m.py) served
+#: at full width as phase 6 serves Zamba2-7B; its prefill launches one
+#: flash attention a layer and nothing else (the MoE layer is plain torch,
+#: as the reference's is jnp)
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PREFILL_LAUNCHES = {"flash_attention": 32}
+#: phase 6d (a): granite at full width with its depth cut to MOE_FL_LAYERS
+#: of 32 (d counts every parameter, the norm scales included), in f32,
+#: MOE_FL_CLIENTS clients; (d) train.main on the reduced MoE configs
+MOE_FL_LAYERS, MOE_FL_CLIENTS, MOE_FL_D = 1, 2, 251_733_504
+MOE_TRAIN_ARCHS = (MOE_ARCH, "llama4-scout-17b-a16e")
 #: the JAX reference's ext_compression rows of FedOSAA-SVRG
 #: (benchmarks/results/ext_compression.json): rounds to rel-error 1e-6 and
 #: cumulative bytes; and its int8 row's final loss
@@ -3899,7 +3940,8 @@ def check_lm_kernels(device, floor: float) -> dict:
     versions on the card: SSD at Zamba2-7B's width (B=4, S=2048: G=32
     chunks, nh=112, Q=256, hd=st=64) and at Mamba-2-2.7B's (st=128,
     nh=80); flash attention at B*H=128, S=2048, d=112 in bf16 (Zamba2-7B's
-    shared block), in f32 with a window and a ragged S, and in bf16 with
+    shared block), at granite-moe-3b-a800m's B=4, S=2048, H=24 on KV=8,
+    d=64 in bf16, in f32 with a window and a ragged S, and in bf16 with
     GQA, a window and a ragged S at d=128 (Qwen3's and Llama-4's head
     width). Bounds count each input and output byte once at 3.35 TB/s, and
     the operations of the causal work (C B^T once per chunk) at their
@@ -3951,6 +3993,7 @@ def check_lm_kernels(device, floor: float) -> dict:
 
     for label, (B, S, H, KV, d, window, dtype) in (
             ("zamba2-7b", (4, 2048, 32, 32, 112, 0, torch.bfloat16)),
+            (MOE_ARCH, (4, 2048, 24, 8, 64, 0, torch.bfloat16)),
             ("window-ragged", (2, 1000, 8, 2, 112, 256, torch.float32)),
             ("gqa-window-ragged-d128", (2, 1000, 8, 2, 128, 256, torch.bfloat16))):
         gen = torch.Generator(device=device).manual_seed(S)
@@ -3974,15 +4017,16 @@ def check_lm_kernels(device, floor: float) -> dict:
         for dt, n in terms.values():
             ops[dt] = ops.get(dt, 0.0) + n
         lib, lib_ms = None, None
-        if window == 0 and KV == H:
+        if window == 0:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            gqa = KV != H
 
             def sdpa():
                 return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)
+                    qt, kt, vt, is_causal=True, enable_gqa=gqa)
             lib_ms = device_ms(sdpa, device)
             lib = ("torch.nn.functional.scaled_dot_product_attention("
-                   f"is_causal=True) -> {sdpa_backend(sdpa)}")
+                   f"is_causal=True, enable_gqa={gqa}) -> {sdpa_backend(sdpa)}")
             lib_err = float((sdpa().transpose(1, 2).float() - o_p.float()).abs().max())
             print(f"  sdpa vs plain: abs {lib_err:.3e} (the library's own "
                   "numerics, not held to a tolerance)", flush=True)
@@ -4073,49 +4117,181 @@ def host_ms(fn, device, repeats: int = 3) -> list[float]:
     return times
 
 
-def blockwise_prefill(model, tokens) -> tuple[list[float], float, dict]:
+#: kernel names, lower-cased, by the part of an LM step they belong to
+KERNEL_KINDS = (("flash_attention", ("flash_",)),
+                ("products (GEMM)", ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                                     "gemv")),
+                ("dispatch (sort, scan, index)", ("sort", "scan", "index", "scatter",
+                                                  "gather")))
+
+
+def kernel_split(fn) -> dict:
+    """Device time (ms) of one ``fn()`` by kind of kernel (KERNEL_KINDS, the
+    rest "elementwise and other"), its kernel count and the device time in
+    all, from torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    key = ("self_device_time_total" if events and
+           hasattr(events[0], "self_device_time_total") else "self_cuda_time_total")
+    out = {name: 0.0 for name, _ in KERNEL_KINDS} | {"elementwise and other": 0.0}
+    for e in events:
+        name = e.key.lower()
+        kind = next((k for k, marks in KERNEL_KINDS
+                     if any(m in name for m in marks)), "elementwise and other")
+        out[kind] += getattr(e, key) / 1e3
+    out["kernels"] = sum(e.count for e in events)
+    out["device_ms"] = sum(getattr(e, key) for e in events) / 1e3
+    out["top"] = [(e.key[:60], round(getattr(e, key) / 1e3, 3), e.count)
+                  for e in sorted(events, key=lambda e: -getattr(e, key))[:6]]
+    return out
+
+
+def expert_products_ms(model, device) -> float:
+    """Device time (ms) of one MoE layer's expert products at the prefill's
+    shape (layer 0's weights; [E, C, d] inputs at C = capacity for
+    LM_BATCH x LM_PROMPT tokens): silu(x wi_gate) * (x wi_up), then wo."""
+    import torch.nn.functional as F
+
+    cfg, p = model.cfg, model.blocks[0].moe
+    T, E, k = LM_BATCH * LM_PROMPT, cfg.eff_experts, cfg.experts_per_token
+    C = max(int(cfg.capacity_factor * T * k / E), 1)
+    buf = torch.randn((E, C, cfg.d_model), device=device).to(model.dtype)
+    return device_ms(lambda: torch.bmm(F.silu(torch.bmm(buf, p["wi_gate"]))
+                                       * torch.bmm(buf, p["wi_up"]), p["wo"]),
+                     device, n=5)
+
+
+class routing:
+    """Within the block, each MoE layer's top-k choice
+    (models/layers.py::moe_top_k) is recorded (``"record"``), held against
+    a record, counting the tokens whose experts differ (``"compare"``), or
+    replayed from a record (``"replay"``: the recorded experts, their gate
+    weights from the call's own probabilities), call by call in order.
+    Routing is discrete: a last-ulp change of the router's input may move a
+    near-tied token to another expert and shift every later slot of both
+    experts, which no kernel's error bound covers. So the MoE model's
+    kernel-against-plain gates replay the kernel run's routing in the plain
+    run when the two route differently, and print how many tokens did.
+    Models without experts make no call."""
+
+    def __init__(self, mode: str = "record", record: list | None = None):
+        self.mode = mode
+        self.record = [] if record is None else record
+        self.calls = self.differ = self.tokens = 0
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.saved = layers, layers.moe_top_k
+
+        def top_k(probs, k):
+            i, self.calls = self.calls, self.calls + 1
+            if self.mode == "replay":
+                gate_i = self.record[i]
+                w = probs.gather(1, gate_i)
+                return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), gate_i
+            gate_w, gate_i = self.saved(probs, k)
+            if self.mode == "record":
+                self.record.append(gate_i)
+            else:
+                self.differ += int((gate_i != self.record[i]).any(-1).sum())
+                self.tokens += gate_i.shape[0]
+            return gate_w, gate_i
+
+        layers.moe_top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_top_k = self.saved
+
+
+def plain_pinned(fn, record: list) -> tuple:
+    """``fn()`` through the plain versions of the LM kernels, held to the
+    routing ``record`` of the kernel run: (its result, the token-layers it
+    routes differently on its own, the token-layers routed). Without
+    experts, or when the plain run routes as the kernel run did, that run's
+    result; else the rerun with the kernel run's routing replayed."""
+    with plain_lm_kernels(), routing("compare", record) as cmp:
+        out = fn()
+    if cmp.differ:
+        with plain_lm_kernels(), routing("replay", record):
+            out = fn()
+    return out, cmp.differ, cmp.tokens
+
+
+def blockwise_prefill(model, tokens, kernels) -> dict:
     """The prefill one block at a time: each block's output through the
     kernels and through the plain versions from the same input (the kernel
-    stream's), and a plain stream carried to the end. Returns each block's
-    relative difference, that of the two streams' last-position logits,
-    and, for the worst block, its difference with only one LM kernel run
-    by its kernel ({"ssd": ..., "flash_attention": ...}): which kernel its
-    error comes from."""
+    stream's; an MoE block's plain run held to the kernel run's routing,
+    ``plain_pinned``), and a plain stream carried to the end. Returns each
+    block's relative difference (``local``), that of the two streams'
+    last-position logits (``stream``), the token-layers routed differently
+    from the same input (``rerouted``, of ``routed``), and, where the model
+    runs more than one LM kernel (``kernels``), the worst block's
+    difference with only one of them run by its kernel (``by_kernel``):
+    which kernel its error comes from."""
     cfg = model.cfg
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     window = cfg.sliding_window
     hk = hp = model.embed_tokens(tokens)
-    local, worst = [], None
+    local, worst, rerouted, routed = [], None, 0, 0
     for block, _, _ in model.schedule():
-        out_k, _ = block(hk, cfg, positions, window)
+        with routing("record") as rec:
+            out_k = block(hk, cfg, positions, window)[0]
+        out_p, differ, n = plain_pinned(
+            lambda: block(hk, cfg, positions, window)[0], rec.record)
+        rerouted, routed = rerouted + differ, routed + n
         with plain_lm_kernels():
-            out_p, _ = block(hk, cfg, positions, window)
-            hp, _ = block(hp, cfg, positions, window)
+            hp = block(hp, cfg, positions, window)[0]
         local.append(rel_diff(out_k.float(), out_p.float())[0])
         if local[-1] == max(local):
-            worst = (block, hk, out_p)
+            worst = (block, hk, out_p, rec.record)
         hk = out_k
-    block, h_in, out_p = worst
+    block, h_in, out_p, record = worst
+    wrappers = {"ssd": "ssd_chunk", "flash_attention": "flash_attention"}
     by_kernel = {}
-    for kernel, plain in (("ssd", ("flash_attention",)),
-                          ("flash_attention", ("ssd_chunk",))):
-        with plain_lm_kernels(plain):
-            out_one, _ = block(h_in, cfg, positions, window)
+    for kernel in kernels if len(kernels) > 1 else ():
+        plain = tuple(wrappers[k] for k in kernels if k != kernel)
+        with plain_lm_kernels(plain), routing("replay", record):
+            out_one = block(h_in, cfg, positions, window)[0]
         by_kernel[kernel] = rel_diff(out_one.float(), out_p.float())[0]
-    return local, rel_diff(model.unembed_last(hk).float(),
-                           model.unembed_last(hp).float())[0], by_kernel
+    return dict(local=local, stream=rel_diff(model.unembed_last(hk).float(),
+                                             model.unembed_last(hp).float())[0],
+                by_kernel=by_kernel, rerouted=rerouted, routed=routed)
+
+
+def describe(cfg, n_params: int) -> str:
+    """The served model's layers and size, for phase 6's and 6c's lines."""
+    if cfg.family == "hybrid":
+        n_groups, group, trailing = cfg.hybrid_counts
+        layers = (f"{cfg.num_layers} layers ({n_groups} groups of {group} Mamba-2 "
+                  f"+ the shared block, {trailing} trailing)")
+    else:
+        layers = (f"{cfg.num_layers} layers ({cfg.num_experts} experts, top "
+                  f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor})")
+    return (f"{cfg.name}: {layers}, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+            f"parameters in {cfg.dtype}")
 
 
 @torch.inference_mode()
-def serving(device) -> dict:
-    """Phase 6: Zamba2-7B at full width, weights from the port's seeded
-    init. In f32: the prefill's last-position logits through the kernels
-    against the plain versions. In bf16 (the served dtype): the prefill of
-    4 prompts of 2048 tokens (make_lm_tokens, seed 0) with cache_len
-    2048 + 32, read on its own launch counts; each block against the plain
-    versions; 32 greedy decode steps from the caches, read on their own
-    counts; then the slot server with the reference serve.py's defaults."""
+def serving(device, arch: str = LM_ARCH,
+            prefill_launches: dict = LM_PREFILL_LAUNCHES) -> dict:
+    """Phase 6 (Zamba2-7B) and 6c (granite-moe-3b-a800m): ``arch`` at full
+    width, weights from the port's seeded init. In f32: the prefill's
+    last-position logits through the kernels against the plain versions,
+    and each block against them from the same input. In bf16 (the served
+    dtype): the prefill of 4 prompts of 2048 tokens (make_lm_tokens, seed
+    0) with cache_len 2048 + 32, read on its own launch counts
+    (``prefill_launches``); each block against the plain versions; 32
+    greedy decode steps from the caches, read on their own counts; then the
+    slot server with the reference serve.py's defaults. An MoE model's
+    plain runs are held to the kernel runs' routing (``plain_pinned``)."""
     from repro_torch.configs import get_arch
     from repro_torch.data import make_lm_tokens
     from repro_torch.kernels import _build
@@ -4123,7 +4299,8 @@ def serving(device) -> dict:
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.decoder import build_model
 
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
+    kernels = tuple(prefill_launches)
     tokens = torch.from_numpy(make_lm_tokens(LM_BATCH, LM_PROMPT, cfg.vocab_size,
                                              seed=0)).to(device)
     cache_len = LM_PROMPT + LM_DECODE
@@ -4131,32 +4308,37 @@ def serving(device) -> dict:
     model = build_model(dataclasses.replace(cfg, dtype="float32"), device=device,
                         seed=0)
     prefill = make_prefill_step(model, cache_len)
-    logits = prefill(tokens)[0]
-    with plain_lm_kernels():
-        logits_p = prefill(tokens)[0]
+    with routing("record") as rec:
+        logits = prefill(tokens)[0]
+    logits_p, rerouted32, routed32 = plain_pinned(lambda: prefill(tokens)[0],
+                                                  rec.record)
     rel32, err32 = rel_diff(logits, logits_p)
     print(f"  float32 prefill logits, kernels vs plain: rel {rel32:.3e} (tol "
           f"{LM_LOGITS_TOLERANCE_F32:.0e}) abs {err32:.3e}, largest |logit| "
           f"{float(logits_p.abs().max()):.3f}, same argmax in "
-          f"{int((logits.argmax(-1) == logits_p.argmax(-1)).sum())}/{LM_BATCH}",
+          f"{int((logits.argmax(-1) == logits_p.argmax(-1)).sum())}/{LM_BATCH}; "
+          f"token-layers routed differently {rerouted32} of {routed32}"
+          + (" (the plain run replays the kernel run's routing)" if rerouted32 else ""),
           flush=True)
     if not rel32 <= LM_LOGITS_TOLERANCE_F32:
         raise AssertionError(f"float32 prefill logits through the kernels are "
                              f"{rel32:.3e} from the plain versions' (> "
                              f"{LM_LOGITS_TOLERANCE_F32})")
     del prefill, logits, logits_p
-    local32, stream32, by_kernel32 = blockwise_prefill(model, tokens)
+    blocks32 = blockwise_prefill(model, tokens, kernels)
+    local32 = blocks32["local"]
     worst32 = int(np.argmax(local32))
     print(f"  float32 blocks, kernels vs plain from the same input: largest rel "
           f"{local32[worst32]:.3e} (block {worst32}; tol "
           f"{LM_BLOCK_TOLERANCE_F32:.0e}); that block with only one kernel "
-          f"run by its kernel: {by_kernel32}; the two streams' last logits "
-          f"part by rel {stream32:.3e}", flush=True)
+          f"run by its kernel: {blocks32['by_kernel']}; token-layers routed "
+          f"differently {blocks32['rerouted']} of {blocks32['routed']}; the two "
+          f"streams' last logits part by rel {blocks32['stream']:.3e}", flush=True)
     if not local32[worst32] <= LM_BLOCK_TOLERANCE_F32:
         raise AssertionError(f"float32 block {worst32} through the kernels is "
                              f"{local32[worst32]:.3e} from the plain versions' "
                              f"(> {LM_BLOCK_TOLERANCE_F32:.0e}); with one "
-                             f"kernel at a time: {by_kernel32}")
+                             f"kernel at a time: {blocks32['by_kernel']}")
     del model
     torch.cuda.empty_cache()
 
@@ -4164,10 +4346,7 @@ def serving(device) -> dict:
     model = build_model(cfg, device=device, seed=0)
     torch.cuda.synchronize(device)
     n_params = sum(p.numel() for p in model.parameters())
-    n_groups, group, trailing = cfg.hybrid_counts
-    print(f"  {cfg.name}: {cfg.num_layers} layers ({n_groups} groups of {group} "
-          f"Mamba-2 + the shared block, {trailing} trailing), d_model "
-          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters in {cfg.dtype} "
+    print(f"  {describe(cfg, n_params)} "
           f"({torch.cuda.memory_allocated(device) / 2**30:.2f} GiB), built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     prefill = make_prefill_step(model, cache_len)
@@ -4179,7 +4358,7 @@ def serving(device) -> dict:
     torch.cuda.synchronize(device)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
-    want = {k: LM_PREFILL_LAUNCHES.get(k, 0) for k in launches}
+    want = {k: prefill_launches.get(k, 0) for k in launches}
     print(f"  prefill launches {launches}", flush=True)
     if launches != want:
         raise AssertionError(f"prefill launches {launches}, expected {want}")
@@ -4190,15 +4369,25 @@ def serving(device) -> dict:
     prefill_ms = host_ms(lambda: prefill(tokens), device)
     with plain_lm_kernels():
         plain_prefill_ms = host_ms(lambda: prefill(tokens), device, repeats=1)
+    split = None
+    if cfg.family == "moe":
+        split = dict(prefill=kernel_split(lambda: prefill(tokens)),
+                     expert_products_ms_a_layer=expert_products_ms(model, device))
+        print(f"  prefill device time by kind (ms, torch.profiler): {split['prefill']}; "
+              f"one layer's expert products alone {split['expert_products_ms_a_layer']:.3f} "
+              f"ms (x {cfg.num_layers} layers)", flush=True)
 
     _build.reset_launches()
-    local, stream_rel, by_kernel = blockwise_prefill(model, tokens)
+    blocks = blockwise_prefill(model, tokens, kernels)
+    local = blocks["local"]
     worst = int(np.argmax(local))
     print(f"  bf16 blocks, kernels vs plain from the same input: largest rel "
           f"{local[worst]:.3e} (block {worst}; tol {LM_BLOCK_TOLERANCE_BF16:.2e}; "
-          f"with only one kernel run by its kernel: {by_kernel}); the two "
-          f"streams' last logits part by rel {stream_rel:.3e} (not held: "
-          "random layers amplify bf16 steps)", flush=True)
+          f"with only one kernel run by its kernel: {blocks['by_kernel']}); "
+          f"token-layers routed differently {blocks['rerouted']} of "
+          f"{blocks['routed']}; the two streams' last logits part by rel "
+          f"{blocks['stream']:.3e} (not held: random layers amplify bf16 steps)",
+          flush=True)
     if not local[worst] <= LM_BLOCK_TOLERANCE_BF16:
         raise AssertionError(f"block {worst} through the kernels is "
                              f"{local[worst]:.3e} from the plain versions' (> "
@@ -4226,6 +4415,12 @@ def serving(device) -> dict:
             raise AssertionError(f"decode step {i}: logits not finite")
     decode_launches = dict(_build.LAUNCHES)
     peak = max(peak, torch.cuda.max_memory_allocated(device))
+    if split is not None:
+        pos = torch.full((LM_BATCH, 1), LM_PROMPT + LM_DECODE, dtype=torch.int32,
+                         device=device)
+        split["decode_step"] = kernel_split(lambda: serve_step(caches, tok, pos))
+        print(f"  one decode step's device time by kind (ms): {split['decode_step']}",
+              flush=True)
     print(f"  decode launches over {LM_DECODE} steps {decode_launches}; first "
           f"prompt's tokens {torch.cat(generated, 1)[0, :12].tolist()}", flush=True)
     if any(decode_launches.values()):
@@ -4236,8 +4431,12 @@ def serving(device) -> dict:
                plain_prefill_ms=plain_prefill_ms, decode_ms=step_ms,
                peak_gib=peak / 2**30, f32_logits_rel=rel32,
                f32_block_rel_max=local32[worst32], f32_worst_block=worst32,
-               f32_worst_block_by_kernel=by_kernel32,
-               bf16_block_rel_max=local[worst], bf16_stream_logits_rel=stream_rel)
+               f32_worst_block_by_kernel=blocks32["by_kernel"],
+               f32_rerouted=(rerouted32, routed32),
+               f32_block_rerouted=(blocks32["rerouted"], blocks32["routed"]),
+               bf16_block_rel_max=local[worst], bf16_stream_logits_rel=blocks["stream"],
+               bf16_block_rerouted=(blocks["rerouted"], blocks["routed"]),
+               device_split=split)
     print(f"  prefill {LM_BATCH}x{LM_PROMPT}: {np.median(prefill_ms):.1f} ms "
           f"(runs {[round(t, 1) for t in prefill_ms]}; plain versions "
           f"{plain_prefill_ms[0]:.1f} ms), "
@@ -4500,11 +4699,17 @@ def profile_lm_round(prob, hp, device) -> dict:
     return out
 
 
-def lm_full_width(device) -> dict:
-    """Phase 6b (a): FedOSAA-SVRG and FedSVRG over smollm-135m at full width
-    in f32, by the loop, at fl_train's step and at FL_LM_ETA_GATED: per
-    round its launches, ms, the AA step's used/clipped columns and Gram
-    conditioning; tokens a second and peak memory."""
+def lm_full_width(device, arch: str = FL_LM_ARCH, layers: int | None = None,
+                  clients: int = FL_LM_CLIENTS, d_want: int = FL_LM_D,
+                  etas: tuple = (FL_LM_ETA_GATED, FL_LM_ETA), prefix: str = "lm_",
+                  profile: bool = True) -> tuple[dict, object]:
+    """Phase 6b (a) and 6d (a): FedOSAA-SVRG and FedSVRG over ``arch`` at
+    full width in f32 (its depth cut to ``layers``), ``clients`` of
+    FL_LM_DOCS documents of FL_LM_SEQ tokens, L=FL_LM_L, FL_LM_ROUNDS rounds
+    by the loop, at each step of ``etas`` (FL_LM_ETA_GATED's runs gated):
+    per round its launches, ms, the AA step's used/clipped columns and Gram
+    conditioning; tokens a second and peak memory. Returns the runs and the
+    problem."""
     from repro_torch.configs import get_arch
     from repro_torch.core import AAConfig, AlgoHParams, run_federated
     from repro_torch.core.lm import make_lm_clients, make_lm_problem
@@ -4512,21 +4717,24 @@ def lm_full_width(device) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.models.decoder import build_model
 
-    cfg = dataclasses.replace(get_arch(FL_LM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg, device=device, seed=0)
-    toks = make_lm_tokens(FL_LM_CLIENTS * FL_LM_DOCS, FL_LM_SEQ, cfg.vocab_size, seed=0)
-    prob = make_lm_problem(model, make_lm_clients(toks, FL_LM_CLIENTS, device=device))
+    toks = make_lm_tokens(clients * FL_LM_DOCS, FL_LM_SEQ, cfg.vocab_size, seed=0)
+    prob = make_lm_problem(model, make_lm_clients(toks, clients, device=device))
     d = sum(p.numel() for p in model.parameters())
-    if d != FL_LM_D:
-        raise AssertionError(f"smollm-135m has {d} parameters, expected {FL_LM_D}")
-    tokens_per_round = FL_LM_CLIENTS * FL_LM_DOCS * FL_LM_SEQ * (FL_LM_L + 1)
+    if d != d_want:
+        raise AssertionError(f"{cfg.name} ({cfg.num_layers} layers) has {d} "
+                             f"parameters, expected {d_want}")
+    tokens_per_round = clients * FL_LM_DOCS * FL_LM_SEQ * (FL_LM_L + 1)
     out = {}
-    for eta in (FL_LM_ETA_GATED, FL_LM_ETA):
+    for eta in etas:
         hp = AlgoHParams(eta=eta, local_epochs=FL_LM_L,
                          aa=AAConfig(tikhonov=1e-8, damping=1.0))
         for algo in ("fedosaa_svrg", "fedsvrg"):
             gated = eta == FL_LM_ETA_GATED
-            name = f"lm_{algo}" + ("" if gated else f"_eta{eta}")
+            name = f"{prefix}{algo}" + ("" if gated else f"_eta{eta}")
             sink = LaunchRows()
             free_memory()
             mark = memory_mark(device)
@@ -4567,16 +4775,16 @@ def lm_full_width(device) -> dict:
             if gated and not h.loss[-1] < h.loss[0]:
                 raise AssertionError(f"{name}: the loss did not fall: {h.loss.tolist()}")
             del h
-            if gated and algo == "fedosaa_svrg":
+            if profile and gated and algo == "fedosaa_svrg":
                 free_memory()
                 prof = profile_lm_round(prob, hp, device)
                 prof["busy_share"] = prof["kernel_ms"] / r["steady_ms"]
                 r["profile"] = prof
                 print(f"  kernel time over the unprofiled warm round's "
                       f"{r['steady_ms']:.1f} ms: {prof['busy_share']:.1%}", flush=True)
-    del prob, model
+    del model
     free_memory()
-    return out
+    return out, prob
 
 
 def check_gram_wide(device, floor: float) -> dict:
@@ -4670,12 +4878,14 @@ def check_aa_step_lm(device, floor: float) -> dict:
     return out
 
 
-def lm_engine(device) -> dict:
-    """Phase 6b (c): the reduced smollm (K=4), FedOSAA-SVRG, 4 rounds by
-    the loop and by the engine in chunks of 2, on the identity and the int8
-    wire: the engine's rows and final params equal the loop's bit for bit,
-    one host read a chunk after the first, the loop's launches a round once
-    per slot replayed."""
+def lm_engine(device, arch: str = FL_LM_ARCH, prefix: str = "lm_reduced_engine"
+              ) -> dict:
+    """Phase 6b (c) and 6d (c): the reduced ``arch`` (K=4), FedOSAA-SVRG, 4
+    rounds by the loop and by the engine in chunks of 2, on the identity and
+    the int8 wire: the engine's rows and final params equal the loop's bit
+    for bit, one host read a chunk after the first, the loop's launches a
+    round once per slot replayed; then one warmed-up loop round of each
+    wire under ``set_sync_debug_mode("error")``: no host read."""
     from repro_torch.configs import get_arch
     from repro_torch.core import AAConfig, AlgoHParams, run_federated
     from repro_torch.core.lm import make_lm_clients, make_lm_problem
@@ -4684,7 +4894,7 @@ def lm_engine(device) -> dict:
     from repro_torch.models.decoder import build_model
     from repro_torch.obs import MemorySink
 
-    cfg = get_arch(FL_LM_ARCH).reduced()
+    cfg = get_arch(arch).reduced()
     toks = make_lm_tokens(FL_LM_CLIENTS * FL_LM_DOCS, FL_LM_SEQ, cfg.vocab_size, seed=0)
     prob = make_lm_problem(build_model(cfg, device=device, seed=0),
                            make_lm_clients(toks, FL_LM_CLIENTS, device=device))
@@ -4692,7 +4902,7 @@ def lm_engine(device) -> dict:
                      aa=AAConfig(tikhonov=1e-8, damping=1.0))
     out = {}
     for channel in (None, "int8"):
-        name = "lm_reduced_engine" + ("_int8" if channel else "")
+        name = prefix + ("_int8" if channel else "")
         s_loop = MemorySink()
         _build.reset_launches()
         h = run_federated(prob, "fedosaa_svrg", hp, FL_ENGINE_ROUNDS, device=device,
@@ -4726,7 +4936,35 @@ def lm_engine(device) -> dict:
                                  f"{launches}; expected {per_round} a round")
         if any(n != 1 for n in reads.per_chunk[1:]):
             raise AssertionError(f"{name}: host reads per chunk {reads.per_chunk}")
+        out[name]["no_host_read_round"] = lm_no_host_read_round(prob, hp, channel,
+                                                                device)
     return out
+
+
+def lm_no_host_read_round(prob, hp, channel, device) -> dict:
+    """One FedOSAA-SVRG round on the LM after two warm-up rounds under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing CUDA
+    call raises and fails the run), launching what an LM round launches."""
+    from repro_torch.core import make_round_fn
+    from repro_torch.kernels import _build
+
+    round_fn = make_round_fn("fedosaa_svrg", prob, hp, channel, device=device)
+    st = start_state(prob, "fedosaa_svrg", hp, channel, device)
+    for _ in range(2):
+        st, _ = round_fn(st)
+    torch.cuda.synchronize(device)
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = round_fn(st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    one = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if one != lm_round_launches("fedosaa_svrg", int8=channel == "int8") or \
+            not np.isfinite(float(m.loss)):
+        raise AssertionError(f"no-host-read LM round [{channel}]: launches {one}, "
+                             f"loss {float(m.loss)}")
+    return one
 
 
 def lm_families(device) -> dict:
@@ -4883,7 +5121,10 @@ def fig8(device) -> dict:
 def federated_training(device, floor: float) -> dict:
     """Phase 6b: (a)-(f) above."""
     t0 = time.perf_counter()
-    out = dict(full_width=lm_full_width(device))
+    full, prob = lm_full_width(device)
+    del prob
+    free_memory()
+    out = dict(full_width=full)
     out["gram"] = check_gram_wide(device, floor)
     out["aa_step"] = check_aa_step_lm(device, floor)
     out["engine"] = lm_engine(device)
@@ -4892,6 +5133,83 @@ def federated_training(device, floor: float) -> dict:
     out["fig8"] = fig8(device)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 6b took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: training the MoE family (granite-moe-3b-a800m, llama4-scout)
+# ---------------------------------------------------------------------------
+
+def moe_same_gradients(prob, device) -> dict:
+    """Phase 6d (b): two evaluations of the clients' gradients at the
+    problem's initial point, by ``vmap`` of ``grad`` over the clients with
+    one point each (as the local trajectory takes them), equal bit for bit:
+    the MoE dispatch's backward (indexing's sorted ``index_put_``) adds no
+    float atomics."""
+    from torch.func import vmap
+
+    from repro_torch.core.problem import ClientBatch
+
+    c = prob.clients
+    w = prob.init()
+    points = w.expand(c.num_clients, -1)
+    batch = ClientBatch(c.x, c.y, c.mask)
+    g1 = vmap(prob.grad)(points, batch)
+    g2 = vmap(prob.grad)(points, batch)
+    out = dict(equal=torch.equal(g1, g2), finite=bool(torch.isfinite(g1).all()),
+               norms=[float(v) for v in torch.linalg.vector_norm(g1, dim=1)])
+    print(f"  two vmap(grad) evaluations at the initial point bit-identical "
+          f"{out['equal']}, finite {out['finite']}, per-client norms "
+          f"{[f'{v:.4f}' for v in out['norms']]}", flush=True)
+    if not (out["equal"] and out["finite"]):
+        raise AssertionError(f"MoE gradients: {out}")
+    del g1, g2, w
+    return out
+
+
+def moe_train_main(device) -> dict:
+    """Phase 6d (d): ``train.main`` (AdamW + WSD) on the reduced
+    granite-moe-3b-a800m and the reduced llama4-scout-17b-a16e: the loss
+    falls; ms a step."""
+    from repro_torch.launch import train
+
+    out = {}
+    for arch in MOE_TRAIN_ARCHS:
+        tr = train.main(["--arch", arch, "--reduced", "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                         "--schedule", "wsd", "--log-every", str(TRAIN_STEPS),
+                         "--device", str(device)])
+        out[arch] = dict(loss=tr["loss"], ms_per_step=tr["ms_per_step"],
+                         first_step_ms=tr["first_step_ms"])
+        print(f"  train {arch} --reduced (AdamW + WSD, {TRAIN_BATCH}x{TRAIN_SEQ}): "
+              f"loss {[f'{v:.4f}' for v in tr['loss']]}; {tr['ms_per_step']:.1f} ms "
+              f"a step after the first ({tr['first_step_ms']:.0f} ms)", flush=True)
+        if not (np.isfinite(tr["loss"]).all() and tr["loss"][-1] < tr["loss"][0]):
+            raise AssertionError(f"train {arch}: the loss did not fall: {tr['loss']}")
+        del tr
+    free_memory()
+    return out
+
+
+def moe_training(device) -> dict:
+    """Phase 6d: (a) FedOSAA-SVRG and FedSVRG over granite-moe-3b-a800m at
+    full width with its depth cut to MOE_FL_LAYERS, f32, MOE_FL_CLIENTS
+    clients, gated as phase 6b (a) at FL_LM_ETA_GATED; (b) two gradients at
+    its initial point bit-identical; (c) the engine on the reduced granite
+    (phase 6b (c)'s gates); (d) ``train.main`` on the reduced granite and
+    Scout."""
+    t0 = time.perf_counter()
+    runs, prob = lm_full_width(device, MOE_ARCH, layers=MOE_FL_LAYERS,
+                               clients=MOE_FL_CLIENTS, d_want=MOE_FL_D,
+                               etas=(FL_LM_ETA_GATED,), prefix="lm_moe_",
+                               profile=False)
+    out = dict(full_width=runs, same_gradients=moe_same_gradients(prob, device))
+    del prob
+    free_memory()
+    out["engine"] = lm_engine(device, MOE_ARCH, prefix="lm_moe_reduced_engine")
+    out["train"] = moe_train_main(device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6d took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5018,6 +5336,20 @@ def main() -> int:
     fl_runs.update(trained["families"])
     fl_runs.update({f"fig8_{k}": v for k, v in trained["fig8"].items()})
 
+    print(f"{clock()} phase 6c: serving {MOE_ARCH} at full width (prefill "
+          f"{LM_BATCH}x{LM_PROMPT}, {LM_DECODE} decode steps, the slot server)",
+          flush=True)
+    t0 = time.perf_counter()
+    served_moe = serving(device, MOE_ARCH, MOE_PREFILL_LAUNCHES)
+    free_memory()
+    print(f"  phase 6c took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{clock()} phase 6d: training the MoE family ({MOE_ARCH} at full width, "
+          f"{MOE_FL_LAYERS} of 32 layers; the engine and train.main on the reduced "
+          "configs)", flush=True)
+    moe_trained = moe_training(device)
+    fl_runs.update(moe_trained["full_width"])
+    fl_runs.update(moe_trained["engine"])
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         if name in LM_KERNELS:
@@ -5029,6 +5361,11 @@ def main() -> int:
                                  f"decode ({LM_DECODE} steps)":
                                      served["decode_launches"][name],
                                  "slot server": served["server_launches"][name],
+                                 f"{MOE_ARCH} prefill": served_moe["launches"][name],
+                                 f"{MOE_ARCH} decode ({LM_DECODE} steps)":
+                                     served_moe["decode_launches"][name],
+                                 f"{MOE_ARCH} slot server":
+                                     served_moe["server_launches"][name],
                                  # phase 6b's training runs launch neither
                                  **{run: r_["launches"][name]
                                     for run, r_ in fl_runs.items()
@@ -5151,6 +5488,8 @@ def main() -> int:
            for name, r in checks[torch.float32].items()}
     print("float32 kernels " + json.dumps(f32), flush=True)
     print("serving " + json.dumps(served), flush=True)
+    print(f"serving {MOE_ARCH} " + json.dumps(served_moe), flush=True)
+    print("training the MoE family " + json.dumps(moe_trained), flush=True)
     print("federated training " + json.dumps(
         {k: v for k, v in trained.items() if k not in ("gram", "aa_step")}), flush=True)
     print(card, flush=True)

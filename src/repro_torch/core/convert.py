@@ -136,7 +136,7 @@ def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):
     its prefill or init_caches returns, as numpy) as the port's LMCaches:
     the same nesting, names, shapes and dtypes."""
     kv, ssm = {"k", "v", "pos", "idx"}, {"conv", "ssm"}
-    want = {"dense": kv, "vlm": kv, "audio": kv, "ssm": ssm}.get(cfg.family)
+    want = {"dense": kv, "vlm": kv, "audio": kv, "moe": kv, "ssm": ssm}.get(cfg.family)
     if cfg.family == "hybrid":
         want = {"mamba", "shared_kv"} | ({"tail"} if cfg.hybrid_counts[2] else set())
     if set(caches_np) != want:

@@ -28,18 +28,24 @@ FL_DTYPES = ("float32", "float64")
 
 
 def check_fl_config(cfg) -> None:
-    """Raise NotImplementedError for a config the port cannot train
-    federated yet: a bf16 (or other non-f32/f64) model, whose client state
-    the AA kernels do not read, and the ``moe`` family."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family belongs to a later slice of the port")
+    """Raise NotImplementedError for a config the port does not train
+    federated: a bf16 (or other non-f32/f64) model, and a model whose
+    parameters would mix dtypes in the flat [d] vector (an f64 MoE model:
+    its router is f32 whatever the model dtype, and ``torch.cat`` would
+    promote it to f64 without a word)."""
     if cfg.dtype not in FL_DTYPES:
         raise NotImplementedError(
-            f"{cfg.name}: federated training of a {cfg.dtype} model waits for "
-            "bf16 client state (ROADMAP.md, 'bf16 client state'): the AA "
-            "kernels read f32/f64 S, Y, w and g only. Train an f32 copy: "
+            f"{cfg.name}: federated training of a {cfg.dtype} model is not "
+            "supported: the JAX reference cannot train one either (its rounds "
+            "come back in f32, or raise in the SVRG trajectory's scan; "
+            "scripts/reference_bf16_round.py), and the AA kernels read f32/f64 "
+            "S, Y, w and g only. Train an f32 copy: "
             "dataclasses.replace(cfg, dtype='float32')")
+    if cfg.family == "moe" and cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.name}: mixed-dtype flat state (the MoE router is float32 in "
+            f"a {cfg.dtype} model); the federated rounds hold one flat vector "
+            "of one dtype. Train the float32 config")
 
 
 def make_lm_clients(tokens: np.ndarray, num_clients: int,

@@ -6,9 +6,9 @@ FedOSAA (or any of the ten algorithms) over an assigned architecture.
 
 Runs on the card unless ``--device cpu``. ``--reduced`` uses the
 smoke-scale variant; without it the full config is built, whose default
-dtype (bf16) the port cannot train federated yet (core/lm.py::
-check_fl_config): pass ``--dtype float32``. Compares against ``--baseline``
-when given and writes the reference's JSON (``--out``).
+dtype (bf16) neither the port nor the reference trains federated
+(core/lm.py::check_fl_config): pass ``--dtype float32``. Compares against
+``--baseline`` when given and writes the reference's JSON (``--out``).
 
 Every flag of the reference maps onto the port's pieces: run_federated's
 ``chunk`` (``--round-chunk``), ``sinks`` and ``trace_capture`` (obs/),

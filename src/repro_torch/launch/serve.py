@@ -7,6 +7,10 @@ until EOS or max_tokens, and release their slot. Every step runs the full
 [B, 1] batch, empty slots included, as in the reference.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
+
+serves the reduced config, as the reference's serve.py; ``--full`` serves the
+config at its published width (on the card: granite-moe-3b-a800m takes 6.7
+GB of bf16 weights; llama4-scout-17b-a16e's 203 GB fit no one card).
 """
 from __future__ import annotations
 
@@ -115,11 +119,15 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=12)
+    ap.add_argument("--full", action="store_true",
+                    help="the config at its published width (default: reduced)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    cfg = get_arch(args.arch).reduced()
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
     model = build_model(cfg, device=args.device, seed=0)
     rng = np.random.default_rng(0)
     reqs = [

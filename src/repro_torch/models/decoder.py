@@ -1,5 +1,6 @@
-"""The decoder LM for the ``dense``, ``ssm`` and ``hybrid`` families
-(counterpart of repro/models/decoder.py, its serving and training paths).
+"""The decoder LM for the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families (counterpart of repro/models/decoder.py, its serving and training
+paths).
 
 ``build_model(cfg, device=..., generator=...)`` returns a ``Decoder``
 module that holds its parameters. Its methods mirror the reference's pure
@@ -35,8 +36,14 @@ index)}, an SSM group {"conv": [n, B, W-1, conv_dim], "ssm":
 [n, B, nh, hd, st] f32}. ``decode_step`` updates them in place and
 returns the same object.
 
-Left for later slices: the ``moe`` family, the ``vlm``/``audio`` frontend
-embeddings and the ``Sharder``.
+The ``moe`` family's blocks (``MoEBlock``) route with the capacity factor
+in ``forward``, ``forward_hidden``, ``loss`` and ``prefill``, and dropless
+in ``decode_step``, as the reference; ``forward`` and ``forward_hidden``
+return the blocks' load-balance aux loss summed in f32, and ``loss`` adds
+0.01 of it. Its caches are the dense family's.
+
+Left for later slices: the ``vlm``/``audio`` frontend embeddings and the
+``Sharder``.
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as Lyr
 
-SERVED_FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 #: sequence positions a chunk of the loss's unembed + cross entropy takes
 #: (the reference's XENT_CHUNK): [B, c, V] logits at a time, never [B, S, V]
 XENT_CHUNK = 512
@@ -76,6 +83,29 @@ class DenseBlock(nn.Module):
         h = h + a
         h = h + Lyr.mlp(self.mlp, Lyr.rms_norm(h, self.mlp_norm))
         return h, (k, v)
+
+
+class MoEBlock(nn.Module):
+    def __init__(self, gen, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                      requires_grad=False)
+        self.attn = Lyr.attn_init(gen, cfg, dtype, device)
+        self.mlp_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                     requires_grad=False)
+        self.moe = Lyr.moe_init(gen, cfg, dtype, device)
+
+    def forward(self, h, cfg, positions, window, cache=None, train=False):
+        """Returns (h, (k, v), aux). Decode (``cache`` given) routes
+        dropless: capacity dispatch is non-causal across the batch, so drops
+        would make decode part from teacher forcing (decoder.py:56-68)."""
+        a, k, v = Lyr.attention(self.attn, Lyr.rms_norm(h, self.attn_norm), cfg,
+                                positions, cache=cache, window=window, train=train)
+        h = h + a
+        y, aux = Lyr.moe(self.moe, Lyr.rms_norm(h, self.mlp_norm), cfg,
+                         dropless=cache is not None)
+        return h + y, (k, v), aux
 
 
 class SSMBlock(nn.Module):
@@ -161,7 +191,8 @@ class Decoder(nn.Module):
                                                 for _ in range(trailing))
             self.shared = DenseBlock(gen, cfg, dtype, device)   # weight-tied
         else:
-            self.blocks = nn.ModuleList(DenseBlock(gen, cfg, dtype, device)
+            block = MoEBlock if fam == "moe" else DenseBlock
+            self.blocks = nn.ModuleList(block(gen, cfg, dtype, device)
                                         for _ in range(L))
 
     @property
@@ -202,47 +233,53 @@ class Decoder(nn.Module):
 
     # --------------------------- forward ------------------------------
     def forward(self, tokens, embeds=None):
-        """tokens [B, S] -> (logits [B, S, V], aux); aux is 0 (no MoE)."""
-        h = self._run(tokens, embeds, None)
-        return self.unembed(h), torch.zeros((), dtype=torch.float32, device=self.device)
+        """tokens [B, S] -> (logits [B, S, V], aux: the MoE blocks'
+        load-balance loss, f32; 0 for the other families)."""
+        h, aux = self._run(tokens, embeds, None)
+        return self.unembed(h), aux
 
     def forward_hidden(self, tokens, embeds=None):
         """The training forward: tokens [B, S] -> (h [B, S, d] before the
-        final norm, aux 0), through the reference's jnp attention and SSD
-        paths (no kernel launch). For the hybrid family: each group of
-        Mamba-2 layers, then the shared block, then the trailing layers."""
-        h = self._run(tokens, embeds, None, train=True)
-        return h, torch.zeros((), dtype=torch.float32, device=self.device)
+        final norm, aux as ``forward``'s), through the reference's jnp
+        attention and SSD paths (no kernel launch). For the hybrid family:
+        each group of Mamba-2 layers, then the shared block, then the
+        trailing layers."""
+        return self._run(tokens, embeds, None, train=True)
 
     def _run(self, tokens, embeds, caches: LMCaches | None, train: bool = False):
         """The no-cache pass over every layer (``train``: the training
         paths); when ``caches`` is given, writes each layer's k/v
-        (positions 0..S-1) or final SSM state into it (prefill)."""
+        (positions 0..S-1) or final SSM state into it (prefill). Returns
+        (h, aux): aux the MoE blocks' aux losses summed in f32."""
         cfg, window = self.cfg, self.cfg.sliding_window
         B, S = tokens.shape
         positions = self._positions(B, S)
         h = self.embed_tokens(tokens, embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for block, key, l in self.schedule():
-            h, new = block(h, cfg, positions, window, train=train)
+            h, new, *block_aux = block(h, cfg, positions, window, train=train)
+            if block_aux:
+                aux = aux + block_aux[0]
             if caches is None:
                 continue
             g = caches.group(key)
-            if isinstance(block, DenseBlock):
+            if isinstance(block, SSMBlock):
+                g["conv"][l] = new["conv"]
+                g["ssm"][l] = new["ssm"]
+            else:
                 g["k"][l, :, :S], g["v"][l, :, :S] = new
                 g["pos"][l, :, :S] = positions
                 g["idx"][l] = S
-            else:
-                g["conv"][l] = new["conv"]
-                g["ssm"][l] = new["ssm"]
-        return h
+        return h, aux
 
     # ----------------------------- loss -------------------------------
     def loss(self, tokens, loss_mask=None, embeds=None):
         """Next-token cross entropy (decoder.py:303-323): tokens [B, S] int,
         loss_mask [B, S] (optional; position s weighs the prediction of
         token s), embeds [B, P, d] (vlm/audio; their P positions carry no
-        loss). The mean over the mask's weight, at least 1."""
-        h, _ = self.forward_hidden(tokens, embeds)
+        loss). The mean over the mask's weight, at least 1; plus 0.01 of the
+        MoE blocks' aux loss when the config has experts."""
+        h, aux = self.forward_hidden(tokens, embeds)
         h = Lyr.rms_norm(h, self.final_norm)[:, :-1]
         tgt = tokens[:, 1:]
         mask = (torch.ones(tgt.shape, dtype=torch.float32, device=h.device)
@@ -251,7 +288,10 @@ class Decoder(nn.Module):
             pos_ok = torch.arange(tgt.shape[1], device=h.device) >= embeds.shape[1]
             mask = mask * pos_ok[None, :]
         total = self._chunked_xent(h, tgt, mask)
-        return total / torch.clamp(mask.sum(), min=1.0)
+        loss = total / torch.clamp(mask.sum(), min=1.0)
+        if self.cfg.num_experts:
+            loss = loss + 0.01 * aux
+        return loss
 
     def _chunked_xent(self, h, tgt, mask):
         """Σ mask · nll over chunks of XENT_CHUNK positions, in order: each
@@ -309,7 +349,7 @@ class Decoder(nn.Module):
         if C < S:
             raise ValueError(f"cache_len {C} is shorter than the prompt ({S})")
         caches = self.init_caches(B, C, self.device)
-        h = self._run(tokens, embeds, caches)
+        h, _ = self._run(tokens, embeds, caches)
         return self.unembed_last(h), caches
 
     # --------------------------- decode -------------------------------
@@ -319,7 +359,7 @@ class Decoder(nn.Module):
         cfg, window = self.cfg, self.cfg.sliding_window
         h = self.embed_tokens(tokens)
         for block, key, l in self.schedule():
-            h, _ = block(h, cfg, pos, window, cache=_layer(caches.group(key), l))
+            h = block(h, cfg, pos, window, cache=_layer(caches.group(key), l))[0]
         return self.unembed(h)[:, -1], caches
 
 

@@ -27,9 +27,16 @@ and ``vmap`` (one point per client) cannot trace it. Both are
 out-of-place and read nothing back to the host, so the engine captures
 them.
 
-Left for later slices: MoE (``moe``, ``moe_sharded``), the int8 KV cache
-(``kv_quant``), and the ``gather`` GQA mode that only ``padded()``
-configs use; they raise ``NotImplementedError``.
+MoE (``moe``): the reference's capacity dispatch in plain torch, for
+serving and training alike; its expert products are plain products in the
+reference too (no Pallas call). The dispatch builds an [E, C] buffer of
+token ids and gathers rows, with no float atomics and no host read, so the
+engine captures it and its backward (a sorted ``index_put_``) is
+deterministic on the card.
+
+Left for later slices: the expert-parallel ``moe_sharded``, the int8 KV
+cache (``kv_quant``), and the ``gather`` GQA mode that only ``padded()``
+configs use; the last two raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -283,6 +290,94 @@ def mlp_init(gen, d: int, f: int, dtype, device) -> Params:
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based dispatch; the reference's ``moe``)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg, dtype, device) -> Params:
+    """The router [d, E] in f32 whatever ``dtype``; the experts' SwiGLU
+    weights [E, d, f], [E, d, f], [E, f, d] in ``dtype`` (layers.py:460)."""
+    d, E, f = cfg.d_model, cfg.eff_experts, cfg.moe_d_ff
+    return Params({"router": dense_init(gen, (d, E), d, torch.float32, device),
+                   "wi_gate": dense_init(gen, (E, d, f), d, dtype, device),
+                   "wi_up": dense_init(gen, (E, d, f), d, dtype, device),
+                   "wo": dense_init(gen, (E, f, d), f, dtype, device)})
+
+
+def moe_top_k(probs: torch.Tensor, k: int):
+    """(gate_w, gate_i) [T, k]: the k most probable experts of each token,
+    by a stable descending sort, so that equal probabilities take the lower
+    expert first, as ``jax.lax.top_k`` does (``torch.topk`` promises no
+    order among ties); their probabilities renormalised to sum to 1."""
+    gate_w, gate_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_i = gate_w[:, :k], gate_i[:, :k]
+    return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), gate_i
+
+
+def moe_route(p: Params, xt: torch.Tensor, cfg, dropless: bool = False):
+    """The router of ``moe`` on tokens xt [T, d]: (gate_w [T, k] f32,
+    gate_i [T, k], aux, flat_e [T·k], pos [T·k], keep [T·k], capacity).
+
+    Assignment j = t·k + i (token-major) sits at position pos[j] of expert
+    flat_e[j]: the number of earlier assignments to that expert (the cumsum
+    of the one-hot); it is kept if pos < capacity."""
+    T = xt.shape[0]
+    E, k = cfg.eff_experts, cfg.experts_per_token
+    experts = torch.arange(E, device=xt.device)
+    logits = xt.float() @ p["router"]                               # [T, E]
+    if E != cfg.num_experts:
+        # padded (dummy) experts are masked out of routing entirely
+        logits = torch.where(experts >= cfg.num_experts, -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_i = moe_top_k(probs, k)
+
+    # load-balance aux loss (Switch): E · Σ_e fraction_e · prob_e
+    frac = (gate_i[:, :1] == experts).float().mean(0)
+    aux = E * torch.sum(frac * probs.mean(0))
+
+    capacity = T * k if dropless else max(int(cfg.capacity_factor * T * k / E), 1)
+    flat_e = gate_i.reshape(-1)                                     # [T·k]
+    # the one-hot laid out [E, T·k], so that the cumsum runs along the
+    # contiguous dim: along dim 0 of [T·k, E], CUDA scans each of the E
+    # columns with one thread (a granite-moe-3b-a800m prefill of 4 x 2048
+    # took 692 ms of device time so, 136 ms this way: chip_smoke.py phase
+    # 6c on an H100 80GB HBM3 at 700 W)
+    onehot = (experts[:, None] == flat_e).to(torch.int32)           # [E, T·k]
+    pos = torch.cumsum(onehot, dim=1).gather(0, flat_e[None])[0] - 1
+    return gate_w, gate_i, aux, flat_e, pos, pos < capacity, capacity
+
+
+def moe(p: Params, x: torch.Tensor, cfg, dropless: bool = False):
+    """x [B, S, d] -> (out [B, S, d], aux: the Switch load-balance loss, f32).
+
+    ``dropless`` (decode) takes capacity T·k, so no token drops; forward,
+    prefill and training keep the capacity factor (layers.py:471-526).
+    Each expert's [C] slots hold the ids of its kept tokens, scattered into
+    an [E, C + 1] buffer whose last column takes every dropped assignment
+    (so none lands on a kept one) and is cut off; the [E, C, d] inputs are
+    rows of xt gathered by id, id T being a zero row. The outputs come back
+    by indexing, weighted in the model dtype and summed over the k slots."""
+    B, S, d = x.shape
+    E, k = cfg.eff_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, d)
+    gate_w, _, aux, flat_e, pos, keep, C = moe_route(p, xt, cfg, dropless)
+
+    tok_id = torch.arange(T * k, device=x.device) // k
+    ids = torch.full((E, C + 1), T, dtype=torch.int64, device=x.device).index_put(
+        (flat_e, torch.where(keep, pos, C)), tok_id)[:, :C]
+    xt_pad = torch.cat([xt, xt.new_zeros(1, d)])
+    buf = xt_pad[ids]                                               # [E, C, d]
+
+    h = F.silu(torch.bmm(buf, p["wi_gate"])) * torch.bmm(buf, p["wi_up"])
+    yb = torch.bmm(h, p["wo"])                                      # [E, C, d]
+
+    y_tok = torch.where(keep[:, None], yb[flat_e, torch.where(keep, pos, C - 1)], 0)
+    w_flat = gate_w.reshape(-1, 1).to(x.dtype)
+    y = (y_tok * w_flat).reshape(T, k, d).sum(1)
+    return y.reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,13 @@ def assert_close(port, ref, tol, what=""):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_loss_and_gradient_match_reference(name):
-    arch, layers, S = CONFIGS[name]
+    check_loss_and_gradient(name, *CONFIGS[name])
+
+
+def check_loss_and_gradient(name, arch, layers, S):
+    """The port's loss within rel 1e-5 and its flat gradient within 1e-4 of
+    the reference's largest magnitude, at B=2 with a document mask; the
+    flat vector converts back to the reference's tree bit for bit."""
     jcfg, cfg = _configs(arch, layers)
     jm = jax_build_model(jcfg)
     key = jax.random.PRNGKey(0)
@@ -144,11 +150,14 @@ def test_unsupported_configs_raise():
     cfg = get_arch("smollm-135m").reduced()
     model = build_model(dataclasses.replace(cfg, dtype="bfloat16"), device="cpu")
     clients = make_lm_clients(make_lm_tokens(4, 8, cfg.vocab_size), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 client state"):
+    with pytest.raises(NotImplementedError, match="the JAX reference cannot train "
+                                                  "one either"):
         make_lm_problem(model, clients)
     from repro_torch.core.lm import check_fl_config
-    with pytest.raises(NotImplementedError, match="moe"):
-        check_fl_config(get_arch("granite-moe-3b-a800m").reduced())
+    moe = get_arch("granite-moe-3b-a800m").reduced()
+    check_fl_config(moe)                            # f32: one dtype
+    with pytest.raises(NotImplementedError, match="mixed-dtype flat state"):
+        check_fl_config(dataclasses.replace(moe, dtype="float64"))
 
 
 def test_gram_design_follows_the_shape():
@@ -167,12 +176,11 @@ def test_gram_design_follows_the_shape():
 # rounds: the reference's test_fl_lm_round_decreases_loss setup
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def fl():
+def fl_setup(arch):
     """Both problems on the same tokens, the reference's starting params
     (its run_federated's init, key 0) and, per algorithm, its first three
     rounds (states and metrics) from them."""
-    jcfg, cfg = _configs("smollm-135m", None)
+    jcfg, cfg = _configs(arch, None)
     toks = jax_make_lm_tokens(N_DOCS, SEQ, jcfg.vocab_size)
     jp = jax_make_lm_problem(jax_build_model(jcfg), jax_make_lm_clients(toks, K))
     model = build_model(cfg, device="cpu")
@@ -190,8 +198,13 @@ def fl():
         rounds[algo] = rows
     w0_tree = _np(rounds["fedsvrg"][0][0].params)
     w0 = convert.lm_flat_params(w0_tree, model, "cpu")
-    return dict(jp=jp, pp=pp, model=model, jhp=jhp, rounds=rounds, w0=w0,
-                w0_tree=w0_tree)
+    return dict(arch=arch, jp=jp, pp=pp, model=model, jhp=jhp, rounds=rounds,
+                w0=w0, w0_tree=w0_tree)
+
+
+@pytest.fixture(scope="module")
+def fl():
+    return fl_setup("smollm-135m")
 
 
 def _flat(fl, tree):
@@ -250,7 +263,7 @@ def test_fl_train_tracks_reference(fl, tmp_path, monkeypatch):
 
     monkeypatch.setattr(fl_train, "build_model", with_reference_init)
     out = tmp_path / "fl_train.json"
-    res = fl_train.main(["--device", "cpu", "--arch", "smollm-135m", "--reduced",
+    res = fl_train.main(["--device", "cpu", "--arch", fl["arch"], "--reduced",
                          "--clients", str(K), "--docs-per-client", str(N_DOCS // K),
                          "--seq-len", str(SEQ), "--local-epochs", str(L), "--eta",
                          str(ETA), "--rounds", "3", "--out", str(out)])
