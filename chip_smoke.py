@@ -82,8 +82,11 @@ port beside it. Every phase raises on failure; none is caught.
    bf16 (the tensor-core kernel), at granite-moe-3b-a800m's B=4, S=2048,
    H=24 on KV=8, d=64 in bf16, in f32 with a window and a ragged S (the
    CUDA-core kernel), and in bf16 with GQA (H=8 on KV=2), window 256, S=1000
-   and d=128; within 1e-5 (f32) and 2^-7 (bf16 output) of the plain
-   result's largest magnitude, and bit-identical when run again. Flash is
+   and d=128, and at phase 6e's three served shapes in bf16 (B=4, S=2048):
+   musicgen-medium's MHA H=KV=24, d=64; its padded(16) gather mode's
+   H=KV=32, d=64; internvl2-76b's H=64 on KV=8, d=128; within 1e-5 (f32)
+   and 2^-7 (bf16 output) of the plain result's largest magnitude, and
+   bit-identical when run again. Flash is
    also timed against ``scaled_dot_product_attention(is_causal=True)``
    (``enable_gqa`` where KV < H), whose backend is named. The Gram kernel's and ``torch.bmm``'s own
    device durations come from torch.profiler beside their CUDA-event
@@ -326,6 +329,27 @@ port beside it. Every phase raises on failure; none is caught.
    warmed-up loop round of each wire under ``set_sync_debug_mode("error")``,
    as for the reduced smollm there); (d) ``train.main`` on the reduced
    granite and the reduced llama4-scout-17b-a16e: the loss falls.
+6e. The last single-card model features: (a) musicgen-medium
+   (configs/musicgen_medium.py, the audio family: 48 layers, d 1536, 24
+   heads MHA, hd 64, vocab 2048) at full width as phase 6 serves Zamba2-7B,
+   each prompt's first 512 positions replaced by frame embeddings [4, 512,
+   1536] (numpy, seed 0): f32 logits within 1e-4 and f32 blocks within
+   1e-5 of the plain versions, bf16 blocks within 2^-6, 48
+   ``flash_attention`` a prefill and nothing else, 32 decode steps and the
+   slot server launching nothing; (b) the same weights with ``kv_quant``:
+   a prefill's caches stay bf16, ``init_caches`` gives int8 codes and f32
+   scales (their bytes against the bf16 cache's: (64 + 4)/128 a head and
+   slot), 32 teacher-forced decode steps from int8 and from bf16 caches
+   (ms a step both ways, the share of equal argmaxes), and the slot server
+   on int8 caches (the share of its greedy tokens equal to (a)'s,
+   recorded); (c) musicgen-medium.padded(16), in the ``gather`` GQA mode
+   (24 -> 32 heads on 24 -> 32), as (a) with 48 ``flash_attention`` a
+   prefill at H=KV=32 and 8 decode steps, and its f32 logits within 1e-6
+   of the same weights with the padded heads' ``wq`` columns zeroed
+   (padded heads are no-ops); (d)
+   internvl2-76b (the vlm family: d 8192, 64 heads on 8, hd 128, vocab
+   128,256) at full width with its depth cut to 4 of 80 layers and 1024
+   patch embeddings, as (a) with 4 launches a prefill and 8 decode steps.
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
    Every row carries ``launch_floor_ms``. The rows of ``update``,
    ``quantize`` and ``dequantize`` report what computes them on the main
@@ -340,7 +364,7 @@ port beside it. Every phase raises on failure; none is caught.
    each loop run of phases 4, 4b, 4c, 4d and 4e and phase 4f's resumed
    engine runs and its snapshot run (launches per slot replayed), and the
    LM runs of phases 6b and 6d; ``flash_attention``'s also phase 6c's
-   prefill, decode steps and slot server;
+   and 6e's prefills, decode steps and slot servers;
    ``trajectory``'s row carries
    ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
    (its checks at phase 4d's two cohort shapes),
@@ -469,6 +493,21 @@ MOE_PREFILL_LAUNCHES = {"flash_attention": 32}
 #: MOE_FL_CLIENTS clients; (d) train.main on the reduced MoE configs
 MOE_FL_LAYERS, MOE_FL_CLIENTS, MOE_FL_D = 1, 2, 251_733_504
 MOE_TRAIN_ARCHS = (MOE_ARCH, "llama4-scout-17b-a16e")
+#: phase 6e: (a) musicgen-medium (configs/musicgen_medium.py, audio) served
+#: at full width with its 512 frame embeddings; (b) the same with the int8
+#: KV cache; (c) its padded(GATHER_SHARDS) variant, in the gather GQA mode;
+#: (d) internvl2-76b (configs/internvl2_76b.py, vlm) at full width with its
+#: depth cut to VLM_LAYERS of 80, with its 1024 patch embeddings. Each
+#: prefill launches one flash attention a layer and nothing else.
+AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "internvl2-76b"
+AUDIO_PREFILL_LAUNCHES = {"flash_attention": 48}
+GATHER_SHARDS, GATHER_DECODE = 16, 8
+VLM_LAYERS, VLM_DECODE = 4, 8
+VLM_PREFILL_LAUNCHES = {"flash_attention": VLM_LAYERS}
+#: (c): the padded model against its twin with the padded heads' wq
+#: columns zeroed, over the largest |logit| (the padded heads' outputs meet
+#: zero wo rows: the reference's test_padded_heads_are_noops)
+NOOP_TOLERANCE = 1e-6
 #: the JAX reference's ext_compression rows of FedOSAA-SVRG
 #: (benchmarks/results/ext_compression.json): rounds to rel-error 1e-6 and
 #: cumulative bytes; and its int8 row's final loss
@@ -3943,7 +3982,9 @@ def check_lm_kernels(device, floor: float) -> dict:
     shared block), at granite-moe-3b-a800m's B=4, S=2048, H=24 on KV=8,
     d=64 in bf16, in f32 with a window and a ragged S, and in bf16 with
     GQA, a window and a ragged S at d=128 (Qwen3's and Llama-4's head
-    width). Bounds count each input and output byte once at 3.35 TB/s, and
+    width), and at phase 6e's served shapes in bf16: musicgen-medium's MHA
+    (H=KV=24, d=64), its padded(16) gather mode's MHA (H=KV=32, d=64) and
+    internvl2-76b's GQA (H=64 on KV=8, d=128). Bounds count each input and output byte once at 3.35 TB/s, and
     the operations of the causal work (C B^T once per chunk) at their
     type's peak: SSD's all at the f32 rate. Flash's q k^T counts 2d per
     visible pair and p v 2d, both at the rate of q's type; for bf16 inputs
@@ -3995,7 +4036,11 @@ def check_lm_kernels(device, floor: float) -> dict:
             ("zamba2-7b", (4, 2048, 32, 32, 112, 0, torch.bfloat16)),
             (MOE_ARCH, (4, 2048, 24, 8, 64, 0, torch.bfloat16)),
             ("window-ragged", (2, 1000, 8, 2, 112, 256, torch.float32)),
-            ("gqa-window-ragged-d128", (2, 1000, 8, 2, 128, 256, torch.bfloat16))):
+            ("gqa-window-ragged-d128", (2, 1000, 8, 2, 128, 256, torch.bfloat16)),
+            (AUDIO_ARCH, (4, 2048, 24, 24, 64, 0, torch.bfloat16)),
+            (f"{AUDIO_ARCH}.padded({GATHER_SHARDS})",
+             (4, 2048, 32, 32, 64, 0, torch.bfloat16)),
+            (VLM_ARCH, (4, 2048, 64, 8, 128, 0, torch.bfloat16))):
         gen = torch.Generator(device=device).manual_seed(S)
         q = torch.randn(B, S, H, d, generator=gen, device=device).to(dtype)
         k = torch.randn(B, S, KV, d, generator=gen, device=device).to(dtype)
@@ -4224,7 +4269,7 @@ def plain_pinned(fn, record: list) -> tuple:
     return out, cmp.differ, cmp.tokens
 
 
-def blockwise_prefill(model, tokens, kernels) -> dict:
+def blockwise_prefill(model, tokens, kernels, embeds=None) -> dict:
     """The prefill one block at a time: each block's output through the
     kernels and through the plain versions from the same input (the kernel
     stream's; an MoE block's plain run held to the kernel run's routing,
@@ -4234,12 +4279,13 @@ def blockwise_prefill(model, tokens, kernels) -> dict:
     from the same input (``rerouted``, of ``routed``), and, where the model
     runs more than one LM kernel (``kernels``), the worst block's
     difference with only one of them run by its kernel (``by_kernel``):
-    which kernel its error comes from."""
+    which kernel its error comes from. ``embeds``: a vlm/audio model's
+    frontend embeddings."""
     cfg = model.cfg
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     window = cfg.sliding_window
-    hk = hp = model.embed_tokens(tokens)
+    hk = hp = model.embed_tokens(tokens, embeds)
     local, worst, rerouted, routed = [], None, 0, 0
     for block, _, _ in model.schedule():
         with routing("record") as rec:
@@ -4266,32 +4312,58 @@ def blockwise_prefill(model, tokens, kernels) -> dict:
                 by_kernel=by_kernel, rerouted=rerouted, routed=routed)
 
 
-def describe(cfg, n_params: int) -> str:
-    """The served model's layers and size, for phase 6's and 6c's lines."""
+def describe(cfg, n_params: int, of_layers: int | None = None) -> str:
+    """The served model's layers and size, for phase 6's, 6c's and 6e's
+    lines (``of_layers``: the published depth, where it was cut)."""
+    from repro_torch.models.layers import gqa_mode
+
+    depth = f"{cfg.num_layers}" + (f" of {of_layers}" if of_layers else "")
     if cfg.family == "hybrid":
         n_groups, group, trailing = cfg.hybrid_counts
-        layers = (f"{cfg.num_layers} layers ({n_groups} groups of {group} Mamba-2 "
+        layers = (f"{depth} layers ({n_groups} groups of {group} Mamba-2 "
                   f"+ the shared block, {trailing} trailing)")
-    else:
-        layers = (f"{cfg.num_layers} layers ({cfg.num_experts} experts, top "
+    elif cfg.family == "moe":
+        layers = (f"{depth} layers ({cfg.num_experts} experts, top "
                   f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor})")
-    return (f"{cfg.name}: {layers}, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
-            f"parameters in {cfg.dtype}")
+    else:
+        layers = (f"{depth} layers ({cfg.family}: {cfg.eff_heads} heads on "
+                  f"{cfg.eff_kv_heads} KV heads of {cfg.resolved_head_dim}, GQA mode "
+                  f"{gqa_mode(cfg)}, {cfg.frontend_tokens} frontend positions)")
+    return (f"{cfg.name}: {layers}, d_model {cfg.d_model}, vocab {cfg.eff_vocab}, "
+            f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}")
+
+
+def frontend_embeds(cfg, device):
+    """A vlm/audio config's [LM_BATCH, frontend_tokens, d] patch or frame
+    embeddings, f32 normals from numpy (seed 0), on the card; None for the
+    other families."""
+    if not cfg.frontend_tokens:
+        return None
+    e = np.random.default_rng(0).standard_normal(
+        (LM_BATCH, cfg.frontend_tokens, cfg.d_model), dtype=np.float32)
+    return torch.from_numpy(e).to(device)
 
 
 @torch.inference_mode()
 def serving(device, arch: str = LM_ARCH,
-            prefill_launches: dict = LM_PREFILL_LAUNCHES) -> dict:
-    """Phase 6 (Zamba2-7B) and 6c (granite-moe-3b-a800m): ``arch`` at full
-    width, weights from the port's seeded init. In f32: the prefill's
+            prefill_launches: dict = LM_PREFILL_LAUNCHES, layers: int | None = None,
+            decode_steps: int = LM_DECODE, padded: int | None = None) -> dict:
+    """Phase 6 (Zamba2-7B), 6c (granite-moe-3b-a800m) and 6e (a), (c) and
+    (d) (musicgen-medium; its ``padded`` variant; internvl2-76b with its
+    depth cut to ``layers``): ``arch`` at full width, weights from the
+    port's seeded init, a vlm or
+    audio config's prompts with their frontend embeddings in the first
+    positions (``frontend_embeds``; the slot server's prompts are tokens,
+    as the reference's). In f32: the prefill's
     last-position logits through the kernels against the plain versions,
     and each block against them from the same input. In bf16 (the served
     dtype): the prefill of 4 prompts of 2048 tokens (make_lm_tokens, seed
     0) with cache_len 2048 + 32, read on its own launch counts
-    (``prefill_launches``); each block against the plain versions; 32
-    greedy decode steps from the caches, read on their own counts; then the
-    slot server with the reference serve.py's defaults. An MoE model's
-    plain runs are held to the kernel runs' routing (``plain_pinned``)."""
+    (``prefill_launches``); each block against the plain versions;
+    ``decode_steps`` greedy decode steps from the caches, read on their own
+    counts; then the slot server with the reference serve.py's defaults
+    (its requests' tokens are returned). An MoE model's plain runs are held
+    to the kernel runs' routing (``plain_pinned``)."""
     from repro_torch.configs import get_arch
     from repro_torch.data import make_lm_tokens
     from repro_torch.kernels import _build
@@ -4300,17 +4372,23 @@ def serving(device, arch: str = LM_ARCH,
     from repro_torch.models.decoder import build_model
 
     cfg = get_arch(arch)
+    if padded:
+        cfg = cfg.padded(padded)
+    of_layers = None
+    if layers:
+        cfg, of_layers = dataclasses.replace(cfg, num_layers=layers), cfg.num_layers
     kernels = tuple(prefill_launches)
     tokens = torch.from_numpy(make_lm_tokens(LM_BATCH, LM_PROMPT, cfg.vocab_size,
                                              seed=0)).to(device)
-    cache_len = LM_PROMPT + LM_DECODE
+    embeds = frontend_embeds(cfg, device)
+    cache_len = LM_PROMPT + decode_steps
 
     model = build_model(dataclasses.replace(cfg, dtype="float32"), device=device,
                         seed=0)
     prefill = make_prefill_step(model, cache_len)
     with routing("record") as rec:
-        logits = prefill(tokens)[0]
-    logits_p, rerouted32, routed32 = plain_pinned(lambda: prefill(tokens)[0],
+        logits = prefill(tokens, embeds)[0]
+    logits_p, rerouted32, routed32 = plain_pinned(lambda: prefill(tokens, embeds)[0],
                                                   rec.record)
     rel32, err32 = rel_diff(logits, logits_p)
     print(f"  float32 prefill logits, kernels vs plain: rel {rel32:.3e} (tol "
@@ -4325,7 +4403,7 @@ def serving(device, arch: str = LM_ARCH,
                              f"{rel32:.3e} from the plain versions' (> "
                              f"{LM_LOGITS_TOLERANCE_F32})")
     del prefill, logits, logits_p
-    blocks32 = blockwise_prefill(model, tokens, kernels)
+    blocks32 = blockwise_prefill(model, tokens, kernels, embeds)
     local32 = blocks32["local"]
     worst32 = int(np.argmax(local32))
     print(f"  float32 blocks, kernels vs plain from the same input: largest rel "
@@ -4346,7 +4424,7 @@ def serving(device, arch: str = LM_ARCH,
     model = build_model(cfg, device=device, seed=0)
     torch.cuda.synchronize(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"  {describe(cfg, n_params)} "
+    print(f"  {describe(cfg, n_params, of_layers)} "
           f"({torch.cuda.memory_allocated(device) / 2**30:.2f} GiB), built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     prefill = make_prefill_step(model, cache_len)
@@ -4354,7 +4432,7 @@ def serving(device, arch: str = LM_ARCH,
 
     torch.cuda.reset_peak_memory_stats(device)
     _build.reset_launches()
-    logits, caches = prefill(tokens)
+    logits, caches = prefill(tokens, embeds)
     torch.cuda.synchronize(device)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
@@ -4366,9 +4444,9 @@ def serving(device, arch: str = LM_ARCH,
         raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, "
                              f"finite {bool(logits.isfinite().all())}")
     del caches, logits
-    prefill_ms = host_ms(lambda: prefill(tokens), device)
+    prefill_ms = host_ms(lambda: prefill(tokens, embeds), device)
     with plain_lm_kernels():
-        plain_prefill_ms = host_ms(lambda: prefill(tokens), device, repeats=1)
+        plain_prefill_ms = host_ms(lambda: prefill(tokens, embeds), device, repeats=1)
     split = None
     if cfg.family == "moe":
         split = dict(prefill=kernel_split(lambda: prefill(tokens)),
@@ -4378,7 +4456,7 @@ def serving(device, arch: str = LM_ARCH,
               f"ms (x {cfg.num_layers} layers)", flush=True)
 
     _build.reset_launches()
-    blocks = blockwise_prefill(model, tokens, kernels)
+    blocks = blockwise_prefill(model, tokens, kernels, embeds)
     local = blocks["local"]
     worst = int(np.argmax(local))
     print(f"  bf16 blocks, kernels vs plain from the same input: largest rel "
@@ -4394,14 +4472,14 @@ def serving(device, arch: str = LM_ARCH,
                              f"{LM_BLOCK_TOLERANCE_BF16:.2e})")
     torch.cuda.empty_cache()
 
-    logits, caches = prefill(tokens)
+    logits, caches = prefill(tokens, embeds)
     tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
     # peak memory: the kernel prefill's (above) and the decode steps',
     # not the plain versions' in between
     torch.cuda.reset_peak_memory_stats(device)
     _build.reset_launches()
     step_ms, generated = [], [tok]
-    for i in range(LM_DECODE):
+    for i in range(decode_steps):
         pos = torch.full((LM_BATCH, 1), LM_PROMPT + i, dtype=torch.int32,
                          device=device)
         torch.cuda.synchronize(device)
@@ -4416,12 +4494,12 @@ def serving(device, arch: str = LM_ARCH,
     decode_launches = dict(_build.LAUNCHES)
     peak = max(peak, torch.cuda.max_memory_allocated(device))
     if split is not None:
-        pos = torch.full((LM_BATCH, 1), LM_PROMPT + LM_DECODE, dtype=torch.int32,
+        pos = torch.full((LM_BATCH, 1), LM_PROMPT + decode_steps, dtype=torch.int32,
                          device=device)
         split["decode_step"] = kernel_split(lambda: serve_step(caches, tok, pos))
         print(f"  one decode step's device time by kind (ms): {split['decode_step']}",
               flush=True)
-    print(f"  decode launches over {LM_DECODE} steps {decode_launches}; first "
+    print(f"  decode launches over {decode_steps} steps {decode_launches}; first "
           f"prompt's tokens {torch.cat(generated, 1)[0, :12].tolist()}", flush=True)
     if any(decode_launches.values()):
         raise AssertionError(f"decode launched {decode_launches}; it runs "
@@ -4468,8 +4546,213 @@ def serving(device, arch: str = LM_ARCH,
         raise AssertionError(f"the slot server launched {server_launches}")
     out["server"] = stats
     out["server_launches"] = server_launches
+    out["server_tokens"] = [r.out for r in reqs]
     del model, srv
     torch.cuda.empty_cache()
+    return out
+
+
+def cache_bytes(caches) -> int:
+    """Bytes of a KV group's k, v and (int8 cache) scales: pos and idx are
+    the same both ways."""
+    return nbytes(*(t for name, t in caches.tree.items() if name not in ("pos", "idx")))
+
+
+def teacher_forced_decode(model, caches, tokens, device) -> tuple[list, list]:
+    """LM_DECODE decode steps from ``caches`` feeding the prompts' first
+    tokens (teacher forcing, positions 0..): (ms a step on the host clock,
+    each ending in the argmax read; the argmaxes [B] of each step)."""
+    step_ms, argmax = [], []
+    for i in range(LM_DECODE):
+        pos = torch.full((LM_BATCH, 1), i, dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits = model.decode_step(caches, tokens[:, i:i + 1], pos)[0]
+        top = logits[:, :model.cfg.vocab_size].argmax(-1).cpu()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        argmax.append(top)
+        if not bool(logits.isfinite().all()):
+            raise AssertionError(f"decode step {i}: logits not finite")
+    return step_ms, argmax
+
+
+@torch.inference_mode()
+def kv_quant_serving(device, served: dict) -> dict:
+    """Phase 6e (b): musicgen-medium at full width in bf16 with the int8 KV
+    cache (``kv_quant``; the same seeded weights as (a)). A prefill's caches
+    stay bf16 (the reference's pad_kv); ``init_caches`` gives int8 k, v and
+    f32 scales, whose bytes are printed against the bf16 cache's; LM_DECODE
+    teacher-forced decode steps from int8 and from bf16 caches of cache_len
+    2048 + 32 (ms a step both ways, the share of equal argmaxes); then the
+    slot server on int8 caches: every request finishes, nothing launches,
+    and the share of its greedy tokens equal to (a)'s server's is recorded
+    (not held: int8 rounding may move an argmax)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models.decoder import build_model
+
+    cfg = dataclasses.replace(get_arch(AUDIO_ARCH), kv_quant=True)
+    model = build_model(cfg, device=device, seed=0)
+    tokens = torch.from_numpy(make_lm_tokens(LM_BATCH, LM_PROMPT, cfg.vocab_size,
+                                             seed=0)).to(device)
+    embeds = frontend_embeds(cfg, device)
+    cache_len = LM_PROMPT + LM_DECODE
+    _build.reset_launches()
+    logits, caches = model.prefill(tokens, embeds, cache_len=cache_len)
+    prefill_dtypes = {name: str(t.dtype)[6:] for name, t in caches.tree.items()}
+    if set(caches.tree) != {"k", "v", "pos", "idx"} or caches.tree["k"].dtype != model.dtype:
+        raise AssertionError(f"a kv_quant prefill's caches: {prefill_dtypes}; "
+                             "expected model-dtype k and v, no scales")
+    if dict(_build.LAUNCHES) != {k: AUDIO_PREFILL_LAUNCHES.get(k, 0)
+                                 for k in _build.LAUNCHES}:
+        raise AssertionError(f"kv_quant prefill launches {dict(_build.LAUNCHES)}")
+    del logits, caches
+
+    int8 = model.init_caches(LM_BATCH, cache_len, device)
+    tree = int8.tree
+    if not (tree["k"].dtype == tree["v"].dtype == torch.int8
+            and tree["k_scale"].dtype == tree["v_scale"].dtype == torch.float32):
+        raise AssertionError("kv_quant init_caches: "
+                             f"{ {n: t.dtype for n, t in tree.items()} }")
+    bf16 = model._caches(LM_BATCH, cache_len, quant=False)
+    ratio = cache_bytes(int8) / cache_bytes(bf16)
+    # a head and slot: hd int8 codes and one f32 scale against hd values
+    hd, size = cfg.resolved_head_dim, bf16.tree["k"].element_size()
+    print(f"  kv_quant: a prefill's caches stay {prefill_dtypes}; init_caches int8 "
+          f"k, v + f32 scales {cache_bytes(int8) / 2**20:.1f} MiB against "
+          f"{str(model.dtype)[6:]} k, v {cache_bytes(bf16) / 2**20:.1f} MiB "
+          f"({ratio:.4f}; by the shapes ({hd} + 4)/{size * hd} = "
+          f"{(hd + 4) / (size * hd):.4f})", flush=True)
+    if abs(ratio - (hd + 4) / (size * hd)) > 1e-9:
+        raise AssertionError(f"int8 cache bytes ratio {ratio}")
+
+    _build.reset_launches()
+    q_ms, q_top = teacher_forced_decode(model, int8, tokens, device)
+    b_ms, b_top = teacher_forced_decode(model, bf16, tokens, device)
+    decode_launches = dict(_build.LAUNCHES)
+    if any(decode_launches.values()):
+        raise AssertionError(f"decode launched {decode_launches}")
+    same = float(torch.stack(q_top).eq(torch.stack(b_top)).float().mean())
+    print(f"  {LM_DECODE} teacher-forced decode steps (batch {LM_BATCH}, cache_len "
+          f"{cache_len}, host clock): int8 median {np.median(q_ms[1:]):.2f} ms, bf16 "
+          f"median {np.median(b_ms[1:]):.2f} ms a step (first {q_ms[0]:.1f} / "
+          f"{b_ms[0]:.1f} ms); equal argmaxes {same:.3f} (recorded)", flush=True)
+    del int8, bf16
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+                    SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    _build.reset_launches()
+    srv = SlotServer(model, batch_slots=SERVE_SLOTS,
+                     cache_len=SERVE_PROMPT + SERVE_NEW + 1, device=device)
+    if srv.caches.tree["k"].dtype != torch.int8:
+        raise AssertionError("the kv_quant slot server's caches are not int8")
+    stats = srv.run(reqs)
+    server_launches = dict(_build.LAUNCHES)
+    want = served["server_tokens"]
+    agree = float(np.mean([a == b for r, w in zip(reqs, want) for a, b in zip(r.out, w)]))
+    print(f"  slot server on int8 caches: {stats['tokens']} tokens in "
+          f"{stats['wall_s']:.2f} s over {stats['steps']} steps "
+          f"({stats['wall_s'] / stats['steps'] * 1e3:.1f} ms/step, bf16 "
+          f"{served['server']['wall_s'] / served['server']['steps'] * 1e3:.1f}); "
+          f"greedy tokens equal to (a)'s {agree:.3f} (recorded); launches "
+          f"{server_launches}", flush=True)
+    if not all(r.done and len(r.out) == SERVE_NEW for r in reqs):
+        raise AssertionError("kv_quant slot server: unfinished requests")
+    if any(server_launches.values()):
+        raise AssertionError(f"the kv_quant slot server launched {server_launches}")
+    del model, srv
+    torch.cuda.empty_cache()
+    return dict(prefill_cache_dtypes=prefill_dtypes, cache_bytes_ratio=ratio,
+                decode_ms_int8=q_ms, decode_ms_bf16=b_ms, equal_argmax=same,
+                decode_launches=decode_launches, server=stats,
+                server_launches=server_launches, server_tokens_equal=agree)
+
+
+@torch.inference_mode()
+def padded_heads_are_noops(device) -> dict:
+    """Phase 6e (c): musicgen-medium.padded(GATHER_SHARDS) in f32 at full
+    width, in the gather GQA mode: the prefill's last logits through the
+    kernels against the same weights with the padded query heads' ``wq``
+    columns zeroed, within NOOP_TOLERANCE of the largest |logit| (their
+    outputs meet zero ``wo`` rows: the reference's
+    test_padded_heads_are_noops at full width)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.decoder import build_model
+    from repro_torch.models.layers import gqa_mode
+
+    cfg = dataclasses.replace(get_arch(AUDIO_ARCH).padded(GATHER_SHARDS),
+                              dtype="float32")
+    if gqa_mode(cfg) != "gather":
+        raise AssertionError(f"{cfg.name}.padded({GATHER_SHARDS}): GQA mode "
+                             f"{gqa_mode(cfg)}, expected gather")
+    tokens = torch.from_numpy(make_lm_tokens(LM_BATCH, LM_PROMPT, cfg.vocab_size,
+                                             seed=0)).to(device)
+    embeds = frontend_embeds(cfg, device)
+    model = build_model(cfg, device=device, seed=0)
+    prefill = make_prefill_step(model, LM_PROMPT)
+    logits = prefill(tokens, embeds)[0]
+    hd, Ht = cfg.resolved_head_dim, cfg.num_heads
+    for block in model.blocks:
+        block.attn["wq"][:, Ht * hd:] = 0
+    rel, err = rel_diff(logits, prefill(tokens, embeds)[0])
+    print(f"  float32 prefill logits against the padded heads' wq columns zeroed: "
+          f"rel {rel:.3e} (tol {NOOP_TOLERANCE:.0e}) abs {err:.3e}", flush=True)
+    if not rel <= NOOP_TOLERANCE:
+        raise AssertionError(f"padded heads are no no-op: {rel:.3e}")
+    del model, prefill, logits
+    torch.cuda.empty_cache()
+    return dict(rel=rel, abs=err)
+
+
+def phase_6e_launches(features: dict, name: str) -> dict:
+    """A kernel's launches in each run of phase 6e, for its kernels row."""
+    a, q, g, v = (features[k] for k in ("audio", "kv_quant", "gather", "vlm"))
+    pad = f"{AUDIO_ARCH}.padded({GATHER_SHARDS})"
+    return {f"{AUDIO_ARCH} prefill": a["launches"][name],
+            f"{AUDIO_ARCH} decode ({LM_DECODE} steps)": a["decode_launches"][name],
+            f"{AUDIO_ARCH} slot server": a["server_launches"][name],
+            f"{AUDIO_ARCH} kv_quant decode ({LM_DECODE} steps, int8 and bf16)":
+                q["decode_launches"][name],
+            f"{AUDIO_ARCH} kv_quant slot server": q["server_launches"][name],
+            f"{pad} prefill": g["launches"][name],
+            f"{pad} decode ({GATHER_DECODE} steps)": g["decode_launches"][name],
+            f"{pad} slot server": g["server_launches"][name],
+            f"{VLM_ARCH} ({VLM_LAYERS} layers) prefill": v["launches"][name],
+            f"{VLM_ARCH} decode ({VLM_DECODE} steps)": v["decode_launches"][name],
+            f"{VLM_ARCH} slot server": v["server_launches"][name]}
+
+
+def last_features(device) -> dict:
+    """Phase 6e: (a) musicgen-medium with its frame embeddings, (b) with the
+    int8 KV cache, (c) padded(16) in the gather GQA mode, (d) internvl2-76b
+    with 4 of 80 layers and its patch embeddings."""
+    out, t0 = {}, time.perf_counter()
+    print(f"  (a) {AUDIO_ARCH} at full width, {LM_BATCH} prompts of {LM_PROMPT} "
+          "tokens, the first 512 positions frame embeddings", flush=True)
+    out["audio"] = serving(device, AUDIO_ARCH, AUDIO_PREFILL_LAUNCHES)
+    free_memory()
+    print(f"  (b) {AUDIO_ARCH} with kv_quant (int8 KV cache)", flush=True)
+    out["kv_quant"] = kv_quant_serving(device, out["audio"])
+    free_memory()
+    print(f"  (c) {AUDIO_ARCH}.padded({GATHER_SHARDS}) in the gather GQA mode",
+          flush=True)
+    out["gather"] = serving(device, AUDIO_ARCH, AUDIO_PREFILL_LAUNCHES,
+                            decode_steps=GATHER_DECODE, padded=GATHER_SHARDS)
+    free_memory()
+    out["gather"]["noop"] = padded_heads_are_noops(device)
+    free_memory()
+    print(f"  (d) {VLM_ARCH} at full width, {VLM_LAYERS} of 80 layers, "
+          "the first 1024 positions patch embeddings", flush=True)
+    out["vlm"] = serving(device, VLM_ARCH, VLM_PREFILL_LAUNCHES, layers=VLM_LAYERS,
+                         decode_steps=VLM_DECODE)
+    free_memory()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6e took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5349,6 +5632,10 @@ def main() -> int:
     moe_trained = moe_training(device)
     fl_runs.update(moe_trained["full_width"])
     fl_runs.update(moe_trained["engine"])
+    print(f"{clock()} phase 6e: frontend embeddings, the int8 KV cache and the "
+          f"gather GQA mode ({AUDIO_ARCH} at full width; {VLM_ARCH} at full width, "
+          f"{VLM_LAYERS} of 80 layers)", flush=True)
+    features = last_features(device)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -5366,6 +5653,7 @@ def main() -> int:
                                      served_moe["decode_launches"][name],
                                  f"{MOE_ARCH} slot server":
                                      served_moe["server_launches"][name],
+                                 **phase_6e_launches(features, name),
                                  # phase 6b's training runs launch neither
                                  **{run: r_["launches"][name]
                                     for run, r_ in fl_runs.items()
@@ -5490,6 +5778,7 @@ def main() -> int:
     print("serving " + json.dumps(served), flush=True)
     print(f"serving {MOE_ARCH} " + json.dumps(served_moe), flush=True)
     print("training the MoE family " + json.dumps(moe_trained), flush=True)
+    print("phase 6e " + json.dumps(features), flush=True)
     print("federated training " + json.dumps(
         {k: v for k, v in trained.items() if k not in ("gram", "aa_step")}), flush=True)
     print(card, flush=True)

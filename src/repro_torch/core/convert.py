@@ -134,14 +134,20 @@ def lm_params(params_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE) -> 
 def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):
     """The reference's decode caches (the nested dict of stacked arrays that
     its prefill or init_caches returns, as numpy) as the port's LMCaches:
-    the same nesting, names, shapes and dtypes."""
+    the same nesting, names, shapes and dtypes. A KV group is the
+    model-dtype one (k, v, pos, idx) or the int8 one of a ``kv_quant``
+    config's init_caches (int8 k, v, f32 k_scale, v_scale, pos, idx)."""
     kv, ssm = {"k", "v", "pos", "idx"}, {"conv", "ssm"}
+    kv_int8 = kv | {"k_scale", "v_scale"}
     want = {"dense": kv, "vlm": kv, "audio": kv, "moe": kv, "ssm": ssm}.get(cfg.family)
     if cfg.family == "hybrid":
         want = {"mamba", "shared_kv"} | ({"tail"} if cfg.hybrid_counts[2] else set())
-    if set(caches_np) != want:
+    if set(caches_np) != want and not (want == kv and set(caches_np) == kv_int8):
         raise ValueError(f"caches with groups {sorted(caches_np)} do not fit "
                          f"{cfg.name} ({cfg.family}): expected {sorted(want or ())}")
+    if cfg.family == "hybrid" and set(caches_np["shared_kv"]) not in (kv, kv_int8):
+        raise ValueError(f"shared_kv with {sorted(caches_np['shared_kv'])} is no "
+                         f"KV group: expected {sorted(kv)} or {sorted(kv_int8)}")
 
     def conv(node):
         return {k: conv(v) if isinstance(v, dict) else _array_tensor(v, device)

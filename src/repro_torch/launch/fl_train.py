@@ -175,7 +175,7 @@ def main(argv=None) -> dict:
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod builds the reference's two-pod TPU mesh; the port has "
-            "no TPU-mesh tooling (ROADMAP.md item 9)")
+            "no TPU-mesh tooling (ROADMAP.md item 9b)")
     dev = resolve_device(args.device)
     if args.runtime == "sharded" and dev.type == "cuda" and "LOCAL_RANK" in os.environ:
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))

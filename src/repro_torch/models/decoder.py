@@ -6,10 +6,10 @@ paths).
 module that holds its parameters. Its methods mirror the reference's pure
 functions, without the ``params`` argument:
 
-  forward(tokens)                       -> (logits [B, S, V], aux)
-  forward_hidden(tokens)                -> (h [B, S, d], aux)   (training)
-  loss(tokens, loss_mask=None)          -> scalar next-token xent (training)
-  prefill(tokens, cache_len=None)       -> (logits_last [B, V], caches)
+  forward(tokens, embeds=None)          -> (logits [B, S, V], aux)
+  forward_hidden(tokens, embeds=None)   -> (h [B, S, d], aux)   (training)
+  loss(tokens, loss_mask=None, embeds=None) -> scalar next-token xent (training)
+  prefill(tokens, embeds=None, cache_len=None) -> (logits_last [B, V], caches)
   decode_step(caches, tokens, pos)      -> (logits [B, V], caches)
   init_caches(batch, cache_len)         -> caches
 
@@ -34,7 +34,16 @@ stacked per layer: a KV group {"k", "v": [n, B, C, KV, hd], "pos":
 [n, B, C] int32 (-1: never written), "idx": [n] int32 (the shared ring
 index)}, an SSM group {"conv": [n, B, W-1, conv_dim], "ssm":
 [n, B, nh, hd, st] f32}. ``decode_step`` updates them in place and
-returns the same object.
+returns the same object. With ``cfg.kv_quant``, ``init_caches`` builds
+int8 KV groups ("k", "v" int8 and "k_scale", "v_scale" [n, B, C, KV, 1]
+f32); ``prefill`` builds model-dtype ones whatever ``kv_quant`` says, as
+the reference's does, and the decode steps after it run unquantized.
+
+The ``vlm`` and ``audio`` families are the dense decoder with a frontend
+stub: ``embeds`` [B, P, d] (precomputed patch or audio-frame embeddings,
+cast to the model dtype) replace the first P positions of the token
+embeddings in ``forward``, ``forward_hidden``, ``loss`` (whose targets at
+those positions carry no loss) and ``prefill``. Decode takes tokens only.
 
 The ``moe`` family's blocks (``MoEBlock``) route with the capacity factor
 in ``forward``, ``forward_hidden``, ``loss`` and ``prefill``, and dropless
@@ -42,8 +51,7 @@ in ``decode_step``, as the reference; ``forward`` and ``forward_hidden``
 return the blocks' load-balance aux loss summed in f32, and ``loss`` adds
 0.01 of it. Its caches are the dense family's.
 
-Left for later slices: the ``vlm``/``audio`` frontend embeddings and the
-``Sharder``.
+Left for a later slice: the ``Sharder`` (tensor parallelism).
 """
 from __future__ import annotations
 
@@ -147,8 +155,9 @@ class LMCaches:
         return list(self.tree.values())
 
     def reset_slot(self, s: int) -> None:
-        """Empty batch slot s of every layer: k, v, conv and ssm to 0, pos to
-        -1 (the reference's SlotServer._reset_slot). The ring index is
+        """Empty batch slot s of every layer: k, v (and an int8 cache's
+        k_scale and v_scale), conv and ssm to 0, pos to -1 (the reference's
+        SlotServer._reset_slot). The ring index is
         shared by all slots and stays."""
         for g in self.groups():
             for name, t in g.items():
@@ -201,10 +210,17 @@ class Decoder(nn.Module):
 
     # --------------------------- embedding ---------------------------
     def embed_tokens(self, tokens, embeds=None):
-        if embeds is not None:
-            raise NotImplementedError("the vlm/audio frontend embeddings belong "
-                                      "to a later slice")
-        return self.embed[tokens.long()] * self.embed_scale
+        """The tokens' scaled embeddings [B, S, d]; ``embeds`` [B, P, d]
+        (P <= S), cast to the model dtype, replace positions [0, P)
+        (decoder.py:174-181)."""
+        h = self.embed[tokens.long()] * self.embed_scale
+        if embeds is None:
+            return h
+        P = embeds.shape[1]
+        if P > tokens.shape[1]:
+            raise ValueError(f"{P} frontend embeddings for {tokens.shape[1]} "
+                             "positions")
+        return torch.cat([embeds.to(h.dtype), h[:, P:]], dim=1)
 
     def unembed(self, h):
         h = Lyr.rms_norm(h, self.final_norm)
@@ -323,9 +339,13 @@ class Decoder(nn.Module):
     # --------------------------- caches -------------------------------
     def init_caches(self, batch: int, cache_len: int,
                     device: "str | torch.device" = DEFAULT_DEVICE) -> LMCaches:
+        """Empty decode caches; their KV groups int8 with ``cfg.kv_quant``."""
         if resolve_device(device).type != self.device.type:
             raise ValueError(f"the model lies on {self.device}: build it with "
                              f"device={device!r} to keep caches there")
+        return self._caches(batch, cache_len, self.cfg.kv_quant)
+
+    def _caches(self, batch: int, cache_len: int, quant: bool) -> LMCaches:
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         if cfg.family == "ssm":
             return LMCaches(Lyr.init_ssm_state(cfg, cfg.num_layers, batch, dtype, dev))
@@ -333,22 +353,24 @@ class Decoder(nn.Module):
             n_groups, group, trailing = cfg.hybrid_counts
             tree = {"mamba": Lyr.init_ssm_state(cfg, n_groups * group, batch, dtype, dev),
                     "shared_kv": Lyr.init_kv_cache(cfg, n_groups, batch, cache_len,
-                                                   dtype, dev)}
+                                                   dtype, dev, quant)}
             if trailing:
                 tree["tail"] = Lyr.init_ssm_state(cfg, trailing, batch, dtype, dev)
             return LMCaches(tree)
         return LMCaches(Lyr.init_kv_cache(cfg, cfg.num_layers, batch, cache_len,
-                                          dtype, dev))
+                                          dtype, dev, quant))
 
     # --------------------------- prefill ------------------------------
     def prefill(self, tokens, embeds=None, cache_len: int | None = None):
         """Full forward that also builds the decode caches. ``cache_len``
-        reserves room for the decode steps that follow (default S)."""
+        reserves room for the decode steps that follow (default S). The
+        caches hold k/v in the model dtype even with ``cfg.kv_quant`` (the
+        reference's ``pad_kv``, decoder.py:431-445)."""
         B, S = tokens.shape
         C = cache_len or S
         if C < S:
             raise ValueError(f"cache_len {C} is shorter than the prompt ({S})")
-        caches = self.init_caches(B, C, self.device)
+        caches = self._caches(B, C, quant=False)
         h, _ = self._run(tokens, embeds, caches)
         return self.unembed_last(h), caches
 

@@ -34,9 +34,18 @@ token ids and gathers rows, with no float atomics and no host read, so the
 engine captures it and its backward (a sorted ``index_put_``) is
 deterministic on the card.
 
-Left for later slices: the expert-parallel ``moe_sharded``, the int8 KV
-cache (``kv_quant``), and the ``gather`` GQA mode that only ``padded()``
-configs use; the last two raise ``NotImplementedError``.
+GQA: in the ``grouped`` mode query head i reads KV slot i // G; in the
+``gather`` mode (``padded()`` configs whose padded head map is not
+uniform) the KV heads are gathered to one per query head (``kv_map``, from
+the true head counts) and attention runs as MHA, on the flash kernel, the
+training paths and decode alike, as the reference's gather path does.
+
+The int8 KV cache (``kv_quant``): ``init_kv_cache(quant=True)`` holds int8
+codes and an f32 scale per (slot, head) (``quantize_kv``); decode branches
+on the cache's contents (``"k_scale" in cache``), as the reference, so a
+prefill's model-dtype cache decodes unquantized.
+
+Left for a later slice: the expert-parallel ``moe_sharded``.
 """
 from __future__ import annotations
 
@@ -117,6 +126,24 @@ def gqa_mode(cfg) -> str:
         if (i // G) // r != (i * KV) // Ht:
             return "gather"
     return "grouped"
+
+
+def kv_map(cfg, device) -> torch.Tensor:
+    """The ``gather`` mode's [H] KV head of each query head, from the true
+    counts (layers.py:294-297): (i·KVt)//Ht for a true head i < Ht, i % KV
+    for a padded one (its output dies on its zero ``wo`` rows). Computed on
+    the device, so that no step copies a host list there."""
+    i = torch.arange(cfg.eff_heads, device=device)
+    Ht, KVt = cfg.num_heads, cfg.num_kv_heads
+    return torch.where(i < Ht, (i * KVt) // Ht, i % cfg.eff_kv_heads)
+
+
+def _gather_kv(cfg, k: torch.Tensor) -> torch.Tensor:
+    """k [B, S, KV, hd] as [B, S, H, hd] in the ``gather`` mode; as it is in
+    the ``grouped`` one."""
+    if gqa_mode(cfg) == "grouped":
+        return k
+    return k.index_select(2, kv_map(cfg, k.device))
 
 
 def attn_init(gen, cfg, dtype, device) -> Params:
@@ -217,10 +244,11 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     layer's view of the KV ring buffer {"k", "v": [B, C, KV, hd], "pos":
     [B, C], "idx": 0-d}, updated in place: this step's k/v and positions
     go to slot idx % C, then idx += 1 (the reference returns a new cache;
-    the port writes into the one it was given)."""
-    if gqa_mode(cfg) != "grouped":
-        raise NotImplementedError("the 'gather' GQA mode (padded configs) "
-                                  "belongs to the tensor-parallel slice")
+    the port writes into the one it was given). A cache that holds
+    "k_scale" and "v_scale" [B, C, KV, 1] is the int8 one: the step is
+    written as codes and scales, and read back dequantized to x's dtype.
+    In the ``gather`` mode the KV heads are gathered to H (``_gather_kv``)
+    after the cache, which keeps KV heads."""
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.eff_heads, cfg.eff_kv_heads
@@ -234,26 +262,39 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        k_use, v_use = _gather_kv(cfg, k), _gather_kv(cfg, v)
         if train:
-            return _attention_train(q, k, v, positions, window, x.dtype) @ p["wo"], k, v
-        out = flash_attention(q, k, v, causal=True, window=window)
+            out = _attention_train(q, k_use, v_use, positions, window, x.dtype)
+            return out @ p["wo"], k, v
+        out = flash_attention(q, k_use, v_use, causal=True, window=window)
         return out.reshape(B, S, H * hd) @ p["wo"], k, v
 
     if S != 1:
         raise ValueError(f"attention with a cache decodes one token; got S={S}")
     C = cache["k"].shape[1]
     slot = (cache["idx"] % C).long().reshape(1)
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
     cache["pos"].index_copy_(1, slot, positions.to(cache["pos"].dtype))
     cache["idx"].add_(1)
-    k_all, v_all, k_pos = cache["k"], cache["v"], cache["pos"]
+    if "k_scale" in cache:
+        # int8: write codes and scales; read k_all·k_sc and v_all·v_sc in
+        # f32, each rounded to x's dtype (layers.py:241-254)
+        for name, t in (("k", k), ("v", v)):
+            codes, scale = quantize_kv(t)
+            cache[name].index_copy_(1, slot, codes)
+            cache[name + "_scale"].index_copy_(1, slot, scale)
+        k_all = (cache["k"].float() * cache["k_scale"]).to(x.dtype)
+        v_all = (cache["v"].float() * cache["v_scale"]).to(x.dtype)
+    else:
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        k_all, v_all = cache["k"], cache["v"]
+    k_all, v_all, k_pos = _gather_kv(cfg, k_all), _gather_kv(cfg, v_all), cache["pos"]
 
     scale = _attn_scale(hd)
     mask = _attn_scores_mask(positions, k_pos, window)             # [B, Sq, Sk]
     mask = mask & (k_pos >= 0)[:, None]       # never-written slots: pos = -1
-    G = H // KV
-    q5 = q.reshape(B, S, KV, G, hd)
+    KVa = k_all.shape[2]
+    q5 = q.reshape(B, S, KVa, H // KVa, hd)
     # scores rounded to the model dtype, then the f32 softmax; the
     # probabilities go back to the model dtype for p v (layers.py:283-289)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k_all).float()
@@ -263,19 +304,42 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     return out @ p["wo"], k, v
 
 
+#: the int8 KV cache's scale is max|x| · fl(1/127): the jitted reference
+#: compiles its division by the constant 127 so (XLA turns a division by a
+#: constant into a product by its reciprocal), one ulp off the quotient in
+#: some rows; the product is a plain IEEE operation the port can match
+_INV_127 = float(torch.tensor(1.0) / torch.tensor(127.0))
+
+
+def quantize_kv(x: torch.Tensor):
+    """One decode step's k or v, [B, 1, KV, hd], as int8 codes and f32
+    scales [B, 1, KV, 1] (the reference's ``_quantize_kv``, layers.py:339-344):
+    scale = max|x| over hd, in f32, times fl(1/127), at least 1e-8; codes =
+    round(x / scale) (half to even, as ``jnp.round``) clipped to ±127."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(-1, keepdim=True) * _INV_127, min=1e-8)
+    codes = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
 def init_kv_cache(cfg, layers: int, batch: int, cache_len: int, dtype,
-                  device) -> dict:
-    """KV ring buffers of ``layers`` layers, stacked on a leading axis."""
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant) belongs to a "
-                                  "later slice")
+                  device, quant: bool = False) -> dict:
+    """KV ring buffers of ``layers`` layers, stacked on a leading axis;
+    with ``quant`` the int8 cache: int8 "k", "v" and f32 "k_scale",
+    "v_scale" [layers, B, C, KV, 1] (layers.py:320-330)."""
     KV, hd = cfg.eff_kv_heads, cfg.resolved_head_dim
-    return {
-        "k": torch.zeros((layers, batch, cache_len, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((layers, batch, cache_len, KV, hd), dtype=dtype, device=device),
-        "pos": torch.full((layers, batch, cache_len), -1, dtype=torch.int32, device=device),
-        "idx": torch.zeros((layers,), dtype=torch.int32, device=device),
+    kv_dtype = torch.int8 if quant else dtype
+    out = {
+        "k": torch.zeros((layers, batch, cache_len, KV, hd), dtype=kv_dtype, device=device),
+        "v": torch.zeros((layers, batch, cache_len, KV, hd), dtype=kv_dtype, device=device),
     }
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            out[name] = torch.zeros((layers, batch, cache_len, KV, 1),
+                                    dtype=torch.float32, device=device)
+    out["pos"] = torch.full((layers, batch, cache_len), -1, dtype=torch.int32, device=device)
+    out["idx"] = torch.zeros((layers,), dtype=torch.int32, device=device)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -54,18 +54,38 @@ def assert_close(port, ref, tol=TOL, what=""):
 
 
 def _configs(name, configs=CONFIGS):
-    arch, layers = configs[name]
+    """The reduced configs of ``configs[name]`` = (arch, layers[, change]):
+    ``change``, where given, is applied to both (a ``padded`` variant)."""
+    arch, layers, *change = configs[name]
     jcfg, cfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
     if layers:
         jcfg = dataclasses.replace(jcfg, num_layers=layers)
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    for f in change:
+        jcfg, cfg = f(jcfg), f(cfg)
     return jcfg, cfg
+
+
+def frontend_embeds(cfg, seed=1):
+    """[B, frontend_tokens, d] f32 patch/frame embeddings from a numpy seed
+    for a vlm/audio config; None for the others."""
+    if not cfg.frontend_tokens:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+
+
+def port_embeds(ref):
+    e = ref["embeds"]
+    return None if e is None else torch.from_numpy(e)
 
 
 def reference_results(name, configs=CONFIGS):
     """Both models on one set of parameters, and the reference's results:
     forward (logits, aux), prefill (last logits, caches) and 4 greedy
-    decode steps from those caches. Each JAX function is jitted once."""
+    decode steps from those caches; a vlm/audio config's forward and
+    prefill take ``frontend_embeds`` (``ref["embeds"]``). Each JAX function
+    is jitted once."""
     jcfg, cfg = _configs(name, configs)
     jm = jax_build_model(jcfg)
     key = jax.random.PRNGKey(0)
@@ -75,9 +95,13 @@ def reference_results(name, configs=CONFIGS):
                                             "cpu"))
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     t = jnp.asarray(tokens)
-    ref = {"forward": jax.tree.map(np.asarray, compiled(jm.forward, params, t)(params, t))}
-    last, caches = compiled(lambda p, t_: jm.prefill(p, t_, None, cache_len=S + 8),
-                            params, t)(params, t)
+    embeds = frontend_embeds(cfg)
+    e = None if embeds is None else jnp.asarray(embeds)
+    ref = {"embeds": embeds,
+           "forward": jax.tree.map(np.asarray, compiled(
+               lambda p, t_, e_: jm.forward(p, t_, e_), params, t, e)(params, t, e))}
+    last, caches = compiled(lambda p, t_, e_: jm.prefill(p, t_, e_, cache_len=S + 8),
+                            params, t, e)(params, t, e)
     ref["prefill"] = (np.asarray(last), jax.tree.map(np.asarray, caches))
     steps, tok = [], np.argmax(ref["prefill"][0], -1)[:, None].astype(np.int32)
     dec = compiled(jm.decode_step, params, caches, jnp.asarray(tok),
@@ -103,7 +127,7 @@ def _flat(tree):
 @torch.inference_mode()
 def test_forward_matches_reference(lm):
     name, cfg, model, tokens, ref = lm
-    logits, aux = model(torch.from_numpy(tokens))
+    logits, aux = model(torch.from_numpy(tokens), port_embeds(ref))
     ref_logits, ref_aux = ref["forward"]
     assert logits.shape == (B, S, cfg.eff_vocab) and aux.dtype == torch.float32
     assert_close(logits, ref_logits, what=name)
@@ -117,7 +141,8 @@ def test_prefill_matches_reference(lm):
     ssm), through the prefill step."""
     name, cfg, model, tokens, ref = lm
     n0 = dict(_build.LAUNCHES)
-    last, caches = make_prefill_step(model, S + 8)(torch.from_numpy(tokens))
+    last, caches = make_prefill_step(model, S + 8)(torch.from_numpy(tokens),
+                                                    port_embeds(ref))
     assert _build.LAUNCHES == n0            # CPU: the plain versions
     ref_last, ref_caches = ref["prefill"]
     assert_close(last, ref_last, what=name)
@@ -243,13 +268,21 @@ def test_entry_points_default_to_the_card(capsys):
 
 
 def test_unserved_parts_raise():
+    """kv_quant caches build (int8 codes, f32 scales) and frontend
+    embeddings run (the reference's results are held in
+    test_torch_kv_quant.py and test_torch_frontend.py); a cache shorter
+    than the prompt and more embeddings than positions raise."""
     cfg = get_arch("smollm-135m").reduced()
     quant = build_model(dataclasses.replace(cfg, kv_quant=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        quant.init_caches(1, 4, device="cpu")
+    caches = quant.init_caches(1, 4, device="cpu").tree
+    assert caches["k"].dtype == caches["v"].dtype == torch.int8
+    assert caches["k_scale"].shape == (cfg.num_layers, 1, 4, cfg.num_kv_heads, 1)
+    assert caches["v_scale"].dtype == torch.float32
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="frontend"):
-        model(torch.zeros(1, 4, dtype=torch.int32), embeds=torch.zeros(1, 2, 256))
+    logits, _ = model(torch.zeros(1, 4, dtype=torch.int32), embeds=torch.zeros(1, 2, 256))
+    assert logits.shape == (1, 4, cfg.eff_vocab) and bool(logits.isfinite().all())
+    with pytest.raises(ValueError, match="frontend embeddings"):
+        model(torch.zeros(1, 4, dtype=torch.int32), embeds=torch.zeros(1, 5, 256))
     with pytest.raises(ValueError, match="shorter than the prompt"):
         model.prefill(torch.zeros(1, 8, dtype=torch.int32), cache_len=4)
 

@@ -88,11 +88,15 @@ def test_loss_and_gradient_match_reference(name):
     check_loss_and_gradient(name, *CONFIGS[name])
 
 
-def check_loss_and_gradient(name, arch, layers, S):
+def check_loss_and_gradient(name, arch, layers, S, changes=None):
     """The port's loss within rel 1e-5 and its flat gradient within 1e-4 of
-    the reference's largest magnitude, at B=2 with a document mask; the
-    flat vector converts back to the reference's tree bit for bit."""
+    the reference's largest magnitude, at B=2 with a document mask (and a
+    vlm/audio config's frontend embeddings, whose positions carry no loss);
+    the flat vector converts back to the reference's tree bit for bit.
+    ``changes``: a function applied to both configs (``padded``)."""
     jcfg, cfg = _configs(arch, layers)
+    if changes is not None:
+        jcfg, cfg = changes(jcfg), changes(cfg)
     jm = jax_build_model(jcfg)
     key = jax.random.PRNGKey(0)
     params = compiled(jm.init, key)(key)
@@ -100,6 +104,11 @@ def check_loss_and_gradient(name, arch, layers, S):
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     mask = (rng.random((B, S)) < 0.8).astype(np.float32)
     batch = {"tokens": jnp.asarray(tokens), "loss_mask": jnp.asarray(mask)}
+    pbatch = {"tokens": torch.from_numpy(tokens), "loss_mask": torch.from_numpy(mask)}
+    if cfg.frontend_tokens:
+        embeds = rng.standard_normal((B, cfg.frontend_tokens, cfg.d_model)
+                                     ).astype(np.float32)
+        batch["embeds"], pbatch["embeds"] = jnp.asarray(embeds), torch.from_numpy(embeds)
     ref_loss, ref_grad = compiled(jax.value_and_grad(jm.loss), params, batch)(params, batch)
 
     model = build_model(cfg, device="cpu")
@@ -111,7 +120,6 @@ def check_loss_and_gradient(name, arch, layers, S):
         np.testing.assert_array_equal(a, b)
     layout = param_layout(model)
     loss_fn = functional_loss(model)
-    pbatch = {"tokens": torch.from_numpy(tokens), "loss_mask": torch.from_numpy(mask)}
     n0 = dict(_build.LAUNCHES)
 
     def flat_loss(v):
