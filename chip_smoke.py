@@ -82,7 +82,10 @@ port beside it. Every phase raises on failure; none is caught.
    bf16 (the tensor-core kernel), at granite-moe-3b-a800m's B=4, S=2048,
    H=24 on KV=8, d=64 in bf16, in f32 with a window and a ragged S (the
    CUDA-core kernel), and in bf16 with GQA (H=8 on KV=2), window 256, S=1000
-   and d=128, and at phase 6e's three served shapes in bf16 (B=4, S=2048):
+   and d=128, at phase 6f's ranks' shapes (llama4-scout's 10 heads on 2 KV
+   heads at d=128, Zamba2-7B's shared block's 16 heads at d=112, ``ssd``
+   on 56 of its 112 heads; B=2, S=2048), and at phase 6e's three served
+   shapes in bf16 (B=4, S=2048):
    musicgen-medium's MHA H=KV=24, d=64; its padded(16) gather mode's
    H=KV=32, d=64; internvl2-76b's H=64 on KV=8, d=128; within 1e-5 (f32)
    and 2^-7 (bf16 output) of the plain result's largest magnitude, and
@@ -145,14 +148,17 @@ port beside it. Every phase raises on failure; none is caught.
    engine against loop.
 4c. The Newton family at paper scale (float64, 10 rounds): GIANT, GIANT
    with the line search, Newton-GMRES, DANE at fig6_walltime's 10 Newton
-   steps of 50 CG iterations, and GIANT on int8 (``NEWTON_RUNS``), each by
-   the loop and by the engine (chunks of 5; DANE's of 2, its round is ~500
+   steps of 50 CG iterations (2 rounds, ``NEWTON_DEPTH``), and GIANT on
+   int8 (``NEWTON_RUNS``), each by
+   the loop and by the engine (chunks of 5; DANE's of 1, its round is ~500
    Hessian-vector products), read on its own launch counts: no
    ``trajectory``, ``gram`` or ``aa_step``, and on int8 two
    ``int8_uplink`` a round (the gradient's and the direction's). The
    engine equals the loop in every row and in the final state (params and
    comm) and reads the card once a chunk; one warmed-up round of each
-   algorithm on the identity and on the int8 wire makes no host read. ms
+   algorithm but DANE on the identity and on the int8 wire makes no host
+   read (DANE's engine run captures its rounds, and phase 4e's DANE run
+   checks its sync-debug round). ms
    per round (loop and engine), the capture ms and the rel-error after 10
    rounds, printed beside FedOSAA-SVRG's from phase 4 (the paper's Fig. 6
    comparison on this card).
@@ -350,6 +356,28 @@ port beside it. Every phase raises on failure; none is caught.
    internvl2-76b (the vlm family: d 8192, 64 heads on 8, hd 128, vocab
    128,256) at full width with its depth cut to 4 of 80 layers and 1024
    patch embeddings, as (a) with 4 launches a prefill and 8 decode steps.
+6f. Tensor-parallel serving (sharding/specs.py's plan, launch/mesh.py,
+   the Sharder, ``moe_sharded``): (a) an NCCL world of one in this
+   process (``make_host_mesh("nccl")``, mesh (1, 1)) serving
+   granite-moe-3b-a800m at full width and depth through ``moe_sharded``:
+   the bf16 prefill's logits and 8 greedy decode steps bit for bit phase
+   6c's unsharded ``moe`` run on the same weights, 32 ``flash_attention``
+   a prefill and none a decode step, the slot server's tokens phase 6c's;
+   (b) llama4-scout-17b-a16e (configs/llama4_scout_17b_a16e.py: d 5120,
+   40 heads on 8 KV, hd 128, 16 experts top 1, vocab padded to 202,240) at
+   full width with 4 of its 48 layers, over a gloo world of 4 child
+   processes of this script on the card (``--tp-child <dir>``), each rank
+   drawing its shard from the seed of an unsharded twin built here first:
+   per rank, the embedding and each MoE layer (output, aux, routing) on
+   the twin's inputs bit for bit the twin's, each block from the twin's
+   input within 2^-6 (held to the twin's routing where a near-tied token
+   moves), one ``flash_attention`` a layer a prefill of 2 x 2048 and none
+   in 8 decode steps, the collectives and their bytes, peak memory; and in
+   f32 with 1 layer, the logits within 1e-4 and the block within 1e-5 of
+   the twin's; (c) zamba2-7b at full width with 12 of 81 layers (two
+   groups of five Mamba-2 layers and the shared block) over a gloo world
+   of 2, as (b) in bf16 with 10 ``ssd`` and 2 ``flash_attention`` a prefill.
+   A rank that fails fails the phase.
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
    Every row carries ``launch_floor_ms``. The rows of ``update``,
    ``quantize`` and ``dequantize`` report what computes them on the main
@@ -364,7 +392,8 @@ port beside it. Every phase raises on failure; none is caught.
    each loop run of phases 4, 4b, 4c, 4d and 4e and phase 4f's resumed
    engine runs and its snapshot run (launches per slot replayed), and the
    LM runs of phases 6b and 6d; ``flash_attention``'s also phase 6c's
-   and 6e's prefills, decode steps and slot servers;
+   and 6e's prefills, decode steps and slot servers, and phase 6f's
+   prefills and decode steps (each rank's);
    ``trajectory``'s row carries
    ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
    (its checks at phase 4d's two cohort shapes),
@@ -1831,8 +1860,8 @@ def hp_knobs(knobs: dict) -> dict:
 def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
                         w_star, device, chunk: int = PAPER_CHUNK,
                         sync_wires=None, state_gate=None, robust=None,
-                        keep: bool = False) -> dict:
-    """One run of phases 4b, 4c and 4d: 10 rounds of ``algo`` (AlgoHParams
+                        keep: bool = False, n_rounds: int = 10) -> dict:
+    """One run of phases 4b, 4c and 4d: ``n_rounds`` rounds of ``algo`` (AlgoHParams
     with ``knobs``) on ``channel`` by the per-round loop, then by the
     engine in chunks of ``chunk`` (then PAPER_REPLAYS more replays for its
     ms per round), each read on its own launch counts and its peak memory;
@@ -1840,8 +1869,8 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     read the card once a chunk after the first; ``state_gate(round_fn,
     initial state, engine state)`` then holds the engine's final state
     (before the extra replays) to more. Then one warmed-up round on each of
-    ``sync_wires`` (default: the run's own wire) under the sync debug
-    mode. ``robust`` (run_federated's ``faults``/``async_cfg``) runs it
+    ``sync_wires`` (None: the run's own wire; () none) under the sync
+    debug mode. ``robust`` (run_federated's ``faults``/``async_cfg``) runs it
     under a fault plan and the deadline gate. Prints and returns the run's
     readings; with ``keep``, also the loop's rows and final params and the
     engine's final state (``"vmap"``), phase 4g's reference."""
@@ -1858,7 +1887,7 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     s_loop = MemorySink()
     _build.reset_launches()
     base_loop = memory_mark(device)
-    h = run_federated(prob, algo, hp, 10, w_star=w_star, device=device,
+    h = run_federated(prob, algo, hp, n_rounds, w_star=w_star, device=device,
                       channel=channel, sinks=[s_loop], **(robust or {}))
     launches = dict(_build.LAUNCHES)
     peak_loop = torch.cuda.max_memory_allocated(device) - base_loop
@@ -1885,7 +1914,7 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     base = memory_mark(device)
     with sync_warnings() as caught:
         reads = ChunkReads(caught)
-        state, trace = run_rounds(round_fn, s0, 10, chunk=chunk,
+        state, trace = run_rounds(round_fn, s0, n_rounds, chunk=chunk,
                                   w_star=w_star, runner=runner,
                                   sinks=[s_eng, reads])
     peak = torch.cuda.max_memory_allocated(device) - base
@@ -1909,7 +1938,7 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
     eng_ms = float(np.median(walls)) / chunk * 1e3
     no_read = {wire or "identity": no_host_read_round(
         prob, name, algo, hp, wire, device, design, robust)
-        for wire in (sync_wires or (channel,))}
+        for wire in ((channel,) if sync_wires is None else sync_wires)}
     out = dict(algo=algo, knobs=knobs, channel=channel or "identity",
                rounds=rounds, rel_error=float(h.rel_error[-1]),
                loss=float(h.loss[-1]), launches=launches, designs=designs,
@@ -1946,15 +1975,24 @@ def loop_and_engine_run(prob, name: str, algo: str, knobs: dict, channel,
 #: and by the engine): (run name, algorithm, AlgoHParams knobs, channel,
 #: engine chunk). DANE takes fig6_walltime's 10 Newton steps of 50 CG
 #: iterations (benchmarks/fig6_walltime.py), ~500 Hessian-vector products a
-#: round, so its graph holds fewer rounds.
+#: round, so its graph holds one round.
 NEWTON_RUNS = (
     ("giant", "giant", {}, None, PAPER_CHUNK),
     ("giant_line_search", "giant", {"line_search": True}, None, PAPER_CHUNK),
     ("newton_gmres", "newton_gmres", {}, None, PAPER_CHUNK),
     ("dane_fig6", "dane", {"dane_newton_iters": 10, "dane_cg_iters": 50},
-     None, 2),
+     None, 1),
     ("giant_int8", "giant", {}, "int8", PAPER_CHUNK),
 )
+#: the runs whose depth is cut: (rounds, sync-debug wires). DANE keeps
+#: fig6's 10 x 50 a round for 2 rounds (two chunks of 1) and no
+#: sync-debug round: its engine run captures its rounds (a host read in
+#: one fails the capture), and phase 4e's DANE run has its sync-debug
+#: round. At 10 rounds (the loop and the reference state each run them)
+#: and two sync-debug wires (three rounds each) it took 158.6 s of a
+#: 175.5-s phase on an H100 host, and the whole call passed 1200 s on a
+#: slow host once phase 6f was added (ROADMAP item 0b)
+NEWTON_DEPTH = {"dane_fig6": (2, ())}
 
 
 def newton_family(clients, w_star, device, paper: dict) -> dict:
@@ -1972,12 +2010,16 @@ def newton_family(clients, w_star, device, paper: dict) -> dict:
     from repro_torch.models.logreg import make_logreg_problem
 
     prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64, device=device)
-    out = {name: loop_and_engine_run(
-        prob, name, algo, knobs, channel, w_star, device, chunk,
-        sync_wires=(None, "int8") if channel is None else None)
-        for name, algo, knobs, channel, chunk in NEWTON_RUNS}
+    out = {}
+    for name, algo, knobs, channel, chunk in NEWTON_RUNS:
+        n_rounds, sync = NEWTON_DEPTH.get(
+            name, (10, (None, "int8") if channel is None else None))
+        out[name] = loop_and_engine_run(prob, name, algo, knobs, channel, w_star,
+                                        device, chunk, sync_wires=sync,
+                                        n_rounds=n_rounds)
     svrg = paper["float64"]
-    print(f"  Fig. 6 on this card (10 rounds, float64, identity wire): "
+    print(f"  Fig. 6 on this card (10 rounds, float64, identity wire; "
+          f"{', '.join(f'{k} {v[0]}' for k, v in NEWTON_DEPTH.items())}): "
           f"fedosaa_svrg rel-error {svrg['rel_error']:.3e}, loop "
           f"{svrg['ms_per_round']:.3f} ms/round, engine "
           f"{svrg['engine']['ms_per_round']:.3f} ms/round; " + "; ".join(
@@ -4000,8 +4042,12 @@ def check_lm_kernels(device, floor: float) -> dict:
     from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_ref
 
     out = {}
-    for label, (B, nc, Q, nh, hd, st) in (("zamba2-7b", (4, 8, 256, 112, 64, 64)),
-                                          ("mamba2-2.7b", (4, 8, 256, 80, 64, 128))):
+    for label, (B, nc, Q, nh, hd, st) in (
+            ("zamba2-7b", (4, 8, 256, 112, 64, 64)),
+            ("mamba2-2.7b", (4, 8, 256, 80, 64, 128)),
+            # phase 6f (c)'s rank: its 56 of Zamba2-7B's 112 heads
+            (f"zamba2-7b/{TP_ZAMBA_WORLD} ranks",
+             (TP_BATCH, LM_PROMPT // 256, 256, 112 // TP_ZAMBA_WORLD, 64, 64))):
         args = ssd_inputs(B, nc, Q, nh, hd, st, device)
         y, state = ssd_chunk(*args)
         y_p, state_p = ssd_chunk_ref(*args)
@@ -4040,7 +4086,15 @@ def check_lm_kernels(device, floor: float) -> dict:
             (AUDIO_ARCH, (4, 2048, 24, 24, 64, 0, torch.bfloat16)),
             (f"{AUDIO_ARCH}.padded({GATHER_SHARDS})",
              (4, 2048, 32, 32, 64, 0, torch.bfloat16)),
-            (VLM_ARCH, (4, 2048, 64, 8, 128, 0, torch.bfloat16))):
+            (VLM_ARCH, (4, 2048, 64, 8, 128, 0, torch.bfloat16)),
+            # phase 6f's ranks: llama4-scout's 10 of 40 heads on 2 of 8 KV
+            # heads (4 ranks), Zamba2-7B's shared block's 16 of 32 (2 ranks)
+            (f"{TP_ARCH}/{TP_SCOUT_WORLD} ranks",
+             (TP_BATCH, LM_PROMPT, 40 // TP_SCOUT_WORLD, 8 // TP_SCOUT_WORLD, 128, 0,
+              torch.bfloat16)),
+            (f"zamba2-7b/{TP_ZAMBA_WORLD} ranks",
+             (TP_BATCH, LM_PROMPT, 32 // TP_ZAMBA_WORLD, 32 // TP_ZAMBA_WORLD, 112, 0,
+              torch.bfloat16))):
         gen = torch.Generator(device=device).manual_seed(S)
         q = torch.randn(B, S, H, d, generator=gen, device=device).to(dtype)
         k = torch.randn(B, S, KV, d, generator=gen, device=device).to(dtype)
@@ -4347,7 +4401,8 @@ def frontend_embeds(cfg, device):
 @torch.inference_mode()
 def serving(device, arch: str = LM_ARCH,
             prefill_launches: dict = LM_PREFILL_LAUNCHES, layers: int | None = None,
-            decode_steps: int = LM_DECODE, padded: int | None = None) -> dict:
+            decode_steps: int = LM_DECODE, padded: int | None = None,
+            keep: int = 0) -> dict:
     """Phase 6 (Zamba2-7B), 6c (granite-moe-3b-a800m) and 6e (a), (c) and
     (d) (musicgen-medium; its ``padded`` variant; internvl2-76b with its
     depth cut to ``layers``): ``arch`` at full width, weights from the
@@ -4363,7 +4418,9 @@ def serving(device, arch: str = LM_ARCH,
     ``decode_steps`` greedy decode steps from the caches, read on their own
     counts; then the slot server with the reference serve.py's defaults
     (its requests' tokens are returned). An MoE model's plain runs are held
-    to the kernel runs' routing (``plain_pinned``)."""
+    to the kernel runs' routing (``plain_pinned``). ``keep``: the bf16
+    prefill's logits and the first ``keep`` decode steps' are kept on the
+    host (``out["kept"]``, for phase 6f (a))."""
     from repro_torch.configs import get_arch
     from repro_torch.data import make_lm_tokens
     from repro_torch.kernels import _build
@@ -4473,6 +4530,7 @@ def serving(device, arch: str = LM_ARCH,
     torch.cuda.empty_cache()
 
     logits, caches = prefill(tokens, embeds)
+    kept = {"prefill": logits.cpu(), "decode": []}
     tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
     # peak memory: the kernel prefill's (above) and the decode steps',
     # not the plain versions' in between
@@ -4487,6 +4545,8 @@ def serving(device, arch: str = LM_ARCH,
         logits, caches = serve_step(caches, tok, pos)
         tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
         tok.cpu()
+        if i < keep:
+            kept["decode"].append(logits.cpu())
         step_ms.append((time.perf_counter() - t0) * 1e3)
         generated.append(tok)
         if not bool(logits.isfinite().all()):
@@ -4547,6 +4607,8 @@ def serving(device, arch: str = LM_ARCH,
     out["server"] = stats
     out["server_launches"] = server_launches
     out["server_tokens"] = [r.out for r in reqs]
+    if keep:
+        out["kept"] = kept
     del model, srv
     torch.cuda.empty_cache()
     return out
@@ -5496,6 +5558,465 @@ def moe_training(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6f: tensor-parallel serving (sharding/specs.py, launch/mesh.py,
+# the Sharder, moe_sharded)
+# ---------------------------------------------------------------------------
+
+#: (b): llama4-scout-17b-a16e (configs/llama4_scout_17b_a16e.py) at full
+#: width with TP_SCOUT_LAYERS of its 48 layers, over a gloo world of
+#: TP_SCOUT_WORLD child processes on the card; the f32 check on
+#: TP_SCOUT_F32_LAYERS layer. (c): zamba2-7b at full width with
+#: TP_ZAMBA_LAYERS of its 81 layers (two groups of five Mamba-2 layers and
+#: the shared block) over a gloo world of TP_ZAMBA_WORLD. Each serves
+#: TP_BATCH prompts of LM_PROMPT tokens and TP_DECODE decode steps.
+TP_ARCH = "llama4-scout-17b-a16e"
+TP_SCOUT_WORLD, TP_SCOUT_LAYERS, TP_SCOUT_F32_LAYERS = 4, 4, 1
+TP_ZAMBA_WORLD, TP_ZAMBA_LAYERS = 2, 12
+TP_BATCH, TP_DECODE = 2, 8
+#: a child's deadline (s): start, build, every run
+TP_CHILD_TIMEOUT = 240.0
+
+
+class capture_moe:
+    """Within the block, each call of the MoE layer (models/layers.py::moe)
+    records its input, output and aux on the host, call by call in order."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.saved = layers, layers.moe
+        self.calls = []
+
+        def moe(p, x, cfg, dropless=False):
+            y, aux = self.saved(p, x, cfg, dropless)
+            self.calls.append(dict(x=x.cpu(), y=y.cpu(), aux=aux.cpu()))
+            return y, aux
+
+        layers.moe = moe
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe = self.saved
+
+
+def tp_twin(cfg, device, decode_steps: int = TP_DECODE) -> dict:
+    """The unsharded model of ``cfg`` (a plan's padded config), from the
+    seed the ranks draw from: its embedding, each block's input, output and
+    routing (``routing`` records, one a MoE layer) through the kernels, each
+    MoE layer's input, output and aux, the prefill's last logits and
+    ``decode_steps`` greedy decode steps (the tokens fed and the logits).
+    All on the host."""
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.models.decoder import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, seed=0)
+    torch.cuda.synchronize(device)
+    built = time.perf_counter() - t0
+    tokens = torch.from_numpy(make_lm_tokens(TP_BATCH, LM_PROMPT, cfg.vocab_size,
+                                             seed=0)).to(device)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=device).expand(B, S)
+    out = {"tokens": tokens.cpu(), "blocks": [], "built_s": built}
+    with torch.inference_mode():
+        h = model.embed_tokens(tokens)
+        out["embed"] = h.cpu()
+        with capture_moe() as cap:
+            for block, _, _ in model.schedule():
+                with routing("record") as rec:
+                    o = block(h, cfg, positions, cfg.sliding_window)[0]
+                out["blocks"].append((h.cpu(), o.cpu(), [g.cpu() for g in rec.record]))
+                h = o
+        out["moe"] = cap.calls
+        out["prefill_ms"] = host_ms(lambda: model.prefill(tokens, cache_len=S + decode_steps),
+                                    device, repeats=2)
+        logits, caches = model.prefill(tokens, cache_len=S + decode_steps)
+        out["logits"] = logits.float().cpu()
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
+        feed, steps = [], []
+        for i in range(decode_steps):
+            pos = torch.full((B, 1), S + i, dtype=torch.int32, device=device)
+            feed.append((tok.cpu(), pos.cpu()))
+            logits, caches = model.decode_step(caches, tok, pos)
+            steps.append(logits.float().cpu())
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
+    out["decode_feed"], out["decode_logits"] = feed, steps
+    out["n_params"] = sum(p.numel() for p in model.parameters())
+    del model, caches
+    free_memory()
+    return out
+
+
+def tp_config(arch: str, world: int, layers: int, dtype: str | None = None):
+    """The served config: ``arch`` with ``layers`` layers (and ``dtype``),
+    padded for ``world`` model ranks, as make_plan pads it."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, cfg.padded(world)
+
+
+def tp_spawn(tmp: str, world: int) -> tuple[list, float]:
+    """The gloo world of ``world`` children of this script on the card
+    (``--tp-child <dir>``), each rank's results; a rank that fails fails
+    the phase."""
+    from repro_torch.core.sharded import spawn_world
+
+    t0 = time.perf_counter()
+    results = spawn_world([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--tp-child", tmp], world, os.path.join(tmp, "store"),
+                          timeout_s=TP_CHILD_TIMEOUT, cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    for r, res in enumerate(results):
+        if res.returncode != 0:
+            raise AssertionError(f"tensor-parallel rank {r} of {world} exited "
+                                 f"{res.returncode}: {res.stdout[-3000:]}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], secs
+
+
+def tp_runs(spec: dict, device) -> dict:
+    """One rank's side of a run of phase 6f (b)/(c): build the plan's model
+    (each rank its shard, drawn from the twin's seed); its embedding and
+    each MoE layer (output, aux, routing) against the twin's on the twin's
+    inputs; each block from the twin's input, an MoE block held to the
+    twin's routing where it routes otherwise (``routing``: the block's
+    attention output, summed over the ranks, may move a near-tied token);
+    then the prefill (launches, collectives, ms) and the teacher-forced
+    decode steps against the twin's logits (printed, not held: random
+    layers amplify bf16 steps)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import layers
+    from repro_torch.models.decoder import build_model
+    from repro_torch.sharding.specs import make_plan
+
+    twin = torch.load(spec["twin"], weights_only=False)
+    cfg_full = spec["cfg"]
+    mesh = make_mesh(1, dist.get_world_size())
+    plan = make_plan(cfg_full, mesh)
+    if plan.cfg != spec["padded"]:
+        raise AssertionError(f"the plan's config {plan.cfg} is not the twin's")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(plan.cfg, device=device, seed=0, sh=plan.sharder())
+    torch.cuda.synchronize(device)
+    out = {"built_s": time.perf_counter() - t0,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    sh, cfg = model.sh, plan.cfg
+    tokens = twin["tokens"].to(device)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=device).expand(B, S)
+    with torch.inference_mode():
+        out["embed_equal"] = torch.equal(model.embed_tokens(tokens).cpu(), twin["embed"])
+        # each block from the twin's input; each MoE layer on the twin's
+        # MoE input, its routing and output bit for bit the twin's
+        block_rel, moe, rerouted = [], [], 0
+        for (block, _, _), (h_in, h_out, route) in zip(model.schedule(), twin["blocks"]):
+            route = [g.to(device) for g in route]
+            with routing("compare", route) as cmp:
+                o = block(h_in.to(device), cfg, positions, cfg.sliding_window)[0]
+            if cmp.differ:
+                rerouted += cmp.differ
+                with routing("replay", route):
+                    o = block(h_in.to(device), cfg, positions, cfg.sliding_window)[0]
+            block_rel.append(rel_diff(o.float().cpu(), h_out.float())[0])
+        moe_blocks = [b for b, _, _ in model.schedule() if hasattr(b, "moe")]
+        for block, call, (_, _, route) in zip(moe_blocks, twin["moe"], twin["blocks"]):
+            x = call["x"].to(device)
+            y, aux = layers.moe_sharded(block.moe, x, cfg, sh)
+            gate_i = layers.moe_route(block.moe, x.reshape(-1, x.shape[-1]), cfg)[1]
+            moe.append(dict(y=torch.equal(y.cpu(), call["y"]),
+                            aux=torch.equal(aux.cpu(), call["aux"]),
+                            routing=torch.equal(gate_i.cpu(), route[0]),
+                            rel=rel_diff(y.float().cpu(), call["y"].float())[0]))
+        out.update(block_rel=block_rel, moe=moe, block_rerouted=rerouted)
+        # the served path: prefill, then the twin's decode feed
+        prefill = make_prefill_step(model, S + len(twin["decode_feed"]))
+        serve_step = make_serve_step(model)
+        prefill(tokens)                                    # warm-up
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        sh.counts.clear()
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        logits, caches = prefill(tokens)
+        torch.cuda.synchronize(device)
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = dict(_build.LAUNCHES)
+        out["prefill_counts"] = {k: dict(v) for k, v in sh.counts.items()}
+        out["logits_rel"] = rel_diff(logits.float().cpu(), twin["logits"])[0]
+        out["logits_finite"] = bool(logits.isfinite().all())
+        out["logits_shape"] = tuple(logits.shape)
+        sh.counts.clear()
+        _build.reset_launches()
+        step_ms, rel, agree = [], [], 0
+        for (tok, pos), want in zip(twin["decode_feed"], twin["decode_logits"]):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            logits, caches = serve_step(caches, tok.to(device), pos.to(device))
+            torch.cuda.synchronize(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rel.append(rel_diff(logits.float().cpu(), want)[0])
+            agree += int((logits.float().cpu().argmax(-1) == want.argmax(-1)).sum())
+            out["logits_finite"] &= bool(logits.isfinite().all())
+        out["decode_launches"] = dict(_build.LAUNCHES)
+        out["decode_counts"] = {k: dict(v) for k, v in sh.counts.items()}
+        out.update(decode_ms=step_ms, decode_rel=rel, decode_argmax_agree=agree,
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        # one all-reduce of a layer's output alone: what the prefill's sums
+        # cost over this world (gloo stages the card's tensors through the
+        # host)
+        x = torch.ones((B, S, cfg.d_model), dtype=model.dtype, device=device)
+        out["all_reduce_ms"] = host_ms(
+            lambda: dist.all_reduce(x, group=mesh.group("model")), device)
+    del model, caches
+    free_memory()
+    return out
+
+
+def tp_child(argv: list) -> int:
+    """Phase 6f's child: ``--tp-child <dir>``, one rank of a gloo world
+    (spawn_world's environment) on the card; runs each spec of
+    <dir>/specs.pt (``tp_runs``) and writes <dir>/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.core.sharded import init_file_world
+    from repro_torch.kernels import _build
+
+    (d,) = argv
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    init_file_world(backend="gloo", timeout_s=120.0)
+    rank = dist.get_rank()
+    _build.library()
+    out = {name: tp_runs(spec, device)
+           for name, spec in torch.load(os.path.join(d, "specs.pt"),
+                                        weights_only=False).items()}
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_world_of_one(device, served_moe: dict) -> dict:
+    """Phase 6f (a): an NCCL world of one (launch/mesh.py::make_host_mesh,
+    mesh (1, 1)) serving granite-moe-3b-a800m at full width and depth in
+    bf16 through ``moe_sharded``: the prefill's logits and TP_DECODE greedy
+    decode steps bit for bit phase 6c's unsharded ``moe`` run on the same
+    weights, its prefill launches phase 6c's, decode none, and the slot
+    server's tokens phase 6c's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.decoder import build_model
+    from repro_torch.sharding.specs import make_plan
+
+    kept = served_moe.pop("kept")
+    mesh = make_host_mesh("nccl")
+    try:
+        plan = make_plan(get_arch(MOE_ARCH), mesh)
+        model = build_model(plan.cfg, device=device, seed=0, sh=plan.sharder())
+        cfg = plan.cfg
+        tokens = torch.from_numpy(make_lm_tokens(LM_BATCH, LM_PROMPT, cfg.vocab_size,
+                                                 seed=0)).to(device)
+        prefill = make_prefill_step(model, LM_PROMPT + LM_DECODE)
+        serve_step = make_serve_step(model)
+        with torch.inference_mode():
+            _build.reset_launches()
+            logits, caches = prefill(tokens)
+            torch.cuda.synchronize(device)
+            launches = dict(_build.LAUNCHES)
+            same = {"prefill": torch.equal(logits.cpu(), kept["prefill"])}
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
+            _build.reset_launches()
+            steps = []
+            for i in range(TP_DECODE):
+                pos = torch.full((LM_BATCH, 1), LM_PROMPT + i, dtype=torch.int32,
+                                 device=device)
+                logits, caches = serve_step(caches, tok, pos)
+                steps.append(torch.equal(logits.cpu(), kept["decode"][i]))
+                tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(torch.int32)
+            decode_launches = dict(_build.LAUNCHES)
+        same["decode"] = steps
+        del caches, logits
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+                        SERVE_NEW) for i in range(SERVE_REQUESTS)]
+        SlotServer(model, batch_slots=SERVE_SLOTS, cache_len=SERVE_PROMPT + SERVE_NEW + 1,
+                   device=device).run(reqs)
+        same["server_tokens"] = [r.out for r in reqs] == served_moe["server_tokens"]
+        counts = {k: dict(v) for k, v in model.sh.counts.items()}
+    finally:
+        dist.destroy_process_group()
+    del model
+    free_memory()
+    want = {k: MOE_PREFILL_LAUNCHES.get(k, 0) for k in launches}
+    print(f"  (a) NCCL world of one, mesh (1, 1), {MOE_ARCH} at full width through "
+          f"moe_sharded: prefill logits bit for bit phase 6c's {same['prefill']}, "
+          f"{TP_DECODE} decode steps {same['decode']}, slot server tokens "
+          f"{same['server_tokens']}; prefill launches {launches}, decode "
+          f"{decode_launches}; collectives {counts}", flush=True)
+    if not (same["prefill"] and all(same["decode"]) and same["server_tokens"]):
+        raise AssertionError(f"6f (a): the world of one is not phase 6c's run: {same}")
+    if launches != want or any(decode_launches.values()):
+        raise AssertionError(f"6f (a): launches {launches} / {decode_launches}")
+    return dict(same=same, launches=launches, decode_launches=decode_launches,
+                collectives=counts)
+
+
+def tp_launches(cfg) -> dict:
+    """A prefill's launches on each rank: one SSD step a Mamba-2 layer and
+    one flash attention an attention layer (each rank runs its heads)."""
+    if cfg.family == "hybrid":
+        n_groups, group, trailing = cfg.hybrid_counts
+        return {"ssd": n_groups * group + trailing, "flash_attention": n_groups}
+    return {"flash_attention": cfg.num_layers}
+
+
+def tp_gloo(device, arch: str, world: int, layers: int,
+            f32_layers: int | None = None) -> dict:
+    """Phase 6f (b)/(c): ``arch`` at full width with ``layers`` layers over a
+    gloo world of ``world`` children on the card, against its unsharded
+    twin from the same seed (``tp_twin``), in bf16 (and with ``f32_layers``
+    an f32 check: prefill logits within LM_LOGITS_TOLERANCE_F32, each block
+    within LM_BLOCK_TOLERANCE_F32 of the twin's). Gates per rank: the
+    embedding and each MoE layer (output, aux, routing) bit for bit the
+    twin's on the twin's inputs, each block within LM_BLOCK_TOLERANCE_BF16
+    from the twin's input, the prefill's launches ``tp_launches``, decode
+    none, logits finite of shape [TP_BATCH, V]."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="tp_")
+    specs = {}
+    runs = {"bf16": (None, layers)} | ({"f32": ("float32", f32_layers)} if f32_layers else {})
+    twins = {}
+    for name, (dtype, n) in runs.items():
+        cfg, padded = tp_config(arch, world, n, dtype)
+        twin = tp_twin(padded, device)
+        path = os.path.join(tmp, f"twin_{name}.pt")
+        torch.save(twin, path)
+        twins[name] = twin
+        specs[name] = dict(cfg=cfg, padded=padded, twin=path)
+        print(f"  twin {name}: {describe(padded, twin['n_params'], get_arch_layers(arch))}, "
+              f"built in {twin['built_s']:.1f} s, prefill {TP_BATCH}x{LM_PROMPT} "
+              f"{[round(t, 1) for t in twin['prefill_ms']]} ms on one card", flush=True)
+    torch.save(specs, os.path.join(tmp, "specs.pt"))
+    ranks, secs = tp_spawn(tmp, world)
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"child_seconds": secs, "ranks": {}}
+    for name in runs:
+        f32 = name == "f32"
+        block_tol = LM_BLOCK_TOLERANCE_F32 if f32 else LM_BLOCK_TOLERANCE_BF16
+        for r, got in enumerate(ranks):
+            g = got[name]
+            per_prefill = tp_launches(specs[name]["padded"])
+            want_l = {k: per_prefill.get(k, 0) for k in g["launches"]}
+            summary = dict(
+                embed_equal=g["embed_equal"], block_rel_max=max(g["block_rel"]),
+                moe=[(m["y"], m["aux"], m["routing"]) for m in g["moe"]],
+                launches=g["launches"], decode_launches=g["decode_launches"],
+                prefill_ms=g["prefill_ms"], decode_ms=g["decode_ms"],
+                logits_rel=g["logits_rel"], decode_rel_max=max(g["decode_rel"]),
+                decode_argmax_agree=g["decode_argmax_agree"],
+                block_rerouted=g["block_rerouted"],
+                prefill_counts=g["prefill_counts"], decode_counts=g["decode_counts"],
+                peak_gib=g["peak_gib"], param_gib=g["param_bytes"] / 2**30,
+                built_s=g["built_s"], all_reduce_ms=g["all_reduce_ms"])
+            out["ranks"][f"{name}/rank{r}"] = summary
+            n = specs[name]["padded"].num_layers
+            per_layer = {k: {"calls": v["calls"] / n, "bytes": v["bytes"] / n}
+                         for k, v in g["prefill_counts"].items()}
+            print(f"  {name} rank {r}: {summary['param_gib']:.2f} GiB of weights "
+                  f"(built in {g['built_s']:.1f} s), peak {g['peak_gib']:.2f} GiB; "
+                  f"embedding bit for bit {g['embed_equal']}; blocks from the twin's "
+                  f"input: largest rel {summary['block_rel_max']:.3e} (tol "
+                  f"{block_tol:.1e}; token-layers routed otherwise than the twin, "
+                  f"held to its routing: {g['block_rerouted']}); MoE layers on the "
+                  f"twin's input (output, aux, routing) bit for bit "
+                  f"{summary['moe']}; prefill {g['prefill_ms']:.1f} ms, launches "
+                  f"{g['launches']}, collectives {g['prefill_counts']} "
+                  f"({per_layer} a layer; one all-reduce of [{TP_BATCH}, {LM_PROMPT}, "
+                  f"d] alone {[round(t, 1) for t in g['all_reduce_ms']]} ms); "
+                  f"logits vs the twin's rel "
+                  f"{g['logits_rel']:.3e}; decode {len(g['decode_ms'])} steps median "
+                  f"{np.median(g['decode_ms']):.1f} ms, launches {g['decode_launches']}, "
+                  f"collectives a step "
+                  f"{ {k: v['calls'] / len(g['decode_ms']) for k, v in g['decode_counts'].items()} }, "
+                  f"logits vs the twin's rel up to {summary['decode_rel_max']:.3e}, "
+                  f"argmax agrees {g['decode_argmax_agree']}/{TP_BATCH * TP_DECODE}",
+                  flush=True)
+            bad = []
+            if not g["embed_equal"]:
+                bad.append("embedding")
+            if not all(all(m) for m in summary["moe"]):
+                bad.append(f"MoE layers {summary['moe']}")
+            if not summary["block_rel_max"] <= block_tol:
+                bad.append(f"blocks {g['block_rel']}")
+            if f32 and not g["logits_rel"] <= LM_LOGITS_TOLERANCE_F32:
+                bad.append(f"f32 logits {g['logits_rel']:.3e}")
+            if g["launches"] != want_l or any(g["decode_launches"].values()):
+                bad.append(f"launches {g['launches']} / {g['decode_launches']}")
+            if not g["logits_finite"] or g["logits_shape"] != (TP_BATCH, specs[name]["padded"].eff_vocab):
+                bad.append(f"logits {g['logits_shape']}, finite {g['logits_finite']}")
+            if bad:
+                raise AssertionError(f"6f {arch} {name} rank {r}: " + "; ".join(bad))
+    out["twin_prefill_ms"] = {name: t["prefill_ms"] for name, t in twins.items()}
+    print(f"  the {world} children took {secs:.1f} s", flush=True)
+    return out
+
+
+def tp_launches_by_run(tp: dict, name: str) -> dict:
+    """A kernel's launches in each run of phase 6f, for its kernels row:
+    (a)'s prefill and each rank's prefill and decode steps of (b), (c)."""
+    out = {f"6f (a) {MOE_ARCH} world of one prefill":
+           tp["world_of_one"]["launches"][name],
+           f"6f (a) {MOE_ARCH} world of one decode ({TP_DECODE} steps)":
+           tp["world_of_one"]["decode_launches"][name]}
+    for run, arch in (("scout", TP_ARCH), ("zamba", LM_ARCH)):
+        for key, r in tp[run]["ranks"].items():
+            out[f"6f {arch} {key} prefill"] = r["launches"][name]
+            out[f"6f {arch} {key} decode ({TP_DECODE} steps)"] = r["decode_launches"][name]
+    return out
+
+
+def get_arch_layers(arch: str) -> int:
+    from repro_torch.configs import get_arch
+    return get_arch(arch).num_layers
+
+
+def tensor_parallel(device, served_moe: dict) -> dict:
+    """Phase 6f: (a) the NCCL world of one (``tp_world_of_one``); (b)
+    llama4-scout-17b-a16e over a gloo world of 4 on the card; (c) zamba2-7b
+    over a gloo world of 2."""
+    t0 = time.perf_counter()
+    out = {"world_of_one": tp_world_of_one(device, served_moe)}
+    print(f"  (b) {TP_ARCH} at full width, {TP_SCOUT_LAYERS} of 48 layers, bf16 "
+          f"(and {TP_SCOUT_F32_LAYERS} layer in f32), over a gloo world of "
+          f"{TP_SCOUT_WORLD} on the card", flush=True)
+    out["scout"] = tp_gloo(device, TP_ARCH, TP_SCOUT_WORLD, TP_SCOUT_LAYERS,
+                           f32_layers=TP_SCOUT_F32_LAYERS)
+    print(f"  (c) {LM_ARCH} at full width, {TP_ZAMBA_LAYERS} of 81 layers, bf16, "
+          f"over a gloo world of {TP_ZAMBA_WORLD} on the card", flush=True)
+    out["zamba"] = tp_gloo(device, LM_ARCH, TP_ZAMBA_WORLD, TP_ZAMBA_LAYERS)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6f took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5504,6 +6025,8 @@ def main() -> int:
         return checkpoint_child(sys.argv[2:])
     if sys.argv[1:2] == ["--sharded-child"]:
         return sharded_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-child"]:
+        return tp_child(sys.argv[2:])
     from repro_torch.core import solve_reference
     from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
@@ -5623,7 +6146,7 @@ def main() -> int:
           f"{LM_BATCH}x{LM_PROMPT}, {LM_DECODE} decode steps, the slot server)",
           flush=True)
     t0 = time.perf_counter()
-    served_moe = serving(device, MOE_ARCH, MOE_PREFILL_LAUNCHES)
+    served_moe = serving(device, MOE_ARCH, MOE_PREFILL_LAUNCHES, keep=TP_DECODE)
     free_memory()
     print(f"  phase 6c took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"{clock()} phase 6d: training the MoE family ({MOE_ARCH} at full width, "
@@ -5636,6 +6159,12 @@ def main() -> int:
           f"gather GQA mode ({AUDIO_ARCH} at full width; {VLM_ARCH} at full width, "
           f"{VLM_LAYERS} of 80 layers)", flush=True)
     features = last_features(device)
+    print(f"{clock()} phase 6f: tensor-parallel serving ((a) {MOE_ARCH} over an "
+          f"NCCL world of one; (b) {TP_ARCH} at full width, {TP_SCOUT_LAYERS} of 48 "
+          f"layers, over a gloo world of {TP_SCOUT_WORLD} on the card; (c) {LM_ARCH}, "
+          f"{TP_ZAMBA_LAYERS} of 81 layers, over a gloo world of {TP_ZAMBA_WORLD})",
+          flush=True)
+    tp = tensor_parallel(device, served_moe)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -5654,6 +6183,7 @@ def main() -> int:
                                  f"{MOE_ARCH} slot server":
                                      served_moe["server_launches"][name],
                                  **phase_6e_launches(features, name),
+                                 **tp_launches_by_run(tp, name),
                                  # phase 6b's training runs launch neither
                                  **{run: r_["launches"][name]
                                     for run, r_ in fl_runs.items()
@@ -5779,6 +6309,7 @@ def main() -> int:
     print(f"serving {MOE_ARCH} " + json.dumps(served_moe), flush=True)
     print("training the MoE family " + json.dumps(moe_trained), flush=True)
     print("phase 6e " + json.dumps(features), flush=True)
+    print("phase 6f " + json.dumps(tp), flush=True)
     print("federated training " + json.dumps(
         {k: v for k, v in trained.items() if k not in ("gram", "aa_step")}), flush=True)
     print(card, flush=True)

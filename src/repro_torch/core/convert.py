@@ -4,7 +4,8 @@ Takes the reference's parameters, ``ServerState`` fields (params, t, the
 comm buffers, the control variates and the carried AA columns),
 ``StackedClients`` fields, an LM's parameters and decode caches
 (``lm_params``, ``lm_caches``; as the flat [d] vector the federated
-problem trains, ``lm_flat_params``) and the MLP's parameters
+problem trains, ``lm_flat_params``; one rank's shard of a tensor-parallel
+model and of its caches, ``shard_lm_params``, ``shard_lm_caches``) and the MLP's parameters
 (``mlp_params``) as numpy arrays
 (``np.asarray`` of the JAX arrays) — this module imports nothing of JAX —
 and returns the port's counterparts on ``device`` with the same dtypes and
@@ -20,6 +21,8 @@ from repro_torch.core.algorithms import ServerState
 from repro_torch.core.lm import param_layout
 from repro_torch.core.problem import StackedClients
 from repro_torch.models.decoder import LMCaches
+from repro_torch.sharding.specs import (batch_axis, cache_spec_for_path,
+                                        rank_coords, shard_param, shard_slices)
 
 
 def tensor(a, device: "str | torch.device" = DEFAULT_DEVICE) -> torch.Tensor:
@@ -131,6 +134,21 @@ def lm_params(params_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE) -> 
     return out
 
 
+def shard_lm_params(params_np, plan, rank: int,
+                    device: "str | torch.device" = DEFAULT_DEVICE) -> dict:
+    """One rank's state dict of a tensor-parallel model: the reference
+    LM's parameters for ``plan.cfg`` (its nested dict, as numpy; the
+    unsharded model of the padded config) as ``lm_params`` gives them,
+    each cut to rank ``rank``'s part by the plan's spec
+    (sharding/specs.py::param_spec_for_path; the rank's place on
+    ``plan.mesh`` is row-major, launch/mesh.py). Load it into
+    ``build_model(plan.cfg, sh=plan.sharder())`` on that rank."""
+    coords = rank_coords(plan, rank)
+    dev = resolve_device(device)
+    return {name: shard_param(name, t, plan, coords).to(dev)
+            for name, t in lm_params(params_np, plan.cfg, "cpu").items()}
+
+
 def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):
     """The reference's decode caches (the nested dict of stacked arrays that
     its prefill or init_caches returns, as numpy) as the port's LMCaches:
@@ -154,6 +172,34 @@ def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):
                 for k, v in node.items()}
 
     return LMCaches(conv(caches_np))
+
+
+def shard_lm_caches(caches_np, plan, rank: int, batch: int,
+                    device: "str | torch.device" = DEFAULT_DEVICE) -> LMCaches:
+    """One rank's part of the reference's decode caches for ``plan.cfg``
+    (as ``lm_caches`` takes them) for a batch of ``batch``: each tensor cut
+    by the plan's cache spec (sharding/specs.py::cache_spec_for_path: the
+    rank's KV and SSM heads, and its batch rows where the batch divides
+    over "data"), as that rank's model keeps them."""
+    full = lm_caches(caches_np, plan.cfg, "cpu")
+    coords = rank_coords(plan, rank)
+    dev = resolve_device(device)
+
+    def cut(node, prefix=""):
+        out = {}
+        for name, t in node.items():
+            path = prefix + name
+            if isinstance(t, dict):
+                out[name] = cut(t, path + "/")
+                continue
+            spec = cache_spec_for_path(path, t.ndim, plan, batch)
+            out[name] = t[shard_slices(spec, t.shape, plan.mesh.shape,
+                                       coords)].contiguous().to(dev)
+        return out
+
+    rows = shard_slices((batch_axis(plan, batch),), (batch,), plan.mesh.shape,
+                        coords)[0]
+    return LMCaches(cut(full.tree), None if rows == slice(0, batch) else rows)
 
 
 def lm_flat_params(params_np, model,

@@ -11,6 +11,11 @@ until EOS or max_tokens, and release their slot. Every step runs the full
 serves the reduced config, as the reference's serve.py; ``--full`` serves the
 config at its published width (on the card: granite-moe-3b-a800m takes 6.7
 GB of bf16 weights; llama4-scout-17b-a16e's 203 GB fit no one card).
+
+``SlotServer`` also runs over a tensor-parallel model
+(``build_model(plan.cfg, sh=plan.sharder())`` on every rank of a mesh,
+sharding/specs.py): every rank runs the same steps and reads the same
+whole logits; under a split batch each data rank's caches hold its slots.
 """
 from __future__ import annotations
 

@@ -51,7 +51,24 @@ in ``decode_step``, as the reference; ``forward`` and ``forward_hidden``
 return the blocks' load-balance aux loss summed in f32, and ``loss`` adds
 0.01 of it. Its caches are the dense family's.
 
-Left for a later slice: the ``Sharder`` (tensor parallelism).
+Tensor parallelism (sharding/specs.py, launch/mesh.py): ``build_model(
+plan.cfg, sh=plan.sharder())`` on every rank of a mesh, the reference's
+path (``make_plan(cfg, mesh)`` -> ``plan.sharder()`` -> ``build_model``).
+A rank draws each full parameter from the common generator on its device
+and keeps its shard by the plan's spec, so a W-rank model is the W = 1
+model, split. The blocks run their layers' tensor-parallel forms
+(models/layers.py; the ``moe`` family's ``moe_sharded``, as the
+reference's decoder picks it under a mesh); the embedding is
+vocab-parallel (a token outside the rank's rows gives a zero row, then one
+sum over "model"; frontend ``embeds`` are replicated); the head is
+column-parallel, its logits all-gathered over the vocabulary, so every rank
+returns the whole [B, V] logits and ``SlotServer``'s argmax is the same on
+every rank. Where the batch divides over "data", each data rank computes
+its rows (its caches hold them: ``LMCaches.rows``) and the logits are
+gathered over "data"; the MoE aux loss is averaged over it. Training
+under a plan (``loss``, ``forward_hidden``, ``functional_loss``, and so
+``core/lm.py::make_lm_problem``) refuses: it is ROADMAP item 9a's
+remainder.
 """
 from __future__ import annotations
 
@@ -66,6 +83,7 @@ from torch.func import functional_call
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as Lyr
+from repro_torch.sharding.specs import REMAINDER, shard_param
 
 SERVED_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 #: sequence positions a chunk of the loss's unembed + cross entropy takes
@@ -73,61 +91,82 @@ SERVED_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 XENT_CHUNK = 512
 
 
+def _within(keep, prefix: str):
+    """``keep`` (path, tensor) for the parameters of a sub-module."""
+    return lambda name, t: keep(prefix + name, t)
+
+
 class DenseBlock(nn.Module):
-    def __init__(self, gen, cfg, dtype, device):
+    """``keep(name, tensor)``: what the block keeps of each parameter as it
+    is drawn (the decoder's ``_part``: a rank's shard under a mesh)."""
+
+    def __init__(self, gen, cfg, dtype, device, sh: Lyr.Sharder = Lyr.NO_SHARDER,
+                 keep=Lyr._whole):
         super().__init__()
+        self.sh = sh
         d = cfg.d_model
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
                                       requires_grad=False)
-        self.attn = Lyr.attn_init(gen, cfg, dtype, device)
+        self.attn = Lyr.attn_init(gen, cfg, dtype, device, _within(keep, "attn."))
         self.mlp_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
                                      requires_grad=False)
-        self.mlp = Lyr.mlp_init(gen, d, cfg.d_ff, dtype, device)
+        self.mlp = Lyr.mlp_init(gen, d, cfg.d_ff, dtype, device, _within(keep, "mlp."))
 
     def forward(self, h, cfg, positions, window, cache=None, train=False):
         """Returns (h, (k, v)): this block's k/v for prefill's caches."""
         a, k, v = Lyr.attention(self.attn, Lyr.rms_norm(h, self.attn_norm), cfg,
-                                positions, cache=cache, window=window, train=train)
+                                positions, cache=cache, window=window, train=train,
+                                sh=self.sh)
         h = h + a
-        h = h + Lyr.mlp(self.mlp, Lyr.rms_norm(h, self.mlp_norm))
+        h = h + Lyr.mlp(self.mlp, Lyr.rms_norm(h, self.mlp_norm), self.sh)
         return h, (k, v)
 
 
 class MoEBlock(nn.Module):
-    def __init__(self, gen, cfg, dtype, device):
+    def __init__(self, gen, cfg, dtype, device, sh: Lyr.Sharder = Lyr.NO_SHARDER,
+                 keep=Lyr._whole):
         super().__init__()
+        self.sh = sh
         d = cfg.d_model
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
                                       requires_grad=False)
-        self.attn = Lyr.attn_init(gen, cfg, dtype, device)
+        self.attn = Lyr.attn_init(gen, cfg, dtype, device, _within(keep, "attn."))
         self.mlp_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
                                      requires_grad=False)
-        self.moe = Lyr.moe_init(gen, cfg, dtype, device)
+        self.moe = Lyr.moe_init(gen, cfg, dtype, device, _within(keep, "moe."))
 
     def forward(self, h, cfg, positions, window, cache=None, train=False):
         """Returns (h, (k, v), aux). Decode (``cache`` given) routes
         dropless: capacity dispatch is non-causal across the batch, so drops
-        would make decode part from teacher forcing (decoder.py:56-68)."""
+        would make decode part from teacher forcing (decoder.py:56-68).
+        Under a mesh the expert-parallel ``moe_sharded`` (decoder.py:65)."""
         a, k, v = Lyr.attention(self.attn, Lyr.rms_norm(h, self.attn_norm), cfg,
-                                positions, cache=cache, window=window, train=train)
+                                positions, cache=cache, window=window, train=train,
+                                sh=self.sh)
         h = h + a
-        y, aux = Lyr.moe(self.moe, Lyr.rms_norm(h, self.mlp_norm), cfg,
-                         dropless=cache is not None)
+        hn = Lyr.rms_norm(h, self.mlp_norm)
+        if self.sh.mesh is not None:
+            y, aux = Lyr.moe_sharded(self.moe, hn, cfg, self.sh,
+                                     dropless=cache is not None)
+        else:
+            y, aux = Lyr.moe(self.moe, hn, cfg, dropless=cache is not None)
         return h + y, (k, v), aux
 
 
 class SSMBlock(nn.Module):
-    def __init__(self, gen, cfg, dtype, device):
+    def __init__(self, gen, cfg, dtype, device, sh: Lyr.Sharder = Lyr.NO_SHARDER,
+                 keep=Lyr._whole):
         super().__init__()
+        self.sh = sh
         self.norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
                                  requires_grad=False)
-        self.mixer = Lyr.mamba_init(gen, cfg, dtype, device)
+        self.mixer = Lyr.mamba_init(gen, cfg, dtype, device, _within(keep, "mixer."))
 
     def forward(self, h, cfg, positions=None, window=0, cache=None, train=False):
         """Returns (h, {"conv", "ssm"}); ``cache`` is this layer's state
         (decode), updated in place. Positions and window are not read."""
         y, new_state = Lyr.mamba_forward(self.mixer, Lyr.rms_norm(h, self.norm), cfg,
-                                         state=cache, train=train)
+                                         state=cache, train=train, sh=self.sh)
         return h + y, new_state
 
 
@@ -141,8 +180,11 @@ class LMCaches:
     ``tree`` is a KV group (dense), an SSM group (ssm), or for the hybrid
     {"mamba": SSM group, "shared_kv": KV group[, "tail": SSM group]}."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, rows: slice | None = None):
         self.tree = tree
+        #: the batch rows these caches hold, of the global batch (a data
+        #: rank's block under a mesh; None: every row)
+        self.rows = rows
 
     def group(self, key: str | None) -> dict:
         """The stacked group ``key`` ("mamba", "shared_kv", "tail"), or the
@@ -158,7 +200,12 @@ class LMCaches:
         """Empty batch slot s of every layer: k, v (and an int8 cache's
         k_scale and v_scale), conv and ssm to 0, pos to -1 (the reference's
         SlotServer._reset_slot). The ring index is
-        shared by all slots and stays."""
+        shared by all slots and stays. A slot outside ``rows`` is another
+        data rank's."""
+        if self.rows is not None:
+            if not self.rows.start <= s < self.rows.stop:
+                return
+            s -= self.rows.start
         for g in self.groups():
             for name, t in g.items():
                 if name == "pos":
@@ -167,42 +214,63 @@ class LMCaches:
                     t[:, s] = 0
 
 
+def _refuse_training(model: "Decoder") -> None:
+    if model.sh.mesh is not None:
+        raise NotImplementedError(f"training a model under a sharding plan is "
+                                  f"{REMAINDER}; the port serves it")
+
+
 class Decoder(nn.Module):
-    def __init__(self, cfg: ArchConfig, device, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, device, gen: torch.Generator,
+                 sh: Lyr.Sharder = Lyr.NO_SHARDER):
         super().__init__()
         cfg.validate()
         if cfg.family not in SERVED_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} belongs to a later "
                                       f"slice; the port serves {SERVED_FAMILIES}")
         self.cfg = cfg
+        self.sh = sh
         self.dtype = getattr(torch, cfg.dtype)
         #: sqrt(d) in f32, rounded to the model dtype (decoder.py:175); a
         #: Python float, so embedding a step copies nothing to the card
         self.embed_scale = float(torch.tensor(math.sqrt(cfg.d_model)).to(self.dtype))
         dtype, V, d, L = self.dtype, cfg.eff_vocab, cfg.d_model, cfg.num_layers
-        self.embed = nn.Parameter(Lyr.dense_init(gen, (V, d), d, dtype, device),
-                                  requires_grad=False)
+        # each parameter is drawn whole from ``gen`` and, under a mesh,
+        # cut to the rank's shard before the next is drawn
+        self.embed = nn.Parameter(
+            self._part("embed", Lyr.dense_init(gen, (V, d), d, dtype, device)),
+            requires_grad=False)
         self.final_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
                                        requires_grad=False)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(Lyr.dense_init(gen, (d, V), d, dtype, device),
-                                        requires_grad=False)
+            self.lm_head = nn.Parameter(
+                self._part("lm_head", Lyr.dense_init(gen, (d, V), d, dtype, device)),
+                requires_grad=False)
+
+        def stack(name, block, n):
+            return nn.ModuleList(
+                block(gen, cfg, dtype, device, sh, _within(self._part, f"{name}.{i}."))
+                for i in range(n))
+
         fam = cfg.family
         if fam == "ssm":
-            self.blocks = nn.ModuleList(SSMBlock(gen, cfg, dtype, device)
-                                        for _ in range(L))
+            self.blocks = stack("blocks", SSMBlock, L)
         elif fam == "hybrid":
             n_groups, group, trailing = cfg.hybrid_counts
-            self.mamba_groups = nn.ModuleList(SSMBlock(gen, cfg, dtype, device)
-                                              for _ in range(n_groups * group))
+            self.mamba_groups = stack("mamba_groups", SSMBlock, n_groups * group)
             if trailing:
-                self.mamba_tail = nn.ModuleList(SSMBlock(gen, cfg, dtype, device)
-                                                for _ in range(trailing))
-            self.shared = DenseBlock(gen, cfg, dtype, device)   # weight-tied
+                self.mamba_tail = stack("mamba_tail", SSMBlock, trailing)
+            self.shared = DenseBlock(gen, cfg, dtype, device, sh,
+                                     _within(self._part, "shared."))   # weight-tied
         else:
-            block = MoEBlock if fam == "moe" else DenseBlock
-            self.blocks = nn.ModuleList(block(gen, cfg, dtype, device)
-                                        for _ in range(L))
+            self.blocks = stack("blocks", MoEBlock if fam == "moe" else DenseBlock, L)
+
+    def _part(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the parameter ``path`` (its state-dict name)
+        by the plan's spec; ``t`` itself without a mesh."""
+        if self.sh.mesh is None:
+            return t
+        return shard_param(path, t, self.sh, self.sh.mesh.coords)
 
     @property
     def device(self) -> torch.device:
@@ -212,8 +280,17 @@ class Decoder(nn.Module):
     def embed_tokens(self, tokens, embeds=None):
         """The tokens' scaled embeddings [B, S, d]; ``embeds`` [B, P, d]
         (P <= S), cast to the model dtype, replace positions [0, P)
-        (decoder.py:174-181)."""
-        h = self.embed[tokens.long()] * self.embed_scale
+        (decoder.py:174-181). Under a mesh the rank holds its vocabulary
+        rows: a token outside them gives a zero row, and one sum over
+        "model" makes each row whole."""
+        if self.sh.mesh is None:
+            h = self.embed[tokens.long()] * self.embed_scale
+        else:
+            vs = self.sh.local(self.cfg.eff_vocab, "vocab")
+            local = tokens.long() - vs.start
+            inside = (local >= 0) & (local < vs.stop - vs.start)
+            h = self.embed[torch.where(inside, local, 0)] * self.embed_scale
+            h = self.sh.sum(torch.where(inside[..., None], h, 0), "vocab")
         if embeds is None:
             return h
         P = embeds.shape[1]
@@ -223,9 +300,28 @@ class Decoder(nn.Module):
         return torch.cat([embeds.to(h.dtype), h[:, P:]], dim=1)
 
     def unembed(self, h):
+        """The logits [..., V]; under a mesh the rank's vocabulary columns,
+        all-gathered over "model"."""
         h = Lyr.rms_norm(h, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return h @ head
+        if self.sh.mesh is None:
+            return h @ head
+        return self.sh.gather(h @ head, dim=-1)
+
+    def _whole_batch(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """A data rank's rows of a result, gathered over "data" into the
+        whole batch (as they are when this rank holds every row)."""
+        if self.sh.batch_rows(batch) == slice(0, batch):
+            return x
+        return self.sh.gather(x, dim=0, axis="data")
+
+    def _data_mean(self, aux: torch.Tensor, batch: int) -> torch.Tensor:
+        """The aux loss averaged over "data" where the batch is split
+        (the reference's pmean over the batch axes)."""
+        if self.sh.batch_rows(batch) == slice(0, batch):
+            return aux
+        D = self.sh.mesh.shape["data"]
+        return self.sh.sum(aux.reshape(1).clone(), "batch", axis="data")[0] / D
 
     def unembed_last(self, h):
         """Logits of the last position only: prefill never builds [B, S, V]."""
@@ -251,15 +347,18 @@ class Decoder(nn.Module):
     def forward(self, tokens, embeds=None):
         """tokens [B, S] -> (logits [B, S, V], aux: the MoE blocks'
         load-balance loss, f32; 0 for the other families)."""
-        h, aux = self._run(tokens, embeds, None)
-        return self.unembed(h), aux
+        B = tokens.shape[0]
+        rows = self.sh.batch_rows(B)
+        h, aux = self._run(tokens[rows], None if embeds is None else embeds[rows], None)
+        return self._whole_batch(self.unembed(h), B), self._data_mean(aux, B)
 
     def forward_hidden(self, tokens, embeds=None):
         """The training forward: tokens [B, S] -> (h [B, S, d] before the
         final norm, aux as ``forward``'s), through the reference's jnp
         attention and SSD paths (no kernel launch). For the hybrid family:
         each group of Mamba-2 layers, then the shared block, then the
-        trailing layers."""
+        trailing layers. Refused under a mesh."""
+        _refuse_training(self)
         return self._run(tokens, embeds, None, train=True)
 
     def _run(self, tokens, embeds, caches: LMCaches | None, train: bool = False):
@@ -294,7 +393,8 @@ class Decoder(nn.Module):
         loss_mask [B, S] (optional; position s weighs the prediction of
         token s), embeds [B, P, d] (vlm/audio; their P positions carry no
         loss). The mean over the mask's weight, at least 1; plus 0.01 of the
-        MoE blocks' aux loss when the config has experts."""
+        MoE blocks' aux loss when the config has experts. Refused under a
+        mesh."""
         h, aux = self.forward_hidden(tokens, embeds)
         h = Lyr.rms_norm(h, self.final_norm)[:, :-1]
         tgt = tokens[:, 1:]
@@ -346,19 +446,30 @@ class Decoder(nn.Module):
         return self._caches(batch, cache_len, self.cfg.kv_quant)
 
     def _caches(self, batch: int, cache_len: int, quant: bool) -> LMCaches:
-        cfg, dtype, dev = self.cfg, self.dtype, self.device
+        """Empty caches of a ``batch`` of the global batch: under a mesh the
+        rank's rows, KV heads and SSM heads (the plan's cache specs)."""
+        cfg, dtype, dev, sh = self.cfg, self.dtype, self.device, self.sh
+        rows = self.sh.batch_rows(batch)
+        b = rows.stop - rows.start
+        rows = None if b == batch else rows
+        kv = cfg.eff_kv_heads // sh.shards("kv_heads") if cfg.num_heads else None
+        nh = (cfg.ssm_heads // sh.shards("ssm_inner")
+              if cfg.family in ("ssm", "hybrid") else None)
+
+        def ssm(n):
+            return Lyr.init_ssm_state(cfg, n, b, dtype, dev, heads=nh)
+
+        def kvc(n):
+            return Lyr.init_kv_cache(cfg, n, b, cache_len, dtype, dev, quant, kv_heads=kv)
         if cfg.family == "ssm":
-            return LMCaches(Lyr.init_ssm_state(cfg, cfg.num_layers, batch, dtype, dev))
+            return LMCaches(ssm(cfg.num_layers), rows)
         if cfg.family == "hybrid":
             n_groups, group, trailing = cfg.hybrid_counts
-            tree = {"mamba": Lyr.init_ssm_state(cfg, n_groups * group, batch, dtype, dev),
-                    "shared_kv": Lyr.init_kv_cache(cfg, n_groups, batch, cache_len,
-                                                   dtype, dev, quant)}
+            tree = {"mamba": ssm(n_groups * group), "shared_kv": kvc(n_groups)}
             if trailing:
-                tree["tail"] = Lyr.init_ssm_state(cfg, trailing, batch, dtype, dev)
-            return LMCaches(tree)
-        return LMCaches(Lyr.init_kv_cache(cfg, cfg.num_layers, batch, cache_len,
-                                          dtype, dev, quant))
+                tree["tail"] = ssm(trailing)
+            return LMCaches(tree, rows)
+        return LMCaches(kvc(cfg.num_layers), rows)
 
     # --------------------------- prefill ------------------------------
     def prefill(self, tokens, embeds=None, cache_len: int | None = None):
@@ -371,18 +482,22 @@ class Decoder(nn.Module):
         if C < S:
             raise ValueError(f"cache_len {C} is shorter than the prompt ({S})")
         caches = self._caches(B, C, quant=False)
-        h, _ = self._run(tokens, embeds, caches)
-        return self.unembed_last(h), caches
+        rows = self.sh.batch_rows(B)
+        h, _ = self._run(tokens[rows], None if embeds is None else embeds[rows], caches)
+        return self._whole_batch(self.unembed_last(h), B), caches
 
     # --------------------------- decode -------------------------------
     def decode_step(self, caches: LMCaches, tokens, pos):
         """tokens: [B, 1] int; pos: [B, 1] int absolute positions. Updates
         ``caches`` in place; returns (logits [B, V], caches)."""
         cfg, window = self.cfg, self.cfg.sliding_window
+        B = tokens.shape[0]
+        rows = self.sh.batch_rows(B)
+        tokens, pos = tokens[rows], pos[rows]
         h = self.embed_tokens(tokens)
         for block, key, l in self.schedule():
             h = block(h, cfg, pos, window, cache=_layer(caches.group(key), l))[0]
-        return self.unembed(h)[:, -1], caches
+        return self._whole_batch(self.unembed(h)[:, -1], B), caches
 
 
 class _Loss(nn.Module):
@@ -402,7 +517,9 @@ def functional_loss(model: Decoder) -> Callable[[dict, dict], torch.Tensor]:
     replaced by ``params`` (name → tensor, the names of
     ``model.named_parameters()``), on ``batch`` {"tokens", "loss_mask"
     (optional), "embeds" (optional)}. The model's own tensors are not
-    read; ``torch.func.grad`` differentiates it in ``params``."""
+    read; ``torch.func.grad`` differentiates it in ``params``. Refused
+    under a mesh."""
+    _refuse_training(model)
     wrapper = _Loss(model)
 
     def loss(params: dict, batch: dict) -> torch.Tensor:
@@ -414,11 +531,13 @@ def functional_loss(model: Decoder) -> Callable[[dict, dict], torch.Tensor]:
 
 
 def build_model(cfg: ArchConfig, device: "str | torch.device" = DEFAULT_DEVICE,
-                generator: torch.Generator | None = None, seed: int = 0) -> Decoder:
+                generator: torch.Generator | None = None, seed: int = 0,
+                sh: Lyr.Sharder | None = None) -> Decoder:
     """The decoder for ``cfg`` with parameters drawn from ``generator`` (by
     default a generator on ``device`` seeded with ``seed``). Raises without
-    a card unless ``device="cpu"``."""
+    a card unless ``device="cpu"``. ``sh``: a plan's Sharder (pass
+    ``plan.cfg`` as ``cfg``); the rank keeps its shard of each parameter."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(seed)
     with torch.no_grad():
-        return Decoder(cfg, dev, gen)
+        return Decoder(cfg, dev, gen, sh or Lyr.NO_SHARDER)

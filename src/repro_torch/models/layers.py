@@ -45,18 +45,141 @@ codes and an f32 scale per (slot, head) (``quantize_kv``); decode branches
 on the cache's contents (``"k_scale" in cache``), as the reference, so a
 prefill's model-dtype cache decodes unquantized.
 
-Left for a later slice: the expert-parallel ``moe_sharded``.
+Tensor parallelism (``Sharder``; sharding/specs.py's plan): every layer
+function takes ``sh``, a no-op without a mesh, as in the reference. Under a
+mesh a rank holds its shard of the plan's parameters (the shapes it reads
+are those of its tensors) and computes its query and KV heads, its d_ff
+columns, its experts (``moe_sharded``), its ``ssm_inner`` channels and
+heads, and each layer ends in one sum over "model" (``Sharder.sum``, an
+all-reduce in the activation's dtype, as the reference's psum). The
+reference's GSPMD constraints keep every layer the unsharded function;
+here that takes: the Mamba-2 gated norm's sum of squares over the whole
+``d_inner`` (one [B, S, 1] f32 sum), the replicated conv state (the
+rank's new conv rows gathered over "model"), and in the ``gather`` GQA
+mode, where a rank's query heads read KV heads outside its KV slots, the
+KV heads gathered over "model" before the head map.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd import ssd_chunk
+
+
+# ---------------------------------------------------------------------------
+# sharding helper
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Sharder:
+    """The reference's Sharder: a no-op without a mesh. With one
+    (launch/mesh.py::Mesh), ``axes`` maps each logical axis ("heads",
+    "kv_heads", "d_ff", "experts", "vocab", "ssm_inner", "batch", ...) to a
+    mesh axis or None, and the Sharder gives this rank's slice of a logical
+    axis (``local``), the sum of a partial result over "model" (``sum``: an
+    in-place all-reduce in the tensor's dtype) and the concatenation of the
+    ranks' parts (``gather``: an all-gather). Neither reads the host nor
+    uses float atomics. ``counts`` tallies the collectives by kind: calls
+    and the bytes each rank puts in."""
+
+    mesh: Any = None
+    axes: dict | None = None
+    regime: str = "replica"
+    multi_pod: bool = False
+    counts: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    def _mesh_axes(self, logical: str) -> tuple:
+        if self.mesh is None:
+            return ()
+        entry = (self.axes or {}).get(logical)
+        return () if entry is None else (entry,) if isinstance(entry, str) else entry
+
+    def shards(self, logical: str) -> int:
+        """The number of ranks a logical axis is split over (1 without a
+        mesh, or where the plan replicates it)."""
+        return math.prod(self.mesh.shape.get(a, 1) for a in self._mesh_axes(logical))
+
+    def index(self, logical: str) -> int:
+        """This rank's part of a logical axis (row-major over its mesh axes)."""
+        idx = 0
+        for a in self._mesh_axes(logical):
+            idx = idx * self.mesh.shape.get(a, 1) + self.mesh.coords.get(a, 0)
+        return idx
+
+    def local(self, n: int, logical: str) -> slice:
+        """This rank's slice of a logical axis of size ``n``."""
+        parts, i = self.shards(logical), self.index(logical)
+        if n % parts:
+            raise ValueError(f"{logical} of size {n} does not split over {parts} ranks")
+        return slice(i * n // parts, (i + 1) * n // parts)
+
+    def _tally(self, kind: str, t: torch.Tensor) -> None:
+        c = self.counts.setdefault(kind, {"calls": 0, "bytes": 0})
+        c["calls"] += 1
+        c["bytes"] += t.numel() * t.element_size()
+
+    def sum(self, x: torch.Tensor, logical: str = "heads",
+            axis: str = "model") -> torch.Tensor:
+        """x summed over the ranks of ``axis`` (in place), where the plan
+        splits ``logical`` (the axis whose split made x partial); x as it
+        is otherwise."""
+        if not self._mesh_axes(logical):
+            return x
+        self._tally("all_reduce", x)
+        with record_function(f"tp.all_reduce.{axis}"):
+            dist.all_reduce(x, group=self.mesh.group(axis))
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
+        """The ranks' parts of x concatenated along ``dim``, in rank order."""
+        n = self.mesh.shape[axis]
+        self._tally("all_gather", x)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        with record_function(f"tp.all_gather.{axis}"):
+            dist.all_gather(parts, x, group=self.mesh.group(axis))
+        return torch.cat(parts, dim=dim)
+
+    def batch_rows(self, batch: int) -> slice:
+        """This rank's rows of a batch of ``batch``: its block over "data"
+        where the batch divides over it (the reference's ``batch_axis``),
+        every row otherwise."""
+        data = 1 if self.mesh is None else self.mesh.shape.get("data", 1)
+        if data == 1 or batch % data:
+            return slice(0, batch)
+        i = self.mesh.coords["data"]
+        return slice(i * batch // data, (i + 1) * batch // data)
+
+
+#: the Sharder of a model without a mesh
+NO_SHARDER = Sharder()
+
+
+def default_axes(multi_pod: bool = False) -> dict:
+    batch = ("pod", "data") if multi_pod else "data"
+    return {
+        "batch": batch,
+        "seq": None,
+        "heads": "model",
+        "kv_heads": "model",     # overridden to None when kv % shards != 0
+        "d_model": None,
+        "d_ff": "model",
+        "experts": "model",      # overridden to None when E % shards != 0
+        "expert_ff": None,       # flipped to "model" when experts replicated
+        "vocab": "model",
+        "ssm_inner": "model",
+        "ssm_state": None,
+    }
 
 
 class Params(nn.Module):
@@ -107,7 +230,11 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
     ``gen``, then cast to ``dtype`` on ``device``."""
     scale = 1.0 / math.sqrt(in_axis_size)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * scale).to(device=device, dtype=dtype)
+    return w.mul_(scale).to(device=device, dtype=dtype)
+
+
+def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -128,25 +255,78 @@ def gqa_mode(cfg) -> str:
     return "grouped"
 
 
-def kv_map(cfg, device) -> torch.Tensor:
-    """The ``gather`` mode's [H] KV head of each query head, from the true
-    counts (layers.py:294-297): (i·KVt)//Ht for a true head i < Ht, i % KV
-    for a padded one (its output dies on its zero ``wo`` rows). Computed on
-    the device, so that no step copies a host list there."""
-    i = torch.arange(cfg.eff_heads, device=device)
+def _kv_of_head(cfg, i: int) -> int:
+    """The ``gather`` mode's KV head of query head i (layers.py:294-297)."""
+    if i < cfg.num_heads:
+        return (i * cfg.num_kv_heads) // cfg.num_heads
+    return i % cfg.eff_kv_heads
+
+
+def kv_map(cfg, device, heads: range | None = None) -> torch.Tensor:
+    """The ``gather`` mode's KV head of each query head in ``heads`` (all
+    H by default), from the true counts (layers.py:294-297): (i·KVt)//Ht
+    for a true head i < Ht, i % KV for a padded one (its output dies on its
+    zero ``wo`` rows). Computed on the device, so that no step copies a
+    host list there."""
+    heads = range(cfg.eff_heads) if heads is None else heads
+    i = torch.arange(heads.start, heads.stop, device=device)
     Ht, KVt = cfg.num_heads, cfg.num_kv_heads
     return torch.where(i < Ht, (i * KVt) // Ht, i % cfg.eff_kv_heads)
 
 
-def _gather_kv(cfg, k: torch.Tensor) -> torch.Tensor:
-    """k [B, S, KV, hd] as [B, S, H, hd] in the ``gather`` mode; as it is in
-    the ``grouped`` one."""
+def kv_read(cfg, sh: Sharder = NO_SHARDER) -> tuple[str, range, int]:
+    """How this rank's query heads read the KV heads it holds: (how, its
+    query heads, the first KV head it holds). ``how`` is "as_is" (the
+    ``grouped`` map: local query head j reads held slot j // G, so the
+    flash kernel's GQA reads them as they are; a plan splits the KV heads
+    with the query heads, or holds the one KV head of MQA whole), "local"
+    (the ``gather`` map's heads all lie in the held slots: index those) or
+    "gathered" (they do not: all-gather the KV heads over "model", then
+    index by the global map). The all-gather is a collective: where any
+    rank of the group reads outside its slots, every rank gathers. Decided
+    from the config alone, with no device read."""
+    hs = sh.local(cfg.eff_heads, "heads")
+    ks = sh.local(cfg.eff_kv_heads, "kv_heads")
+    heads = range(hs.start, hs.stop)
     if gqa_mode(cfg) == "grouped":
+        return "as_is", heads, ks.start
+    if not kv_outside(cfg, sh.shards("heads"), sh.shards("kv_heads")):
+        return "local", heads, ks.start
+    return "gathered", heads, 0
+
+
+def kv_outside(cfg, head_shards: int, kv_shards: int) -> list[int]:
+    """The ranks whose query heads' KV heads (the ``gather`` map) lie
+    outside the KV slots they hold, for heads split over ``head_shards``
+    ranks and KV heads over ``kv_shards`` (1: replicated)."""
+    H, KV = cfg.eff_heads, cfg.eff_kv_heads
+    out = []
+    for r in range(head_shards):
+        k0, k1 = ((r * KV // kv_shards, (r + 1) * KV // kv_shards)
+                  if kv_shards > 1 else (0, KV))
+        if not all(k0 <= _kv_of_head(cfg, i) < k1
+                   for i in range(r * H // head_shards, (r + 1) * H // head_shards)):
+            out.append(r)
+    return out
+
+
+def _gather_kv(cfg, k: torch.Tensor, sh: Sharder = NO_SHARDER) -> torch.Tensor:
+    """k [B, S, KV_held, hd] as this rank's query heads read it: as it is
+    (``as_is``: the flash kernel's GQA map), else one KV head per query
+    head [B, S, H_held, hd], after an all-gather of the KV heads over
+    "model" where they lie outside the held slots."""
+    how, heads, kv0 = kv_read(cfg, sh)
+    if how == "as_is":
         return k
-    return k.index_select(2, kv_map(cfg, k.device))
+    if how == "gathered":
+        k = sh.gather(k, dim=2)
+    return k.index_select(2, kv_map(cfg, k.device, heads) - kv0)
 
 
-def attn_init(gen, cfg, dtype, device) -> Params:
+def attn_init(gen, cfg, dtype, device, keep=_whole) -> Params:
+    """``keep(name, tensor)``: what the caller keeps of each parameter as
+    it is drawn (under a mesh a rank's shard: the decoder's ``_part``), so
+    that one full tensor at a time is held."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KV = cfg.eff_heads, cfg.eff_kv_heads
@@ -159,16 +339,18 @@ def attn_init(gen, cfg, dtype, device) -> Params:
             return w.repeat_interleave(KV // KV_true, dim=1).reshape(d, KV * hd)
         return dense_init(gen, (d, KV * hd), d, dtype, device)
 
-    p = {"wq": dense_init(gen, (d, H * hd), d, dtype, device),
-         "wk": kv_proj(), "wv": kv_proj(),
-         "wo": dense_init(gen, (H * hd, d), H * hd, dtype, device)}
+    p = {"wq": keep("wq", dense_init(gen, (d, H * hd), d, dtype, device))}
+    p["wk"] = keep("wk", kv_proj())
+    p["wv"] = keep("wv", kv_proj())
+    wo = dense_init(gen, (H * hd, d), H * hd, dtype, device)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
     if cfg.eff_heads != cfg.num_heads:
         # zero the padded heads' output rows: padded heads are no-ops
         mask = (torch.arange(H * hd, device=device) < cfg.num_heads * hd).to(dtype)
-        p["wo"] = p["wo"] * mask[:, None]
+        wo = wo * mask[:, None]
+    p["wo"] = keep("wo", wo)
     return Params(p)
 
 
@@ -234,7 +416,8 @@ def _attention_train(q, k, v, positions, window: int, dtype):
 
 
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
-              cache: dict | None = None, window: int = 0, train: bool = False):
+              cache: dict | None = None, window: int = 0, train: bool = False,
+              sh: Sharder = NO_SHARDER):
     """x: [B, S, d]. Returns (out [B, S, d], k, v): this call's k (after
     rope) and v, [B, S, KV, hd], which prefill writes into its caches.
 
@@ -248,10 +431,16 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     "k_scale" and "v_scale" [B, C, KV, 1] is the int8 one: the step is
     written as codes and scales, and read back dequantized to x's dtype.
     In the ``gather`` mode the KV heads are gathered to H (``_gather_kv``)
-    after the cache, which keeps KV heads."""
+    after the cache, which keeps KV heads.
+
+    Under a mesh (``sh``) the rank holds its query heads' columns of
+    ``wq`` and rows of ``wo`` and its KV heads' columns of ``wk``/``wv``
+    (all of them where the plan replicates KV heads: MQA); H and KV are
+    the held counts, its k/v and cache hold its KV heads, and the output
+    is summed over "model"."""
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
-    H, KV = cfg.eff_heads, cfg.eff_kv_heads
+    H, KV = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, KV, hd)
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
@@ -262,12 +451,12 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        k_use, v_use = _gather_kv(cfg, k), _gather_kv(cfg, v)
+        k_use, v_use = _gather_kv(cfg, k, sh), _gather_kv(cfg, v, sh)
         if train:
             out = _attention_train(q, k_use, v_use, positions, window, x.dtype)
-            return out @ p["wo"], k, v
+            return sh.sum(out @ p["wo"]), k, v
         out = flash_attention(q, k_use, v_use, causal=True, window=window)
-        return out.reshape(B, S, H * hd) @ p["wo"], k, v
+        return sh.sum(out.reshape(B, S, H * hd) @ p["wo"]), k, v
 
     if S != 1:
         raise ValueError(f"attention with a cache decodes one token; got S={S}")
@@ -288,7 +477,8 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         cache["k"].index_copy_(1, slot, k)
         cache["v"].index_copy_(1, slot, v)
         k_all, v_all = cache["k"], cache["v"]
-    k_all, v_all, k_pos = _gather_kv(cfg, k_all), _gather_kv(cfg, v_all), cache["pos"]
+    k_all, v_all = _gather_kv(cfg, k_all, sh), _gather_kv(cfg, v_all, sh)
+    k_pos = cache["pos"]
 
     scale = _attn_scale(hd)
     mask = _attn_scores_mask(positions, k_pos, window)             # [B, Sq, Sk]
@@ -301,7 +491,7 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     logits = torch.where(mask[:, None, None], logits * scale, -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_all).reshape(B, S, H * hd)
-    return out @ p["wo"], k, v
+    return sh.sum(out @ p["wo"]), k, v
 
 
 #: the int8 KV cache's scale is max|x| · fl(1/127): the jitted reference
@@ -323,11 +513,12 @@ def quantize_kv(x: torch.Tensor):
 
 
 def init_kv_cache(cfg, layers: int, batch: int, cache_len: int, dtype,
-                  device, quant: bool = False) -> dict:
+                  device, quant: bool = False, kv_heads: int | None = None) -> dict:
     """KV ring buffers of ``layers`` layers, stacked on a leading axis;
     with ``quant`` the int8 cache: int8 "k", "v" and f32 "k_scale",
-    "v_scale" [layers, B, C, KV, 1] (layers.py:320-330)."""
-    KV, hd = cfg.eff_kv_heads, cfg.resolved_head_dim
+    "v_scale" [layers, B, C, KV, 1] (layers.py:320-330). ``kv_heads``: the
+    KV heads a rank holds (all by default)."""
+    KV, hd = kv_heads or cfg.eff_kv_heads, cfg.resolved_head_dim
     kv_dtype = torch.int8 if quant else dtype
     out = {
         "k": torch.zeros((layers, batch, cache_len, KV, hd), dtype=kv_dtype, device=device),
@@ -346,28 +537,31 @@ def init_kv_cache(cfg, layers: int, batch: int, cache_len: int, dtype,
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, d: int, f: int, dtype, device) -> Params:
-    return Params({"wi_gate": dense_init(gen, (d, f), d, dtype, device),
-                   "wi_up": dense_init(gen, (d, f), d, dtype, device),
-                   "wo": dense_init(gen, (f, d), f, dtype, device)})
+def mlp_init(gen, d: int, f: int, dtype, device, keep=_whole) -> Params:
+    return Params({"wi_gate": keep("wi_gate", dense_init(gen, (d, f), d, dtype, device)),
+                   "wi_up": keep("wi_up", dense_init(gen, (d, f), d, dtype, device)),
+                   "wo": keep("wo", dense_init(gen, (f, d), f, dtype, device))})
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+def mlp(p: Params, x: torch.Tensor, sh: Sharder = NO_SHARDER) -> torch.Tensor:
+    """SwiGLU; under a mesh ``wi_gate``/``wi_up`` hold the rank's d_ff
+    columns and ``wo`` its rows, and the output is summed over "model"."""
+    return sh.sum((F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"], "d_ff")
 
 
 # ---------------------------------------------------------------------------
 # MoE (capacity-based dispatch; the reference's ``moe``)
 # ---------------------------------------------------------------------------
 
-def moe_init(gen, cfg, dtype, device) -> Params:
+def moe_init(gen, cfg, dtype, device, keep=_whole) -> Params:
     """The router [d, E] in f32 whatever ``dtype``; the experts' SwiGLU
     weights [E, d, f], [E, d, f], [E, f, d] in ``dtype`` (layers.py:460)."""
     d, E, f = cfg.d_model, cfg.eff_experts, cfg.moe_d_ff
-    return Params({"router": dense_init(gen, (d, E), d, torch.float32, device),
-                   "wi_gate": dense_init(gen, (E, d, f), d, dtype, device),
-                   "wi_up": dense_init(gen, (E, d, f), d, dtype, device),
-                   "wo": dense_init(gen, (E, f, d), f, dtype, device)})
+    return Params({
+        "router": keep("router", dense_init(gen, (d, E), d, torch.float32, device)),
+        "wi_gate": keep("wi_gate", dense_init(gen, (E, d, f), d, dtype, device)),
+        "wi_up": keep("wi_up", dense_init(gen, (E, d, f), d, dtype, device)),
+        "wo": keep("wo", dense_init(gen, (E, f, d), f, dtype, device))})
 
 
 def moe_top_k(probs: torch.Tensor, k: int):
@@ -444,31 +638,76 @@ def moe(p: Params, x: torch.Tensor, cfg, dropless: bool = False):
     return y.reshape(B, S, d), aux
 
 
+def moe_sharded(p: Params, x: torch.Tensor, cfg, sh: Sharder,
+                dropless: bool = False):
+    """Expert-parallel MoE (layers.py:372-457): x [B, S, d] (the rank's
+    batch rows, replicated over "model") -> (out [B, S, d], aux).
+
+    The router is replicated: every rank routes all T tokens (``moe_route``),
+    so the cumsum positions and the capacity are those of the whole T, as
+    the unsharded ``moe``'s. The rank holds experts [e0, e0 + E/W) (its
+    slices of ``wi_gate``, ``wi_up``, ``wo``), dispatches only the
+    assignments to them (the others, and dropped ones, go to a dump row and
+    column that are cut off), runs their products, and adds its weighted
+    outputs; one sum over "model" is the layer's collective. With W = 1 it
+    is ``moe``'s arithmetic, step for step. ``aux`` is every rank's (the
+    decoder averages it over "data" when the batch is split)."""
+    B, S, d = x.shape
+    E, k = cfg.eff_experts, cfg.experts_per_token
+    E_loc = p["wi_gate"].shape[0]
+    if sh.shards("experts") * E_loc != E:
+        raise NotImplementedError(
+            f"moe_sharded holds whole experts: {E} experts over "
+            f"{sh.shards('experts')} ranks with {E_loc} each (the plan pads "
+            "the experts to the model axis)")
+    e0 = sh.index("experts") * E_loc
+    T = B * S
+    xt = x.reshape(T, d)
+    gate_w, _, aux, flat_e, pos, keep, C = moe_route(p, xt, cfg, dropless)
+
+    local_e = flat_e - e0
+    keep = keep & (local_e >= 0) & (local_e < E_loc)
+    tok_id = torch.arange(T * k, device=x.device) // k
+    ids = torch.full((E_loc + 1, C + 1), T, dtype=torch.int64, device=x.device).index_put(
+        (torch.where(keep, local_e, E_loc), torch.where(keep, pos, C)), tok_id)[:E_loc, :C]
+    xt_pad = torch.cat([xt, xt.new_zeros(1, d)])
+    buf = xt_pad[ids]                                               # [E_loc, C, d]
+
+    h = F.silu(torch.bmm(buf, p["wi_gate"])) * torch.bmm(buf, p["wi_up"])
+    yb = torch.bmm(h, p["wo"])                                      # [E_loc, C, d]
+
+    y_tok = torch.where(keep[:, None], yb[torch.where(keep, local_e, 0),
+                                          torch.where(keep, pos, C - 1)], 0)
+    w_flat = gate_w.reshape(-1, 1).to(x.dtype)
+    y = (y_tok * w_flat).reshape(T, k, d).sum(1)
+    return sh.sum(y, "experts").reshape(B, S, d), aux
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 (SSD) mixer
 # ---------------------------------------------------------------------------
 
-def mamba_init(gen, cfg, dtype, device) -> Params:
+def mamba_init(gen, cfg, dtype, device, keep=_whole) -> Params:
     """Projections kept separate, as in the reference (wx, wz, wB, wC, wdt;
     the conv split into its x and B/C channels)."""
     d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh, W = cfg.ssm_heads, cfg.ssm_conv_width
     f32 = torch.float32
     return Params({
-        "wx": dense_init(gen, (d, di), d, dtype, device),
-        "wz": dense_init(gen, (d, di), d, dtype, device),
-        "wB": dense_init(gen, (d, st), d, dtype, device),
-        "wC": dense_init(gen, (d, st), d, dtype, device),
-        "wdt": dense_init(gen, (d, nh), d, dtype, device),
-        "conv_x_w": dense_init(gen, (W, di), W, dtype, device),
+        "wx": keep("wx", dense_init(gen, (d, di), d, dtype, device)),
+        "wz": keep("wz", dense_init(gen, (d, di), d, dtype, device)),
+        "wB": keep("wB", dense_init(gen, (d, st), d, dtype, device)),
+        "wC": keep("wC", dense_init(gen, (d, st), d, dtype, device)),
+        "wdt": keep("wdt", dense_init(gen, (d, nh), d, dtype, device)),
+        "conv_x_w": keep("conv_x_w", dense_init(gen, (W, di), W, dtype, device)),
         "conv_x_b": torch.zeros(di, dtype=dtype, device=device),
-        "conv_bc_w": dense_init(gen, (W, 2 * st), W, dtype, device),
+        "conv_bc_w": keep("conv_bc_w", dense_init(gen, (W, 2 * st), W, dtype, device)),
         "conv_bc_b": torch.zeros(2 * st, dtype=dtype, device=device),
         "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=device)),
         "D": torch.ones(nh, dtype=f32, device=device),
         "dt_bias": torch.zeros(nh, dtype=f32, device=device),
         "norm": torch.ones(di, dtype=dtype, device=device),
-        "out_proj": dense_init(gen, (di, d), di, dtype, device),
+        "out_proj": keep("out_proj", dense_init(gen, (di, d), di, dtype, device)),
     })
 
 
@@ -535,44 +774,69 @@ def _ssd_chunked_scan(xh, dt, A, Bm, Cm, chunk: int, train: bool = False):
 
 
 def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
-                  train: bool = False):
+                  train: bool = False, sh: Sharder = NO_SHARDER):
     """Mamba2 block. Prefill/forward when ``state`` is None (chunked SSD;
     with ``train`` its intra-chunk step in plain torch, ``_ssd_intra_chunk``);
     a single-token recurrent step when it is one layer's view
     {"conv": [B, W-1, conv_dim], "ssm": [B, nh, hd, st]}, which is updated
-    in place. Returns (out [B, S, d], new state {"conv", "ssm"})."""
+    in place. Returns (out [B, S, d], new state {"conv", "ssm"}).
+
+    Under a mesh that splits ``ssm_inner`` (layers.py:628-689 with
+    ``ssm_inner`` on "model"), the rank holds its channels of ``wx``,
+    ``wz``, ``conv_x_w`` and ``out_proj`` and runs its heads (nh/W of them,
+    whole heads); ``wB``, ``wC``, ``wdt``, the conv bias, ``A_log``, ``D``,
+    ``dt_bias`` and the norm are replicated and read at its channels or
+    heads. The gated norm's mean square over the whole ``d_inner`` is one
+    f32 sum over "model"; the conv state (replicated, as the reference's
+    cache spec) takes every rank's new x rows by one all-gather; the ssm
+    state holds the rank's heads; the output is summed over "model"."""
     B, S, d = x.shape
     di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     dtype = x.dtype
+    di_loc = p["wx"].shape[1]
+    split = di_loc != di
+    if split and nh % sh.shards("ssm_inner"):
+        raise NotImplementedError(
+            f"{nh} SSM heads do not split over {sh.shards('ssm_inner')} ranks: "
+            "the port splits ssm_inner by whole heads")
+    ch, hs = sh.local(di, "ssm_inner"), sh.local(nh, "ssm_inner")
+    nh_loc = di_loc // hd
     xz = x @ p["wx"]
     z = x @ p["wz"]
     Bm = x @ p["wB"]
     Cm = x @ p["wC"]
     dt_raw = x @ p["wdt"]
 
-    conv_in = torch.cat([xz, Bm, Cm], dim=-1)             # [B, S, di + 2st]
+    conv_in = torch.cat([xz, Bm, Cm], dim=-1)             # [B, S, di_loc + 2st]
     W = cfg.ssm_conv_width
     if state is None:
         pad = torch.zeros((B, W - 1, conv_in.shape[-1]), dtype=dtype, device=x.device)
         cseq = torch.cat([pad, conv_in], dim=1)
     else:
-        cseq = torch.cat([state["conv"], conv_in], dim=1)
+        prev = state["conv"]
+        if split:
+            prev = torch.cat([prev[..., ch], prev[..., di:]], dim=-1)
+        cseq = torch.cat([prev, conv_in], dim=1)
     new_conv_state = cseq[:, S:]                          # the last W-1 rows
+    if split:
+        # the replicated conv state: every rank's x channels, then B and C
+        new_conv_state = torch.cat([sh.gather(new_conv_state[..., :di_loc], dim=-1),
+                                    new_conv_state[..., di_loc:]], dim=-1)
     # depthwise causal conv: the reference's einsum over the W taps
     # ("bswc,wc->bsc") accumulates in f32 and rounds once to the model
     # dtype, then adds the bias in the model dtype
     wfull = torch.cat([p["conv_x_w"], p["conv_bc_w"]], dim=-1).float()
-    bfull = torch.cat([p["conv_x_b"], p["conv_bc_b"]], dim=-1)
+    bfull = torch.cat([p["conv_x_b"][ch], p["conv_bc_b"]], dim=-1)
     acc = cseq[:, 0:S].float() * wfull[0]
     for w in range(1, W):
         acc = acc + cseq[:, w:w + S].float() * wfull[w]
     conv_out = F.silu(acc.to(dtype) + bfull)
-    xc, Bc, Cc = torch.split(conv_out, [di, st, st], dim=-1)
+    xc, Bc, Cc = torch.split(conv_out, [di_loc, st, st], dim=-1)
 
     # dt in f32; x, B and C cast to f32 before the scan (layers.py:662-665)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])        # [B, S, nh]
-    A = -torch.exp(p["A_log"])                            # [nh], < 0
-    xh = xc.reshape(B, S, nh, hd).float()
+    dt = F.softplus(dt_raw[..., hs].float() + p["dt_bias"][hs])    # [B, S, nh_loc]
+    A = -torch.exp(p["A_log"][hs])                        # [nh_loc], < 0
+    xh = xc.reshape(B, S, nh_loc, hd).float()
     Bc32, Cc32 = Bc.float(), Cc.float()
 
     if state is None:
@@ -589,19 +853,29 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
         state["ssm"].copy_(final_state)
 
     # y + D x in f32, then the model dtype before the gate (layers.py:684-686)
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(B, S, di).to(dtype)
+    y = y + xh * p["D"][hs][None, None, :, None]
+    y = y.reshape(B, S, di_loc).to(dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, p["norm"])
-    return y @ p["out_proj"], {"conv": new_conv_state, "ssm": final_state}
+    if split:
+        # the norm's mean square over the whole d_inner: one f32 sum
+        y32 = y.float()
+        ss = sh.sum((y32 * y32).sum(-1, keepdim=True), "ssm_inner")
+        y = (y32 * torch.rsqrt(ss / di + 1e-6) * p["norm"][ch].float()).to(dtype)
+    else:
+        y = rms_norm(y, p["norm"])
+    return sh.sum(y @ p["out_proj"], "ssm_inner"), {"conv": new_conv_state,
+                                                    "ssm": final_state}
 
 
-def init_ssm_state(cfg, layers: int, batch: int, dtype, device) -> dict:
-    """Conv and SSM states of ``layers`` layers, stacked on a leading axis."""
+def init_ssm_state(cfg, layers: int, batch: int, dtype, device,
+                   heads: int | None = None) -> dict:
+    """Conv and SSM states of ``layers`` layers, stacked on a leading axis;
+    ``heads``: the SSM heads a rank holds (all by default; the conv state
+    is whole on every rank)."""
     conv_dim = cfg.d_inner + 2 * cfg.ssm_state
     return {
         "conv": torch.zeros((layers, batch, cfg.ssm_conv_width - 1, conv_dim),
                             dtype=dtype, device=device),
-        "ssm": torch.zeros((layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+        "ssm": torch.zeros((layers, batch, heads or cfg.ssm_heads, cfg.ssm_head_dim,
                             cfg.ssm_state), dtype=torch.float32, device=device),
     }

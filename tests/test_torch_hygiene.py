@@ -82,6 +82,13 @@ def test_scans_cover_the_sharded_runtime():
     assert PORT / "core" / "sharded.py" in PORT_FILES
 
 
+def test_scans_cover_the_tensor_parallel_modules():
+    """The sharding plan and the mesh are in the import and source scans."""
+    assert {"repro_torch.sharding", "repro_torch.sharding.specs",
+            "repro_torch.launch.mesh"} <= set(MODULES)
+    assert {PORT / "sharding" / "specs.py", PORT / "launch" / "mesh.py"} <= set(PORT_FILES)
+
+
 def test_sources_name_no_jax_and_no_reference_package():
     assert (ROOT / "chip_smoke.py") in PORT_FILES
     for p in PORT_FILES:
