@@ -378,6 +378,36 @@ port beside it. Every phase raises on failure; none is caught.
    groups of five Mamba-2 layers and the shared block) over a gloo world
    of 2, as (b) in bf16 with 10 ``ssd`` and 2 ``flash_attention`` a prefill.
    A rank that fails fails the phase.
+6g. Training under a sharding plan (launch/steps.py's train step and AA
+   step of a plan; the fsdp regime over "data"; launch/dryrun.py): (a)
+   granite-moe-3b-a800m at full width with 1 of 32 layers, f32, its
+   vocabulary padded for 2 model ranks, in an NCCL world of one (mesh (1,
+   1)): 4 train steps of 2 x 512 tokens and the AA step (m = 3) bit for bit
+   the unsharded port's, the AA step launching ``gram`` and ``aa_step``
+   once each; (b) the same model on a (2, 2) mesh of 4 gloo child
+   processes on the card (``--plan-child``; replica regime, one row a data
+   rank): per rank the train step's loss within rel 1e-5 and its r shards
+   within 1e-4 in norm of (a)'s unsharded steps on each row alone (the MoE
+   layer routes each data rank's tokens), and the AA step on (a)'s
+   trajectory cut to the rank (its counted prefix through the Gram kernel,
+   one all-reduce of the Gram matrix, Yᵀg and ‖g‖², the AA-step kernel
+   given that ‖g‖²) within 1e-5 of (a)'s w+ and 1e-6 of its theta, one
+   launch of each kernel a rank; (c) internvl2-76b at full width with 1 of
+   80 layers, bf16, 1024 patch embeddings in 2 x 2048 positions, the fsdp
+   regime on that mesh: the loss and each rank's r shards within 2^-6 of
+   an unsharded twin's (built, stepped and freed first), the bytes each
+   rank all-gathers and reduce-scatters over "data" beside the specs'
+   count; rows 2 and 3 at (b)'s rank shape (the Gram pass over a counted
+   prefix; the AA step with a given ‖g‖² and without) against their plain
+   versions, timed beside their bounds; (d) ``dryrun_one`` of granite
+   train_4k on the fake world of 256 (a subprocess): argument bytes
+   1,040,324,608, the reference's committed row's; ``--fl-round
+   fedosaa_svrg`` (2 rounds, float64) over 2 gloo children on the card with
+   CUDA tensors (``--dryrun-fl-child``) within 1e-6 (loss) and 1e-5 (rel
+   error) of the reference's rerun in float64 with float64 helpers
+   (scripts/reference_dryrun_fl_f64.py; the float32 run is roundoff-bound,
+   ROADMAP.md section 3), its 640 bytes equal. (d)'s processes run beside
+   (a)-(c).
 7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
    Every row carries ``launch_floor_ms``. The rows of ``update``,
    ``quantize`` and ``dequantize`` report what computes them on the main
@@ -393,7 +423,9 @@ port beside it. Every phase raises on failure; none is caught.
    engine runs and its snapshot run (launches per slot replayed), and the
    LM runs of phases 6b and 6d; ``flash_attention``'s also phase 6c's
    and 6e's prefills, decode steps and slot servers, and phase 6f's
-   prefills and decode steps (each rank's);
+   prefills and decode steps (each rank's); ``gram``'s and ``update``'s
+   phase 6g's AA steps ((a)'s and each rank's of (b)) and ``plan_rank``
+   (their readings at (b)'s rank shape);
    ``trajectory``'s row carries
    ``plan`` (the resident plan at the main path's shape in f64), ``cohort``
    (its checks at phase 4d's two cohort shapes),
@@ -6017,6 +6049,648 @@ def tensor_parallel(device, served_moe: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6g: training under a sharding plan (launch/steps.py's train step and
+# AA step of a plan, the fsdp regime over "data") and the plan tooling
+# (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+#: (a), (b): granite-moe-3b-a800m at full width with PLAN_LAYERS of its 32
+#: layers, f32, PLAN_BATCH documents of PLAN_SEQ tokens, PLAN_HISTORY + 1
+#: train steps at PLAN_ETA, then the AA step (m = PLAN_HISTORY); (b) on a
+#: (2, 2) mesh of PLAN_WORLD gloo ranks on the card (replica regime, one
+#: row a data rank). (c): internvl2-76b at full width with PLAN_VLM_LAYERS
+#: of its 80 layers, bf16, its 1024 patch embeddings in PLAN_VLM_SEQ
+#: positions, the fsdp regime on the same (2, 2) mesh
+PLAN_LAYERS, PLAN_BATCH, PLAN_SEQ, PLAN_ETA, PLAN_HISTORY = 1, 2, 512, 0.05, 3
+PLAN_WORLD, PLAN_MESH = 4, (2, 2)
+PLAN_VLM_LAYERS, PLAN_VLM_SEQ = 1, 2048
+#: (b)'s gates against (a): the loss, rel; each rank's r shard in norm; the
+#: AA step's w+ over the largest |w+|; theta. (c)'s against its unsharded
+#: bf16 twin: the loss and each rank's r shard in norm
+PLAN_LOSS_RTOL, PLAN_GRAD_RTOL, PLAN_W_TOL, PLAN_THETA_TOL = 1e-5, 1e-4, 1e-5, 1e-6
+PLAN_BF16_RTOL = 2.0 ** -6
+#: a child's deadline (s): start, build, every run
+PLAN_CHILD_TIMEOUT = 300.0
+#: (d): memory.argument_bytes of the reference's committed dry-run row
+#: (benchmarks/results/dryrun/granite-moe-3b-a800m__train_4k__16x16.json)
+DRYRUN_GRANITE_BYTES = 1_040_324_608
+#: the reference's FL-round dry-run of FedOSAA-SVRG, 2 rounds, in float64
+#: with float64 helpers (scripts/reference_dryrun_fl_f64.py). Its float32
+#: run, the committed row, is roundoff-bound (ROADMAP.md section 3) and its
+#: w* there takes all 50 Newton steps (57-78 s of host-bound products on
+#: the card's hosts), so the card runs float64 only
+DRYRUN_FL_WORLD, DRYRUN_FL_ROUNDS, DRYRUN_FL_DTYPE = 2, 2, "float64"
+DRYRUN_FL = dict(loss=[0.6931471805599453, 0.3813096985425632],
+                 rel_error=[0.848635427919707, 0.5358360890821897], comm_bytes=640.0)
+DRYRUN_FL_LOSS_RTOL, DRYRUN_FL_REL_RTOL = 1e-6, 1e-5
+
+
+def plan_config(arch: str, layers: int, dtype: str | None = None):
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def plan_batch(cfg, device, seq: int) -> dict:
+    """PLAN_BATCH documents of ``seq`` tokens (seed 0); a vlm config's
+    patch embeddings (f32 normals, seed 0, in the model dtype)."""
+    from repro_torch.data import make_lm_tokens
+
+    out = {"tokens": torch.from_numpy(make_lm_tokens(PLAN_BATCH, seq, cfg.vocab_size,
+                                                     seed=0)).to(device)}
+    if cfg.frontend_tokens:
+        e = np.random.default_rng(0).standard_normal(
+            (PLAN_BATCH, cfg.frontend_tokens, cfg.d_model), dtype=np.float32)
+        out["embeds"] = torch.from_numpy(e).to(device, getattr(torch, cfg.dtype))
+    return out
+
+
+def flat_of(d: dict, layout) -> torch.Tensor:
+    return torch.cat([d[n].reshape(-1) for n, _ in layout])
+
+
+def train_trajectory(model, batch: dict, layout, steps: int, cut=None) -> dict:
+    """``steps`` train steps (launch/steps.py) from the model's parameters
+    with a zero correction: the points w_0 .. w_{steps-1} and the residuals
+    r_i at w_i, as flat vectors in ``layout`` (each first cut by ``cut``,
+    name -> tensor -> tensor, where given), and the losses."""
+    from repro_torch.launch.steps import make_train_step
+
+    step = make_train_step(model, eta=PLAN_ETA)
+    p = {n: t.detach().clone() for n, t in model.named_parameters()}
+    corr = {n: torch.zeros_like(t) for n, t in p.items()}
+    cut = cut or (lambda n, t: t)
+    ws, rs, losses = [], [], []
+    for _ in range(steps):
+        ws.append(flat_of({n: cut(n, t) for n, t in p.items()}, layout))
+        p, r, loss = step(p, batch, corr)
+        rs.append(flat_of({n: cut(n, t) for n, t in r.items()}, layout))
+        losses.append(loss.detach())
+    return dict(ws=ws, rs=rs, losses=losses)
+
+
+def aa_inputs(traj: dict) -> tuple:
+    """(w, g, S [m, d], Y [m, d]) of a trajectory of m + 1 points: the AA
+    step at its last point."""
+    ws, rs = traj["ws"], traj["rs"]
+    s = torch.stack([ws[i + 1] - ws[i] for i in range(len(ws) - 1)])
+    y = torch.stack([rs[i + 1] - rs[i] for i in range(len(rs) - 1)])
+    return ws[-1], rs[-1], s, y
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def plan_world_of_one(device, tmp: str) -> dict:
+    """Phase 6g (a): an NCCL world of one (mesh (1, 1)), granite at full
+    width with PLAN_LAYERS layer(s), f32, its vocabulary padded as (b)'s
+    plan pads it: the plan's PLAN_HISTORY + 1 train
+    steps (loss, parameters, r) and its AA step bit for bit the unsharded
+    port's, the AA step launching the Gram kernel and the AA-step kernel
+    once each and nothing else on that path. Saves for (b) the AA step's
+    w+ and theta, and the unsharded steps on each data rank's row alone
+    from the initial parameters (their mean loss and r: what the (2, 2)
+    mesh, whose MoE layer routes each data rank's tokens, computes)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.convert import plan_flat_layout
+    from repro_torch.core.lm import param_layout
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_aa_step, make_train_step
+    from repro_torch.models.decoder import build_model
+    from repro_torch.sharding.specs import make_plan
+
+    # the config (b)'s mesh plans (its vocabulary padded for 2 model
+    # ranks), so that both draw the same parameters from the seed
+    cfg = plan_config(MOE_ARCH, PLAN_LAYERS, "float32").padded(PLAN_MESH[1])
+    mesh = make_host_mesh("nccl")
+    try:
+        plan = make_plan(cfg, mesh)
+        if plan.cfg != cfg:
+            raise AssertionError("6g (a): the (1, 1) plan pads the config")
+        plain = build_model(cfg, device=device, seed=0)
+        model = build_model(plan.cfg, device=device, seed=0, sh=plan.sharder())
+        batch = plan_batch(cfg, device, PLAN_SEQ)
+        layout = param_layout(plain)
+        lay, counted = plan_flat_layout(dict(model.named_parameters()), plan, 0)
+        d = sum(s.numel() for _, s in layout)
+        if lay != layout or counted != d:
+            raise AssertionError("6g (a): the plan's flat layout is not the port's")
+        torch.cuda.synchronize(device)
+        model.sh.counts.clear()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        traj = train_trajectory(model, batch, layout, PLAN_HISTORY + 1)
+        train_launches = dict(_build.LAUNCHES)
+        w_p, th_p = make_aa_step(PLAN_ETA, PLAN_HISTORY, plan, counted)(*aa_inputs(traj))
+        torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        counts = {k: dict(v) for k, v in model.sh.counts.items()}
+        want = train_trajectory(plain, batch, layout, PLAN_HISTORY + 1)
+        w_u, th_u = make_aa_step(PLAN_ETA, PLAN_HISTORY)(*aa_inputs(want))
+        same = dict(
+            loss=all(torch.equal(a, b) for a, b in zip(traj["losses"], want["losses"])),
+            params=all(torch.equal(a, b) for a, b in zip(traj["ws"], want["ws"])),
+            r=all(torch.equal(a, b) for a, b in zip(traj["rs"], want["rs"])),
+            aa_w=torch.equal(w_p, w_u), aa_theta=torch.equal(th_p, th_u))
+        checks = dict(w=float(want["ws"][-1].double().sum()),
+                      g=float(want["rs"][-1].double().sum()))
+        losses = [float(v) for v in traj["losses"]]
+        del traj, want, w_p
+        # (b)'s baseline: the unsharded step on each data rank's row alone
+        step = make_train_step(plain, eta=PLAN_ETA)
+        p0 = {n: t.detach().clone() for n, t in plain.named_parameters()}
+        corr = {n: torch.zeros_like(t) for n, t in p0.items()}
+        rows = [step(p0, {k: v[i:i + 1] for k, v in batch.items()}, corr)
+                for i in range(PLAN_BATCH)]
+        r_base = sum(flat_of(r[1], layout) for r in rows) / PLAN_BATCH
+        loss_base = float(sum(float(r[2]) for r in rows) / PLAN_BATCH)
+        torch.save(dict(w_plus=w_u.cpu(), theta=float(th_u), r_base=r_base.cpu(),
+                        layout=layout), os.path.join(tmp, "world_of_one.pt"))
+        del rows, r_base, p0, corr, plain, model, w_u
+    finally:
+        dist.destroy_process_group()
+    free_memory()
+    aa_launches = {k: launches[k] - train_launches.get(k, 0) for k in launches}
+    print(f"  (a) NCCL world of one, mesh (1, 1), {MOE_ARCH} at full width, "
+          f"{PLAN_LAYERS} of 32 layers, f32, d = {d:,}, {PLAN_BATCH}x{PLAN_SEQ} "
+          f"tokens: {PLAN_HISTORY + 1} train steps and the AA step (m = "
+          f"{PLAN_HISTORY}) bit for bit the unsharded port's {same}; losses "
+          f"{[f'{v:.6f}' for v in losses]}, theta {float(th_p):.6f}; launches: "
+          f"train steps {nonzero(train_launches)}, AA step "
+          f"{nonzero(aa_launches)}; collectives {counts}; {secs:.2f} s", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"6g (a): the plan's steps are not the unsharded port's: {same}")
+    if nonzero(aa_launches) != {"gram": 1, "aa_step": 1} or any(train_launches.values()):
+        raise AssertionError(f"6g (a): launches {train_launches} / {aa_launches}")
+    return dict(same=same, losses=losses, theta=float(th_p), d=d, checks=checks,
+                launches=launches, aa_launches=aa_launches, collectives=counts,
+                seconds=secs, loss_base=loss_base)
+
+
+def vlm_twin(device, tmp: str) -> dict:
+    """Phase 6g (c)'s twin: internvl2-76b's padded config for the (2, 2)
+    mesh, unsharded, one train step from the seed (zero correction) on
+    the card; saves each rank's cut of its r (sharding/specs.py, the fsdp
+    plan) and frees it. Also the bytes the specs predict a rank all-gathers
+    and reduce-scatters over "data" in a step: each fsdp-split weight's
+    shard in, and its whole gradient over "data" in."""
+    from repro_torch.core.lm import param_layout
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.decoder import build_model
+    from repro_torch.sharding.specs import (make_plan, param_spec_for_path,
+                                            rank_coords, shard_param)
+
+    cfg = plan_config(VLM_ARCH, PLAN_VLM_LAYERS)
+    D, M = PLAN_MESH
+    plan = make_plan(cfg, Mesh({"data": D, "model": M}, {}, 0))
+    if plan.regime != "fsdp":
+        raise AssertionError(f"6g (c): {VLM_ARCH}'s plan is {plan.regime}")
+    t0 = time.perf_counter()
+    twin = build_model(plan.cfg, device=device, seed=0)
+    batch = plan_batch(plan.cfg, device, PLAN_VLM_SEQ)
+    p = {n: t.detach() for n, t in twin.named_parameters()}
+    corr = {n: torch.zeros_like(t) for n, t in p.items()}
+    torch.cuda.reset_peak_memory_stats(device)
+    new, r, loss = make_train_step(twin, eta=PLAN_ETA)(p, batch, corr)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del new, corr
+    ag = rs = 0
+    for n, t in r.items():
+        spec = param_spec_for_path(n, t.ndim, plan)
+        if "data" in spec:
+            ag += t.numel() * t.element_size() // (D * M if "model" in spec else D)
+            rs += t.numel() * t.element_size() // (M if "model" in spec else 1)
+    for rank in range(D * M):
+        coords = rank_coords(plan, rank)
+        torch.save({n: shard_param(n, t, plan, coords).cpu() for n, t in r.items()},
+                   os.path.join(tmp, f"vlm_r{rank}.pt"))
+    out = dict(loss=float(loss), n_params=sum(t.numel() for _, t in param_layout(twin)),
+               peak_gib=peak, seconds=time.perf_counter() - t0,
+               predict=dict(all_gather=ag, reduce_scatter=rs))
+    del twin, p, r, batch
+    free_memory()
+    print(f"  (c) twin: {VLM_ARCH} padded for {M} model ranks, "
+          f"{describe(plan.cfg, out['n_params'], 80)}, bf16, {PLAN_BATCH}x"
+          f"{PLAN_VLM_SEQ} tokens with {plan.cfg.frontend_tokens} patch embeddings: "
+          f"one train step, loss {out['loss']:.6f}, peak {peak:.1f} GiB, "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def plan_child(argv: list) -> int:
+    """Phase 6g's child: ``--plan-child <dir>``, one rank of a gloo world of
+    PLAN_WORLD on the card: (b) and (c) (``plan_mesh_runs``); writes
+    <dir>/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.core.sharded import init_file_world
+    from repro_torch.kernels import _build
+
+    (d,) = argv
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    init_file_world(backend="gloo", timeout_s=120.0)
+    rank = dist.get_rank()
+    _build.library()
+    out = plan_mesh_runs(d, rank, device)
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)),
+                                                       1e-300))
+
+
+def plan_mesh_runs(d: str, rank: int, device) -> dict:
+    """One rank's side of phase 6g (b) and (c), on the (2, 2) mesh."""
+    from repro_torch.core.convert import plan_flat_layout
+    from repro_torch.core.lm import unflatten
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_aa_step, make_train_step
+    from repro_torch.models.decoder import build_model
+    from repro_torch.sharding.specs import make_plan, rank_coords, shard_param
+
+    D, M = PLAN_MESH
+    mesh = make_mesh(D, M)
+    out = {}
+    # (b) granite, replica regime, one row a data rank
+    a = torch.load(os.path.join(d, "world_of_one.pt"), weights_only=False, mmap=True)
+    cfg = plan_config(MOE_ARCH, PLAN_LAYERS, "float32")
+    plan = make_plan(cfg, mesh)
+    coords = rank_coords(plan, rank)
+    model = build_model(plan.cfg, device=device, seed=0, sh=plan.sharder())
+    sh = model.sh
+    batch = plan_batch(cfg, device, PLAN_SEQ)
+    layout, counted = plan_flat_layout(dict(model.named_parameters()), plan, rank)
+    p0 = {n: t.detach().clone() for n, t in model.named_parameters()}
+    zero = {n: torch.zeros_like(t) for n, t in p0.items()}
+    torch.cuda.synchronize(device)
+    sh.counts.clear()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    _, r, loss = make_train_step(model, eta=PLAN_ETA)(p0, batch, zero)
+    torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    step_counts = {k: dict(v) for k, v in sh.counts.items()}
+    base = unflatten(a["r_base"], a["layout"])
+    grad_rel = max(_rel_norm(r[n], shard_param(n, base[n], plan, coords).to(device))
+                   for n in r)
+    out["b"] = dict(loss=float(loss), grad_rel=grad_rel, step_s=step_s,
+                    step_counts=step_counts, counted=counted,
+                    d=sum(s.numel() for _, s in layout))
+    del r, base, p0, zero
+    # the AA step's inputs: the unsharded port's trajectory, (a)'s, cut to
+    # this rank's layout
+    plain = build_model(plan.cfg, device=device, seed=0)
+    traj = train_trajectory(plain, batch, layout, PLAN_HISTORY + 1,
+                            cut=lambda n, t: shard_param(n, t, plan, coords))
+    del plain
+    free_memory()
+    w, g, s, y = aa_inputs(traj)
+    aa = make_aa_step(PLAN_ETA, PLAN_HISTORY, plan, counted)
+    torch.cuda.synchronize(device)
+    _build.reset_launches()
+    w_new, theta = aa(w, g, s, y)
+    torch.cuda.synchronize(device)
+    aa_launches = dict(_build.LAUNCHES)
+    want = flat_of({n: shard_param(n, t, plan, coords)
+                    for n, t in unflatten(a["w_plus"], a["layout"]).items()}, layout)
+    out["b"].update(
+        w_err=float((w_new.cpu() - want).abs().max()) / float(want.abs().max()),
+        theta=float(theta), theta_err=abs(float(theta) - a["theta"]),
+        aa_launches=aa_launches, aa_counts=dict(aa.counts),
+        losses=[float(v) for v in traj["losses"]])
+    del traj, w, g, s, y, w_new, want, model, a
+    free_memory()
+    # (c) internvl2-76b, the fsdp regime over "data"
+    cfg = plan_config(VLM_ARCH, PLAN_VLM_LAYERS)
+    plan = make_plan(cfg, mesh)
+    model = build_model(plan.cfg, device=device, seed=0, sh=plan.sharder())
+    sh = model.sh
+    batch = plan_batch(plan.cfg, device, PLAN_VLM_SEQ)
+    p0 = {n: t.detach() for n, t in model.named_parameters()}
+    zero = {n: torch.zeros_like(t) for n, t in p0.items()}
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    sh.counts.clear()
+    t0 = time.perf_counter()
+    _, r, loss = make_train_step(model, eta=PLAN_ETA)(p0, batch, zero)
+    torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    want = torch.load(os.path.join(d, f"vlm_r{rank}.pt"), weights_only=False)
+    out["c"] = dict(loss=float(loss), step_s=step_s,
+                    grad_rel=max(_rel_norm(r[n], want[n].to(device)) for n in r),
+                    counts={k: dict(v) for k, v in sh.counts.items()},
+                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                    param_gib=sum(t.numel() * t.element_size()
+                                  for t in p0.values()) / 2**30)
+    del model, p0, zero, r, want
+    free_memory()
+    return out
+
+
+def plan_spawn(tmp: str) -> tuple[list, float]:
+    """The gloo world of PLAN_WORLD children of this script on the card
+    (``--plan-child <dir>``); a rank that fails fails the phase."""
+    from repro_torch.core.sharded import spawn_world
+
+    t0 = time.perf_counter()
+    results = spawn_world([sys.executable, str(ROOT / "chip_smoke.py"), "--plan-child",
+                           tmp], PLAN_WORLD, os.path.join(tmp, "store"),
+                          timeout_s=PLAN_CHILD_TIMEOUT, cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    for r, res in enumerate(results):
+        if res.returncode != 0:
+            raise AssertionError(f"6g rank {r} of {PLAN_WORLD} exited "
+                                 f"{res.returncode}: {res.stdout[-3000:]}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(PLAN_WORLD)], secs
+
+
+def plan_kernels(device, floor: float, d_rank: int, counted: int) -> dict:
+    """Rows 2 and 3 at (b)'s rank shape: the Gram pass over a rank's counted
+    prefix and the AA step (m = PLAN_HISTORY, f32) on its whole shard, with
+    the ‖g‖² the plan step gives and without; each against its plain
+    version, timed beside its bound, the plain version's and (the Gram
+    pass) torch.bmm's time. Random histories (seed 11)."""
+    from repro_torch.core.anderson import AAConfig
+    from repro_torch.kernels.anderson import aa_step, flat_gram
+    from repro_torch.kernels.anderson.ref import aa_step_ref, gram_ref
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    m = PLAN_HISTORY
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device, dtype=torch.float32)
+    s, y = 0.01 * randn(1, m, d_rank), 0.01 * randn(1, m, d_rank)
+    w, g = randn(d_rank), 0.01 * randn(d_rank)
+    yc, gc = y[:, :, :counted].contiguous(), g[:counted]
+    gram, yg = flat_gram(yc, gc)
+    gp, ygp = gram_ref(yc, gc)
+    gn2 = torch.linalg.vector_norm(gc, dtype=torch.float64).square().to(torch.float32).reshape(1)
+    cfg = AAConfig(tikhonov=1e-8)
+    kw = dict(damping=cfg.damping, tikhonov=cfg.tikhonov, filter_rtol=cfg.filter_rtol,
+              clip_rtol=cfg.clip_rtol)
+    out = {}
+    terms = (yc.abs() @ gc.abs().unsqueeze(-1)).squeeze(-1)
+    out["gram"] = dict(
+        shape=f"K=1 m={m} d={counted} float32 (a rank's counted prefix)",
+        abs=max(float((gram - gp).abs().max()), float((yg - ygp).abs().max())),
+        rel=max(rel_diff(gram, gp)[0], rel_diff(yg, ygp, terms)[0]),
+        ms=device_ms(lambda: flat_gram(yc, gc), device),
+        plain_ms=device_ms(lambda: gram_ref(yc, gc), device),
+        library_ms=device_ms(lambda: torch.bmm(yc, yc.transpose(1, 2)), device),
+        bound=bound_ms(nbytes(yc, gc, gram, yg),
+                       {torch.float32: counted * 2 * (m * (m + 1) // 2 + m)}))
+    for label, given in (("given |g|^2", gn2), ("own |g|^2", None)):
+        got = aa_step(w, g, s, y, gram, yg, PLAN_ETA, **kw, g_norm2=given)
+        want = aa_step_ref(w, g, s, y, gram, yg, PLAN_ETA, **kw, g_norm2=given)
+        out[f"aa_step {label}"] = dict(
+            shape=f"K=1 m={m} d={d_rank} float32 (a rank's shard)",
+            abs=float((got[0] - want[0]).abs().max()),
+            theta_equal=torch.equal(got[2], want[2]) if given is not None else None,
+            ms=device_ms(lambda: aa_step(w, g, s, y, gram, yg, PLAN_ETA, **kw,
+                                         g_norm2=given), device),
+            plain_ms=device_ms(lambda: aa_step_ref(w, g, s, y, gram, yg, PLAN_ETA,
+                                                   **kw, g_norm2=given), device,
+                               n=3, repeats=3),
+            library_ms=None,
+            bound=bound_ms(nbytes(s, y, w, g, gram, yg, got[0], got[1]),
+                           {torch.float32: 4.0 * (m + 1) * d_rank}))
+    for k, v in out.items():
+        print(f"  {k:22s} [{v['shape']}]: max abs err vs plain {v['abs']:.3e}"
+              + (f" (rel {v['rel']:.2e})" if "rel" in v else "") + ", "
+              f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}"
+              + (f", torch.bmm {v['library_ms']:.4f}" if v["library_ms"] else "")
+              + f"), bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), launch floor "
+              f"{floor:.4f} ms", flush=True)
+    del s, y, w, g, yc
+    free_memory()
+    return out
+
+
+def dryrun_fl_child(argv: list) -> int:
+    """Phase 6g (d)'s child: ``--dryrun-fl-child <dir>``, one rank of a
+    gloo world of DRYRUN_FL_WORLD on the card: launch/dryrun.py's FL round
+    of FedOSAA-SVRG in DRYRUN_FL_DTYPE on CUDA tensors; writes
+    <dir>/rank<r>.json."""
+    import torch.distributed as dist
+
+    from repro_torch.core.sharded import init_file_world
+    from repro_torch.launch.dryrun import dryrun_fl_round
+
+    (d,) = argv
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    init_file_world(backend="gloo", timeout_s=120.0)
+    out = dryrun_fl_round("fedosaa_svrg", rounds=DRYRUN_FL_ROUNDS, device=device,
+                          dtype=DRYRUN_FL_DTYPE)
+    with open(os.path.join(d, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+class DryrunStart:
+    """Phase 6g (d)'s processes, started at the phase's start and running
+    beside (a)-(c): ``dryrun_one`` in a subprocess (the fake world of 256,
+    meta tensors: no card) and the FL round's gloo world of
+    DRYRUN_FL_WORLD children on the card (host-bound: w* by Newton-CG)."""
+
+    def __init__(self, tmp: str):
+        import threading
+
+        from repro_torch.core.sharded import spawn_world
+
+        self.tmp, self.fl_dir = tmp, os.path.join(tmp, "fl")
+        os.makedirs(self.fl_dir)
+        self.t0 = time.perf_counter()
+        self.meta = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MOE_ARCH,
+             "--shape", "train_4k", "--out-dir", tmp], cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.fl = {}
+
+        def run():
+            self.fl["results"] = spawn_world(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-fl-child",
+                 self.fl_dir], DRYRUN_FL_WORLD, os.path.join(self.fl_dir, "store"),
+                timeout_s=PLAN_CHILD_TIMEOUT, cwd=str(ROOT))
+            self.fl["seconds"] = time.perf_counter() - self.t0
+
+        self.thread = threading.Thread(target=run)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.meta.poll() is None:
+            self.meta.wait(timeout=PLAN_CHILD_TIMEOUT)
+
+    def stop(self):
+        if self.meta.poll() is None:
+            self.meta.kill()
+        self.thread.join()
+
+
+def plan_dryrun(start: DryrunStart) -> dict:
+    """Phase 6g (d): launch/dryrun.py (``DryrunStart``'s runs, joined).
+    ``dryrun_one`` of granite-moe-3b-a800m train_4k on the fake world of
+    256: argument bytes the committed reference row's. ``--fl-round
+    fedosaa_svrg --fl-rounds 2 --fl-dtype float64`` on a gloo world of
+    DRYRUN_FL_WORLD with CUDA tensors: the loss curve within
+    DRYRUN_FL_LOSS_RTOL and the rel-error curve within DRYRUN_FL_REL_RTOL
+    of the reference's (DRYRUN_FL), the bytes equal."""
+    start.join()
+    tmp, fl_dir, meta, results = start.tmp, start.fl_dir, start.meta, start.fl["results"]
+    fl_s = start.fl["seconds"]
+    for r, res in enumerate(results):
+        if res.returncode != 0:
+            raise AssertionError(f"6g (d) FL rank {r} exited {res.returncode}: "
+                                 f"{res.stdout[-3000:]}")
+    fl = [json.load(open(os.path.join(fl_dir, f"rank{r}.json")))
+          for r in range(DRYRUN_FL_WORLD)]
+    text = meta.stdout.read()
+    if meta.returncode != 0:
+        raise AssertionError(f"6g (d) dryrun_one exited {meta.returncode}: {text[-3000:]}")
+    one = json.load(open(os.path.join(tmp, "granite-moe-3b-a800m__train_4k__16x16.json")))
+    print(f"  (d) dryrun_one {MOE_ARCH} train_4k on the fake world of 256 (rank 0 "
+          f"on meta tensors, torch {torch.__version__}'s fake backend, "
+          f"{one['trace_s']} s): argument_bytes "
+          f"{one['memory']['argument_bytes']:,} (the reference's committed row: "
+          f"{DRYRUN_GRANITE_BYTES:,}), output_bytes {one['memory']['output_bytes']:,}, "
+          f"flops {one['flops']:.4e} (FlopCounterMode), collectives "
+          f"{ {k: v for k, v in one['collectives'].items() if k != 'by_axis'} }, "
+          f"AA step {one['aa_step']}", flush=True)
+    bad = []
+    if one["memory"]["argument_bytes"] != DRYRUN_GRANITE_BYTES:
+        bad.append(f"argument_bytes {one['memory']['argument_bytes']}")
+    want = DRYRUN_FL
+    for r, g in enumerate(fl):
+        print(f"  (d) --fl-round fedosaa_svrg rank {r} of {DRYRUN_FL_WORLD} "
+              f"({g['backend']}, {g['device']}, {g['dtype']}; {g['client_shards']} "
+              f"client shards standing for the {g['mesh']} mesh; w* and set-up "
+              f"{g['setup_s']} s, {g['run_s']} s a round): loss curve "
+              f"{g['loss_curve']} (reference {want['loss']}), rel-error curve "
+              f"{g['rel_error_curve']} (reference {want['rel_error']}), bytes "
+              f"{g['comm_bytes']} ({want['comm_bytes']}), Gram cond "
+              f"{g['gram_cond_curve']}", flush=True)
+        if not np.allclose(g["loss_curve"], want["loss"], rtol=DRYRUN_FL_LOSS_RTOL, atol=0):
+            bad.append(f"rank {r} loss {g['loss_curve']}")
+        if not np.allclose(g["rel_error_curve"], want["rel_error"],
+                           rtol=DRYRUN_FL_REL_RTOL, atol=0):
+            bad.append(f"rank {r} rel error {g['rel_error_curve']}")
+        if g["comm_bytes"] != want["comm_bytes"] or g["client_shards"] != DRYRUN_FL_WORLD:
+            bad.append(f"rank {r} bytes {g['comm_bytes']}")
+    print(f"  (d) the FL world took {fl_s:.1f} s from the phase's start", flush=True)
+    if bad:
+        raise AssertionError("6g (d): " + "; ".join(bad))
+    return dict(dryrun_one=one, fl=fl, fl_seconds=fl_s)
+
+
+def plan_training(device, floor: float) -> dict:
+    """Phase 6g: (a) the plan's train and AA steps in an NCCL world of one,
+    bit for bit the unsharded port's; (b) granite on the (2, 2) mesh of
+    PLAN_WORLD gloo ranks on the card against (a); (c) internvl2-76b in
+    the fsdp regime on that mesh against its unsharded twin; rows 2 and 3
+    at (b)'s rank shapes; (d) the dry-run."""
+    import tempfile
+
+    from repro_torch.core.convert import plan_flat_layout
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.decoder import build_model
+    from repro_torch.sharding.specs import make_plan
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="plan_")
+    dryrun = DryrunStart(tmp)
+    try:
+        out = {"a": plan_world_of_one(device, tmp)}
+        out["twin"] = vlm_twin(device, tmp)
+        ranks, secs = plan_spawn(tmp)
+        out["children_seconds"] = secs
+        a, twin = out["a"], out["twin"]
+        bad = []
+        for r, got in enumerate(ranks):
+            b, c = got["b"], got["c"]
+            loss_rel = abs(b["loss"] - a["loss_base"]) / abs(a["loss_base"])
+            print(f"  (b) rank {r} of the (2, 2) mesh (replica, one row a data rank): "
+                  f"d {b['d']:,}, counted {b['counted']:,}; train step loss "
+                  f"{b['loss']:.7f} vs (a)'s rows {a['loss_base']:.7f} (rel "
+                  f"{loss_rel:.2e}), r shards vs (a)'s cut, largest rel in norm "
+                  f"{b['grad_rel']:.2e}; {b['step_s']:.2f} s, collectives "
+                  f"{b['step_counts']}; the AA step on (a)'s trajectory cut to the "
+                  f"rank: w+ vs (a)'s {b['w_err']:.2e}, theta {b['theta']:.7f} (err "
+                  f"{b['theta_err']:.1e}), launches {nonzero(b['aa_launches'])}, "
+                  f"collectives {b['aa_counts']}", flush=True)
+            if not (loss_rel <= PLAN_LOSS_RTOL and b["grad_rel"] <= PLAN_GRAD_RTOL
+                    and b["w_err"] <= PLAN_W_TOL and b["theta_err"] <= PLAN_THETA_TOL):
+                bad.append(f"(b) rank {r}: loss {loss_rel:.2e}, grad {b['grad_rel']:.2e}, "
+                           f"w+ {b['w_err']:.2e}, theta {b['theta_err']:.2e}")
+            if nonzero(b["aa_launches"]) != {"gram": 1, "aa_step": 1}:
+                bad.append(f"(b) rank {r}: AA step launches {b['aa_launches']}")
+            if b["losses"] != a["losses"]:
+                bad.append(f"(b) rank {r}: the unsharded trajectory's losses "
+                           f"{b['losses']} are not (a)'s {a['losses']}")
+            data = {k: v["by_axis"].get("data", {"calls": 0, "bytes": 0})
+                    for k, v in c["counts"].items()}
+            loss_rel = abs(c["loss"] - twin["loss"]) / abs(twin["loss"])
+            print(f"  (c) rank {r} (fsdp, {c['param_gib']:.2f} GiB of weights, peak "
+                  f"{c['peak_gib']:.1f} GiB): loss {c['loss']:.6f} vs the twin's "
+                  f"{twin['loss']:.6f} (rel {loss_rel:.2e}), r shards vs the twin's cut, "
+                  f"largest rel in norm {c['grad_rel']:.2e}; {c['step_s']:.2f} s; over "
+                  f"\"data\": all-gathered {data.get('all_gather', {}).get('bytes', 0):,} B "
+                  f"(the specs predict {twin['predict']['all_gather']:,}), "
+                  f"reduce-scattered {data.get('reduce_scatter', {}).get('bytes', 0):,} B "
+                  f"({twin['predict']['reduce_scatter']:,}); collectives {c['counts']}",
+                  flush=True)
+            if not (loss_rel <= PLAN_BF16_RTOL and c["grad_rel"] <= PLAN_BF16_RTOL):
+                bad.append(f"(c) rank {r}: loss {loss_rel:.2e}, grad {c['grad_rel']:.2e}")
+        if bad:
+            raise AssertionError("6g: " + "; ".join(bad))
+        out["ranks"] = ranks
+        D, M = PLAN_MESH
+        plan = make_plan(plan_config(MOE_ARCH, PLAN_LAYERS, "float32"),
+                         Mesh({"data": D, "model": M}, {}, 0))
+        shards = dict(build_model(plan.cfg, device="meta", sh=plan.sharder())
+                      .named_parameters())
+        layout, counted = plan_flat_layout(shards, plan, 0)
+        out["d"] = plan_dryrun(dryrun)
+        # timed with the card to itself: after (d)'s world is done
+        out["kernels"] = plan_kernels(device, floor, sum(s.numel() for _, s in layout),
+                                      counted)
+    finally:
+        dryrun.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6g took {out['seconds']:.1f} s (the {PLAN_WORLD} children "
+          f"{out['children_seconds']:.1f} s)", flush=True)
+    return out
+
+
+def plan_launches_by_run(plan: dict, name: str) -> dict:
+    """A kernel's launches in each run of phase 6g, for its kernels row:
+    (a)'s AA step and each rank's of (b)."""
+    launched = FUSED_KERNELS.get(name, name)
+    out = {"6g (a) plan train steps + AA step, world of one":
+           plan["a"]["launches"].get(launched, 0)}
+    for r, got in enumerate(plan["ranks"]):
+        out[f"6g (b) rank {r} AA step"] = got["b"]["aa_launches"].get(launched, 0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6027,6 +6701,10 @@ def main() -> int:
         return sharded_child(sys.argv[2:])
     if sys.argv[1:2] == ["--tp-child"]:
         return tp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--plan-child"]:
+        return plan_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--dryrun-fl-child"]:
+        return dryrun_fl_child(sys.argv[2:])
     from repro_torch.core import solve_reference
     from repro_torch.data import make_binary_classification, partition
     from repro_torch.kernels import _build
@@ -6165,6 +6843,12 @@ def main() -> int:
           f"{TP_ZAMBA_LAYERS} of 81 layers, over a gloo world of {TP_ZAMBA_WORLD})",
           flush=True)
     tp = tensor_parallel(device, served_moe)
+    print(f"{clock()} phase 6g: training under a sharding plan ((a) {MOE_ARCH}, "
+          f"{PLAN_LAYERS} of 32 layers, f32, an NCCL world of one; (b) the same on "
+          f"a {PLAN_MESH} mesh of {PLAN_WORLD} gloo ranks on the card; (c) "
+          f"{VLM_ARCH}, {PLAN_VLM_LAYERS} of 80 layers, bf16, the fsdp regime on "
+          f"that mesh; (d) the dry-run)", flush=True)
+    plan = plan_training(device, floor)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -6222,6 +6906,14 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             launch_floor_ms=floor)
+        if name in ("gram", "update"):
+            row["launches_by_run"].update(plan_launches_by_run(plan, name))
+            row["plan_rank"] = {k: dict(
+                shape=v["shape"], max_abs_err=v["abs"], ms=v["ms"],
+                plain_ms=v["plain_ms"], library_ms=v["library_ms"],
+                bound_ms=v["bound"][0], bound_by=v["bound"][1])
+                for k, v in plan["kernels"].items()
+                if k.startswith("gram" if name == "gram" else "aa_step")}
         if name == "trajectory":
             ps = r["per_step"]
             row["anchor_scale_0"] = {f"{design}/{str(dt)[6:]}": dict(
@@ -6310,6 +7002,9 @@ def main() -> int:
     print("training the MoE family " + json.dumps(moe_trained), flush=True)
     print("phase 6e " + json.dumps(features), flush=True)
     print("phase 6f " + json.dumps(tp), flush=True)
+    print("phase 6g " + json.dumps({k: v for k, v in plan.items() if k != "d"}
+                                   | {"d": {"dryrun_one": plan["d"]["dryrun_one"],
+                                            "fl": plan["d"]["fl"]}}), flush=True)
     print("federated training " + json.dumps(
         {k: v for k, v in trained.items() if k not in ("gram", "aa_step")}), flush=True)
     print(card, flush=True)

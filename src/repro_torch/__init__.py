@@ -34,6 +34,7 @@ def resolve_device(device: "str | torch.device" = DEFAULT_DEVICE) -> torch.devic
 
     Raises when a CUDA device is asked for and none is available: the port
     never moves to the CPU on its own (pass ``device="cpu"`` for that).
+    ``"meta"`` holds shapes and dtypes only (launch/dryrun.py).
     ``"cuda"`` names the current card with its index (``cuda:0``), the
     device its tensors report, so that it compares equal to theirs.
     """
@@ -45,6 +46,7 @@ def resolve_device(device: "str | torch.device" = DEFAULT_DEVICE) -> torch.devic
                 "to run the plain PyTorch versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev!s}; use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev!s}; use 'cuda' or 'cpu' (or "
+                         "'meta' for shapes only, as launch/dryrun.py)")
     return dev

@@ -5,7 +5,8 @@ comm buffers, the control variates and the carried AA columns),
 ``StackedClients`` fields, an LM's parameters and decode caches
 (``lm_params``, ``lm_caches``; as the flat [d] vector the federated
 problem trains, ``lm_flat_params``; one rank's shard of a tensor-parallel
-model and of its caches, ``shard_lm_params``, ``shard_lm_caches``) and the MLP's parameters
+model and of its caches, ``shard_lm_params``, ``shard_lm_caches``, and its
+flat layout for the AA step of the plan, ``plan_flat_layout``) and the MLP's parameters
 (``mlp_params``) as numpy arrays
 (``np.asarray`` of the JAX arrays) — this module imports nothing of JAX —
 and returns the port's counterparts on ``device`` with the same dtypes and
@@ -22,6 +23,7 @@ from repro_torch.core.lm import param_layout
 from repro_torch.core.problem import StackedClients
 from repro_torch.models.decoder import LMCaches
 from repro_torch.sharding.specs import (batch_axis, cache_spec_for_path,
+                                        counted, param_spec_for_path,
                                         rank_coords, shard_param, shard_slices)
 
 
@@ -139,7 +141,8 @@ def shard_lm_params(params_np, plan, rank: int,
     """One rank's state dict of a tensor-parallel model: the reference
     LM's parameters for ``plan.cfg`` (its nested dict, as numpy; the
     unsharded model of the padded config) as ``lm_params`` gives them,
-    each cut to rank ``rank``'s part by the plan's spec
+    each cut to rank ``rank``'s part by the plan's spec, in either regime
+    (the fsdp regime's cut over the data axis included)
     (sharding/specs.py::param_spec_for_path; the rank's place on
     ``plan.mesh`` is row-major, launch/mesh.py). Load it into
     ``build_model(plan.cfg, sh=plan.sharder())`` on that rank."""
@@ -147,6 +150,28 @@ def shard_lm_params(params_np, plan, rank: int,
     dev = resolve_device(device)
     return {name: shard_param(name, t, plan, coords).to(dev)
             for name, t in lm_params(params_np, plan.cfg, "cpu").items()}
+
+
+def plan_flat_layout(shards: dict, plan, rank: int) -> tuple[list, int]:
+    """Rank ``rank``'s flat parameter layout for the AA step of a plan
+    (launch/steps.py::make_aa_step): ``shards`` (name → its tensor, or
+    anything with a ``shape``, in ``named_parameters()`` order) reordered so
+    that the leaves this rank counts (sharding/specs.py::counted) come
+    first, each group in its own order. Returns (layout [(name, shape)],
+    counted: the elements of that prefix). Flatten with
+    ``torch.cat([t[name].reshape(-1) for name, _ in layout])``, split back
+    with core/lm.py::unflatten. On a world of one every leaf is counted and
+    the layout is ``param_layout``'s."""
+    coords = rank_coords(plan, rank)
+    first, rest, n = [], [], 0
+    for name, t in shards.items():
+        shape = torch.Size(t.shape)
+        if counted(param_spec_for_path(name, len(shape), plan), coords):
+            first.append((name, shape))
+            n += shape.numel()
+        else:
+            rest.append((name, shape))
+    return first + rest, n
 
 
 def lm_caches(caches_np, cfg, device: "str | torch.device" = DEFAULT_DEVICE):

@@ -86,6 +86,13 @@ def make_lm_problem(model, clients: StackedClients) -> FLProblem:
     parameters, flattened (``generator`` None: the model's own)."""
     cfg = model.cfg
     check_fl_config(cfg)
+    if model.sh.mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: federated training of a model built under a sharding "
+            "plan: the reference's FL round is replicated over the \"model\" "
+            "axis (repro/core/sharded.py: no spec of the round names it), so "
+            "its clients hold whole models. Build the model without a mesh; "
+            "a plan trains through launch/steps.py::make_train_step")
     clients = clients.to(model.device, model.dtype)
     layout = param_layout(model)
     model_loss = functional_loss(model)

@@ -174,6 +174,18 @@ gram_kernel(const T* __restrict__ y, const T* __restrict__ g, long long g_stride
       }
     }
   }
+  if (d == 0) {  // an empty slice of d (a rank that counts no column): zeros
+    for (int o = threadIdx.x; o < P; o += kGramThreads) {
+      int i, j;
+      output_pair(o, n_pairs, i, j);
+      if (j >= 0) {
+        gram[(static_cast<size_t>(k) * m + i) * m + j] = T(0);
+        gram[(static_cast<size_t>(k) * m + j) * m + i] = T(0);
+      } else {
+        yg[static_cast<size_t>(k) * m + i] = T(0);
+      }
+    }
+  }
 }
 
 // columns a tile of Y holds: as many as fit beside g and the P totals
@@ -366,10 +378,11 @@ cudaError_t launch_split(const void* y, const void* g, long long g_stride, void*
 
 // dtype: 0 = float32, 1 = float64. y [K, m, d] contiguous; g is client k's
 // gradient at g + k * g_stride (g_stride 0: one g shared by all clients);
-// gram [K, m, m], yg [K, m]. Returns the cudaError_t of the launch.
+// gram [K, m, m], yg [K, m]; d may be 0 (zeros). Returns the cudaError_t of
+// the launch.
 extern "C" int repro_gram(int dtype, const void* y, const void* g, long long g_stride,
                           void* gram, void* yg, int K, int m, int d, void* stream) {
-  if (K <= 0 || m <= 0 || m > kMaxHistory || d <= 0 || (dtype != 0 && dtype != 1))
+  if (K <= 0 || m <= 0 || m > kMaxHistory || d < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0 ? launch<float>(y, g, g_stride, gram, yg, K, m, d, st)

@@ -167,8 +167,8 @@ aa_step_kernel(const T* __restrict__ w, long long w_stride, const T* __restrict_
                long long g_stride, const T* __restrict__ s, const T* __restrict__ y,
                const T* __restrict__ gram, const T* __restrict__ yg, T* __restrict__ out,
                T* __restrict__ gamma_out, T* __restrict__ stats,
-               long long* __restrict__ counts, int K, int m, int d, T eta, T beta, T tik,
-               T filt, T clip) {
+               long long* __restrict__ counts, const T* __restrict__ gnorm2, int K, int m,
+               int d, T eta, T beta, T tik, T filt, T clip) {
   using O = Ieee<T>;
   const T kTiny = T(1e-30);
   const int n = m + (m & 1), h = n / 2;
@@ -405,8 +405,8 @@ aa_step_kernel(const T* __restrict__ w, long long w_stride, const T* __restrict_
       gnorm = O::sqrt(g2);
     }
   }
-  if (stats_block) {
-    // |g|^2 for theta, in double
+  if (stats_block && gnorm2 == nullptr) {
+    // |g|^2 for theta, in double (unless the caller gives it)
     double acc = 0.0;
     for (int j = tid; j < d; j += kStepThreads) {
       const double v = static_cast<double>(gk[j]);
@@ -419,9 +419,14 @@ aa_step_kernel(const T* __restrict__ w, long long w_stride, const T* __restrict_
 
   // 5. the stats, by block 0 of the client
   if (stats_block && tid == 0) {
-    double acc = 0.0;
-    for (int u = 0; u < kStepWarps; ++u) acc += gsq[u];
-    const T gn2 = static_cast<T>(acc);
+    T gn2;
+    if (gnorm2 != nullptr) {
+      gn2 = gnorm2[k];
+    } else {
+      double acc = 0.0;
+      for (int u = 0; u < kStepWarps; ++u) acc += gsq[u];
+      gn2 = static_cast<T>(acc);
+    }
     const T x = O::sub(T(1), O::div(proj2, gn2 < kTiny ? kTiny : gn2));
     stats[k] = O::sqrt(x < T(0) ? T(0) : (x > T(1) ? T(1) : x));
     stats[K + k] = gnorm;
@@ -463,7 +468,8 @@ template <typename T>
 cudaError_t launch_step(const void* w, long long w_stride, const void* g,
                         long long g_stride, const void* s, const void* y, const void* gram,
                         const void* yg, void* out, void* gamma, void* stats, void* counts,
-                        int K, int m, int d, int blocks, double eta, double beta,
+                        const void* gnorm2, int K, int m, int d, int blocks, double eta,
+                        double beta,
                         double tik, double filt, double clip, cudaStream_t stream) {
   const size_t smem = step_smem_bytes<T>(m);
   cudaError_t e = cudaFuncSetAttribute(aa_step_kernel<T>,
@@ -474,7 +480,8 @@ cudaError_t launch_step(const void* w, long long w_stride, const void* g,
       static_cast<const T*>(w), w_stride, static_cast<const T*>(g), g_stride,
       static_cast<const T*>(s), static_cast<const T*>(y), static_cast<const T*>(gram),
       static_cast<const T*>(yg), static_cast<T*>(out), static_cast<T*>(gamma),
-      static_cast<T*>(stats), static_cast<long long*>(counts), K, m, d,
+      static_cast<T*>(stats), static_cast<long long*>(counts),
+      static_cast<const T*>(gnorm2), K, m, d,
       static_cast<T>(eta), static_cast<T>(beta), static_cast<T>(tik),
       static_cast<T>(filt), static_cast<T>(clip));
   return cudaGetLastError();
@@ -505,13 +512,16 @@ extern "C" int repro_update(int dtype, const void* w, long long w_stride, const 
 // s, y [K, m, d], gram [K, m, m], yg [K, m] contiguous; client k's w and g
 // at w + k * w_stride, g + k * g_stride (stride 0: shared). Writes out
 // [K, d] (w+), gamma [K, m], stats [3, K] (theta, |gamma|, cond) and counts
-// [2, K] int64 (used, clipped). blocks: the blocks a client (grid x; > 1
-// adds a stats block to blocks - 1 update blocks). Returns the cudaError_t
-// of the launch.
+// [2, K] int64 (used, clipped). gnorm2: [K] |g|^2 for theta, or null to
+// sum it over the client's d here (a sharded caller gives the sum over
+// every rank's part). blocks: the blocks a client (grid x; > 1 adds a
+// stats block to blocks - 1 update blocks). Returns the cudaError_t of the
+// launch.
 extern "C" int repro_aa_step(int dtype, const void* w, long long w_stride, const void* g,
                              long long g_stride, const void* s, const void* y,
                              const void* gram, const void* yg, void* out, void* gamma,
-                             void* stats, void* counts, int K, int m, int d, int blocks,
+                             void* stats, void* counts, const void* gnorm2, int K, int m,
+                             int d, int blocks,
                              double eta, double beta, double tikhonov, double filter_rtol,
                              double clip_rtol, void* stream) {
   if (K <= 0 || K > 65535 || m <= 0 || m > kMaxHistory || d <= 0 || blocks <= 0 ||
@@ -520,10 +530,10 @@ extern "C" int repro_aa_step(int dtype, const void* w, long long w_stride, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       dtype == 0 ? launch_step<float>(w, w_stride, g, g_stride, s, y, gram, yg, out, gamma,
-                                      stats, counts, K, m, d, blocks, eta, beta, tikhonov,
-                                      filter_rtol, clip_rtol, st)
+                                      stats, counts, gnorm2, K, m, d, blocks, eta, beta,
+                                      tikhonov, filter_rtol, clip_rtol, st)
                  : launch_step<double>(w, w_stride, g, g_stride, s, y, gram, yg, out, gamma,
-                                       stats, counts, K, m, d, blocks, eta, beta, tikhonov,
-                                       filter_rtol, clip_rtol, st);
+                                       stats, counts, gnorm2, K, m, d, blocks, eta, beta,
+                                       tikhonov, filter_rtol, clip_rtol, st);
   return static_cast<int>(e);
 }

@@ -66,9 +66,9 @@ _SIGNATURES = {
     "repro_update": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I,
                      _D, _D, _P],
     # dtype, w, w_stride, g, g_stride, s, y, gram, yg, out, gamma, stats,
-    # counts, K, m, d, blocks, eta, beta, tikhonov, filter_rtol, clip_rtol,
-    # stream
-    "repro_aa_step": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
+    # counts, gnorm2, K, m, d, blocks, eta, beta, tikhonov, filter_rtol,
+    # clip_rtol, stream
+    "repro_aa_step": [_I, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _D, _D, _D, _D, _D, _P],
     # x_dtype, x, n, u, q, scales, B, nc, C, stream
     "repro_quantize": [_I, _P, _LL, _P, _P, _P, _I, _I, _I, _P],

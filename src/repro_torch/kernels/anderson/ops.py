@@ -9,7 +9,9 @@ the stats and the update) in one launch; the main path runs ``flat_gram``
 then ``aa_step``. ``flat_update`` stands alone.
 
 Dispatch is by the tensors' device only: CPU tensors run the plain version
-(ref.py); CUDA tensors launch csrc/gram.cu / csrc/update.cu or raise. No
+(ref.py); CUDA tensors launch csrc/gram.cu / csrc/update.cu or raise;
+tensors on the meta device (shapes only, launch/dryrun.py) run the plain
+version with no host read. No
 padding: the kernels mask their own edges. The Gram pass has two designs,
 chosen from the shape (``gram_parts``): one block a client, or, for few
 clients of a wide d, each client's d split over the card.
@@ -66,8 +68,8 @@ def flat_gram(y: torch.Tensor, g: torch.Tensor, design: str | None = None):
     """One pass over Y: y [K, m, d], g [K, d] or [d] → (Y Yᵀ [K, m, m],
     Y g [K, m]) in the accumulation type (f64 for f64, else f32).
     ``design`` ("block" or "split") overrides ``gram_parts``' choice on
-    the card."""
-    if y.device.type == "cpu":
+    the card. d may be 0 (zeros)."""
+    if y.device.type in ("cpu", "meta"):
         return gram_ref(y, g)
     return _gram_cuda(y, g, design)
 
@@ -114,7 +116,7 @@ def flat_update(w, g, s, y, gamma, eta: float, beta: float):
 
     w, g: [K, d] or [d]; s, y: [K, m, d]; gamma: [K, m]. Returns [K, d] in
     w.dtype."""
-    if s.device.type == "cpu":
+    if s.device.type in ("cpu", "meta"):
         return update_ref(w, g, s, y, gamma, eta, beta)
     return _update_cuda(w, g, s, y, gamma, eta, beta)
 
@@ -152,29 +154,40 @@ def aa_step_blocks(K: int, d: int, sms: int) -> int:
 
 
 def aa_step(w, g, s, y, gram, yg, eta: float, *, damping: float,
-            tikhonov: float, filter_rtol: float, clip_rtol: float):
+            tikhonov: float, filter_rtol: float, clip_rtol: float,
+            g_norm2: torch.Tensor | None = None):
     """The AA step after the Gram pass (ref.py::aa_step_ref), all clients
     in one launch: w, g [d] (shared) or [K, d]; s, y [K, m, d]; gram
-    [K, m, m] and yg [K, m] from ``flat_gram``. Every tensor has one dtype,
+    [K, m, m] and yg [K, m] from ``flat_gram``; ``g_norm2`` [K], ‖g‖² for
+    θ where the caller has it (a sharded step's sum over every rank's
+    part), else summed by the kernel over g. Every tensor has one dtype,
     f32 or f64. Returns (w⁺ [K, d], Γ [K, m], θ, ‖Γ‖, cond [K], used,
     clipped [K] int64)."""
     K, m, d = s.shape
-    dtypes = {t.dtype for t in (w, g, s, y, gram, yg)}
+    given = () if g_norm2 is None else (g_norm2,)
+    dtypes = {t.dtype for t in (w, g, s, y, gram, yg, *given)}
     if len(dtypes) != 1 or acc_dtype(s.dtype) != s.dtype:
         raise TypeError(f"aa_step: w, g, s, y, gram, yg must share one dtype, "
                         f"float32 or float64; got {sorted(map(str, dtypes))}")
-    if y.shape != (K, m, d) or gram.shape != (K, m, m) or yg.shape != (K, m):
+    if (y.shape != (K, m, d) or gram.shape != (K, m, m) or yg.shape != (K, m)
+            or any(t.shape != (K,) for t in given)):
         raise ValueError(f"aa_step: shapes s {tuple(s.shape)}, y "
                          f"{tuple(y.shape)}, gram {tuple(gram.shape)}, yg "
-                         f"{tuple(yg.shape)}")
+                         f"{tuple(yg.shape)}, g_norm2 "
+                         f"{[tuple(t.shape) for t in given]}")
     w_stride, g_stride = _client_stride(w, K, d), _client_stride(g, K, d)
     kw = dict(damping=damping, tikhonov=tikhonov, filter_rtol=filter_rtol,
-              clip_rtol=clip_rtol)
+              clip_rtol=clip_rtol, g_norm2=g_norm2)
+    if s.device.type == "meta":
+        # no values: the eigen-solve runs all its sweeps instead of
+        # reading on the host whether every client has stopped
+        return aa_step_ref(w, g, s, y, gram, yg, eta, **kw, stop_early=False)
     if s.device.type == "cpu":
         return aa_step_ref(w, g, s, y, gram, yg, eta, **kw)
     if m > MAX_HISTORY:
         raise ValueError(f"aa_step kernel: m={m} > {MAX_HISTORY} history columns")
-    dev = _build.check_cuda("aa_step", w, g, s, y, gram, yg)
+    dev = _build.check_cuda("aa_step", w, g, s, y, gram, yg, *given)
+    gn2 = given[0].contiguous() if given else None
     a = s.dtype
     out = torch.empty((K, d), dtype=a, device=dev)
     gamma = torch.empty((K, m), dtype=a, device=dev)
@@ -187,7 +200,8 @@ def aa_step(w, g, s, y, gram, yg, eta: float, *, damping: float,
                       w.data_ptr(), w_stride, g.data_ptr(), g_stride,
                       s.data_ptr(), y.data_ptr(), gram.data_ptr(), yg.data_ptr(),
                       out.data_ptr(), gamma.data_ptr(), stats.data_ptr(),
-                      counts.data_ptr(), K, m, d, blocks, float(eta),
+                      counts.data_ptr(), None if gn2 is None else gn2.data_ptr(),
+                      K, m, d, blocks, float(eta),
                       float(damping), float(tikhonov), float(filter_rtol),
                       float(clip_rtol))
     return out, gamma, stats[0], stats[1], stats[2], counts[0], counts[1]

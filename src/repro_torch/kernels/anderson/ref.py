@@ -130,7 +130,7 @@ def _jacobi_round(A, V, p, q, active, eps):
     return torch.where(keep, A_new, A), torch.where(keep, V_new, V)
 
 
-def jacobi_eigh_ref(a: torch.Tensor):
+def jacobi_eigh_ref(a: torch.Tensor, stop_early: bool = True):
     """Cyclic Jacobi eigendecomposition of symmetric a [K, m, m] in its own
     dtype, as csrc/update.cu runs it. Returns (evals [K, m] — the diagonal,
     unsorted; evecs [K, m, m], column j for evals[:, j]; sweeps [K]).
@@ -143,7 +143,10 @@ def jacobi_eigh_ref(a: torch.Tensor):
     Stop rule: before each sweep, a client none of whose pairs would
     rotate stops (the off-diagonal of the diagonally scaled matrix is
     below eps, which keeps the small eigenvalues' relative accuracy);
-    at most MAX_SWEEPS sweeps."""
+    at most MAX_SWEEPS sweeps. Leaving the loop once every client has
+    stopped reads the host; ``stop_early=False`` runs all MAX_SWEEPS (the
+    same result: a client that stopped does not rotate), which a tensor
+    with no values (the meta device) needs."""
     K, m, _ = a.shape
     n = m + (m & 1)
     eps = torch.finfo(a.dtype).eps
@@ -159,7 +162,7 @@ def jacobi_eigh_ref(a: torch.Tensor):
         dg = torch.diagonal(A, dim1=1, dim2=2).abs().sqrt()
         sig = _significant(A[:, iu, ju], dg[:, iu], dg[:, ju], eps)
         active = active & sig.any(-1)
-        if not bool(active.any()):
+        if stop_early and not bool(active.any()):
             break
         sweeps += active
         for p, q in rounds:
@@ -196,7 +199,8 @@ def clip_keep_ref(gram: torch.Tensor, clip_rtol: float) -> torch.Tensor:
 
 
 def aa_step_ref(w, g, s, y, gram, yg, eta: float, *, damping: float,
-                tikhonov: float, filter_rtol: float, clip_rtol: float):
+                tikhonov: float, filter_rtol: float, clip_rtol: float,
+                g_norm2: torch.Tensor | None = None, stop_early: bool = True):
     """The AA step after the Gram pass, per client (csrc/update.cu
     ``repro_aa_step``):
 
@@ -212,8 +216,11 @@ def aa_step_ref(w, g, s, y, gram, yg, eta: float, *, damping: float,
     5. w⁺ = w − ηg − β(SᵀΓ − ηYᵀΓ), the kept columns summed in order.
 
     w, g: [d] (shared) or [K, d]; s, y: [K, m, d]; gram [K, m, m] and
-    yg [K, m] from the Gram pass. Returns (w⁺ [K, d] in w.dtype, Γ [K, m],
-    θ, ‖Γ‖, cond [K], used, clipped [K] int64)."""
+    yg [K, m] from the Gram pass; ``g_norm2`` [K]: ‖g‖² for θ, given (a
+    sharded step sums it over every rank's part) or, by default, summed
+    here over g. ``stop_early``: as ``jacobi_eigh_ref``'s. Returns (w⁺
+    [K, d] in w.dtype, Γ [K, m], θ, ‖Γ‖, cond [K], used, clipped [K]
+    int64)."""
     a = acc_dtype(s.dtype)
     K, m, d = s.shape
     dev = s.device
@@ -230,7 +237,8 @@ def aa_step_ref(w, g, s, y, gram, yg, eta: float, *, damping: float,
     A[:, idx, idx] = torch.where(keep, diag + lam[:, None], diag)
     bad = ~torch.isfinite(A).flatten(1).all(-1)
 
-    evals, V, _ = jacobi_eigh_ref(torch.where(bad[:, None, None], 0.0, A))
+    evals, V, _ = jacobi_eigh_ref(torch.where(bad[:, None, None], 0.0, A),
+                                  stop_early)
     ev = torch.where(evals < 0, 0.0, evals)
     emax = ev.max(-1, keepdim=True).values
     keep_e = (ev > emax * filter_rtol) & (
@@ -248,7 +256,7 @@ def aa_step_ref(w, g, s, y, gram, yg, eta: float, *, damping: float,
     gamma_norm = _ordered_sum(gamma * gamma).sqrt()
 
     ga = g.to(a).expand(K, d)
-    gn2 = (ga * ga).sum(-1)
+    gn2 = (ga * ga).sum(-1) if g_norm2 is None else g_norm2.to(a)
     proj2 = _ordered_sum(rhs * gamma)
     x = one - proj2 / torch.where(gn2 < TINY, TINY, gn2)
     theta = torch.where(x < 0, 0.0, torch.where(x > 1, one, x)).sqrt()

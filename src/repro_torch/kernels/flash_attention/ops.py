@@ -1,15 +1,14 @@
 """Flash attention in the model's layout, with GQA (counterpart of
 repro/kernels/flash_attention/ops.py::flash_attention).
 
-Dispatch is by the tensors' device only: CPU tensors run the plain
-version (ref.py); CUDA tensors launch csrc/flash_attention.cu (f32, on the
-CUDA cores) or csrc/flash_attention_tc.cu (bf16, on the tensor cores, head
-dims a multiple of 16) or raise.
-The kernel reads q [B, S, H, hd] and k, v [B, S, KV, hd] as they are: it
-maps query head h to kv head h // (H // KV) itself (the reference
-repeats the kv heads) and masks the ragged end of S itself (the reference
-pads S to the block), so nothing is copied around the launch.
-"""
+Dispatch is by the tensors' device only: CPU tensors, and meta tensors
+(shapes only: launch/dryrun.py), run the plain version (ref.py); CUDA
+tensors launch csrc/flash_attention.cu (f32, on the CUDA cores) or
+csrc/flash_attention_tc.cu (bf16, on the tensor cores, head dims a multiple
+of 16) or raise. The kernel reads q [B, S, H, hd] and k, v [B, S, KV, hd]
+as they are: it maps query head h to kv head h // (H // KV) itself (the
+reference repeats the kv heads) and masks the ragged end of S itself (the
+reference pads S to the block), so nothing is copied around the launch."""
 from __future__ import annotations
 
 import torch
@@ -34,7 +33,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          "[B, S, KV, hd] for k and v with H % KV == 0")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash kernel: head dim {hd} > {MAX_HEAD_DIM}")

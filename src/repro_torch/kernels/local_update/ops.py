@@ -4,9 +4,10 @@ Counterpart of repro/kernels/local_update/ops.py::fused_trajectory, batched
 over clients: one call runs every client's ``steps`` corrected-GD steps, so
 the CUDA kernel is ONE launch per round (grid = K), not one per client.
 
-Dispatch is by the tensors' device only: CPU tensors run the plain version
-(ref.py); CUDA tensors launch csrc/trajectory.cu or raise. There is no row
-or feature padding: the kernel masks its own edges.
+Dispatch is by the tensors' device only: CPU tensors, and meta tensors
+(shapes only: launch/dryrun.py), run the plain version (ref.py); CUDA
+tensors launch csrc/trajectory.cu or raise. There is no row or feature
+padding: the kernel masks its own edges.
 
 The kernel has two designs, and ``plan_trajectory`` picks one from the
 shape alone: *resident* (full batch, S = 1), one thread-block cluster per
@@ -128,7 +129,7 @@ def fused_trajectory(x, y, mask, w0, u, *, link: str, reg: float, eta: float,
     u = u.expand(K, d)
     invn = inverse_count(mask, w0.dtype)
 
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return trajectory_ref(x, y, mask, w0, u, invn, link=link, eta=eta,
                               reg=reg, anchor_scale=anchor_scale, steps=steps)
     return _trajectory_cuda(x, y, mask, w0, u, invn, link=link, eta=eta,

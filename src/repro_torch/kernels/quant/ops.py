@@ -11,11 +11,11 @@ uniforms are an input ([K, nc, C] f32, drawn by the caller over the whole
 padded chunk grid, as the reference draws them), so the kernels and their
 plain versions give the same codes from the same draws.
 
-Dispatch is by the tensors' device only: CPU tensors run the plain version
-(ref.py, after the reference's zero padding to whole chunks); CUDA tensors
-launch csrc/quant.cu or raise. The kernel reads each client's row at its
-true length and masks the ragged chunk itself, so nothing is padded there.
-"""
+Dispatch is by the tensors' device only: CPU tensors, and meta tensors
+(shapes only: launch/dryrun.py), run the plain version (ref.py, after the
+reference's zero padding to whole chunks); CUDA tensors launch
+csrc/quant.cu or raise. The kernel reads each client's row at its true
+length and masks the ragged chunk itself, so nothing is padded there."""
 from __future__ import annotations
 
 import torch
@@ -41,7 +41,7 @@ def quantize(x: torch.Tensor, u: torch.Tensor):
     if x.shape != u.shape:
         raise ValueError(f"quantize: x {tuple(x.shape)} and u "
                          f"{tuple(u.shape)} differ")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return quantize_ref(x, u)
     *lead, nc, C = x.shape
     q, s = _quantize_cuda(x.reshape(-1, nc * C), u, nc * C)
@@ -50,7 +50,7 @@ def quantize(x: torch.Tensor, u: torch.Tensor):
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """q: [..., nc, C] int8; scales: [..., nc, 1] f32 -> f32 [..., nc, C]."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return dequantize_ref(q, scales)
     *_, nc, C = q.shape
     return _dequantize_cuda(q, scales, nc * C, torch.float32).reshape(q.shape)
@@ -64,7 +64,7 @@ def int8_sr_encode(x: torch.Tensor, u: torch.Tensor):
     if u.shape != (K, chunk_rows(n, C), C):
         raise ValueError(f"int8_sr_encode: u {tuple(u.shape)} does not cover "
                          f"x {tuple(x.shape)} in chunks of {C}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         pad = u.shape[1] * C - n
         x2d = torch.nn.functional.pad(x.to(torch.float32), (0, pad))
         return quantize_ref(x2d.reshape(u.shape), u)
@@ -75,7 +75,7 @@ def int8_dequantize(q: torch.Tensor, scales: torch.Tensor, n: int,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Inverse of int8_sr_encode: back to [K, n], in ``dtype`` (the f32
     products, widened exactly for f64)."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return dequantize_ref(q, scales).reshape(q.shape[0], -1)[:, :n].to(dtype)
     return _dequantize_cuda(q, scales, n, dtype)
 
@@ -115,7 +115,7 @@ def int8_sr_uplink(x: torch.Tensor, u: torch.Tensor,
         if buf.dtype != x.dtype:
             raise TypeError(f"int8_sr_uplink: {name} is {buf.dtype}, x "
                             f"{x.dtype}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return int8_sr_uplink_ref(x, u, anchor, ref, ef, post)
     return _uplink_cuda(x, u, anchor, ref, ef, post)
 

@@ -1,14 +1,14 @@
 """The SSD intra-chunk step in the model's layout (counterpart of
 repro/kernels/ssd/ops.py::ssd_chunk, the ``ssd_fn`` hook).
 
-Dispatch is by the tensors' device only: CPU tensors run the plain
-version (ref.py); CUDA tensors launch csrc/ssd.cu or raise. The kernel
-reads and writes the model's [B, nc, Q, nh, hd] layout itself, so nothing
-is transposed around the launch; it computes C B^T once per chunk into a
-[B*nc, Qp, Qp] f32 scratch allocated here (Qp: Q rounded up to the
-kernel's 64-row tile). Its products run on the tensor cores in split TF32
-(three TF32 passes per product keep f32's 1e-5 contract).
-"""
+Dispatch is by the tensors' device only: CPU tensors, and meta tensors
+(shapes only: launch/dryrun.py), run the plain version (ref.py); CUDA
+tensors launch csrc/ssd.cu or raise. The kernel reads and writes the
+model's [B, nc, Q, nh, hd] layout itself, so nothing is transposed around
+the launch; it computes C B^T once per chunk into a [B*nc, Qp, Qp] f32
+scratch allocated here (Qp: Q rounded up to the kernel's 64-row tile). Its
+products run on the tensor cores in split TF32 (three TF32 passes per
+product keep f32's 1e-5 contract)."""
 from __future__ import annotations
 
 import torch
@@ -34,7 +34,7 @@ def ssd_chunk(xc, dtc, dA_cumsum, Bc, Cc):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"ssd_chunk: {name} has shape {tuple(t.shape)}, "
                              f"expected shape {want[name]}")
-    if xc.device.type == "cpu":
+    if xc.device.type in ("cpu", "meta"):
         return ssd_chunk_ref(xc, dtc, dA_cumsum, Bc, Cc)
     if not (Q <= MAX_CHUNK and hd <= MAX_DIM and st <= MAX_DIM):
         raise ValueError(f"ssd kernel: chunk {Q} (<= {MAX_CHUNK}), head dim "

@@ -17,8 +17,12 @@ Every flag of the reference maps onto the port's pieces: run_federated's
 ``group`` (core/sharded.py). ``--aa-impl``/``--local-impl`` take the port's
 names (auto, tree, kernel). ``--runtime sharded`` joins the process group
 that ``torchrun`` describes in its environment (NCCL on the card, gloo on
-the CPU); run alone, it is a world of one. ``--multi-pod`` names a TPU
-mesh, which the port does not build.
+the CPU); run alone, it is a world of one. On a world of the reference's
+production mesh (256 ranks, or 512 with ``--multi-pod``) the round runs on
+that mesh's client axes (launch/mesh.py::make_production_mesh: "data", or
+("pod", "data"), 16 or 32 client shards), replicated over "model", as the
+reference's; on any other world it runs on the world's ranks, and prints
+the mesh it runs on.
 """
 from __future__ import annotations
 
@@ -120,8 +124,9 @@ def _parser() -> argparse.ArgumentParser:
                          "kernel serves linear-design models only, so an LM "
                          "takes the autodiff path")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's two-pod TPU mesh; the port has no "
-                         "TPU mesh and refuses it")
+                    help="with --runtime sharded on a world of 512 ranks: the "
+                         "2x16x16 mesh, whose ('pod', 'data') ranks hold the "
+                         "clients (replicated over 'model')")
     ap.add_argument("--out", default="")
     # -- checkpointing (checkpoint/) ---------------------------------------
     ap.add_argument("--checkpoint-dir", default="",
@@ -172,10 +177,6 @@ def main(argv=None) -> dict:
     ``--out`` JSON holds, by algorithm."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod builds the reference's two-pod TPU mesh; the port has "
-            "no TPU-mesh tooling (ROADMAP.md item 9b)")
     dev = resolve_device(args.device)
     if args.runtime == "sharded" and dev.type == "cuda" and "LOCAL_RANK" in os.environ:
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
@@ -239,6 +240,15 @@ def main(argv=None) -> dict:
     group, started = None, False
     if args.runtime == "sharded":
         group, started = _join_world(dev)
+        world = dist.get_world_size()
+        if world == (512 if args.multi_pod else 256):
+            from repro_torch.launch.mesh import CLIENT_AXES, make_production_mesh
+
+            mesh = make_production_mesh(multi_pod=args.multi_pod)
+            group = mesh.group(CLIENT_AXES if args.multi_pod else "data")
+            shape = mesh.shape
+        else:
+            shape = {"data": world, "model": 1}
         shards = dist.get_world_size(group)
         if args.clients % shards:
             ap.error(f"--clients {args.clients} must divide over the {shards} "
@@ -250,7 +260,7 @@ def main(argv=None) -> dict:
                      f"--cohort-size) must divide over the {shards} client "
                      f"shards of the process group; pick a multiple of "
                      f"{shards}")
-        print(f"sharded runtime over {shards} rank(s) "
+        print(f"sharded runtime on mesh {shape}: {shards} client shard(s) "
               f"({dist.get_backend(group)})")
 
     algos = [args.algo] + ([args.baseline] if args.baseline else [])

@@ -65,10 +65,21 @@ column-parallel, its logits all-gathered over the vocabulary, so every rank
 returns the whole [B, V] logits and ``SlotServer``'s argmax is the same on
 every rank. Where the batch divides over "data", each data rank computes
 its rows (its caches hold them: ``LMCaches.rows``) and the logits are
-gathered over "data"; the MoE aux loss is averaged over it. Training
-under a plan (``loss``, ``forward_hidden``, ``functional_loss``, and so
-``core/lm.py::make_lm_problem``) refuses: it is ROADMAP item 9a's
-remainder.
+gathered over "data"; the MoE aux loss is averaged over it (on a mesh
+with pods, over ("pod", "data") where the batch divides over both).
+
+Training under a plan (``loss``, ``forward_hidden``, ``functional_loss``;
+launch/steps.py's train step) is the unsharded function, split: each data
+rank computes its batch rows, every collective of a layer carries its
+gradient (models/layers.py::Sharder), and ``loss`` is the global token
+mean: the masked sums and the mask count are summed over the batch axes
+(the MoE aux loss is their ranks' mean), so every rank returns the same
+loss. ``sync_grads`` then sums over the batch axes the gradients that are
+still one data rank's part. In the ``fsdp`` regime each layer reads its
+weights gathered over the fsdp axes (``Sharder.fetch``), and their
+gradients come back reduce-scattered. ``core/lm.py::make_lm_problem``
+still refuses a model under a mesh: the reference's FL round is replicated
+over "model".
 """
 from __future__ import annotations
 
@@ -83,7 +94,7 @@ from torch.func import functional_call
 from repro_torch import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as Lyr
-from repro_torch.sharding.specs import REMAINDER, shard_param
+from repro_torch.sharding.specs import shard_param
 
 SERVED_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 #: sequence positions a chunk of the loss's unembed + cross entropy takes
@@ -214,12 +225,6 @@ class LMCaches:
                     t[:, s] = 0
 
 
-def _refuse_training(model: "Decoder") -> None:
-    if model.sh.mesh is not None:
-        raise NotImplementedError(f"training a model under a sharding plan is "
-                                  f"{REMAINDER}; the port serves it")
-
-
 class Decoder(nn.Module):
     def __init__(self, cfg: ArchConfig, device, gen: torch.Generator,
                  sh: Lyr.Sharder = Lyr.NO_SHARDER):
@@ -264,6 +269,10 @@ class Decoder(nn.Module):
                                      _within(self._part, "shared."))   # weight-tied
         else:
             self.blocks = stack("blocks", MoEBlock if fam == "moe" else DenseBlock, L)
+        if sh.fsdp_axes():
+            for name, mod in self.named_modules():
+                if isinstance(mod, Lyr.Params):
+                    mod.bind(sh, name + ".")
 
     def _part(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the parameter ``path`` (its state-dict name)
@@ -286,10 +295,11 @@ class Decoder(nn.Module):
         if self.sh.mesh is None:
             h = self.embed[tokens.long()] * self.embed_scale
         else:
+            embed = self.sh.fetch("embed", self.embed)
             vs = self.sh.local(self.cfg.eff_vocab, "vocab")
             local = tokens.long() - vs.start
             inside = (local >= 0) & (local < vs.stop - vs.start)
-            h = self.embed[torch.where(inside, local, 0)] * self.embed_scale
+            h = embed[torch.where(inside, local, 0)] * self.embed_scale
             h = self.sh.sum(torch.where(inside[..., None], h, 0), "vocab")
         if embeds is None:
             return h
@@ -299,29 +309,34 @@ class Decoder(nn.Module):
                              "positions")
         return torch.cat([embeds.to(h.dtype), h[:, P:]], dim=1)
 
+    def _head(self) -> torch.Tensor:
+        """The unembedding [d, V] (the rank's vocabulary columns under a
+        mesh, gathered over the fsdp axes in that regime)."""
+        if self.cfg.tie_embeddings:
+            return self.sh.fetch("embed", self.embed).T
+        return self.sh.fetch("lm_head", self.lm_head)
+
     def unembed(self, h):
         """The logits [..., V]; under a mesh the rank's vocabulary columns,
         all-gathered over "model"."""
         h = Lyr.rms_norm(h, self.final_norm)
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         if self.sh.mesh is None:
-            return h @ head
-        return self.sh.gather(h @ head, dim=-1)
+            return h @ self._head()
+        return self.sh.gather(self.sh.enter(h, "vocab") @ self._head(), dim=-1)
 
     def _whole_batch(self, x: torch.Tensor, batch: int) -> torch.Tensor:
-        """A data rank's rows of a result, gathered over "data" into the
-        whole batch (as they are when this rank holds every row)."""
-        if self.sh.batch_rows(batch) == slice(0, batch):
-            return x
-        return self.sh.gather(x, dim=0, axis="data")
+        """A data rank's rows of a result, gathered over the batch axes into
+        the whole batch (as they are when this rank holds every row)."""
+        axes = self.sh.batch_axes(batch)
+        return self.sh.gather(x, dim=0, axis=axes) if axes else x
 
     def _data_mean(self, aux: torch.Tensor, batch: int) -> torch.Tensor:
-        """The aux loss averaged over "data" where the batch is split
-        (the reference's pmean over the batch axes)."""
-        if self.sh.batch_rows(batch) == slice(0, batch):
+        """The aux loss averaged over the batch axes where the batch is
+        split (the reference's pmean over them)."""
+        axes = self.sh.batch_axes(batch)
+        if not axes:
             return aux
-        D = self.sh.mesh.shape["data"]
-        return self.sh.sum(aux.reshape(1).clone(), "batch", axis="data")[0] / D
+        return self.sh.sum_over(aux.reshape(1).clone(), axes)[0] / self.sh.mesh.size(axes)
 
     def unembed_last(self, h):
         """Logits of the last position only: prefill never builds [B, S, V]."""
@@ -357,9 +372,19 @@ class Decoder(nn.Module):
         final norm, aux as ``forward``'s), through the reference's jnp
         attention and SSD paths (no kernel launch). For the hybrid family:
         each group of Mamba-2 layers, then the shared block, then the
-        trailing layers. Refused under a mesh."""
-        _refuse_training(self)
-        return self._run(tokens, embeds, None, train=True)
+        trailing layers. Under a mesh: this data rank's rows of h, and the
+        aux loss of its tokens."""
+        rows = self._train_rows(tokens.shape[0])
+        return self._run(tokens[rows], None if embeds is None else embeds[rows],
+                         None, train=True)
+
+    def _train_rows(self, batch: int) -> slice:
+        """This rank's rows of a training batch of ``batch``; the batch
+        axes go to the Sharder for the fsdp gradients (``Sharder.fetch``)."""
+        if self.sh.mesh is None:
+            return slice(0, batch)
+        self.sh.ctx["batch"] = self.sh.batch_axes(batch)
+        return self.sh.batch_rows(batch)
 
     def _run(self, tokens, embeds, caches: LMCaches | None, train: bool = False):
         """The no-cache pass over every layer (``train``: the training
@@ -393,21 +418,46 @@ class Decoder(nn.Module):
         loss_mask [B, S] (optional; position s weighs the prediction of
         token s), embeds [B, P, d] (vlm/audio; their P positions carry no
         loss). The mean over the mask's weight, at least 1; plus 0.01 of the
-        MoE blocks' aux loss when the config has experts. Refused under a
-        mesh."""
+        MoE blocks' aux loss when the config has experts. Under a mesh the
+        global mean: this rank's rows' masked sum and mask weight, each
+        summed over the batch axes; the aux loss, the batch ranks' mean."""
+        B = tokens.shape[0]
         h, aux = self.forward_hidden(tokens, embeds)
+        rows = self._train_rows(B)
+        tokens = tokens[rows]
         h = Lyr.rms_norm(h, self.final_norm)[:, :-1]
         tgt = tokens[:, 1:]
         mask = (torch.ones(tgt.shape, dtype=torch.float32, device=h.device)
-                if loss_mask is None else loss_mask[:, 1:].float())
+                if loss_mask is None else loss_mask[rows, 1:].float())
         if self.cfg.frontend_tokens and embeds is not None:
             pos_ok = torch.arange(tgt.shape[1], device=h.device) >= embeds.shape[1]
             mask = mask * pos_ok[None, :]
-        total = self._chunked_xent(h, tgt, mask)
-        loss = total / torch.clamp(mask.sum(), min=1.0)
+        axes = self.sh.batch_axes(B)
+        total = self.sh.sum_over(self._chunked_xent(h, tgt, mask), axes)
+        loss = total / torch.clamp(self.sh.sum_over(mask.sum(), axes), min=1.0)
         if self.cfg.num_experts:
-            loss = loss + 0.01 * aux
+            loss = loss + 0.01 * self._data_mean(aux, B)
         return loss
+
+    def sync_grads(self, grads: dict, batch: int) -> dict:
+        """After a training step's backward on a batch of ``batch``: each
+        gradient that is still this data rank's part (a parameter the fsdp
+        axes do not split, whose gradient no reduce-scatter summed), summed
+        over the batch axes. Without a split batch, ``grads``."""
+        axes = self.sh.batch_axes(batch)
+        if not axes:
+            return grads
+        out = {}
+        with torch.no_grad():
+            for name, g in grads.items():
+                if self.sh.fsdp_dim(name, g.ndim) is None:
+                    # a gradient may be a strided view of a shared buffer
+                    # (the conv weights' of one concatenation): reduce a copy
+                    g = g.contiguous() if g.is_contiguous() else g.clone(
+                        memory_format=torch.contiguous_format)
+                    self.sh._all_reduce(g, axes)
+                out[name] = g
+        return out
 
     def _chunked_xent(self, h, tgt, mask):
         """Σ mask · nll over chunks of XENT_CHUNK positions, in order: each
@@ -415,7 +465,9 @@ class Decoder(nn.Module):
         its log-softmax and the targets' entries. h [B, S-1, d], tgt and
         mask [B, S-1]; S-1 is padded up to a whole chunk."""
         cfg = self.cfg
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        head = self._head()
+        if self.sh.mesh is not None:
+            h = self.sh.enter(h, "vocab")
         n = h.shape[1]
         c = min(XENT_CHUNK, n)
         pad = -n % c
@@ -428,7 +480,11 @@ class Decoder(nn.Module):
             pad_cols = torch.arange(cfg.eff_vocab, device=h.device) >= cfg.vocab_size
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c0 in range(0, n + pad, c):
-            lg = (h[:, c0:c0 + c] @ head).float()
+            lg = h[:, c0:c0 + c] @ head
+            if self.sh.mesh is not None:
+                # the rank's vocabulary columns, gathered whole
+                lg = self.sh.gather(lg, dim=-1)
+            lg = lg.float()
             if pad_cols is not None:
                 lg = torch.where(pad_cols, -1e30, lg)
             logp = torch.log_softmax(lg, dim=-1)
@@ -517,9 +573,9 @@ def functional_loss(model: Decoder) -> Callable[[dict, dict], torch.Tensor]:
     replaced by ``params`` (name → tensor, the names of
     ``model.named_parameters()``), on ``batch`` {"tokens", "loss_mask"
     (optional), "embeds" (optional)}. The model's own tensors are not
-    read; ``torch.func.grad`` differentiates it in ``params``. Refused
-    under a mesh."""
-    _refuse_training(model)
+    read; ``torch.func.grad`` differentiates it in ``params``. Under a
+    mesh, ``params`` are the rank's shards and the loss the global one
+    (``Decoder.loss``)."""
     wrapper = _Loss(model)
 
     def loss(params: dict, batch: dict) -> torch.Tensor:
@@ -535,9 +591,12 @@ def build_model(cfg: ArchConfig, device: "str | torch.device" = DEFAULT_DEVICE,
                 sh: Lyr.Sharder | None = None) -> Decoder:
     """The decoder for ``cfg`` with parameters drawn from ``generator`` (by
     default a generator on ``device`` seeded with ``seed``). Raises without
-    a card unless ``device="cpu"``. ``sh``: a plan's Sharder (pass
-    ``plan.cfg`` as ``cfg``); the rank keeps its shard of each parameter."""
+    a card unless ``device="cpu"``; on ``device="meta"`` nothing is drawn
+    and no memory is used (shapes and dtypes only, launch/specs_io.py).
+    ``sh``: a plan's Sharder (pass ``plan.cfg`` as ``cfg``); the rank keeps
+    its shard of each parameter."""
     dev = resolve_device(device)
-    gen = generator if generator is not None else torch.Generator(dev).manual_seed(seed)
+    gen = (None if dev.type == "meta" else generator if generator is not None
+           else torch.Generator(dev).manual_seed(seed))
     with torch.no_grad():
         return Decoder(cfg, dev, gen, sh or Lyr.NO_SHARDER)

@@ -79,17 +79,128 @@ from repro_torch.kernels.ssd import ssd_chunk
 # sharding helper
 # ---------------------------------------------------------------------------
 
+def _axes_of(axis) -> tuple:
+    """A mesh axis, a tuple of them, or None as a tuple of axis names."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of the ranks' partial x: all-reduce forward; identity
+    backward (the sum is replicated, so its gradient is every rank's)."""
+
+    @staticmethod
+    def forward(x, sh, axis):
+        y = x.clone(memory_format=torch.contiguous_format)
+        sh._all_reduce(y, axis)
+        return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """A replicated x entering a rank's part of a split computation:
+    identity forward; backward, the ranks' partial gradients summed (an
+    all-reduce), so that what x feeds gets its whole gradient."""
+
+    @staticmethod
+    def forward(x, sh, axis):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sh, ctx.axis = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        ctx.sh._all_reduce(g, ctx.axis)
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' parts of x concatenated along ``dim``: all-gather
+    forward; backward, this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(x, sh, dim, axis):
+        return sh._all_gather(x, dim, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.sh, ctx.dim, ctx.axis = inputs
+        ctx.n = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.sh.axis_index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A weight's fsdp shards gathered along ``dim`` over the fsdp axes
+    (all-gather forward). Backward: where the batch is split over the fsdp
+    axes, the ranks' gradients of the whole weight are summed and each
+    keeps its part (a reduce-scatter); where it is split over some of them
+    (the data axis of a mesh with pods), summed over those and then cut;
+    where it is not split, each rank's gradient is already whole: cut."""
+
+    @staticmethod
+    def forward(x, sh, dim, axis, batch):
+        return sh._all_gather(x, dim, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.sh, ctx.dim, ctx.axis, ctx.batch = inputs
+        ctx.n = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        sh, dim, axis, batch = ctx.sh, ctx.dim, _axes_of(ctx.axis), ctx.batch
+        if batch == axis:
+            return sh._reduce_scatter(g, dim, axis), None, None, None, None
+        if batch:
+            g = g.clone(memory_format=torch.contiguous_format)
+            sh._all_reduce(g, batch)
+        i = sh.axis_index(axis)
+        return g.narrow(dim, i * ctx.n, ctx.n).contiguous(), None, None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharder:
     """The reference's Sharder: a no-op without a mesh. With one
     (launch/mesh.py::Mesh), ``axes`` maps each logical axis ("heads",
     "kv_heads", "d_ff", "experts", "vocab", "ssm_inner", "batch", ...) to a
     mesh axis or None, and the Sharder gives this rank's slice of a logical
-    axis (``local``), the sum of a partial result over "model" (``sum``: an
-    in-place all-reduce in the tensor's dtype) and the concatenation of the
-    ranks' parts (``gather``: an all-gather). Neither reads the host nor
-    uses float atomics. ``counts`` tallies the collectives by kind: calls
-    and the bytes each rank puts in."""
+    axis (``local``), the sum of a partial result over "model" (``sum``),
+    the entry of a replicated tensor into the rank's part of a split
+    computation (``enter``), the concatenation of the ranks' parts
+    (``gather``: an all-gather) and, in the ``fsdp`` regime, a weight
+    gathered whole over the fsdp axes before use (``fetch``). None reads
+    the host or uses float atomics.
+
+    Autograd. Where gradients are on, each is a ``torch.autograd.Function``
+    that ``torch.func.grad`` traces: ``sum`` all-reduces forward and
+    passes the gradient through; ``enter`` passes x through and all-reduces
+    its gradient (without it, the gradient of a replicated activation,
+    norm, router or embedding would be one rank's part of the sum);
+    ``gather`` all-gathers forward and keeps this rank's slice of the
+    gradient; ``fetch`` all-gathers forward and reduce-scatters the
+    gradient over the data ranks that computed on other rows
+    (``_FsdpGather``). With gradients off (serving), ``sum`` all-reduces in
+    place and ``enter`` does nothing.
+
+    ``counts`` tallies the collectives by kind, forward and backward:
+    calls and the bytes each rank puts in, in all and by mesh axis
+    (``by_axis``). ``ctx["batch"]`` holds the mesh axes the running
+    training forward split its batch over (``Decoder.forward_hidden``)."""
 
     mesh: Any = None
     axes: dict | None = None
@@ -97,12 +208,13 @@ class Sharder:
     multi_pod: bool = False
     counts: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
+    ctx: dict = dataclasses.field(default_factory=dict, compare=False,
+                                  repr=False)
 
     def _mesh_axes(self, logical: str) -> tuple:
         if self.mesh is None:
             return ()
-        entry = (self.axes or {}).get(logical)
-        return () if entry is None else (entry,) if isinstance(entry, str) else entry
+        return _axes_of((self.axes or {}).get(logical))
 
     def shards(self, logical: str) -> int:
         """The number of ranks a logical axis is split over (1 without a
@@ -111,8 +223,13 @@ class Sharder:
 
     def index(self, logical: str) -> int:
         """This rank's part of a logical axis (row-major over its mesh axes)."""
+        return self.axis_index(self._mesh_axes(logical))
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along a mesh axis or a tuple of them
+        (row-major, the slowest first)."""
         idx = 0
-        for a in self._mesh_axes(logical):
+        for a in _axes_of(axis):
             idx = idx * self.mesh.shape.get(a, 1) + self.mesh.coords.get(a, 0)
         return idx
 
@@ -123,42 +240,136 @@ class Sharder:
             raise ValueError(f"{logical} of size {n} does not split over {parts} ranks")
         return slice(i * n // parts, (i + 1) * n // parts)
 
-    def _tally(self, kind: str, t: torch.Tensor) -> None:
-        c = self.counts.setdefault(kind, {"calls": 0, "bytes": 0})
+    # ----------------------------- collectives -----------------------------
+    def _tally(self, kind: str, t: torch.Tensor, axis) -> None:
+        c = self.counts.setdefault(kind, {"calls": 0, "bytes": 0, "by_axis": {}})
+        n = t.numel() * t.element_size()
         c["calls"] += 1
-        c["bytes"] += t.numel() * t.element_size()
+        c["bytes"] += n
+        a = c["by_axis"].setdefault(",".join(_axes_of(axis)), {"calls": 0, "bytes": 0})
+        a["calls"] += 1
+        a["bytes"] += n
 
-    def sum(self, x: torch.Tensor, logical: str = "heads",
-            axis: str = "model") -> torch.Tensor:
-        """x summed over the ranks of ``axis`` (in place), where the plan
-        splits ``logical`` (the axis whose split made x partial); x as it
-        is otherwise."""
-        if not self._mesh_axes(logical):
-            return x
-        self._tally("all_reduce", x)
-        with record_function(f"tp.all_reduce.{axis}"):
+    def _all_reduce(self, x: torch.Tensor, axis) -> None:
+        """x summed in place over the ranks of ``axis`` (a mesh axis or a
+        tuple of them)."""
+        self._tally("all_reduce", x, axis)
+        with record_function(f"tp.all_reduce.{','.join(_axes_of(axis))}"):
             dist.all_reduce(x, group=self.mesh.group(axis))
-        return x
 
-    def gather(self, x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
-        """The ranks' parts of x concatenated along ``dim``, in rank order."""
-        n = self.mesh.shape[axis]
-        self._tally("all_gather", x)
+    def _all_gather(self, x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+        n = self.mesh.size(axis)
+        self._tally("all_gather", x, axis)
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
-        with record_function(f"tp.all_gather.{axis}"):
+        with record_function(f"tp.all_gather.{','.join(_axes_of(axis))}"):
             dist.all_gather(parts, x, group=self.mesh.group(axis))
         return torch.cat(parts, dim=dim)
 
+    def _reduce_scatter(self, g: torch.Tensor, dim: int, axis) -> torch.Tensor:
+        """The sum over the ranks of ``axis`` of g, cut along ``dim``: this
+        rank's part."""
+        n = self.mesh.size(axis)
+        self._tally("reduce_scatter", g, axis)
+        chunks = [c.contiguous() for c in g.chunk(n, dim)]
+        out = torch.empty_like(chunks[0])
+        with record_function(f"tp.reduce_scatter.{','.join(_axes_of(axis))}"):
+            dist.reduce_scatter(out, chunks, group=self.mesh.group(axis))
+        return out
+
+    def sum(self, x: torch.Tensor, logical: str = "heads",
+            axis: str = "model") -> torch.Tensor:
+        """x summed over the ranks of ``axis``, where the plan splits
+        ``logical`` (the axis whose split made x partial); x as it is
+        otherwise. In place when gradients are off."""
+        if not self._mesh_axes(logical):
+            return x
+        return self.sum_over(x, axis)
+
+    def sum_over(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """x summed over the ranks of ``axis`` (a mesh axis, a tuple of
+        them; none: x as it is)."""
+        if not _axes_of(axis):
+            return x
+        if torch.is_grad_enabled():
+            return _AllReduce.apply(x, self, axis)
+        self._all_reduce(x, axis)
+        return x
+
+    def enter(self, x: torch.Tensor, logical: str, axis: str = "model") -> torch.Tensor:
+        """A replicated x about to feed this rank's part of a computation
+        that the plan splits along ``logical``: x itself, whose gradient is
+        summed over ``axis`` on the way back (nothing without gradients, or
+        where the plan does not split ``logical``)."""
+        if not self._mesh_axes(logical) or not torch.is_grad_enabled():
+            return x
+        return _Enter.apply(x, self, axis)
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
+        """The ranks' parts of x concatenated along ``dim``, in rank order."""
+        if torch.is_grad_enabled():
+            return _AllGather.apply(x, self, dim, axis)
+        return self._all_gather(x, dim, axis)
+
+    # ------------------------------- batch --------------------------------
+    def batch_axes(self, batch: int) -> tuple:
+        """The mesh axes a batch of ``batch`` splits over (the reference's
+        ``batch_axis``): ("pod", "data") on a mesh with pods where it
+        divides, else "data" where it divides, else none."""
+        if self.mesh is None:
+            return ()
+        data = self.mesh.shape.get("data", 1)
+        if self.multi_pod and batch % (self.mesh.shape.get("pod", 1) * data) == 0:
+            axes = ("pod", "data")
+        elif batch % data == 0:
+            axes = ("data",)
+        else:
+            return ()
+        return tuple(a for a in axes if self.mesh.shape.get(a, 1) > 1)
+
     def batch_rows(self, batch: int) -> slice:
-        """This rank's rows of a batch of ``batch``: its block over "data"
-        where the batch divides over it (the reference's ``batch_axis``),
-        every row otherwise."""
-        data = 1 if self.mesh is None else self.mesh.shape.get("data", 1)
-        if data == 1 or batch % data:
-            return slice(0, batch)
-        i = self.mesh.coords["data"]
-        return slice(i * batch // data, (i + 1) * batch // data)
+        """This rank's rows of a batch of ``batch``: its block over the
+        batch axes where the batch divides over them, every row otherwise."""
+        axes = self.batch_axes(batch)
+        n = self.mesh.size(axes) if axes else 1
+        i = self.axis_index(axes)
+        return slice(i * batch // n, (i + 1) * batch // n)
+
+    # -------------------------------- fsdp --------------------------------
+    def fsdp_axes(self) -> tuple:
+        """The mesh axes the fsdp regime splits weights over, where they
+        have more than one rank; () otherwise."""
+        if self.mesh is None or self.regime != "fsdp":
+            return ()
+        axes = ("pod", "data") if self.multi_pod else ("data",)
+        return axes if self.mesh.size(axes) > 1 else ()
+
+    def fsdp_dim(self, path: str, ndim: int) -> int | None:
+        """The dim of parameter ``path`` that the fsdp axes split (its
+        spec's), or None."""
+        fa = self.fsdp_axes()
+        if not fa:
+            return None
+        key = (path, ndim)
+        cache = self.ctx.setdefault("fsdp_dims", {})
+        if key not in cache:
+            from repro_torch.sharding.specs import param_spec_for_path
+            spec = param_spec_for_path(path, ndim, self)
+            cache[key] = next((i for i, e in enumerate(spec)
+                               if e is not None and _axes_of(e) == fa), None)
+        return cache[key]
+
+    def fetch(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``path`` (its state-dict name) as a layer reads it: in
+        the fsdp regime, its shards all-gathered over the fsdp axes (the
+        reference's "gathered per-layer"); itself otherwise."""
+        dim = self.fsdp_dim(path, t.ndim)
+        if dim is None:
+            return t
+        fa = self.fsdp_axes()
+        if torch.is_grad_enabled():
+            return _FsdpGather.apply(t, self, dim, fa, tuple(self.ctx.get("batch", ())))
+        return self._all_gather(t, dim, fa)
 
 
 #: the Sharder of a model without a mesh
@@ -184,15 +395,23 @@ def default_axes(multi_pod: bool = False) -> dict:
 
 class Params(nn.Module):
     """A flat group of parameters named as in the reference's dict. The
-    serving path takes no gradients: every parameter is frozen."""
+    serving path takes no gradients: every parameter is frozen. In the
+    fsdp regime the decoder binds each group to its Sharder and state-dict
+    prefix (``bind``), and a layer reads each weight gathered whole
+    (``Sharder.fetch``)."""
 
     def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
+    def bind(self, sh: "Sharder", prefix: str) -> None:
+        self._sh, self._prefix = sh, prefix
+
     def __getitem__(self, name: str) -> torch.Tensor:
-        return self._parameters[name]
+        t = self._parameters[name]
+        sh = self.__dict__.get("_sh")
+        return t if sh is None else sh.fetch(self._prefix + name, t)
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +443,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.reshape(x.shape).to(x.dtype)
 
 
-def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
+def dense_init(gen: torch.Generator | None, shape, in_axis_size: int, dtype,
                device) -> torch.Tensor:
     """normal x 1/sqrt(fan_in), drawn in f32 on the generator's device from
-    ``gen``, then cast to ``dtype`` on ``device``."""
+    ``gen``, then cast to ``dtype`` on ``device``; without ``gen`` (a model
+    on the meta device: shapes only), an empty tensor of that shape."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     scale = 1.0 / math.sqrt(in_axis_size)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return w.mul_(scale).to(device=device, dtype=dtype)
@@ -319,7 +541,8 @@ def _gather_kv(cfg, k: torch.Tensor, sh: Sharder = NO_SHARDER) -> torch.Tensor:
     if how == "as_is":
         return k
     if how == "gathered":
-        k = sh.gather(k, dim=2)
+        # every rank's KV heads, read by this rank's query heads only
+        k = sh.enter(sh.gather(k, dim=2), "heads")
     return k.index_select(2, kv_map(cfg, k.device, heads) - kv0)
 
 
@@ -437,16 +660,22 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     ``wq`` and rows of ``wo`` and its KV heads' columns of ``wk``/``wv``
     (all of them where the plan replicates KV heads: MQA); H and KV are
     the held counts, its k/v and cache hold its KV heads, and the output
-    is summed over "model"."""
+    is summed over "model". For training, x (and what the plan replicates
+    over "model": the KV projections of MQA, the qk-norm scales) enters
+    the rank's heads (``Sharder.enter``)."""
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
-    H, KV = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
+    H, KV = wq.shape[1] // hd, wk.shape[1] // hd
+    x = sh.enter(x, "heads")
+    if not sh.shards("kv_heads") > 1:
+        wk, wv = sh.enter(wk, "heads"), sh.enter(wv, "heads")
+    q = (x @ wq).reshape(B, S, H, hd)
+    k = (x @ wk).reshape(B, S, KV, hd)
+    v = (x @ wv).reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, sh.enter(p["q_norm"], "heads"))
+        k = rms_norm(k, sh.enter(p["k_norm"], "heads"))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -454,9 +683,9 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         k_use, v_use = _gather_kv(cfg, k, sh), _gather_kv(cfg, v, sh)
         if train:
             out = _attention_train(q, k_use, v_use, positions, window, x.dtype)
-            return sh.sum(out @ p["wo"]), k, v
+            return sh.sum(out @ wo), k, v
         out = flash_attention(q, k_use, v_use, causal=True, window=window)
-        return sh.sum(out.reshape(B, S, H * hd) @ p["wo"]), k, v
+        return sh.sum(out.reshape(B, S, H * hd) @ wo), k, v
 
     if S != 1:
         raise ValueError(f"attention with a cache decodes one token; got S={S}")
@@ -491,7 +720,7 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     logits = torch.where(mask[:, None, None], logits * scale, -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_all).reshape(B, S, H * hd)
-    return sh.sum(out @ p["wo"]), k, v
+    return sh.sum(out @ wo), k, v
 
 
 #: the int8 KV cache's scale is max|x| · fl(1/127): the jitted reference
@@ -545,7 +774,9 @@ def mlp_init(gen, d: int, f: int, dtype, device, keep=_whole) -> Params:
 
 def mlp(p: Params, x: torch.Tensor, sh: Sharder = NO_SHARDER) -> torch.Tensor:
     """SwiGLU; under a mesh ``wi_gate``/``wi_up`` hold the rank's d_ff
-    columns and ``wo`` its rows, and the output is summed over "model"."""
+    columns and ``wo`` its rows, and the output is summed over "model"
+    (x enters the rank's columns: ``Sharder.enter``)."""
+    x = sh.enter(x, "d_ff")
     return sh.sum((F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"], "d_ff")
 
 
@@ -651,10 +882,15 @@ def moe_sharded(p: Params, x: torch.Tensor, cfg, sh: Sharder,
     column that are cut off), runs their products, and adds its weighted
     outputs; one sum over "model" is the layer's collective. With W = 1 it
     is ``moe``'s arithmetic, step for step. ``aux`` is every rank's (the
-    decoder averages it over "data" when the batch is split)."""
+    decoder averages it over "data" when the batch is split).
+
+    For training, the tokens and the gate weights enter the rank's experts
+    (``Sharder.enter``: their gradients from the experts are summed over
+    "model"), while the router's own path (the aux loss) is replicated."""
     B, S, d = x.shape
     E, k = cfg.eff_experts, cfg.experts_per_token
-    E_loc = p["wi_gate"].shape[0]
+    wig, wiu, wo = p["wi_gate"], p["wi_up"], p["wo"]
+    E_loc = wig.shape[0]
     if sh.shards("experts") * E_loc != E:
         raise NotImplementedError(
             f"moe_sharded holds whole experts: {E} experts over "
@@ -670,15 +906,16 @@ def moe_sharded(p: Params, x: torch.Tensor, cfg, sh: Sharder,
     tok_id = torch.arange(T * k, device=x.device) // k
     ids = torch.full((E_loc + 1, C + 1), T, dtype=torch.int64, device=x.device).index_put(
         (torch.where(keep, local_e, E_loc), torch.where(keep, pos, C)), tok_id)[:E_loc, :C]
-    xt_pad = torch.cat([xt, xt.new_zeros(1, d)])
+    xe = sh.enter(xt, "experts")
+    xt_pad = torch.cat([xe, xe.new_zeros(1, d)])
     buf = xt_pad[ids]                                               # [E_loc, C, d]
 
-    h = F.silu(torch.bmm(buf, p["wi_gate"])) * torch.bmm(buf, p["wi_up"])
-    yb = torch.bmm(h, p["wo"])                                      # [E_loc, C, d]
+    h = F.silu(torch.bmm(buf, wig)) * torch.bmm(buf, wiu)
+    yb = torch.bmm(h, wo)                                           # [E_loc, C, d]
 
     y_tok = torch.where(keep[:, None], yb[torch.where(keep, local_e, 0),
                                           torch.where(keep, pos, C - 1)], 0)
-    w_flat = gate_w.reshape(-1, 1).to(x.dtype)
+    w_flat = sh.enter(gate_w, "experts").reshape(-1, 1).to(x.dtype)
     y = (y_tok * w_flat).reshape(T, k, d).sum(1)
     return sh.sum(y, "experts").reshape(B, S, d), aux
 
@@ -788,24 +1025,33 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
     ``dt_bias`` and the norm are replicated and read at its channels or
     heads. The gated norm's mean square over the whole ``d_inner`` is one
     f32 sum over "model"; the conv state (replicated, as the reference's
-    cache spec) takes every rank's new x rows by one all-gather; the ssm
-    state holds the rank's heads; the output is summed over "model"."""
+    cache spec) takes every rank's new x rows by one all-gather (not with
+    ``train``, whose state goes unused); the ssm state holds the rank's
+    heads; the output is summed over "model". For training, x and the
+    replicated parameters enter the rank's channels (``Sharder.enter``),
+    and so does the gated norm's sum."""
     B, S, d = x.shape
     di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     dtype = x.dtype
-    di_loc = p["wx"].shape[1]
+    wx = p["wx"]
+    di_loc = wx.shape[1]
     split = di_loc != di
+
+    def rep(name):
+        # a replicated parameter, read at the rank's channels or heads
+        return sh.enter(p[name], "ssm_inner")
     if split and nh % sh.shards("ssm_inner"):
         raise NotImplementedError(
             f"{nh} SSM heads do not split over {sh.shards('ssm_inner')} ranks: "
             "the port splits ssm_inner by whole heads")
     ch, hs = sh.local(di, "ssm_inner"), sh.local(nh, "ssm_inner")
     nh_loc = di_loc // hd
-    xz = x @ p["wx"]
+    x = sh.enter(x, "ssm_inner")
+    xz = x @ wx
     z = x @ p["wz"]
-    Bm = x @ p["wB"]
-    Cm = x @ p["wC"]
-    dt_raw = x @ p["wdt"]
+    Bm = x @ rep("wB")
+    Cm = x @ rep("wC")
+    dt_raw = x @ rep("wdt")
 
     conv_in = torch.cat([xz, Bm, Cm], dim=-1)             # [B, S, di_loc + 2st]
     W = cfg.ssm_conv_width
@@ -818,15 +1064,15 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
             prev = torch.cat([prev[..., ch], prev[..., di:]], dim=-1)
         cseq = torch.cat([prev, conv_in], dim=1)
     new_conv_state = cseq[:, S:]                          # the last W-1 rows
-    if split:
+    if split and not train:
         # the replicated conv state: every rank's x channels, then B and C
         new_conv_state = torch.cat([sh.gather(new_conv_state[..., :di_loc], dim=-1),
                                     new_conv_state[..., di_loc:]], dim=-1)
     # depthwise causal conv: the reference's einsum over the W taps
     # ("bswc,wc->bsc") accumulates in f32 and rounds once to the model
     # dtype, then adds the bias in the model dtype
-    wfull = torch.cat([p["conv_x_w"], p["conv_bc_w"]], dim=-1).float()
-    bfull = torch.cat([p["conv_x_b"][ch], p["conv_bc_b"]], dim=-1)
+    wfull = torch.cat([p["conv_x_w"], rep("conv_bc_w")], dim=-1).float()
+    bfull = torch.cat([rep("conv_x_b")[ch], rep("conv_bc_b")], dim=-1)
     acc = cseq[:, 0:S].float() * wfull[0]
     for w in range(1, W):
         acc = acc + cseq[:, w:w + S].float() * wfull[w]
@@ -834,8 +1080,8 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
     xc, Bc, Cc = torch.split(conv_out, [di_loc, st, st], dim=-1)
 
     # dt in f32; x, B and C cast to f32 before the scan (layers.py:662-665)
-    dt = F.softplus(dt_raw[..., hs].float() + p["dt_bias"][hs])    # [B, S, nh_loc]
-    A = -torch.exp(p["A_log"][hs])                        # [nh_loc], < 0
+    dt = F.softplus(dt_raw[..., hs].float() + rep("dt_bias")[hs])  # [B, S, nh_loc]
+    A = -torch.exp(rep("A_log")[hs])                      # [nh_loc], < 0
     xh = xc.reshape(B, S, nh_loc, hd).float()
     Bc32, Cc32 = Bc.float(), Cc.float()
 
@@ -853,14 +1099,15 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
         state["ssm"].copy_(final_state)
 
     # y + D x in f32, then the model dtype before the gate (layers.py:684-686)
-    y = y + xh * p["D"][hs][None, None, :, None]
+    y = y + xh * rep("D")[hs][None, None, :, None]
     y = y.reshape(B, S, di_loc).to(dtype)
     y = y * F.silu(z)
     if split:
         # the norm's mean square over the whole d_inner: one f32 sum
         y32 = y.float()
-        ss = sh.sum((y32 * y32).sum(-1, keepdim=True), "ssm_inner")
-        y = (y32 * torch.rsqrt(ss / di + 1e-6) * p["norm"][ch].float()).to(dtype)
+        ss = sh.enter(sh.sum((y32 * y32).sum(-1, keepdim=True), "ssm_inner"),
+                      "ssm_inner")
+        y = (y32 * torch.rsqrt(ss / di + 1e-6) * rep("norm")[ch].float()).to(dtype)
     else:
         y = rms_norm(y, p["norm"])
     return sh.sum(y @ p["out_proj"], "ssm_inner"), {"conv": new_conv_state,

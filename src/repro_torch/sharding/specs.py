@@ -18,16 +18,19 @@ stacked [n, ...] as the reference's.
 
 Two regimes, as in the reference: ``replica`` (parameters split over
 "model", replicated over "data") and ``fsdp`` (also the non-tensor-parallel
-dimension of each weight over "data"). The port serves the ``fsdp``
-configs (llama4-scout-17b-a16e, internvl2-76b) on meshes whose "data" axis
-has one rank, where that axis splits nothing; a plan whose fsdp axis has
-more ranks is refused: it belongs to ROADMAP item 9a's remainder, with
-training under a plan.
+dimension of each weight over "data", or ("pod", "data") on a mesh with
+pods). In the fsdp regime a rank keeps the fsdp cut of each weight and a
+layer gathers it whole before use (models/layers.py::Sharder.fetch), the
+reference's "gathered per-layer inside the scan".
+
+The AA step of a plan (launch/steps.py::make_aa_step) sums its Gram pass
+over the world: each element of the parameters is counted on exactly one
+rank (``counted``), the replica of index 0 along every mesh axis its spec
+does not name.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any
 
 import torch
@@ -42,9 +45,6 @@ FSDP_ARCHS = ("internvl2-76b", "llama4-scout-17b-a16e")
 #: the stacked [n, ...] parameter groups of the reference (one module a
 #: layer in the port)
 STACKED = ("blocks", "mamba_groups", "mamba_tail")
-#: what a refusal of the parts still to be ported says
-REMAINDER = ("ROADMAP item 9a's remainder (training under a sharding plan, "
-             "and the fsdp regime with a data axis larger than 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,21 +70,12 @@ def _fsdp_axis(plan):
     return ("pod", "data") if plan.multi_pod else "data"
 
 
-def axis_size(mesh_shape: dict, entry) -> int:
-    """The number of shards a spec entry makes on a mesh of ``mesh_shape``."""
-    if entry is None:
-        return 1
-    axes = (entry,) if isinstance(entry, str) else entry
-    return math.prod(mesh_shape.get(a, 1) for a in axes)
-
-
 def make_plan(cfg: ArchConfig, mesh, multi_pod: bool = False,
               regime: str | None = None) -> ShardingPlan:
     """The reference's plan: ``cfg.padded(model shards)``, the default axes
     and their divisibility overrides (MQA KV heads replicated, experts or
     their FFN dim on "model", ``ssm_inner`` replicated where it does not
-    divide), and the regime. ``mesh`` needs only a ``shape`` dict. Refuses
-    an fsdp plan whose fsdp axis has more than one rank (``REMAINDER``)."""
+    divide), and the regime. ``mesh`` needs only a ``shape`` dict."""
     shards = mesh.shape["model"]
     cfg = cfg.padded(shards)
     axes = default_axes(multi_pod)
@@ -98,15 +89,8 @@ def make_plan(cfg: ArchConfig, mesh, multi_pod: bool = False,
     if cfg.family in ("ssm", "hybrid") and cfg.d_inner % shards != 0:
         axes["ssm_inner"] = None
     regime = regime or ("fsdp" if cfg.name in FSDP_ARCHS else "replica")
-    plan = ShardingPlan(cfg=cfg, mesh=mesh, multi_pod=multi_pod,
+    return ShardingPlan(cfg=cfg, mesh=mesh, multi_pod=multi_pod,
                         regime=regime, axes=axes)
-    fa = _fsdp_axis(plan)
-    if fa is not None and axis_size(mesh.shape, fa) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the fsdp regime over {fa} of {axis_size(mesh.shape, fa)} "
-            f"ranks is {REMAINDER}; serve it on a mesh whose data axis has one "
-            "rank, or pass regime='replica'")
-    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +207,16 @@ def rank_coords(plan, rank: int) -> dict:
     return mesh_coords(plan.mesh.shape, rank)
 
 
+def counted(spec: tuple, coords: dict) -> bool:
+    """Whether the rank at ``coords`` counts its shard of a tensor of
+    ``spec`` in a sum over the world: it is the replica of index 0 along
+    every mesh axis the spec does not name, so that each element is counted
+    on exactly one rank."""
+    named = {a for e in spec if e is not None
+             for a in ((e,) if isinstance(e, str) else e)}
+    return all(i == 0 for a, i in coords.items() if a not in named)
+
+
 # ---------------------------------------------------------------------------
 # data / cache specs
 # ---------------------------------------------------------------------------
@@ -273,13 +267,12 @@ def cache_specs(tree: dict, plan, batch_size: int, prefix: str = "") -> dict:
 
 __all__ = [
     "FSDP_ARCHS",
-    "REMAINDER",
     "STACKED",
     "ShardingPlan",
-    "axis_size",
     "batch_axis",
     "cache_spec_for_path",
     "cache_specs",
+    "counted",
     "make_plan",
     "param_spec_for_path",
     "param_specs",

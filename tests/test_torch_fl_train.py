@@ -4,7 +4,9 @@ in tests/test_torch_lm_train.py), then its options: the engine
 (--round-chunk 2: the loop's curve bit for bit), telemetry
 (--metrics-out), checkpoints (--checkpoint-dir, --resume auto continues
 the straight run's curve), the distributed runtime at W = 1 (--runtime
-sharded, dense and with --participation), and the refusals (no card, --multi-pod, a bf16 config);
+sharded, dense and with --participation; --multi-pod on a world that is
+not the production mesh's runs on the world it has), and the refusals (no
+card, a bf16 config);
 launch/train.py's centralized AdamW + WSD run and its checkpoint.
 """
 import json
@@ -96,14 +98,20 @@ def test_fl_train_sharded_cohort(tmp_path):
     assert not torch.distributed.is_initialized()
 
 
-def test_fl_train_refusals(tmp_path):
+def test_fl_train_refusals(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fl_train.main(SMALL + ["--rounds", "1"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-        fl_train.main(CPU + SMALL + ["--multi-pod"])
+    # --multi-pod on a world of one (not the 2x16x16 mesh's 512 ranks):
+    # the round runs on the world it has, as without the flag, and says so
+    multi = fl_train.main(CPU + SMALL + ["--multi-pod", "--runtime", "sharded",
+                                         "--rounds", "1"])
+    plain = fl_train.main(CPU + SMALL + ["--runtime", "sharded", "--rounds", "1"])
+    assert multi["fedosaa_svrg"]["loss_curve"] == plain["fedosaa_svrg"]["loss_curve"]
+    assert "on mesh {'data': 1, 'model': 1}: 1 client shard(s)" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
     # the full config is bf16: refused before the model is built
     with pytest.raises(NotImplementedError,
                        match="the JAX reference cannot train one either"):

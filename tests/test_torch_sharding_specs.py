@@ -5,9 +5,8 @@ group, no devices), for every architecture at its published size:
   * ``make_plan``: the padded config, the regime and the logical axes, for
     every arch x {single pod, multi-pod} x {2, 4, 16} model shards, on a
     mesh whose data (and pod) axes have one rank; on a 16-rank data axis
-    the replica archs' plans too, and the fsdp archs' refusal (the port
-    serves those on a data axis of one rank; ROADMAP item 9a) beside their
-    plan with ``regime="replica"``;
+    every arch's plan too, the fsdp archs' in their own regime (whose
+    weights the data axis also splits) and with ``regime="replica"``;
   * every parameter's spec, matched by path: the port's state-dict names
     (a small model of the same structure gives them) against the
     reference's leaves of the padded model (``jax.eval_shape``), a stacked
@@ -138,23 +137,21 @@ def test_cache_specs_equal_the_reference(arch, multi_pod, W, port_names):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_data_axis_of_sixteen(arch, port_names):
-    """On a (16, 16) mesh the replica archs plan as the reference does; the
-    fsdp archs refuse, naming ROADMAP item 9a, and plan as the reference
-    with regime="replica"."""
-    if arch in specs.FSDP_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9a"):
-            plans(arch, 16, False, data=16)
-        plan, ref = plans(arch, 16, False, data=16, regime="replica")
-    else:
-        plan, ref = plans(arch, 16, False, data=16)
-    assert plan.regime == ref.regime == "replica"
-    assert plan.axes == ref.axes
-    names, tree, _ = port_names[arch]
-    for name, spec in specs.param_specs(names, plan).items():
-        path, stacked = specs.reference_path(name)
-        want = spec_tuple(ref_specs.param_spec_for_path(path, names[name].ndim + stacked,
-                                                        ref))
-        assert spec == want[stacked:], name
+    """On a (16, 16) mesh every arch plans as the reference does: the
+    fsdp archs in the fsdp regime (the data axis splits their weights too)
+    and with regime="replica"."""
+    regimes = [None, "replica"] if arch in specs.FSDP_ARCHS else [None]
+    for regime in regimes:
+        plan, ref = plans(arch, 16, False, data=16, regime=regime)
+        want_regime = "fsdp" if arch in specs.FSDP_ARCHS and regime is None else "replica"
+        assert plan.regime == ref.regime == want_regime
+        assert plan.axes == ref.axes
+        names, tree, _ = port_names[arch]
+        for name, spec in specs.param_specs(names, plan).items():
+            path, stacked = specs.reference_path(name)
+            want = spec_tuple(ref_specs.param_spec_for_path(
+                path, names[name].ndim + stacked, ref))
+            assert spec == want[stacked:], (name, regime)
     assert specs.batch_axis(plan, 32) == ref_specs.batch_axis(ref, 32) == "data"
     assert specs.batch_axis(plan, 8) is ref_specs.batch_axis(ref, 8) is None
 

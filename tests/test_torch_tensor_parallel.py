@@ -32,7 +32,8 @@ and saves what it saw; the tests read it:
     against the reference run on each row alone (MoE capacity counts the
     rank's tokens, as the reference's moe_sharded under a split batch; its
     aux is the mean over the data ranks), forward, prefill and decode;
-    the fsdp regime (llama4-scout) over that data axis refuses;
+    the fsdp regime (llama4-scout) over that data axis serves each row as
+    the unsharded port model;
   * the reference's own tensor parallelism: ``moe_sharded`` and a dense
     block on a (1, 4) mesh of 4 host devices (a subprocess with
     ``--xla_force_host_platform_device_count=4``), against the world of 4.
@@ -44,7 +45,7 @@ granite-moe-3b-a800m and llama4-scout-17b-a16e (``moe_sharded``),
 zamba2-7b with 3 layers (hybrid: ``ssm_inner`` split, the gated norm's
 sum, the shared block, a trailing Mamba-2 layer), internvl2-76b (frontend
 embeds), musicgen-medium. In this process, on a gloo world of one: W = 1
-is the unsharded port model bit for bit, and training refuses under a mesh.
+is the unsharded port model bit for bit, in serving and in training.
 """
 import dataclasses
 import os
@@ -255,10 +256,26 @@ def child(workdir: Path) -> None:
             # 2 slots over 2 data ranks: a rank's caches hold one slot
             out["data"][case]["server"] = (server_tokens(model, plan.cfg),
                                            server_tokens(plain, plan.cfg))
-        try:
-            make_plan(get_arch("llama4-scout-17b-a16e"), mesh22)
-        except NotImplementedError as e:
-            out["fsdp_refusal"] = str(e)
+        # the fsdp regime over the data axis: each weight's data half held,
+        # gathered per layer; against the unsharded port model on each row
+        ref = refs["cases"][("llama4-scout-17b-a16e", 2)]
+        plan = make_plan(reduced(get_arch, "llama4-scout-17b-a16e"), mesh22,
+                         regime="fsdp")
+        model = build_model(plan.cfg, device="cpu", sh=plan.sharder())
+        model.load_state_dict(convert.shard_lm_params(ref["params"], plan, rank, "cpu"))
+        plain = build_model(plan.cfg, device="cpu")
+        plain.load_state_dict(convert.lm_params(ref["params"], plan.cfg, "cpu"))
+        tok = torch.from_numpy(ref["tokens"])
+        with torch.inference_mode():
+            logits, aux = model(tok)
+            rows = [plain(tok[i:i + 1]) for i in range(B)]
+        out["fsdp"] = dict(
+            logits=_np(logits), aux=float(aux),
+            want=np.concatenate([_np(l) for l, _ in rows]),
+            want_aux=float(np.mean([float(a) for _, a in rows])),
+            shapes={n: tuple(t.shape) for n, t in model.state_dict().items()},
+            full={n: tuple(t.shape) for n, t in plain.state_dict().items()},
+            counts={k: dict(v) for k, v in model.sh.counts.items()})
     torch.save(out, workdir / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -685,8 +702,18 @@ def test_slot_server_on_the_data_and_model_mesh(world4, case):
 
 
 def test_fsdp_over_a_data_axis_refuses(world4):
-    for got in world4:
-        assert "ROADMAP item 9a" in got["fsdp_refusal"]
+    """The fsdp regime over a data axis of 2 (it refused until the plan's
+    training came): llama4-scout on the (2, 2) mesh, each rank holding its
+    data half of every fsdp-split weight, gathers them per layer and serves
+    each data rank's row as the unsharded port model does (MoE capacity
+    counts the rank's tokens; the aux is the rows' mean)."""
+    for r, got in enumerate(world4):
+        f = got["fsdp"]
+        assert_close(f["logits"], f["want"], TOL, f"rank {r}")
+        assert abs(f["aux"] - f["want_aux"]) <= 1e-6 * max(1.0, abs(f["want_aux"]))
+        halved = [n for n, s in f["shapes"].items() if s != f["full"][n]]
+        assert "embed" in halved and "blocks.0.attn.wq" in halved
+        assert f["counts"]["all_gather"]["by_axis"]["data"]["calls"] >= len(halved)
 
 
 def test_collectives_a_layer(world):
@@ -772,21 +799,34 @@ def test_world_of_one_is_the_unsharded_model_bit_for_bit(host_mesh, case):
 
 
 def test_training_refuses_under_a_mesh(host_mesh):
+    """Training under a (1, 1) mesh (it refused until the plan's training
+    came) is the unsharded model's, bit for bit: ``loss``,
+    ``forward_hidden`` and the train step's new parameters, r and loss.
+    Federated training of a model built under a mesh still refuses: the
+    reference's FL round is replicated over "model"."""
     from repro_torch.configs import get_arch
     from repro_torch.core.lm import make_lm_clients, make_lm_problem
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.decoder import build_model, functional_loss
+    from repro_torch.models.decoder import build_model
     from repro_torch.sharding.specs import make_plan
 
     plan = make_plan(get_arch("smollm-135m").reduced(), host_mesh)
     model = build_model(plan.cfg, device="cpu", sh=plan.sharder())
+    plain = build_model(plan.cfg, device="cpu")
     tok = torch.from_numpy(tokens_of(plan.cfg))
+    assert torch.equal(model.loss(tok), plain.loss(tok))
+    assert torch.equal(model.forward_hidden(tok)[0], plain.forward_hidden(tok)[0])
+    params = {n: t.detach().clone() for n, t in plain.named_parameters()}
+    corr = {n: torch.full_like(t, 1e-3) for n, t in params.items()}
+    got = make_train_step(model, eta=0.1)(params, {"tokens": tok}, corr)
+    want = make_train_step(plain, eta=0.1)(params, {"tokens": tok}, corr)
+    assert torch.equal(got[2], want[2])
+    for i in (0, 1):
+        for n in params:
+            assert torch.equal(got[i][n], want[i][n]), n
     clients = make_lm_clients(tokens_of(plan.cfg, 4), 2, device="cpu")
-    for call in (lambda: model.loss(tok), lambda: model.forward_hidden(tok),
-                 lambda: functional_loss(model), lambda: make_train_step(model),
-                 lambda: make_lm_problem(model, clients)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9a"):
-            call()
+    with pytest.raises(NotImplementedError, match='replicated over the "model"'):
+        make_lm_problem(model, clients)
 
 
 if __name__ == "__main__":
