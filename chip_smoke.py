@@ -133,6 +133,24 @@ port beside it. Every phase raises on failure; none is caught.
    round on the identity wire and one on the int8 wire under
    ``torch.cuda.set_sync_debug_mode("error")``, where any synchronizing
    CUDA call raises and the raise fails the run.
+4h. The live tap (obs/sinks.py::LiveTap), run right after phase 4's
+   no-host-read gate: paper-scale FedOSAA-SVRG in float64, 10 rounds by
+   the engine in chunks of LIVE_TAP_CHUNK (8: the second chunk replays 6
+   non-live slots), once tapless and once with a LiveTap, whose rows a
+   host node of the chunk's CUDA graph hands over from pinned memory.
+   Gates: both runs' rows and final params equal phase 4's float64 run
+   bit for bit, and their launches each other's (each kernel once a slot
+   replayed); the tap's rows are slots 0-7 then 0-1, each equal to the
+   run's row of that round; one host read a chunk after the first, as
+   tapless; a warmed-up tapped replay makes no synchronizing call under
+   ``set_sync_debug_mode("error")`` and every tap call of it has returned
+   by the chunk's read. A watchdog (``faulthandler.dump_traceback_later``,
+   LIVE_TAP_WATCHDOG_S) dumps every thread's stack and exits non-zero if
+   the phase hangs (a host node waiting for the GIL that a blocked main
+   thread holds). Printed: the tapped and tapless ms a chunk (replay and
+   read, host clock, taken in turns), beside the card's name and power
+   limit, and the phase's seconds. Both runs join ``launches_by_run``
+   (``live_tap``, ``live_tap_tapless``).
 4b. The trajectory family at paper scale (float64, 10 rounds): SCAFFOLD,
    FedOSAA-SCAFFOLD, FedAvg, FedOSAA-AVG and one-step L-BFGS on the
    identity wire, FedOSAA-SVRG with minibatches of 64 rows a step and with
@@ -506,6 +524,10 @@ FUSED_KERNELS = {"update": "aa_step", "quantize": "int8_uplink",
 #: paper-scale runs' 10 rounds in two chunks of 5, each runner then replayed
 #: PAPER_REPLAYS more times for its ms per round
 ACCEPT_CHUNK, PAPER_CHUNK, PAPER_REPLAYS = 8, 5, 4
+#: phase 4h: the tapped engine's chunk (10 rounds: a second chunk of 2 live
+#: slots and 6 non-live ones), the chunks timed per runner (in turns), and
+#: the seconds after which the watchdog fails a hung phase
+LIVE_TAP_CHUNK, LIVE_TAP_TURNS, LIVE_TAP_WATCHDOG_S = 8, 6, 180
 #: the fused AA step's streaming shape (phase 2): few clients, a wide model
 K_WIDE, D_WIDE = 16, 1 << 20
 #: the kernels of the LM serving path (prefill only; decode runs neither)
@@ -1755,6 +1777,117 @@ def no_host_read(clients, device) -> None:
         if launches != want or not np.isfinite(loss):
             raise AssertionError(f"no-host-read round [{channel}]: launches "
                                  f"{launches} (expected {want}), loss {loss}")
+
+
+def live_tap(clients, w_star, device, paper: dict) -> dict:
+    """Phase 4h (see the module docstring): the live tap on the card, a
+    host node in the chunk's CUDA graph, against the tapless engine and
+    phase 4's float64 run (``paper``)."""
+    import faulthandler
+
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn, run_rounds)
+    from repro_torch.core.engine import _fetch
+    from repro_torch.kernels import _build
+    from repro_torch.models.logreg import make_logreg_problem
+    from repro_torch.obs import ROW_FIELDS, LiveTap, MemorySink
+
+    prob = make_logreg_problem(clients, GAMMA, dtype=torch.float64,
+                               device=device)
+    ws = w_star.to(torch.float64)
+    rf = make_round_fn("fedosaa_svrg", prob,
+                       AlgoHParams(eta=ETA, local_epochs=L_EPOCHS),
+                       device=device)
+    want = paper["float64"]["vmap"]
+    out, runners = {}, {}
+    faulthandler.dump_traceback_later(LIVE_TAP_WATCHDOG_S, exit=True)
+    try:
+        for name, tap in (("live_tap_tapless", None), ("live_tap", LiveTap())):
+            runner = make_chunk_runner(rf, LIVE_TAP_CHUNK, w_star=ws, tap=tap)
+            sink = MemorySink()
+            _build.reset_launches()
+            with sync_warnings() as caught:
+                reads = ChunkReads(caught)
+                state, trace = run_rounds(
+                    rf, init_state(prob, device=device, algo="fedosaa_svrg"),
+                    10, chunk=LIVE_TAP_CHUNK, w_star=ws, runner=runner,
+                    sinks=[sink, reads])
+            counted = engine_launches(f"phase 4h {name}", trace.num_rounds,
+                                      LIVE_TAP_CHUNK, int8=False)
+            if any(n != 1 for n in reads.per_chunk[1:]):
+                raise AssertionError(f"phase 4h {name}: host reads per chunk "
+                                     f"{reads.per_chunk}")
+            same_as_loop(f"phase 4h {name} against phase 4's float64 run",
+                         want["sink"], sink, want["params"], state.params)
+            out[name] = dict(counted, reads_per_chunk=reads.per_chunk,
+                             capture_ms=runner.capture_ms)
+            runners[name] = (runner, state)
+            if tap is None:
+                continue
+            slots = [r["slot"] for r in tap.rows]
+            if slots != [*range(LIVE_TAP_CHUNK), 0, 1]:
+                raise AssertionError(f"phase 4h: tap rows of slots {slots}")
+            keys = [f for f in ROW_FIELDS if f in tap.rows[0]]
+            a, b = (np.array([[r[f] for f in keys] for r in rows],
+                             dtype=np.float64) for rows in (tap.rows, sink.rows))
+            bad = [f for j, f in enumerate(keys)
+                   if not np.array_equal(a[:, j], b[:, j], equal_nan=True)]
+            if bad:
+                raise AssertionError(f"phase 4h: tap rows differ from the "
+                                     f"run's rows in {bad}")
+            if out["live_tap_tapless"]["launches"] != counted["launches"]:
+                raise AssertionError(f"phase 4h: tapped launches "
+                                     f"{counted['launches']}, tapless "
+                                     f"{out['live_tap_tapless']['launches']}")
+            # a warmed-up tapped replay under "error": any synchronizing
+            # call raises; the read after it, outside, waits for the graph
+            # and so for every host node
+            tap.rows.clear()
+            torch.cuda.synchronize(device)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                runner._replay(state, LIVE_TAP_CHUNK)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            loss = _fetch(runner.readout)[:, runner.device_fields.index("loss")]
+            done_at_read = len(tap.rows)
+            if (done_at_read != LIVE_TAP_CHUNK or runner.tap_error is not None
+                    or [r["loss"] for r in tap.rows] != loss.tolist()):
+                raise AssertionError(f"phase 4h: {done_at_read} tap rows at the "
+                                     f"read of a replay of {LIVE_TAP_CHUNK} "
+                                     f"slots (error {runner.tap_error!r})")
+            out[name]["no_sync_replay"] = True
+        # ms a chunk (replay + read), the two runners in turns
+        walls = {name: [] for name in runners}
+        for k in range(LIVE_TAP_TURNS):
+            for name in (sorted(runners) if k % 2 else sorted(runners)[::-1]):
+                runner, state = runners[name]
+                t0 = time.perf_counter()
+                runner(state, LIVE_TAP_CHUNK)
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    for name, ms in walls.items():
+        out[name]["chunk_ms"] = ms
+        out[name]["chunk_ms_median"] = float(np.median(ms))
+    print(f"  tapped and tapless: rows and final params = phase 4's float64 "
+          f"run; launches {out['live_tap']['launches']} each over "
+          f"{out['live_tap']['slots']} slots; tap rows slots 0-7, 0-1 = the "
+          f"run's rows; host reads per chunk "
+          f"{out['live_tap']['reads_per_chunk']}; a warmed-up tapped replay "
+          f"under set_sync_debug_mode('error'): no synchronizing call, all "
+          f"{LIVE_TAP_CHUNK} tap calls returned by its read", flush=True)
+    print(f"  ms a chunk of {LIVE_TAP_CHUNK} (replay + read, {LIVE_TAP_TURNS} "
+          f"turns each): tapped median {out['live_tap']['chunk_ms_median']:.3f} "
+          f"({', '.join(f'{w:.3f}' for w in walls['live_tap'])}), tapless "
+          f"{out['live_tap_tapless']['chunk_ms_median']:.3f} "
+          f"({', '.join(f'{w:.3f}' for w in walls['live_tap_tapless'])}); "
+          f"capture {out['live_tap']['capture_ms']:.1f} / "
+          f"{out['live_tap_tapless']['capture_ms']:.1f} ms [{card_line()}]",
+          flush=True)
+    del runners
+    torch.cuda.empty_cache()
+    return out
 
 
 #: phase 4b: the trajectory family at paper scale (f64, 10 rounds, by the
@@ -6754,6 +6887,11 @@ def main() -> int:
     print(f"  w* by Newton-CG in {time.perf_counter() - t0:.1f} s", flush=True)
     paper = paper_scale(clients, w_star, device)
     no_host_read(clients, device)
+    print(f"{clock()} phase 4h: the live tap (paper scale, float64, 10 rounds "
+          f"in chunks of {LIVE_TAP_CHUNK}, tapped and tapless)", flush=True)
+    t0 = time.perf_counter()
+    tapped = live_tap(clients, w_star, device, paper)
+    print(f"  phase 4h took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"{clock()} phase 4b: the trajectory family at paper scale (float64, 10 "
           "rounds)", flush=True)
     family = trajectory_family(clients, w_star, device)
@@ -6790,7 +6928,7 @@ def main() -> int:
                **sharded_gloo_world(accept["w_star"], clients, device, floor,
                                     cohort)}
     print(f"  phase 4g took {time.perf_counter() - t0:.1f} s", flush=True)
-    fl_runs = {**paper, **family, **newton, **cohort["runs"],
+    fl_runs = {**paper, **tapped, **family, **newton, **cohort["runs"],
                **robust["paper"],
                **{k: v for k, v in ckpt.items() if k.startswith("ckpt_")},
                **{k: v for k, v in sharded.items()

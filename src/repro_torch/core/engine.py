@@ -62,6 +62,21 @@ included. The warm-up round before the capture (on a scratch copy of the
 state, on the capture stream, as torch's graph docs require) is counted
 apart, in ``runner.warmup_launches``.
 
+The live tap (``tap=``, obs/sinks.py::LiveTap or any host callable
+``tap(slot, metrics, rel, live)``) sees each slot as the chunk runs,
+called after the slot's select with the chunk-local slot index; it is off
+by default. On the CPU the eager body calls it with the slot's tensors.
+On the card the captured chunk copies each slot's readout row
+(non-blocking) into a pinned host buffer that the runner owns and then
+holds a host node (``_build.host_node``, ``cudaLaunchHostFunc``) that
+hands that row, with the capture's host metrics, to the tap on CUDA's
+callback thread while the later slots run. The tap must call no CUDA API
+there; the graph waits for it, so every tap call of a chunk has returned
+when the runner's one read has; an exception it raises is raised by the
+runner after that read. A tapped chunk computes what the tapless one
+does, bit for bit, with the same launches; a tapless runner has no
+pinned buffer and no host node.
+
 ``run_rounds`` works with any ``round(state, draws) -> (state,
 RoundMetrics)`` from ``make_round_fn`` or core/sharded.py's
 ``make_sharded_round_fn``; pass a prebuilt ``runner`` to keep its graph
@@ -81,7 +96,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms import HOST_METRICS, ServerState
+from repro_torch.core.algorithms import HOST_METRICS, RoundMetrics, ServerState
 from repro_torch.kernels import _build
 from repro_torch.utils import tree_math as tm
 
@@ -208,17 +223,21 @@ class ChunkRunner:
     On the card, ``warmup_ms`` and ``capture_ms`` time the first call's
     warm-up round and capture, and ``warmup_launches`` holds the warm-up's
     kernel launches (``_build.LaunchRecord``), counted apart from
-    ``_build.LAUNCHES``; ``record`` holds one replay's launches.
+    ``_build.LAUNCHES``; ``record`` holds one replay's launches. ``tap``
+    is the live tap (module docstring), called once per slot.
     """
 
     def __init__(self, round_fn: Callable, chunk: int, *,
                  w_star: torch.Tensor | None = None,
                  stop_rel_error: float | None = None,
-                 stop_grad_norm: float | None = None):
+                 stop_grad_norm: float | None = None,
+                 tap: Callable | None = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.round_fn = round_fn
         self.chunk = chunk
+        self.tap = tap
+        self.tap_error: Exception | None = None
         self.w_star = w_star
         self.w_star_norm = (float(tm.tree_norm(w_star)) if w_star is not None
                             else None)
@@ -231,11 +250,12 @@ class ChunkRunner:
         self.warmup_launches = self.record = None
 
     def _body(self, state: ServerState, n_live: torch.Tensor,
-              draws: "dict[str, torch.Tensor]"):
+              draws: "dict[str, torch.Tensor]", tap_slot=None):
         """The chunk, eagerly: ``chunk`` unconditional rounds, each selected
         into the carried state while live. Returns (state, the [chunk,
         len(device_fields) + 3] float64 readout, the host metrics of each
-        slot). The CPU path calls it; the card captures it."""
+        slot). The CPU path calls it; the card captures it. ``tap_slot(i,
+        metrics, rel, live, row)`` follows each slot's readout row."""
         done = torch.zeros((), dtype=torch.bool, device=state.params.device)
         rows, host = [], []
         for i in range(self.chunk):
@@ -259,7 +279,34 @@ class ChunkRunner:
                 + [rel.to(torch.float64), live.to(torch.float64),
                    done.to(torch.float64)]))
             host.append([float(getattr(m, f)) for f in self.host_fields])
+            if tap_slot is not None:
+                tap_slot(i, m, rel, live, rows[-1])
         return state, torch.stack(rows), host
+
+    def _tap_eager(self, i, m, rel, live, row) -> None:
+        """The CPU's tap call: the slot's own tensors."""
+        self.tap(i, m, rel, live)
+
+    def _tap_node(self, i, m, rel, live, row) -> None:
+        """Under capture: copy slot ``i``'s readout row into row ``i`` of
+        the pinned buffer, then a host node that hands it to the tap."""
+        self._tap_host[i].copy_(row, non_blocking=True)
+        _build.host_node(self._tap_fn, i)
+
+    def _host_tap(self, data) -> None:
+        """Slot ``data``'s host node (CUDA's callback thread; no CUDA API):
+        the tap gets the pinned readout row and the capture's host metrics
+        as floats. An exception is kept for ``__call__`` to raise."""
+        i = data or 0
+        try:
+            row = self._tap_rows[i].tolist()
+            n = len(self.device_fields)
+            m = RoundMetrics(**dict(zip(self.device_fields, row)),
+                             **dict(zip(self.host_fields, self.host[i])))
+            self.tap(i, m, row[n], bool(row[n + 1]))
+        except Exception as e:
+            if self.tap_error is None:
+                self.tap_error = e
 
     def _draw_buffers(self, device) -> "dict[str, torch.Tensor]":
         """[chunk, ...] buffers of each of the round's draws, in its dtype."""
@@ -293,6 +340,16 @@ class ChunkRunner:
         self.warmup_ms = (time.perf_counter() - t0) * 1e3
         self.warmup_launches = warm
         del scratch
+        tap_slot = None
+        if self.tap is not None:
+            # the rows the host nodes read, and the host function itself:
+            # both live as long as the graph
+            self._tap_host = torch.empty(
+                (self.chunk, len(self.device_fields) + 3),
+                dtype=torch.float64, pin_memory=True)
+            self._tap_rows = self._tap_host.numpy()
+            self._tap_fn = _build.HOST_FN(self._host_tap)
+            tap_slot = self._tap_node
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
@@ -302,7 +359,7 @@ class ChunkRunner:
                                        self.round_fn, "capture_error_mode",
                                        "global"))):
                 out, self.readout, self.host = self._body(
-                    self.static, self.n_live, self.draws)
+                    self.static, self.n_live, self.draws, tap_slot)
                 # the chunk's final state back into the buffers the next
                 # replay reads
                 for dst, src in zip(_tensors(self.static), _tensors(out)):
@@ -322,24 +379,36 @@ class ChunkRunner:
             if src is not dst:
                 dst.copy_(src)
 
+    def _replay(self, state: ServerState, n_live: int) -> None:
+        """On the card: capture at the first call (else load ``state``
+        into the runner's buffers and fill the draws), then enqueue one
+        replay of the chunk; nothing is read back."""
+        if self.graph is None:
+            self._capture(state)
+        else:
+            self._load(state)
+            self.round_fn.fill_draws(self.draws, state.t)
+        self.n_live.fill_(n_live)
+        self.tap_error = None
+        self.graph.replay()
+        _build.count_replay(self.record)
+
     def __call__(self, state: ServerState, n_live: int):
         t0 = state.t
         if state.params.device.type == "cpu":
             draws = self._draw_buffers(state.params.device)
             self.round_fn.fill_draws(draws, state.t)
             state, readout, host = self._body(
-                state, torch.tensor(n_live), draws)
+                state, torch.tensor(n_live), draws,
+                self._tap_eager if self.tap is not None else None)
             out = _fetch(readout)
         else:
-            if self.graph is None:
-                self._capture(state)
-            else:
-                self._load(state)
-                self.round_fn.fill_draws(self.draws, state.t)
-            self.n_live.fill_(n_live)
-            self.graph.replay()
-            _build.count_replay(self.record)
+            self._replay(state, n_live)
+            # the graph's host nodes have all returned once this read has
             out = _fetch(self.readout)
+            if self.tap_error is not None:
+                raise RuntimeError("engine: the live tap raised inside the "
+                                   "chunk") from self.tap_error
             host = self.host
             state = self.static
         n_dev = len(self.device_fields)
@@ -354,13 +423,22 @@ class ChunkRunner:
 def make_chunk_runner(round_fn: Callable, chunk: int, *,
                       w_star: torch.Tensor | None = None,
                       stop_rel_error: float | None = None,
-                      stop_grad_norm: float | None = None) -> ChunkRunner:
+                      stop_grad_norm: float | None = None,
+                      tap: Callable | None = None) -> ChunkRunner:
     """A ``ChunkRunner`` of ``chunk`` rounds of ``round_fn`` (from
     ``make_round_fn``), stopping on a non-finite loss and on the targets
-    given. Raises unless ``chunk`` >= 1."""
+    given. Raises unless ``chunk`` >= 1.
+
+    ``tap`` — optional live tap (obs/sinks.LiveTap or any host callable
+    ``(slot, metrics, rel, live)``), called once per slot as the chunk
+    runs, non-live slots included (LiveTap drops them), with the
+    chunk-local slot index: eagerly on the CPU, from a host node of the
+    chunk's CUDA graph on the card (see the module docstring). OFF by
+    default. The tapped chunk computes the tapless one's state and readout
+    bit for bit."""
     return ChunkRunner(round_fn, chunk, w_star=w_star,
                        stop_rel_error=stop_rel_error,
-                       stop_grad_norm=stop_grad_norm)
+                       stop_grad_norm=stop_grad_norm, tap=tap)
 
 
 def run_rounds(
@@ -373,6 +451,7 @@ def run_rounds(
     stop_rel_error: float | None = None,
     stop_grad_norm: float | None = None,
     runner: ChunkRunner | None = None,
+    tap: Callable | None = None,
     sinks=(),
     run_info: "dict | None" = None,
     trace_capture=None,
@@ -386,10 +465,12 @@ def run_rounds(
 
     ``runner`` — optionally a prebuilt ``make_chunk_runner(...)`` whose
     graph should be reused. It MUST have been built from the same
-    ``round_fn`` with the same chunk/stop configuration; when omitted, one
-    is built here.
+    ``round_fn`` with the same chunk/stop configuration (incl. ``tap``);
+    when omitted, one is built here.
 
     Telemetry (repro_torch/obs — every hook is optional):
+      tap           — live in-chunk tap, given to the runner built here (see
+                      make_chunk_runner); ignored when ``runner`` is given.
       sinks         — MetricsSinks. Opened with a header row (run_info merged
                       in), fed one row per executed round from THIS chunk's
                       read — attaching sinks adds no device→host transfer
@@ -421,7 +502,7 @@ def run_rounds(
     if runner is None:
         runner = make_chunk_runner(
             round_fn, chunk, w_star=w_star, stop_rel_error=stop_rel_error,
-            stop_grad_norm=stop_grad_norm)
+            stop_grad_norm=stop_grad_norm, tap=tap)
     chunk = runner.chunk
     sinks = list(sinks)
     for s in sinks:

@@ -116,6 +116,7 @@ def run_federated(
     chunk: int | None = None,
     sinks=(),
     trace_capture=None,
+    tap=None,
     faults: FaultPlan | None = None,
     async_cfg: AsyncConfig | None = None,
     checkpoint: CheckpointPolicy | None = None,
@@ -133,10 +134,11 @@ def run_federated(
     calls run_federated with the same arguments and the global
     ``problem``, keeps its block of the clients' rows on ``device`` and
     computes the replicated params, so ``w_star``, the rel-error, the
-    History and ``final_params`` are the same on every rank; the sinks and
-    ``trace_capture`` run on rank 0 only (a sink's stop request reaches
-    every rank by a broadcast), the header says ``"runtime": "sharded"``,
-    and a checkpoint holds one shard file per rank.
+    History and ``final_params`` are the same on every rank; the sinks,
+    ``trace_capture`` and ``tap`` run on rank 0 only (a sink's stop
+    request reaches every rank by a broadcast), the header says
+    ``"runtime": "sharded"``, and a checkpoint holds one shard file per
+    rank.
 
     Every wire crossing goes through ``channel`` (a ``--comm-codec`` spec
     such as ``"int8"``, or None for the lossless identity); ``seed`` seeds a
@@ -156,7 +158,10 @@ def run_federated(
     round and a footer on either path; a sink's ``stop_requested`` stops
     the run after the round (loop) or the chunk (engine). ``trace_capture``
     (obs.TraceCapture) opens torch.profiler windows at round or chunk
-    boundaries.
+    boundaries. ``tap`` (obs.LiveTap or any host callable ``(slot,
+    metrics, rel, live)``) sees each slot of a chunk as it runs
+    (core/engine.make_chunk_runner): engine path only, as in the
+    reference; the per-round loop calls no tap.
 
     ``faults`` (robust.FaultPlan) injects its dropout, stale anchors,
     byzantine uplinks or history, DP noise and latencies in every round;
@@ -215,7 +220,7 @@ def run_federated(
         shard = round_fn.shard
         rows = round_fn.rank_problem
         if shard.rank != 0:
-            sinks, trace_capture = [], None
+            sinks, trace_capture, tap = [], None, None
         sinks = [RankZeroStop(sinks, group)] + sinks
     else:
         round_fn = make_round_fn(algo, problem, hp, channel, seed, device,
@@ -254,7 +259,7 @@ def run_federated(
             round_fn, state, max(0, num_rounds - start_round), chunk=chunk,
             w_star=w_star, stop_rel_error=stop_rel_error,
             stop_grad_norm=stop_grad_norm, sinks=sinks, run_info=run_info,
-            trace_capture=trace_capture, start_round=start_round,
+            trace_capture=trace_capture, tap=tap, start_round=start_round,
             checkpoint=ckpt_mgr)
         return History(
             algo=algo, rounds=np.arange(start_round,

@@ -21,7 +21,9 @@ A launch made while a CUDA graph is captured does not run: inside
 graph adds that record to both counters (``count_replay``); outside one it
 raises, so no replay goes uncounted. ``noop`` launches an empty kernel
 through the same path, counted nowhere: timed back to back, it is the
-launch floor every kernel's time includes.
+launch floor every kernel's time includes. ``host_node`` enqueues a host
+function on the current stream (a host node of a captured graph: the
+engine's live tap), which is no kernel and is counted nowhere.
 """
 from __future__ import annotations
 
@@ -85,6 +87,8 @@ _SIGNATURES = {
                               _P],
     # stream
     "repro_noop": [_P],
+    # fn, data, stream
+    "repro_host_node": [_P, _P, _P],
 }
 #: what an occupancy query's int array holds (see occupancy)
 _BLOCK_FIELDS = ("blocks_per_sm", "registers", "shared_bytes", "threads",
@@ -318,3 +322,17 @@ def noop() -> None:
     """Launch the empty kernel (one warp, no memory traffic) on the current
     stream, the way ``launch`` launches every kernel; counted nowhere."""
     _call("noop", "repro_noop")
+
+
+#: the C signature of a host function: void fn(void* data)
+HOST_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+
+
+def host_node(fn, data: int) -> None:
+    """Enqueue ``fn(data)`` (a ``HOST_FN``) on the current stream
+    (``cudaLaunchHostFunc``); under capture, a host node of the graph. The
+    stream's later work waits for ``fn`` to return, and ``fn`` runs on
+    CUDA's callback thread, so it must call no CUDA API. The caller keeps
+    ``fn`` alive as long as the stream or graph may run it. No kernel, so
+    counted nowhere."""
+    _call("host_node", "repro_host_node", fn, ctypes.c_void_p(data))

@@ -7,9 +7,11 @@ telemetry never adds a device→host transfer to the chunk
   * ``sinks``     — MetricsSink protocol + in-memory / stdout / JSONL file
                     sinks with the reference's versioned row schema, drained
                     at chunk boundaries by ``core/engine.run_rounds`` and per
-                    round by the loop in ``core/server.run_federated``. The
-                    reference's ``LiveTap`` is not ported (a CUDA graph's
-                    replay cannot call back into the host mid-chunk).
+                    round by the loop in ``core/server.run_federated``; plus
+                    the OFF-by-default ``LiveTap``, called per slot inside
+                    a chunk (eagerly on the CPU, from a host node of the
+                    chunk's CUDA graph on the card), whose rows equal the
+                    chunk's readout bit for bit.
   * ``profiling`` — on-demand ``torch.profiler`` windows around chunks
                     ("trace rounds T..T+N", armed by config or a trigger
                     file), exported as Chrome traces that carry the
@@ -34,6 +36,7 @@ from repro_torch.obs.sinks import (  # noqa: F401
     ROW_FIELDS,
     SCHEMA_VERSION,
     JsonlSink,
+    LiveTap,
     MemorySink,
     MetricsSink,
     StdoutSink,

@@ -6,8 +6,9 @@ from THAT read: ``emit`` receives plain-python row dicts built from data the
 driver already fetched, so attaching any number of sinks adds no
 device→host transfer (tests/test_torch_engine.py counts the reads). The
 per-round loop (core/server.py) feeds the same rows at round granularity.
-The reference's ``LiveTap`` is not ported: it re-enters the host inside a
-chunk, which a CUDA graph's replay cannot do.
+``LiveTap`` is the one hook that sees a chunk while it runs: the engine
+calls it per slot, eagerly on the CPU and from a host node of the chunk's
+CUDA graph on the card (core/engine.py).
 
 Row schema (versioned — bump SCHEMA_VERSION on any incompatible change;
 v2 added aa_clipped_max, the robustness layer's clip-screen activity; v3
@@ -234,6 +235,37 @@ class JsonlSink:
         self._f = None
 
 
+class LiveTap:
+    """Sub-chunk visibility: a host callable that the engine calls as each
+    slot of a chunk runs (``make_chunk_runner(..., tap=...)``, also through
+    ``run_rounds`` and ``run_federated(..., chunk=B)``): on the CPU from
+    the eager chunk body, on the card from a host node inside the chunk's
+    CUDA graph, with the slot's readout row copied to pinned memory.
+
+    OFF by default: it re-enters the host mid-chunk, which the one read a
+    chunk otherwise rules out. The rows are the chunk's own values: each
+    equals its slot of the chunk's readout, and a tapped chunk computes
+    the tapless one's state and rows bit for bit. Rows carry the
+    chunk-LOCAL slot index; non-live slots (past a stop / past n_live) are
+    dropped.
+    """
+
+    def __init__(self, print_rows: bool = False):
+        self.print_rows = print_rows
+        self.rows: list[dict] = []
+
+    def __call__(self, slot, metrics, rel, live) -> None:
+        if not bool(live):
+            return
+        row = {f: float(getattr(metrics, f)) for f in metrics._fields}
+        row["slot"] = int(slot)
+        row["rel_error"] = float(rel)
+        self.rows.append(row)
+        if self.print_rows:
+            print(f"[obs:tap] slot={row['slot']} loss={row['loss']:.6e} "
+                  f"relerr={row['rel_error']:.3e}")
+
+
 def make_sink(spec: str) -> MetricsSink:
     """Parse a CLI sink spec: ``jsonl:<path>``, ``stdout[:every]``, ``memory``."""
     kind, _, arg = spec.partition(":")
@@ -253,6 +285,7 @@ __all__ = [
     "ROW_FIELDS",
     "SCHEMA_VERSION",
     "JsonlSink",
+    "LiveTap",
     "MemorySink",
     "MetricsSink",
     "StdoutSink",

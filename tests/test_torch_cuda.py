@@ -670,6 +670,67 @@ def test_engine_graph_equals_the_loop_on_card(card, channel, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("channel", [None, "int8"])
+def test_live_tap_host_node_on_card(card, channel):
+    """The live tap on the card (a host node of the chunk's CUDA graph,
+    core/engine.py): 7 rounds in chunks of 4 (the last chunk short), under
+    a watchdog that fails a hang. The tapped run's History, final params
+    and launches equal the tapless run's bit for bit; the tap's rows are
+    slots 0-3 then 0-2, each the run's row; a warmed-up tapped replay
+    makes no synchronizing call under set_sync_debug_mode("error"), and
+    every tap call of it has returned by the chunk's read; an exception in
+    the tap is raised by the runner after the read."""
+    import faulthandler
+
+    from repro_torch.core import (AlgoHParams, init_state, make_chunk_runner,
+                                  make_round_fn, run_rounds)
+    from repro_torch.core.engine import _fetch
+    from repro_torch.obs import LiveTap
+    prob, w_star = _engine_problem(card)
+    rf = make_round_fn("fedosaa_svrg", prob,
+                       AlgoHParams(eta=0.5, local_epochs=3), channel,
+                       device=card)
+    faulthandler.dump_traceback_later(120, exit=True)
+    try:
+        runs = {}
+        for name, tap in (("tapless", None), ("tapped", LiveTap())):
+            runner = make_chunk_runner(rf, 4, w_star=w_star, tap=tap)
+            _build.reset_launches()
+            state, trace = run_rounds(
+                rf, init_state(prob, device=card, channel=channel,
+                               algo="fedosaa_svrg"),
+                7, chunk=4, w_star=w_star, runner=runner)
+            runs[name] = (runner, state, trace, dict(_build.LAUNCHES), tap)
+        (_, s0, t0, l0, _), (runner, s1, t1, l1, tap) = runs.values()
+        assert l0 == l1 and l1["aa_step"] == 8
+        assert torch.equal(s0.params, s1.params)
+        for f in ("loss", "grad_norm", "rel_error", "theta_mean",
+                  "comm_bytes", "gram_cond_max"):
+            np.testing.assert_array_equal(getattr(t1, f), getattr(t0, f))
+        assert [r["slot"] for r in tap.rows] == [0, 1, 2, 3, 0, 1, 2]
+        np.testing.assert_array_equal([r["loss"] for r in tap.rows], t1.loss)
+        np.testing.assert_array_equal([r["rel_error"] for r in tap.rows],
+                                      t1.rel_error)
+        np.testing.assert_array_equal([r["comm_bytes"] for r in tap.rows],
+                                      t1.comm_bytes)
+        tap.rows.clear()
+        torch.cuda.synchronize(card)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner._replay(s1, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        loss = _fetch(runner.readout)[:, runner.device_fields.index("loss")]
+        assert [r["loss"] for r in tap.rows] == loss.tolist()
+        runner.tap = lambda *a: 1 / 0
+        with pytest.raises(RuntimeError, match="live tap") as info:
+            runner(s1, 4)
+        assert isinstance(info.value.__cause__, ZeroDivisionError)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+@pytest.mark.cuda
 def test_engine_refuses_a_round_with_a_host_read(card):
     """aa_impl="tree" reads eigh's info back every round: the capture
     raises with that cause, and nothing runs eagerly in its place."""

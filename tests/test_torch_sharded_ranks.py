@@ -269,6 +269,19 @@ def child(workdir: Path) -> None:
                           **kw)
         out["runs"][name] = dict(h=h, same=same_everywhere(h.final_params))
 
+    if W == 2:
+        # the svrg engine run again with a live tap: only rank 0 taps
+        from repro_torch.obs import LiveTap
+
+        kw = dict(inp["runs"]["svrg_engine"][0])
+        hp = AlgoHParams(**kw.pop("hp"))
+        plan, gate = kw.pop("plan"), kw.pop("gate")
+        tap = LiveTap()
+        h = run_federated(prob, hp=hp, device="cpu", chunk=3,
+                          runtime="sharded", faults=FaultPlan(**plan),
+                          async_cfg=AsyncConfig(**gate), tap=tap, **kw)
+        out["tap"] = dict(rows=tap.rows, h=h)
+
     # a cohort round's draws: the vmap round's, the rank's slots' rows
     hp = AlgoHParams(**HP, batch_size=16, **COHORT_KW)
     plan, gate = FaultPlan(**MIXED), AsyncConfig(**GATE)
@@ -722,6 +735,28 @@ def test_engine_equals_loop(world, algo):
             np.testing.assert_array_equal(
                 getattr(loop, f), getattr(world[0]["runs"][f"{algo}_loop"]["h"],
                                           f), err_msg=f)
+
+
+def test_only_rank_zero_taps(world2):
+    """run_federated(runtime="sharded", chunk=3, tap=LiveTap()) over W = 2
+    (FedOSAA-SVRG with every fault kind behind the gate, int8): rank 0's
+    tap gets one row per round, slots 0-2 twice, each its History's row;
+    rank 1's tap gets none; the tapped run is the tapless engine run bit
+    for bit on both ranks."""
+    rows = world2[0]["tap"]["rows"]
+    assert world2[1]["tap"]["rows"] == []
+    h = world2[0]["tap"]["h"]
+    assert [r["slot"] for r in rows] == [0, 1, 2, 0, 1, 2]
+    for f in ("loss", "grad_norm", "rel_error", "theta_mean", "arrivals",
+              "staleness_mean", "staleness_max"):
+        np.testing.assert_array_equal([r[f] for r in rows], getattr(h, f),
+                                      err_msg=f)
+    for r in world2:
+        tapped, plain = r["tap"]["h"], r["runs"]["svrg_engine"]["h"]
+        for f in HISTORY_FIELDS:
+            np.testing.assert_array_equal(getattr(tapped, f),
+                                          getattr(plain, f), err_msg=f)
+        assert torch.equal(tapped.final_params, plain.final_params)
 
 
 def test_rounds_to_target_within_one_round(inputs, world):

@@ -26,9 +26,10 @@ none, and on the (2, 2) mesh their baseline is the mean of the reference's
 steps on each row alone (capacity counts the rank's tokens, as the
 reference's ``moe_sharded`` under a split batch).
 
-The reference's own sharded step: one train step of smollm-135m under a
-(2, 2) ``jax.sharding.Mesh`` of 4 host devices (a subprocess), against the
-world of 4's (2, 2) run.
+The reference's own sharded step: one train step of smollm-135m and one
+of granite-moe-3b-a800m under a (2, 2) ``jax.sharding.Mesh`` of 4 host
+devices (a subprocess), against the world of 4's (2, 2) runs; granite's
+also its aux loss (pmean'd over "data") and the row-wise stand-in's.
 
 The AA step of a plan in f64, on the unsharded port's trajectory (four
 train steps of smollm-135m in f64) cut to each rank: w⁺ within 1e-10 of the
@@ -135,6 +136,12 @@ def child(workdir: Path) -> None:
                 loss=float(loss), new={n: _np(t) for n, t in new.items()},
                 r={n: _np(t) for n, t in r.items()},
                 counts={k: dict(v) for k, v in model.sh.counts.items()})
+            if case in REFERENCE_SHARDED and (D, M) == (2, 2) and plan.cfg.num_experts:
+                # the aux loss of the training forward, the data ranks' mean
+                with torch.no_grad():
+                    _, aux = model.forward_hidden(batch["tokens"])
+                    aux = model._data_mean(aux, batch["tokens"].shape[0])
+                out["steps"][(case, (D, M))]["aux"] = float(aux)
         for case, mesh_dm in AA_CASES[W]:
             if mesh_dm != (D, M):
                 continue
@@ -287,12 +294,43 @@ def reference_aa(aa: dict) -> dict:
     return dict(ref_w=ref_w, ref_theta=float(ref_theta))
 
 
-#: the reference's train step of smollm-135m under a (2, 2) mesh of 4 host
-#: devices (a jax.sharding.Mesh: its axes are Auto, ROADMAP.md section 3),
-#: from ref_tp_inputs.npz; writes ref_tp_outputs.npz
+#: the cases whose train step the reference runs under its own (2, 2) mesh
+REFERENCE_SHARDED = ("smollm-135m", "granite-moe-3b-a800m")
+#: defines ``repaired_moe_sharded()``: the reference's moe_sharded with
+#: the one change that repairs its dispatch (ROADMAP.md section 3).
+#: It scatters each assignment's token id into [E_loc, cap] with ``.set``,
+#: and every assignment it drops (past capacity, or another rank's expert)
+#: writes the sentinel into expert 0's last slot, where a kept token may
+#: sit: which write lands is not defined, and on XLA's CPU the sentinel
+#: can win, so that token's expert output is 0. Here the dropped writes go
+#: to a slot of their own, cut off after the scatter.
+REPAIRED_MOE_SHARDED = r"""
+import inspect, textwrap
+from repro.models import layers as _lyr
+def repaired_moe_sharded():
+    src = inspect.getsource(_lyr.moe_sharded)
+    a = "idx_buf = jnp.full((E_loc, cap), T, jnp.int32)"
+    b = "idx_buf = idx_buf.at[safe_e, safe_p].set(jnp.where(keep, tok_id, T))"
+    assert a in src and b in src, "the reference's moe_sharded changed"
+    src = src.replace(a, "idx_buf = jnp.full((E_loc, cap + 1), T, jnp.int32)").replace(
+        b, "idx_buf = idx_buf.at[safe_e, jnp.where(keep, safe_p, cap)].set("
+           "jnp.where(keep, tok_id, T))[:, :cap]")
+    ns = dict(vars(_lyr))
+    exec(textwrap.dedent(src), ns)
+    return ns["moe_sharded"]
+"""
+#: the reference's train step of each arch named under a (2, 2) mesh of 4
+#: host devices (a jax.sharding.Mesh: its axes are Auto, ROADMAP.md section
+#: 3), from ref_tp_inputs_<arch>.npz; writes ref_tp_outputs_<arch>.npz. For
+#: an MoE arch the step runs the repaired dispatch (REPAIRED_MOE_SHARDED);
+#: also written: the aux loss of its forward under the mesh (capacity from
+#: the rank's tokens, the aux pmean'd over "data"; the dispatch does not
+#: enter it) and the row-wise stand-in's: the mean of the unsharded
+#: model's aux on each batch row alone
 REFERENCE_TP_STEP = r"""
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+""" + REPAIRED_MOE_SHARDED + r"""
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -301,32 +339,45 @@ from repro.launch.steps import make_train_step
 from repro.models.decoder import build_model
 from repro.sharding.specs import batch_axis, make_plan, param_specs
 d = sys.argv[1]
-inp = dict(np.load(os.path.join(d, "ref_tp_inputs.npz")))
-def nest(prefix):
-    out = {}
-    for k, v in inp.items():
-        if k.startswith(prefix):
-            node = out
-            *parents, leaf = k[len(prefix):].split("/")
-            for q in parents:
-                node = node.setdefault(q, {})
-            node[leaf] = jnp.asarray(v)
-    return out
 mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
-plan = make_plan(get_arch("smollm-135m").reduced(), mesh)
-jm = build_model(plan.cfg, plan.sharder())
-params, corr, batch = nest("params/"), nest("correction/"), nest("batch/")
-p_shard = jax.tree.map(lambda s: NamedSharding(mesh, s), param_specs(params, plan),
-                       is_leaf=lambda x: isinstance(x, P))
-ba = batch_axis(plan, batch["tokens"].shape[0])
-b_shard = jax.tree.map(lambda x: NamedSharding(mesh, P(ba, *([None] * (x.ndim - 1)))), batch)
-step = jax.jit(make_train_step(jm, eta=float(sys.argv[2])),
-               in_shardings=(p_shard, b_shard, p_shard), out_shardings=(p_shard, p_shard, None))
-new, r, loss = step(params, batch, corr)
-flat = {"loss": np.asarray(loss)}
-for kp, v in jax.tree_util.tree_flatten_with_path(r)[0]:
-    flat["r/" + "/".join(k.key for k in kp)] = np.asarray(v)
-np.savez(os.path.join(d, "ref_tp_outputs.npz"), **flat)
+for arch in sys.argv[3:]:
+    inp = dict(np.load(os.path.join(d, f"ref_tp_inputs_{arch}.npz")))
+    def nest(prefix):
+        out = {}
+        for k, v in inp.items():
+            if k.startswith(prefix):
+                node = out
+                *parents, leaf = k[len(prefix):].split("/")
+                for q in parents:
+                    node = node.setdefault(q, {})
+                node[leaf] = jnp.asarray(v)
+        return out
+    plan = make_plan(get_arch(arch).reduced(), mesh)
+    jm = build_model(plan.cfg, plan.sharder())
+    params, corr, batch = nest("params/"), nest("correction/"), nest("batch/")
+    p_shard = jax.tree.map(lambda s: NamedSharding(mesh, s), param_specs(params, plan),
+                           is_leaf=lambda x: isinstance(x, P))
+    ba = batch_axis(plan, batch["tokens"].shape[0])
+    b_shard = jax.tree.map(lambda x: NamedSharding(mesh, P(ba, *([None] * (x.ndim - 1)))),
+                           batch)
+    flat = {}
+    if plan.cfg.num_experts:
+        tokens = batch["tokens"]
+        aux = jax.jit(lambda p, t: jm.forward(p, t)[1],
+                      in_shardings=(p_shard, b_shard["tokens"]))(params, tokens)
+        flat["aux"] = np.asarray(aux)
+        plain = jax.jit(lambda p, t: build_model(plan.cfg).forward(p, t)[1])
+        flat["standin_aux"] = np.mean([np.asarray(plain(params, tokens[i:i + 1]))
+                                       for i in range(tokens.shape[0])])
+        _lyr.moe_sharded = repaired_moe_sharded()
+    step = jax.jit(make_train_step(jm, eta=float(sys.argv[2])),
+                   in_shardings=(p_shard, b_shard, p_shard),
+                   out_shardings=(p_shard, p_shard, None))
+    new, r, loss = step(params, batch, corr)
+    flat["loss"] = np.asarray(loss)
+    for kp, v in jax.tree_util.tree_flatten_with_path(r)[0]:
+        flat["r/" + "/".join(k.key for k in kp)] = np.asarray(v)
+    np.savez(os.path.join(d, f"ref_tp_outputs_{arch}.npz"), **flat)
 """
 
 
@@ -395,11 +446,13 @@ def inputs(tmp_path_factory):
     threads = [threading.Thread(target=_spawn, args=(base, W, results)) for W in WORLDS]
     for t in threads:
         t.start()
-    inp = port["cases"][("smollm-135m", 2)]
-    np.savez(base / "ref_tp_inputs.npz", **{
-        f"{name}/{k}": v for name in ("params", "correction", "batch")
-        for k, v in _leaves(inp[name])})
-    tp = subprocess.Popen([sys.executable, "-c", REFERENCE_TP_STEP, str(base), str(ETA)],
+    for arch in REFERENCE_SHARDED:
+        inp = port["cases"][(arch, 2)]
+        np.savez(base / f"ref_tp_inputs_{arch}.npz", **{
+            f"{name}/{k}": v for name in ("params", "correction", "batch")
+            for k, v in _leaves(inp[name])})
+    tp = subprocess.Popen([sys.executable, "-c", REFERENCE_TP_STEP, str(base), str(ETA),
+                           *REFERENCE_SHARDED],
                           env=_env(), cwd=str(ROOT), stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     # the (1, 4) configs that the (1, 2) ones do not already give, in a
@@ -446,7 +499,8 @@ def reference_tp(inputs, worlds):
     tp = inputs["tp"]
     out, _ = tp.communicate(timeout=SPAWN_TIMEOUT)
     assert tp.returncode == 0, out[-4000:]
-    return dict(np.load(inputs["base"] / "ref_tp_outputs.npz"))
+    return {arch: dict(np.load(inputs["base"] / f"ref_tp_outputs_{arch}.npz"))
+            for arch in REFERENCE_SHARDED}
 
 
 # ---------------------------------------------------------------------------
@@ -516,24 +570,66 @@ def test_fsdp_gathers_and_reduce_scatters_over_data(worlds):
         assert rs["bytes"] == 2 * ag["bytes"]
 
 
-def test_reference_sharded_step(inputs, worlds, reference_tp):
-    """The reference's own train step under a (2, 2) mesh of 4 host
-    devices against the port's (2, 2) world: the loss and r."""
+def _ref_r(outputs: dict) -> dict:
+    """The r tree of a reference_tp entry, nested as the reference's."""
     ref_r = {}
-    for k, v in reference_tp.items():
+    for k, v in outputs.items():
         if k.startswith("r/"):
             node = ref_r
             *parents, leaf = k[2:].split("/")
             for q in parents:
                 node = node.setdefault(q, {})
             node[leaf] = v
+    return ref_r
+
+
+def assert_matches_reference_sharded(worlds, outputs, case) -> None:
+    """Each rank of the world of 4's (2, 2) step of ``case`` against the
+    reference's own step under its (2, 2) mesh: the loss within rel 1e-5,
+    each leaf's r within 1e-4 of its norm."""
+    ref_r = _ref_r(outputs)
+    want = float(outputs["loss"])
     for rank, got in enumerate(worlds[4]):
-        g = got["steps"][("smollm-135m", (2, 2))]
-        want = float(reference_tp["loss"])
-        assert abs(g["loss"] - want) <= LOSS_TOL * abs(want)
-        cut = rank_cut(ref_r, "smollm-135m", 2, 2, rank)
+        g = got["steps"][(case, (2, 2))]
+        assert abs(g["loss"] - want) <= LOSS_TOL * abs(want), (rank, g["loss"], want)
+        cut = rank_cut(ref_r, case, 2, 2, rank)
+        assert set(cut) == set(g["r"])
         for n, v in cut.items():
             assert _rel(g["r"][n], v) <= GRAD_TOL, (rank, n)
+
+
+def test_reference_sharded_step(inputs, worlds, reference_tp):
+    """The reference's own train step under a (2, 2) mesh of 4 host
+    devices against the port's (2, 2) world: the loss and r."""
+    assert_matches_reference_sharded(worlds, reference_tp["smollm-135m"], "smollm-135m")
+
+
+def test_reference_sharded_moe_step(inputs, worlds, reference_tp):
+    """granite-moe-3b-a800m's train step under the reference's own (2, 2)
+    mesh (its moe_sharded on a split batch: capacity from the rank's
+    tokens, the aux loss pmean'd over "data"; its dispatch repaired,
+    REPAIRED_MOE_SHARDED) against the port's (2, 2) world: the loss within
+    rel 1e-5, r within 1e-4 of each leaf's norm, the aux loss within rel
+    1e-6. The row-wise stand-in that
+    test_train_step_of_a_plan_matches_reference holds the port to (the
+    mean of the reference's unsharded steps on each row alone) agrees with
+    that step at the same limits. (As it is, the reference's dispatch
+    loses one kept token of these inputs: scripts/reference_moe_sharded.py.)"""
+    case = "granite-moe-3b-a800m"
+    ref = reference_tp[case]
+    assert_matches_reference_sharded(worlds, ref, case)
+    aux = float(ref["aux"])
+    for got in worlds[4]:
+        assert abs(got["steps"][(case, (2, 2))]["aux"] - aux) <= 1e-6 * abs(aux)
+    standin = inputs["refs"]["rowwise"][case]
+    assert abs(standin["loss"] - float(ref["loss"])) <= LOSS_TOL * abs(float(ref["loss"]))
+    assert abs(float(ref["standin_aux"]) - aux) <= 1e-6 * abs(aux)
+    ref_r = _ref_r(ref)
+    for leaf, v in _leaves(standin["r"]):
+        node = ref_r
+        for q in leaf.split("/"):
+            node = node[q]
+        assert _rel(v, node) <= GRAD_TOL, leaf
 
 
 @pytest.mark.parametrize("W,case", [(W, c) for W, cs in AA_CASES.items() for c, _ in cs])
