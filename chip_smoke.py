@@ -587,6 +587,19 @@ AUDIO_PREFILL_LAUNCHES = {"flash_attention": 48}
 GATHER_SHARDS, GATHER_DECODE = 16, 8
 VLM_LAYERS, VLM_DECODE = 4, 8
 VLM_PREFILL_LAUNCHES = {"flash_attention": VLM_LAYERS}
+#: phase 6h: the four configurations of ARCHS no other phase serves, each
+#: at full width through ``serving`` with UNSERVED_DECODE decode steps:
+#: (arch, layers kept (None: all), its prefill's launches). granite-20b
+#: (multi-query attention, 48 query heads on 1 KV head) keeps 8 of its 52
+#: layers: its 28.17 B parameters are 112.7 GB in f32, which the f32 checks
+#: cannot hold; qwen3-4b (QK-RMSNorm, 32 on 8), minicpm-2b (tied
+#: embeddings, a vocabulary of 122,753, 36 MHA heads of 64) and mamba2-2.7b
+#: (the pure ssm family: one SSD step a layer, no attention) keep all
+UNSERVED_DECODE = 8
+UNSERVED = (("granite-20b", 8, {"flash_attention": 8}),
+            ("qwen3-4b", None, {"flash_attention": 36}),
+            ("minicpm-2b", None, {"flash_attention": 40}),
+            ("mamba2-2.7b", None, {"ssd": 64}))
 #: (c): the padded model against its twin with the padded heads' wq
 #: columns zeroed, over the largest |logit| (the padded heads' outputs meet
 #: zero wo rows: the reference's test_padded_heads_are_noops)
@@ -4191,7 +4204,9 @@ def check_lm_kernels(device, floor: float) -> dict:
     GQA, a window and a ragged S at d=128 (Qwen3's and Llama-4's head
     width), and at phase 6e's served shapes in bf16: musicgen-medium's MHA
     (H=KV=24, d=64), its padded(16) gather mode's MHA (H=KV=32, d=64) and
-    internvl2-76b's GQA (H=64 on KV=8, d=128). Bounds count each input and output byte once at 3.35 TB/s, and
+    internvl2-76b's GQA (H=64 on KV=8, d=128), and at phase 6h's:
+    granite-20b's MQA (H=48 on KV=1, d=128), qwen3-4b's GQA (H=32 on KV=8,
+    d=128), minicpm-2b's MHA (H=KV=36, d=64). Bounds count each input and output byte once at 3.35 TB/s, and
     the operations of the causal work (C B^T once per chunk) at their
     type's peak: SSD's all at the f32 rate. Flash's q k^T counts 2d per
     visible pair and p v 2d, both at the rate of q's type; for bf16 inputs
@@ -4252,6 +4267,11 @@ def check_lm_kernels(device, floor: float) -> dict:
             (f"{AUDIO_ARCH}.padded({GATHER_SHARDS})",
              (4, 2048, 32, 32, 64, 0, torch.bfloat16)),
             (VLM_ARCH, (4, 2048, 64, 8, 128, 0, torch.bfloat16)),
+            # phase 6h's: granite-20b's MQA (48 on 1), qwen3-4b's GQA (32 on
+            # 8), minicpm-2b's MHA (36 heads of 64)
+            ("granite-20b", (4, 2048, 48, 1, 128, 0, torch.bfloat16)),
+            ("qwen3-4b", (4, 2048, 32, 8, 128, 0, torch.bfloat16)),
+            ("minicpm-2b", (4, 2048, 36, 36, 64, 0, torch.bfloat16)),
             # phase 6f's ranks: llama4-scout's 10 of 40 heads on 2 of 8 KV
             # heads (4 ranks), Zamba2-7B's shared block's 16 of 32 (2 ranks)
             (f"{TP_ARCH}/{TP_SCOUT_WORLD} ranks",
@@ -4541,6 +4561,10 @@ def describe(cfg, n_params: int, of_layers: int | None = None) -> str:
         n_groups, group, trailing = cfg.hybrid_counts
         layers = (f"{depth} layers ({n_groups} groups of {group} Mamba-2 "
                   f"+ the shared block, {trailing} trailing)")
+    elif cfg.family == "ssm":
+        layers = (f"{depth} layers (ssm: {cfg.ssm_heads} SSD heads of "
+                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                  f"{cfg.ssm_chunk}, no attention)")
     elif cfg.family == "moe":
         layers = (f"{depth} layers ({cfg.num_experts} experts, top "
                   f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor})")
@@ -4980,6 +5004,40 @@ def last_features(device) -> dict:
     free_memory()
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 6e took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def unserved_archs(device) -> dict:
+    """Phase 6h: each UNSERVED configuration served at full width by
+    ``serving`` (every gate of phase 6: the f32 logits and blocks, the bf16
+    blocks, the prefill's launches, none a decode step, the slot server),
+    with its seconds and the phase's."""
+    out, t0 = {}, time.perf_counter()
+    for arch, layers, launches in UNSERVED:
+        t1 = time.perf_counter()
+        depth = (f"{layers} of {get_arch_layers(arch)} layers" if layers
+                 else "all layers")
+        print(f"  {arch} at full width, {depth}, {UNSERVED_DECODE} decode steps",
+              flush=True)
+        out[arch] = serving(device, arch, launches, layers=layers,
+                            decode_steps=UNSERVED_DECODE)
+        free_memory()
+        out[arch]["seconds"] = time.perf_counter() - t1
+        print(f"  {arch} took {out[arch]['seconds']:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6h took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_6h_launches(unserved: dict, name: str) -> dict:
+    """A kernel's launches in each run of phase 6h, for its kernels row."""
+    out = {}
+    for arch, layers, _ in UNSERVED:
+        r = unserved[arch]
+        depth = f" ({layers} layers)" if layers else ""
+        out[f"{arch}{depth} prefill"] = r["launches"][name]
+        out[f"{arch} decode ({UNSERVED_DECODE} steps)"] = r["decode_launches"][name]
+        out[f"{arch} slot server"] = r["server_launches"][name]
     return out
 
 
@@ -6897,7 +6955,9 @@ def main() -> int:
     family = trajectory_family(clients, w_star, device)
     print(f"{clock()} phase 4c: the Newton family at paper scale (float64, 10 rounds)",
           flush=True)
+    t0 = time.perf_counter()
     newton = newton_family(clients, w_star, device, paper)
+    print(f"  phase 4c took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"{clock()} phase 4d: cohorts (participation {COHORT_PARTICIPATION} at paper "
           f"scale; the ext_cohort point)", flush=True)
     t0 = time.perf_counter()
@@ -6936,7 +6996,9 @@ def main() -> int:
 
     print(f"{clock()} phase 5: the wire on the ext_compression config (n=20,000, K=20, "
           "float64)", flush=True)
+    t0 = time.perf_counter()
     compression(device)
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         for channel in (None, "int8"):
             profile_rounds(clients, device, channel)
@@ -6987,6 +7049,9 @@ def main() -> int:
           f"{VLM_ARCH}, {PLAN_VLM_LAYERS} of 80 layers, bf16, the fsdp regime on "
           f"that mesh; (d) the dry-run)", flush=True)
     plan = plan_training(device, floor)
+    print(f"{clock()} phase 6h: the configurations no other phase serves, at "
+          f"full width ({UNSERVED_DECODE} decode steps each)", flush=True)
+    unserved = unserved_archs(device)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -7006,6 +7071,7 @@ def main() -> int:
                                      served_moe["server_launches"][name],
                                  **phase_6e_launches(features, name),
                                  **tp_launches_by_run(tp, name),
+                                 **phase_6h_launches(unserved, name),
                                  # phase 6b's training runs launch neither
                                  **{run: r_["launches"][name]
                                     for run, r_ in fl_runs.items()
@@ -7143,8 +7209,10 @@ def main() -> int:
     print("phase 6g " + json.dumps({k: v for k, v in plan.items() if k != "d"}
                                    | {"d": {"dryrun_one": plan["d"]["dryrun_one"],
                                             "fl": plan["d"]["fl"]}}), flush=True)
+    print("phase 6h " + json.dumps(unserved), flush=True)
     print("federated training " + json.dumps(
         {k: v for k, v in trained.items() if k not in ("gram", "aa_step")}), flush=True)
+    print(f"{clock()} all phases done", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -316,6 +316,22 @@ def comm_bytes_per_round(algo: str, params: torch.Tensor,
 LOCAL_IMPLS = ("auto", "tree", "kernel")
 
 
+def fused_local_eligible(problem: FLProblem, algo: str | None = None,
+                         params: torch.Tensor | None = None) -> bool:
+    """Can ``algo`` on ``problem`` run the fused local-trajectory kernel?
+    The reference's predicate: the model declares the linear-design
+    protocol (logreg and linreg do, the MLP and the decoder do not), the
+    parameters are one flat [d] tensor (``problem.init`` when not given),
+    and ``algo``, where given, is a trajectory algorithm."""
+    if problem.linear_design is None:
+        return False
+    if algo is not None and algo not in TRAJECTORY_ALGOS:
+        return False
+    if params is None:
+        params = problem.init(None)
+    return isinstance(params, torch.Tensor) and params.dim() == 1
+
+
 def resolve_local_impl(impl: str, problem: FLProblem | None = None) -> str:
     """"auto" resolves to the fused kernel; a problem without the
     linear-design protocol keeps the autodiff path ("tree") even when the

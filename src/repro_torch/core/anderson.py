@@ -219,6 +219,31 @@ def _multisecant_update_kernel(w, g, s_stack, y_stack, eta: float,
     return new_w, AAStats(theta, gamma_norm, cond, used, clipped)
 
 
+def aa_mixing_step(w_hist: torch.Tensor, r_hist: torch.Tensor,
+                   cfg: AAConfig = AAConfig()) -> tuple[torch.Tensor, torch.Tensor]:
+    """Classical AA mixing (paper Eq. 2–3) on stacked histories, newest
+    first: w_hist, r_hist [m+1, d] hold the iterates w^{t-i} and their
+    residuals r(w^{t-i}). Solves the sum-to-one least squares for α and
+    returns (w⁺ = Σ αᵢ (w^{t-i} + r^{t-i}) [d], α [m+1]).
+
+    The constraint is removed by working in differences (α = e₀ + D ξ),
+    and ξ is solved by the tree path's ``_solve_gram``, as the reference
+    does. It is the same update as ``multisecant_update`` (held so in the
+    tests) and is kept for readers of the paper."""
+    d_r = r_hist[1:] - r_hist[:-1]                       # [m, d]
+    d_w = w_hist[1:] - w_hist[:-1]
+    r0, w0 = r_hist[0], w_hist[0]
+    xi, _, _ = _solve_gram(tm.tree_gram(d_r, d_r),
+                           tm.tree_vdot_stacked(d_r, r0), cfg)
+    new_w = w0 + r0 - (tm.tree_combine_stacked(d_w, xi)
+                       + tm.tree_combine_stacked(d_r, xi))
+    alpha = torch.zeros(xi.shape[0] + 1, dtype=xi.dtype, device=xi.device)
+    alpha[0] = 1.0
+    alpha[:-1] -= xi
+    alpha[1:] += xi
+    return new_w, alpha
+
+
 def trajectory_to_sy(w_traj: torch.Tensor, r_traj: torch.Tensor,
                      residual_ema: float = 0.0):
     """Build S, Y stacks from a local trajectory.

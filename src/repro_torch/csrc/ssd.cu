@@ -20,6 +20,8 @@
 // a_hi = tf32(a) and a_lo = tf32(a - a_hi), and each product sums
 // a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, ~2^-22 of the product, is
 // dropped). One TF32 pass keeps ~2^-11 and would break the 1e-5 contract.
+// Each k-step's three passes land in a zeroed fragment that a round-to-
+// nearest add sums into the running f32 accumulator (mma3).
 //  1. cb_kernel computes C B^T once per chunk (not per head) into a
 //     [G, Qp, Qp] f32 scratch the wrapper allocates (Qp: Q rounded up to
 //     64), row-major, only the 64 x 64 tiles on or below the diagonal. At
@@ -43,7 +45,8 @@
 //     the model's layout ([G, Q, nh, hd], [G, nh, hd, st]); ragged Q, hd
 //     and st are zero padded in shared memory. The products run in a fixed
 //     order and nothing is atomic: reruns are bit-identical. Measured
-//     (PERF.md): 0.75 ms at the shape above, 4.6x its bound; it is bound by
+//     (PERF.md): 0.85 ms at the shape above, 5.3x its bound (0.77 ms
+//     before the per-k-step add of mma3); it is bound by
 //     latency (1.4 of 4 instructions a cycle issued, the tensor cores a
 //     quarter busy), 16 warps an SM (registers and shared memory allow two
 //     blocks).
@@ -87,13 +90,22 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The split product, the small terms first.
+// The split product of one k-step, the small terms first, into a zeroed
+// fragment that an IEEE add (round to nearest) then adds to d. The tensor
+// cores' own f32 accumulation drops low bits when it aligns its addends;
+// chained through a contraction of 16-32 k-steps that error grew with the
+// depth and put the kernel 1.2e-6 from an f64 truth at Mamba-2-2.7B's
+// shape (st = 128), three times the plain version's 4.2e-7, and 64 such
+// layers carried it past the 1e-4 f32 logits gate. Added per k-step, 3.2e-7.
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], t[e]);
 }
 
 __device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],

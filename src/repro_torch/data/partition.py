@@ -70,3 +70,14 @@ def partition(
         ys = [y[k * n_k:(k + 1) * n_k] for k in range(num_clients)]
 
     return stack_client_arrays(xs, ys, device=device)
+
+
+def heterogeneity_score(clients: StackedClients) -> float:
+    """Mean pairwise distance between the clients' label means: a rough
+    proxy for the statistical heterogeneity of a split (numpy, in f64, as
+    the reference computes it)."""
+    y = clients.y.detach().cpu().double().numpy()
+    m = clients.mask.detach().cpu().double().numpy()
+    means = np.asarray([(y[k] * m[k]).sum() / max(m[k].sum(), 1.0)
+                        for k in range(clients.num_clients)])
+    return float(np.abs(means[:, None] - means[None, :]).mean())

@@ -62,3 +62,32 @@ def make_logreg_problem(
 
     return FLProblem(loss=loss, init=init, clients=clients,
                      linear_design=linear_design)
+
+
+def logreg_accuracy(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> float:
+    """The share of rows whose sign(xᵀw) equals their label y ∈ {−1, +1}.
+
+    Reckoned as the reference's ``jnp.mean`` of booleans comes out of XLA,
+    in f32 and in either of its precision modes: the count times the f32
+    reciprocal of the rows (XLA multiplies by the reciprocal of a constant
+    divisor), which can sit one f32 step from count / n."""
+    hits = (torch.sign(x.to(w.dtype) @ w) == y.to(w.dtype)).sum()
+    one, n = (torch.tensor(v, dtype=torch.float32) for v in (1.0, float(y.numel())))
+    return float(hits.cpu().to(torch.float32) * (one / n))
+
+
+def logreg_condition_number(clients: StackedClients, w: torch.Tensor,
+                            gamma: float) -> float:
+    """Condition number of the global Hessian at w (the paper's §3.2 κ),
+    from its dense [d, d] form and ``torch.linalg.eigvalsh``: for small d
+    only, as the reference's. Computed in w's dtype."""
+    d = clients.x.shape[-1]
+    X = clients.x.reshape(-1, d).to(w.dtype)
+    Y = clients.y.reshape(-1).to(w.dtype)
+    M = clients.mask.reshape(-1).to(w.dtype)
+    s = torch.sigmoid(-(X @ w * Y))
+    weights = s * (1 - s) * M
+    H = (X.T * weights) @ X / torch.clamp(M.sum(), min=1.0) + gamma * torch.eye(
+        d, dtype=w.dtype, device=w.device)
+    evals = torch.linalg.eigvalsh(H)
+    return float(evals[-1] / evals[0])

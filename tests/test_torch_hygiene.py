@@ -21,8 +21,10 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-#: the port's own files: its package and its smoke script
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: the port's examples, beside the reference's
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+#: the port's own files: its package, its smoke script and its examples
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -31,9 +33,12 @@ MODULES = sorted(
 
 def test_every_module_imports_without_jax_or_repro():
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for name in {MODULES + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
+        f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -87,6 +92,14 @@ def test_scans_cover_the_tensor_parallel_modules():
     assert {"repro_torch.sharding", "repro_torch.sharding.specs",
             "repro_torch.launch.mesh"} <= set(MODULES)
     assert {PORT / "sharding" / "specs.py", PORT / "launch" / "mesh.py"} <= set(PORT_FILES)
+
+
+def test_scans_cover_the_examples():
+    """The four examples of the port are in the import and source scans."""
+    assert [p.name for p in EXAMPLES] == [
+        "fl_logreg_comparison_torch.py", "fl_train_lm_torch.py",
+        "quickstart_torch.py", "serve_demo_torch.py"]
+    assert set(EXAMPLES) <= set(PORT_FILES)
 
 
 def test_sources_name_no_jax_and_no_reference_package():

@@ -5,9 +5,13 @@ logits and every cache tensor), 4 ``decode_step``s from the reference's
 prefill caches (converted with ``convert.lm_caches``), and the slot server.
 
 Configs: one per served family (smollm-135m dense, mamba2-2.7b ssm,
-zamba2-7b hybrid) and a 5-layer Zamba2 variant whose ``hybrid_counts`` is
-(2, 1, 1), so the trailing Mamba-2 layers run. S = 128 crosses the reduced
-configs' SSD chunk of 64.
+zamba2-7b hybrid), a 5-layer Zamba2 variant whose ``hybrid_counts`` is
+(2, 1, 1), so the trailing Mamba-2 layers run, and the dense configs of
+what each brings: granite-20b's multi-query attention (4 query heads on
+1 KV head reduced), qwen3-4b's QK-RMSNorm ahead of attention, and
+minicpm-2b's tied embeddings, kept multi-head (one KV head a query head,
+as its 36 on 36) and with an odd vocabulary (1001, as its 122,753 is no
+multiple of 8). S = 128 crosses the reduced configs' SSD chunk of 64.
 
 Tolerance: 1e-4 of the largest magnitude of the reference's tensor, for
 logits and caches alike (f32; summation order, the plain flash attention
@@ -40,10 +44,20 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 B, S, N_DECODE = 2, 128, 4
+
+
+def mha_odd_vocab(cfg):
+    """A reduced config kept multi-head, with a vocabulary of 1001."""
+    return dataclasses.replace(cfg, num_kv_heads=cfg.num_heads, vocab_size=1001)
+
+
 CONFIGS = {"smollm-135m": ("smollm-135m", None),
            "mamba2-2.7b": ("mamba2-2.7b", None),
            "zamba2-7b": ("zamba2-7b", None),
-           "zamba2-7b-5-layers": ("zamba2-7b", 5)}
+           "zamba2-7b-5-layers": ("zamba2-7b", 5),
+           "granite-20b": ("granite-20b", None),
+           "qwen3-4b": ("qwen3-4b", None),
+           "minicpm-2b": ("minicpm-2b", None, mha_odd_vocab)}
 
 
 def assert_close(port, ref, tol=TOL, what=""):
@@ -205,11 +219,14 @@ def test_slot_server_matches_single_request_decode(arch):
         assert req.out == want, (req.rid, req.out, want)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "granite-moe-3b-a800m",
+                                  "granite-20b", "qwen3-4b", "minicpm-2b"])
 def test_slot_server_matches_reference_server(arch):
     """More requests than slots (slots are reused and reset): the port's
-    server and the reference's give the same tokens on the same weights."""
-    jcfg, cfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
+    server and the reference's give the same tokens on the same weights
+    (the configs of CONFIGS, reduced)."""
+    jcfg, cfg = _configs(arch) if arch in CONFIGS else (
+        jax_get_arch(arch).reduced(), get_arch(arch).reduced())
     jm = jax_build_model(jcfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(2))
     model = build_model(cfg, device="cpu")
